@@ -1,0 +1,125 @@
+"""Typed configuration for the PyTorch port (ports ``repro/config/base.py``).
+
+The port keeps its own copy of the dataclasses it needs, field for field,
+so that a configuration built here describes exactly the model and cache
+the JAX package builds from the same values: :class:`ModelConfig`,
+:class:`ThinKVConfig`, :class:`ServeConfig`, the enums, and
+:func:`reduced` (the CPU smoke-size variant).
+"""
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Tuple
+
+
+class ArchFamily(str, enum.Enum):
+    """Model family; the port serves ``DENSE`` only (see ``ROADMAP.md``)."""
+
+    DENSE = "dense"
+    MOE = "moe"
+    VLM = "vlm"
+    ENCDEC = "encdec"
+    SSM = "ssm"
+    HYBRID = "hybrid"
+
+
+class PositionEmbedding(str, enum.Enum):
+    ROPE = "rope"
+    SINUSOIDAL = "sinusoidal"
+    LEARNED = "learned"
+    NONE = "none"
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture definition; ``head_dim`` defaults to d_model // heads."""
+
+    name: str
+    family: ArchFamily
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    rope_theta: float = 1e4
+    position_embedding: PositionEmbedding = PositionEmbedding.ROPE
+    sliding_window: int = 0
+    act: str = "silu"
+    mlp_gated: bool = True
+    logit_softcap: float = 0.0
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads > 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+class ThoughtType(enum.IntEnum):
+    """Thought categories; integer order is importance order rho."""
+
+    TRANSITION = 0
+    EXECUTION = 1
+    REASONING = 2
+
+
+@dataclass(frozen=True)
+class ThinKVConfig:
+    """The paper's compression hyper-parameters (Sec. 6.1 defaults)."""
+
+    enabled: bool = True
+    num_thoughts: int = 3
+    refresh_interval: int = 128                   # tau
+    group_size: int = 16                          # g
+    block_size: int = 16
+    token_budget: int = 1024
+    retention_schedule: Tuple[int, ...] = (64, 32, 16, 8, 4)
+    min_retention: int = 4
+    precision: Tuple[int, int, int] = (2, 4, 4)   # (T, E, R) bits
+    sparsity_thresholds: Tuple[float, float] = (0.55, 0.80)
+    num_calib_layers: int = 4                     # |L*|
+    kmeans_iters: int = 8
+    max_segments: int = 512
+    quantize_cross_attention: bool = True
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    model: ModelConfig
+    thinkv: ThinKVConfig = ThinKVConfig()
+    max_seqs: int = 32
+    prefill_len: int = 128
+    max_gen_len: int = 1024
+    kv_seq_len: int = 0
+    temperature: float = 0.0
+    top_p: float = 1.0
+    seed: int = 0
+
+
+def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """A tiny same-family config for CPU smoke tests (the JAX package's
+    ``reduced`` for the dense family)."""
+    kw: Dict[str, Any] = dict(
+        num_layers=2,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads else 0,
+        head_dim=16,
+        d_ff=128,
+        vocab_size=256,
+        name=cfg.name + "-smoke",
+    )
+    kw.update(overrides)
+    return replace(cfg, **kw)

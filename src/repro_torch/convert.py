@@ -1,0 +1,63 @@
+"""Carry the JAX package's weights and cache state into the port.
+
+Inputs are numpy arrays (``np.asarray`` of the JAX arrays), so this module
+imports neither JAX nor the JAX package.  bf16 and float8 arrays cross as
+uint16 / uint8 bit views and are viewed back as ``torch.bfloat16`` /
+``torch.float8_e4m3fn`` (``torch.from_numpy`` does not take ml_dtypes).
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core import ct_cache as CC
+from repro_torch.device import resolve_device
+from repro_torch.models.lm import LAYER_PARAMS, LM
+
+_BIT_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
+              "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+Device = Optional[Union[str, torch.device]]
+
+
+def tensor_from_numpy(a, device: Device = None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name in _BIT_VIEWS:
+        npt, tt = _BIT_VIEWS[a.dtype.name]
+        t = torch.from_numpy(np.array(a.view(npt), order="C")).view(tt)
+    else:
+        t = torch.from_numpy(np.array(a, order="C"))
+    return t.to(resolve_device(device))
+
+
+def params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                      device: Device = None) -> LM:
+    """The reference's parameter tree (numpy leaves) -> the port's LM."""
+    lm = LM(cfg, resolve_device(device))
+    src = {"embedding": tree["embed"]["embedding"],
+           "lm_head": tree["embed"]["lm_head"],
+           "final_norm": tree["final_norm"]["scale"]}
+    for name, (group, key) in LAYER_PARAMS.items():
+        src[name] = tree["layers"][group][key]
+    with torch.no_grad():
+        for name, a in src.items():
+            getattr(lm, name).copy_(tensor_from_numpy(a, lm.embedding.device))
+    return lm
+
+
+def cache_from_numpy(fields: Mapping, device: Device = None) -> CC.CTCache:
+    """A CTCache (per request or batched) from numpy leaves by field name."""
+    return CC.CTCache(**{f: tensor_from_numpy(fields[f], device)
+                         for f in CC.CTCache.FIELDS})
+
+
+def pool_from_numpy(view: Sequence, refcount, device: Device = None
+                    ) -> CC.GlobalPool:
+    """A GlobalPool from numpy (k_codes, v_codes, k_scales, v_scales)
+    planes and the refcount."""
+    return CC.GlobalPool(
+        CC.PoolView(*(tensor_from_numpy(p, device) for p in view)),
+        tensor_from_numpy(refcount, device))

@@ -1,0 +1,573 @@
+"""Continuous Thinking (CT) paged KV cache (ports ``repro/core/ct_cache.py``,
+the parts the unpressured serving path runs).
+
+Data model, as in the reference:
+
+* :class:`PoolView` holds the quantized planes in paged layout
+  ``[L, num_blocks, BS, H, ...]``: one uint8 code per lane even at 4 bits,
+  E4M3-valued scales in bf16 planes, byte-identical to the reference;
+* :class:`CTCache` holds one request's metadata (flat ``[L, NS]`` slot
+  planes, segment bookkeeping) and the bf16 TBQ buffer;
+* :class:`GlobalPool` is the engine's shared physical pool plus a per-layer
+  block refcount; per-request block tables ``[L, NB]`` map logical blocks
+  to physical ones (-1 = unmapped).
+
+Differences of form (not of function) from the reference:
+
+* the functions here UPDATE IN PLACE — the cache's tensors (often views of
+  the engine's batched per-slot state), the pool planes and refcounts, and
+  the block table — where the reference returns new arrays; the pool is
+  the largest state on the card and is never copied;
+* ``vmap`` over layers is a leading batch axis; ``lax.cond`` on device
+  values is host control flow: whether a commit or refresh is due comes
+  from the engine's host mirrors of ``num_tokens`` / ``buf_len``, and a
+  refresh reads the slot's segment table back once (to skip segments TBE
+  would not touch);
+* the commit's quantization goes through the K4 kernel
+  (``kernels.ops.tbq_group_quant``) on the card, bit-exact to
+  ``quantize_group``.
+
+COW, incref, claim, extract and restore (the prefix cache and preemption)
+are not ported yet (ROADMAP queue 1 item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import ThinKVConfig, ThoughtType
+from repro_torch.core import quantization as Q
+from repro_torch.core.policy import get_policy
+from repro_torch.core.thoughts import classify
+from repro_torch.kernels import ops
+
+SCALE_DTYPE = torch.bfloat16
+FREE, VALID, EVICTED = 0, 1, 2
+UNMAPPED = -1
+SEGMENT_CAP = 128          # max tokens of one segment an anneal considers
+
+
+class CacheDims(NamedTuple):
+    """Static geometry of a CT cache."""
+
+    L: int          # attention layers
+    NB: int         # logical blocks per layer per request
+    BS: int         # block size (tokens)
+    H: int          # kv heads
+    D: int          # head dim
+    G: int          # quantization group size (== tokens per commit)
+    S: int          # max segments
+    nibble: bool    # 4-bit plane: one code per uint8 lane, accounted 4 bits
+
+    @property
+    def NS(self) -> int:
+        return self.NB * self.BS
+
+    @property
+    def scale_groups(self) -> int:
+        return self.D // Q.GROUP
+
+
+def make_dims(cfg: ThinKVConfig, num_layers: int, kv_heads: int,
+              head_dim: int, slack: float = 2.0) -> CacheDims:
+    nb = max(int(cfg.token_budget * slack) // cfg.block_size, 4)
+    return CacheDims(L=num_layers, NB=nb, BS=cfg.block_size, H=kv_heads,
+                     D=head_dim, G=cfg.group_size, S=cfg.max_segments,
+                     nibble=max(cfg.precision) <= 4)
+
+
+class PoolView(NamedTuple):
+    k_codes: torch.Tensor     # [L, nb, BS, H, D] uint8
+    v_codes: torch.Tensor
+    k_scales: torch.Tensor    # [L, nb, BS, H, D // GROUP] bf16 (e4m3 values)
+    v_scales: torch.Tensor
+
+
+def init_pool_view(dims: CacheDims, num_blocks: int,
+                   device: torch.device) -> PoolView:
+    shp = (dims.L, num_blocks, dims.BS, dims.H)
+    z = lambda last, dt: torch.zeros(shp + (last,), dtype=dt, device=device)
+    return PoolView(z(dims.D, torch.uint8), z(dims.D, torch.uint8),
+                    z(dims.scale_groups, SCALE_DTYPE),
+                    z(dims.scale_groups, SCALE_DTYPE))
+
+
+def view_flat(view: PoolView) -> Tuple[torch.Tensor, ...]:
+    """Paged planes -> flat [L, NS, ...] (a view, no copy)."""
+    return tuple(a.reshape(a.shape[0], a.shape[1] * a.shape[2],
+                           *a.shape[3:]) for a in view)
+
+
+@dataclasses.dataclass
+class CTCache:
+    """One request's metadata + TBQ buffer (or every slot's, with a leading
+    slot axis: :meth:`slot` then returns views of one row)."""
+
+    slot_state: torch.Tensor      # [L, NS] uint8: 0 free, 1 valid, 2 evicted
+    slot_seg: torch.Tensor        # [L, NS] int32
+    slot_pos: torch.Tensor        # [L, NS] int32
+    slot_bits: torch.Tensor       # [L, NS] uint8
+    block_type: torch.Tensor      # [L, NB] int8 (-1: unclaimed)
+    seg_type: torch.Tensor        # [S] int32 (-1: unused)
+    seg_level: torch.Tensor       # [L, S] int32
+    buf_k: torch.Tensor           # [L, G, H, D] bf16
+    buf_v: torch.Tensor
+    buf_len: torch.Tensor         # [] int32
+    cur_seg: torch.Tensor
+    cur_thought: torch.Tensor
+    prev_thought: torch.Tensor
+    num_tokens: torch.Tensor
+
+    FIELDS = ("slot_state", "slot_seg", "slot_pos", "slot_bits",
+              "block_type", "seg_type", "seg_level", "buf_k", "buf_v",
+              "buf_len", "cur_seg", "cur_thought", "prev_thought",
+              "num_tokens")
+
+    def slot(self, r: int) -> "CTCache":
+        return CTCache(**{f: getattr(self, f)[r] for f in self.FIELDS})
+
+    def copy_(self, other: "CTCache") -> "CTCache":
+        for f in self.FIELDS:
+            getattr(self, f).copy_(getattr(other, f))
+        return self
+
+
+def init_cache(dims: CacheDims, device: torch.device,
+               batch: Optional[int] = None) -> CTCache:
+    """Empty metadata; segment 0 opens as REASONING (prefill tokens are
+    R-type).  ``batch`` adds a leading slot axis."""
+    L, NS, H, D, G, S = dims.L, dims.NS, dims.H, dims.D, dims.G, dims.S
+    lead = () if batch is None else (batch,)
+
+    def full(shape, val, dt):
+        return torch.full(lead + shape, val, dtype=dt, device=device)
+
+    seg_type = full((S,), -1, torch.int32)
+    seg_type[..., 0] = int(ThoughtType.REASONING)
+    r = int(ThoughtType.REASONING)
+    return CTCache(
+        slot_state=full((L, NS), FREE, torch.uint8),
+        slot_seg=full((L, NS), -1, torch.int32),
+        slot_pos=full((L, NS), -1, torch.int32),
+        slot_bits=full((L, NS), 4, torch.uint8),
+        block_type=full((L, dims.NB), -1, torch.int8),
+        seg_type=seg_type,
+        seg_level=full((L, S), 0, torch.int32),
+        buf_k=full((L, G, H, D), 0, torch.bfloat16),
+        buf_v=full((L, G, H, D), 0, torch.bfloat16),
+        buf_len=full((), 0, torch.int32),
+        cur_seg=full((), 0, torch.int32),
+        cur_thought=full((), r, torch.int32),
+        prev_thought=full((), r, torch.int32),
+        num_tokens=full((), 0, torch.int32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Commit: quantize a full buffer group and place it
+# ---------------------------------------------------------------------------
+
+def _quantize_group_by_thought(cfg: ThinKVConfig, k: torch.Tensor,
+                               v: torch.Tensor, thought: torch.Tensor,
+                               policy=None):
+    """Quantize [L, G, H, D] K/V at psi(thought) bits through K4.  The bit
+    width is a device value, so every precision level of the policy is
+    computed and selected (as the reference does; no read-back)."""
+    policy = get_policy(policy)
+    bits = policy.psi_bits(thought, cfg)
+
+    def quant(x, b):
+        codes, scales = ops.tbq_group_quant(
+            x.reshape(-1, x.shape[-1]).contiguous(), b)
+        return codes.reshape(x.shape), scales.reshape(*x.shape[:-1], -1)
+
+    kc = ks = vc = vs = None
+    for b in policy.precision_levels(cfg):
+        (kc2, ks2), (vc2, vs2) = quant(k, b), quant(v, b)
+        if kc is None:
+            kc, ks, vc, vs = kc2, ks2, vc2, vs2
+            continue
+        sel = bits == b
+        kc, ks = torch.where(sel, kc2, kc), torch.where(sel, ks2, ks)
+        vc, vs = torch.where(sel, vc2, vc), torch.where(sel, vs2, vs)
+    return kc, ks, vc, vs, bits
+
+
+def _alloc_slots(dims: CacheDims, slot_state: torch.Tensor,
+                 block_type: torch.Tensor, thought: torch.Tensor):
+    """Pick G logical slots per layer for a group of thought type t.
+
+    Priority: 4 evicted slot in a same-type block, 3 free slot in a
+    same-type partially filled block, 2 slot of a fully free block,
+    1 evicted slot of another type's block; ties by ascending address.
+    slot_state [L, NS], block_type [L, NB] -> (idx [L, G], ok [L, G]).
+    """
+    NS, BS = dims.NS, dims.BS
+    btype = block_type.repeat_interleave(BS, dim=1)
+    same = btype == thought.to(block_type.dtype)
+    block_free = (slot_state.reshape(-1, dims.NB, BS) == FREE).all(-1) \
+        .repeat_interleave(BS, dim=1)
+    free, evicted = slot_state == FREE, slot_state == EVICTED
+    score = torch.zeros(slot_state.shape, dtype=torch.int64,
+                        device=slot_state.device)
+    score = torch.where(block_free, 2, score)
+    score = torch.where(free & same & ~block_free, 3, score)
+    score = torch.where(evicted & same, 4, score)
+    score = torch.where(evicted & ~same, 1, score)
+    lin = torch.arange(NS, device=slot_state.device)
+    _, idx = torch.topk(score * NS - lin, dims.G, dim=1)
+    return idx, score.gather(1, idx) > 0
+
+
+def commit_group(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
+                 view: PoolView, policy=None) -> None:
+    """Quantize the full buffer and write it into the request's view,
+    reusing evicted slots in place (cache and view updated in place)."""
+    t = cache.cur_thought
+    dev = t.device
+    L, G = dims.L, dims.G
+    positions = cache.num_tokens - G + torch.arange(G, dtype=torch.int32,
+                                                    device=dev)
+    kc, ks, vc, vs, bits = _quantize_group_by_thought(
+        cfg, cache.buf_k.float(), cache.buf_v.float(), t, policy)
+    idx, ok = _alloc_slots(dims, cache.slot_state, cache.block_type, t)
+    lrow = torch.arange(L, device=dev)[:, None].expand(L, G)
+    li, si = lrow[ok], idx[ok]
+    for plane, val in zip(view_flat(view), (kc, vc, ks, vs)):
+        plane[li, si] = val[ok]
+    cache.slot_state[li, si] = VALID
+    cache.slot_seg[li, si] = cache.cur_seg
+    cache.slot_pos[li, si] = positions.expand(L, G)[ok]
+    cache.slot_bits[li, si] = bits.to(torch.uint8)
+    bidx = idx // dims.BS
+    claim = ok & (cache.block_type.gather(1, bidx) == -1)
+    cache.block_type[lrow[claim], bidx[claim]] = t.to(torch.int8)
+    cache.buf_len.fill_(0)
+
+
+# ---------------------------------------------------------------------------
+# TBE: segment annealing + budget eviction
+# ---------------------------------------------------------------------------
+
+def _anneal_segment(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
+                    k_codes: torch.Tensor, k_scales: torch.Tensor,
+                    seg: torch.Tensor, enable: torch.Tensor,
+                    policy=None) -> None:
+    """Anneal segment ``seg[l]`` one retention level in every layer l where
+    ``enable[l]``.  k_codes/k_scales are the flat [L, NS, H, ...] planes."""
+    policy = get_policy(policy)
+    L, NS = dims.L, dims.NS
+    dev = seg.device
+    seg = seg.long()
+    match = (cache.slot_seg == seg[:, None]) & (cache.slot_state == VALID)
+    order = torch.where(match, torch.arange(NS, device=dev), NS + 1)
+    idx = torch.argsort(order, dim=1, stable=True)[:, :SEGMENT_CAP]
+    valid = match.gather(1, idx)
+    level = cache.seg_level.gather(1, seg[:, None])[:, 0]
+    target = policy.retention_at(level, cfg)
+    count = valid.sum(-1)
+    do = enable & (count > 0)
+    lrow = torch.arange(L, device=dev)[:, None]
+    bits = cache.slot_bits.gather(1, idx).to(torch.int32)
+    keys = Q.dequantize_by_bitcode(k_codes[lrow, idx],
+                                   k_scales[lrow, idx].float(),
+                                   bits[..., None, None])
+    keep = policy.select_tokens(keys.reshape(L, idx.shape[1], -1), valid,
+                                target, cfg)
+    evict = valid & ~keep & (do & (count > target))[:, None]
+    state = cache.slot_state.gather(1, idx)
+    cache.slot_state.scatter_(1, idx, torch.where(evict, EVICTED, state))
+    new_level = torch.where(
+        do, (level + 1).clamp_max(len(cfg.retention_schedule)), level)
+    cache.seg_level.scatter_(1, seg[:, None], new_level[:, None])
+
+
+def _free_empty_blocks(dims: CacheDims, cache: CTCache) -> None:
+    """Blocks with no VALID slot return to the free pool (their EVICTED
+    slots become FREE) — no data moves."""
+    by_block = cache.slot_state.view(dims.L, dims.NB, dims.BS)
+    empty = ~(by_block == VALID).any(-1)
+    by_block.masked_fill_(empty[..., None], FREE)
+    cache.block_type.masked_fill_(empty, -1)
+
+
+def tbe_anneal_all(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
+                   view: PoolView, before_seg: int, seg_type: List[int],
+                   policy=None) -> None:
+    """A transition segment ended: anneal every earlier used segment one
+    retention level in every layer (``seg_type`` is the host copy)."""
+    k_codes, _, k_scales, _ = view_flat(view)
+    dev = cache.slot_state.device
+    on = torch.ones(dims.L, dtype=torch.bool, device=dev)
+    for seg in range(min(before_seg, dims.S)):
+        if seg_type[seg] >= 0:
+            _anneal_segment(cfg, dims, cache, k_codes, k_scales,
+                            torch.full((dims.L,), seg, device=dev), on,
+                            policy)
+    _free_empty_blocks(dims, cache)
+
+
+def budget_evict(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
+                 view: PoolView, max_rounds: int = 4, policy=None) -> None:
+    """Above budget: anneal each layer's least important, oldest segment one
+    level per round.  Layers within budget are masked, not branched on, so
+    no flag is read back from the card."""
+    policy = get_policy(policy)
+    k_codes, _, k_scales, _ = view_flat(view)
+    S = dims.S
+    dev = cache.slot_state.device
+    seg_ids = torch.arange(S, device=dev)
+    for _ in range(max_rounds):
+        valid = cache.slot_state == VALID
+        over = valid.sum(-1) > cfg.token_budget
+        seg_of_slot = torch.where(valid, cache.slot_seg.long(), S)
+        counts = torch.zeros((dims.L, S + 1), dtype=torch.int64, device=dev)
+        counts.scatter_add_(1, seg_of_slot, torch.ones_like(seg_of_slot))
+        shrinkable = (counts[:, :S] > cfg.min_retention) & \
+            (cache.seg_type >= 0) & (seg_ids < cache.cur_seg)
+        key = policy.rho(cache.seg_type).long() * S + seg_ids
+        key = torch.where(shrinkable, key, 2 ** 30)
+        _anneal_segment(cfg, dims, cache, k_codes, k_scales,
+                        key.argmin(-1), over & shrinkable.any(-1), policy)
+    _free_empty_blocks(dims, cache)
+
+
+def refresh(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
+            view: PoolView, sparsity: torch.Tensor, policy=None) -> None:
+    """Every tau tokens: classify the sparsity into a thought type, close the
+    current segment (TBE if it was a transition), then enforce the budget."""
+    new_thought = classify(sparsity, cfg.sparsity_thresholds)
+    host = torch.cat([cache.cur_seg[None], cache.seg_type]).tolist()
+    ended_seg, seg_type = host[0], host[1:]
+    if seg_type[ended_seg] == int(ThoughtType.TRANSITION):
+        tbe_anneal_all(cfg, dims, cache, view, ended_seg, seg_type, policy)
+    nxt = min(ended_seg + 1, dims.S - 1)
+    cache.cur_seg.fill_(nxt)
+    cache.seg_type[nxt] = new_thought
+    cache.prev_thought.copy_(cache.cur_thought)
+    cache.cur_thought.copy_(new_thought)
+    budget_evict(cfg, dims, cache, view, policy=policy)
+
+
+# ---------------------------------------------------------------------------
+# Shared global block pool
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class GlobalPool:
+    """Physical planes ``[L, NP, BS, ...]`` + refcount ``[L, NP]`` (free iff
+    0) shared by every request slot."""
+
+    view: PoolView
+    refcount: torch.Tensor
+
+    @property
+    def free(self) -> torch.Tensor:
+        return self.refcount == 0
+
+
+def init_global_pool(dims: CacheDims, num_blocks: int,
+                     device: torch.device) -> GlobalPool:
+    return GlobalPool(init_pool_view(dims, num_blocks, device),
+                      torch.zeros((dims.L, num_blocks), dtype=torch.int32,
+                                  device=device))
+
+
+def init_block_table(dims: CacheDims, device: torch.device,
+                     batch: Optional[int] = None) -> torch.Tensor:
+    lead = () if batch is None else (batch,)
+    return torch.full(lead + (dims.L, dims.NB), UNMAPPED, dtype=torch.int32,
+                      device=device)
+
+
+def stacked_slot_plane(dims: CacheDims, plane: torch.Tensor) -> torch.Tensor:
+    """Engine metadata [R, L, NS] -> the fused kernel's [L, R, NB, BS]."""
+    r = plane.shape[0]
+    return plane.transpose(0, 1).reshape(dims.L, r, dims.NB, dims.BS) \
+        .contiguous()
+
+
+def stacked_buffers(buf: torch.Tensor) -> torch.Tensor:
+    """TBQ buffers [R, L, G, H, D] -> the fused kernel's [L, R, G, H, D]."""
+    return buf.transpose(0, 1).contiguous()
+
+
+def _layer_rows(table: torch.Tensor) -> torch.Tensor:
+    return torch.arange(table.shape[0], device=table.device)[:, None] \
+        .expand_as(table)
+
+
+def gather_view(pool_view: PoolView, table: torch.Tensor) -> PoolView:
+    """A request's paged view through its [L, NB] table (a copy).  Unmapped
+    entries gather physical block 0; their slots are FREE."""
+    rows, safe = _layer_rows(table), table.clamp_min(0).long()
+    return PoolView(*(p[rows, safe] for p in pool_view))
+
+
+def scatter_view(pool_view: PoolView, table: torch.Tensor,
+                 view: PoolView) -> None:
+    """Write a request's view back through its table (unmapped dropped)."""
+    mapped = table >= 0
+    rows, phys = _layer_rows(table)[mapped], table[mapped].long()
+    for p, v in zip(pool_view, view):
+        p[rows, phys] = v[mapped]
+
+
+def _add_refs(refcount: torch.Tensor, table: torch.Tensor,
+              mask: torch.Tensor, delta: int) -> None:
+    rows = _layer_rows(table)[mask]
+    refcount.index_put_((rows, table[mask].long()),
+                        torch.full_like(rows, delta, dtype=refcount.dtype),
+                        accumulate=True)
+
+
+def _rank_alloc(refcount: torch.Tensor, need: torch.Tensor):
+    """Give the i-th True entry of ``need`` [L, NB] the i-th free physical
+    id of its layer (ascending); returns (cand, got)."""
+    np_blocks = refcount.shape[1]
+    free = refcount == 0
+    order = torch.where(free, torch.arange(np_blocks, device=need.device),
+                        np_blocks + 1)
+    free_sorted = torch.argsort(order, dim=1, stable=True)
+    rank = need.long().cumsum(-1) - 1
+    cand = free_sorted.gather(1, rank.clamp(0, np_blocks - 1))
+    got = need & (rank < free.sum(-1, keepdim=True))
+    return cand.to(torch.int32), got
+
+
+def sync_block_tables(dims: CacheDims, pool: GlobalPool, table: torch.Tensor,
+                      cache: CTCache, view: PoolView) -> torch.Tensor:
+    """Reconcile a request's logical blocks with the pool after a CT update:
+    decref released blocks, map newly claimed logical blocks to free
+    physical ids (lowest first), revert claims the pool could not back, and
+    scatter the view back.  No block is shared on this path (the prefix
+    cache is off), so no COW fault can arise.  Returns the per-layer
+    allocation-failure mask [L, NB]; table, pool and cache change in place.
+    """
+    new_bt = cache.block_type
+    freed = (new_bt == -1) & (table >= 0)
+    _add_refs(pool.refcount, table, freed, -1)
+    table.masked_fill_(freed, UNMAPPED)
+    need = (new_bt >= 0) & (table < 0)
+    cand, got = _rank_alloc(pool.refcount, need)
+    table.copy_(torch.where(got, cand, table))
+    _add_refs(pool.refcount, table, got, 1)
+    failed = need & ~got
+    cache.slot_state.masked_fill_(
+        failed.repeat_interleave(dims.BS, dim=1), FREE)
+    cache.block_type.masked_fill_(failed, -1)
+    scatter_view(pool.view, table, view)
+    return failed
+
+
+def release_blocks(pool: GlobalPool, table: torch.Tensor) -> None:
+    """Drop one reference on every mapped block of ``table``."""
+    _add_refs(pool.refcount, table, table >= 0, -1)
+
+
+def check_pool_invariants(pool: GlobalPool, tables, extra_tables=()) -> dict:
+    """Host audit of the refcount invariants: every physical block's
+    refcount equals the references the holders make to it, none is
+    negative, and claimed + free == pool blocks.  Raises AssertionError."""
+    rc = pool.refcount.cpu().numpy()
+    tb = np.asarray(tables.cpu() if torch.is_tensor(tables) else tables)
+    if tb.ndim == 2:
+        tb = tb[None]
+    holders = [tb] + [np.asarray(t)[None] if np.asarray(t).ndim == 2
+                      else np.asarray(t) for t in extra_tables]
+    L, NP = rc.shape
+    assert (rc >= 0).all(), f"negative refcount (double-free): {rc.min()}"
+    claimed = []
+    for l in range(L):
+        refs = np.zeros(NP, np.int64)
+        for h in holders:
+            mapped = h[:, l][h[:, l] >= 0]
+            np.add.at(refs, mapped, 1)
+        bad = np.nonzero(refs != rc[l])[0]
+        assert bad.size == 0, \
+            (f"layer {l}: refcount mismatch at physical blocks "
+             f"{bad.tolist()[:8]}: counted {refs[bad][:8].tolist()} refs, "
+             f"pool says {rc[l][bad][:8].tolist()}")
+        n_claimed, n_free = int((rc[l] > 0).sum()), int((rc[l] == 0).sum())
+        assert n_claimed + n_free == NP
+        claimed.append(n_claimed)
+    return {"claimed": claimed, "free": (rc == 0).sum(axis=1).tolist(),
+            "pool_blocks": NP}
+
+
+def engine_advance(cfg: ThinKVConfig, dims: CacheDims, pool: GlobalPool,
+                   table: torch.Tensor, cache: CTCache,
+                   sparsity: torch.Tensor, *, num_tokens: int, buf_len: int,
+                   n_new: int = 1, policy=None) -> Tuple[bool, int, int]:
+    """``n_new`` tokens were written into the slot's buffer: commit (with
+    budget eviction) when the buffer is full, refresh every tau tokens,
+    and reconcile the block table — the pool is touched only then.
+
+    ``num_tokens`` / ``buf_len`` are the engine's host mirrors of the
+    slot's counters before the write.  Returns (whether a commit claim
+    failed — a tensor the caller checks once —, new num_tokens, new
+    buf_len).
+    """
+    policy = get_policy(policy)
+    cache.buf_len.add_(n_new)
+    cache.num_tokens.add_(n_new)
+    num_tokens, buf_len = num_tokens + n_new, buf_len + n_new
+    at_commit = buf_len >= dims.G
+    at_refresh = num_tokens % cfg.refresh_interval == 0
+    if not (at_commit or at_refresh):
+        return None, num_tokens, buf_len
+    with torch.profiler.record_function("thinkv.maintain"):
+        view = gather_view(pool.view, table)
+        if at_commit:
+            commit_group(cfg, dims, cache, view, policy)
+            budget_evict(cfg, dims, cache, view, policy=policy)
+            buf_len = 0
+        if at_refresh:
+            with torch.profiler.record_function("thinkv.refresh"):
+                refresh(cfg, dims, cache, view, sparsity, policy)
+        failed = sync_block_tables(dims, pool, table, cache, view)
+    return failed.any(), num_tokens, buf_len
+
+
+# ---------------------------------------------------------------------------
+# Footprint accounting
+# ---------------------------------------------------------------------------
+
+def memory_stats(dims: CacheDims, cache: CTCache) -> dict:
+    """Physical footprint and pressure of one request's cache."""
+    used_blocks = (cache.block_type >= 0).sum(-1)
+    valid = cache.slot_state == VALID
+    n_valid = valid.sum(-1)
+    eff_bits = torch.where(valid, cache.slot_bits.float(), 0.0)
+    avg_bits = eff_bits.sum() / valid.float().sum().clamp_min(1.0)
+    bytes_per_slot = (2 * dims.H * dims.D // (2 if dims.nibble else 1)
+                      + 2 * dims.H * dims.scale_groups)
+    return {"valid_tokens": n_valid, "used_blocks": used_blocks,
+            "physical_bytes": used_blocks * dims.BS * bytes_per_slot,
+            "avg_bits": avg_bits, "pressure": used_blocks / dims.NB}
+
+
+def metadata_bytes(dims: CacheDims) -> int:
+    """Bytes of one request's metadata (every CTCache field but the
+    buffer)."""
+    per_layer = dims.NS * (1 + 4 + 4 + 1) + dims.NB + 4 * dims.S
+    return dims.L * per_layer + 4 * dims.S + 5 * 4
+
+
+def buffer_bytes(dims: CacheDims) -> int:
+    return dims.L * 2 * 2 * dims.G * dims.H * dims.D
+
+
+def compression_ratio(dims: CacheDims, cache: CTCache,
+                      full_tokens: int) -> dict:
+    """ThinKV footprint vs an uncompressed bf16 cache of ``full_tokens``
+    (ports ``repro/core/thinkv.compression_ratio``)."""
+    stats = memory_stats(dims, cache)
+    full_bytes = full_tokens * 2 * 2 * dims.H * dims.D * dims.L
+    phys = float(stats["physical_bytes"].sum())
+    ratio = (phys + metadata_bytes(dims) + buffer_bytes(dims)) / \
+        max(full_bytes, 1)
+    return {**stats, "footprint_frac": ratio, "full_bytes": full_bytes}

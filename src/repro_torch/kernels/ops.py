@@ -1,0 +1,199 @@
+"""Kernel wrappers with device dispatch (ports ``repro/kernels/ops.py``).
+
+Each wrapper checks device, dtype, shape and contiguity and raises on what
+its kernel does not take, on either device.  Then, for tensors on the CPU
+it computes its kernel's plain version (``kernels/ref.py``); for CUDA
+tensors it launches the hand-written CUDA kernel (``csrc/*.cu``, built by
+``kernels/build.py``) or raises — there is no fallback.  It adds one to its
+entry of :data:`LAUNCHES` where it launches the kernel and nowhere else.
+
+Kernels (TPU kernel each replaces in brackets):
+
+* ``paged_decode_attention_fused``   K1 [ct_paged_attention_fused]
+* ``paged_decode_attention_batched`` K2 [ct_paged_attention_batched]
+* ``prefill_attention_stats``        K3 [flash_prefill(return_stats=True)]
+* ``tbq_group_quant``                K4 [group_quant]
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import ref as R
+
+LAUNCHES = {"ct_paged_attention_fused": 0, "ct_paged_attention_batched": 0,
+            "flash_prefill": 0, "group_quant": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"}:
+        raise ValueError(f"tensors on mixed or unsupported devices: {devs}")
+    return False
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _check_paged(d: int, group: int, *planes: torch.Tensor) -> None:
+    """What the paged kernels take: head_dim 32, 64 or 128 in whole scale
+    groups, code planes readable 4 bytes at a time."""
+    if d not in (32, 64, 128) or d % group or group % 4:
+        raise ValueError(f"paged attention kernels take head_dim 32, 64 or "
+                         f"128 in groups of a multiple of 4 (got D={d}, "
+                         f"group={group})")
+    if any(p.data_ptr() % 4 for p in planes):
+        raise ValueError("code planes must be 4-byte aligned")
+
+
+def _launch(name: str, fn: str, *args) -> None:
+    rc = build.kernel(fn)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def paged_decode_attention_fused(qh, k_codes, v_codes, k_scales, v_scales,
+                                 slot_state, slot_bits, block_table,
+                                 buf_k, buf_v, buf_len, *, group: int = 16):
+    """A whole decode tick's attention in one launch: every layer and slot,
+    quantized pool merged with the fp TBQ buffer.
+
+    qh [L, R, H, GQ, D] f32; planes [L, NP, BS, H, ...] (codes uint8,
+    scales bf16); slot_state/slot_bits [L, R, NB, BS] uint8; block_table
+    [R, L, NB] int32 raw; buf_k/buf_v [L, R, G, H, D] bf16; buf_len [R]
+    int32.  Returns the final out [L, R, H, GQ, D] f32.
+    """
+    args = (qh, k_codes, v_codes, k_scales, v_scales, slot_state, slot_bits,
+            block_table, buf_k, buf_v, buf_len)
+    on_cpu = _on_cpu(*args)
+    L, r, h, gq, d = qh.shape
+    np_, bs = k_codes.shape[1:3]
+    nb = block_table.shape[-1]
+    g = buf_k.shape[2]
+    _check("qh", qh, torch.float32)
+    for n, t in (("k_codes", k_codes), ("v_codes", v_codes)):
+        _check(n, t, torch.uint8, (L, np_, bs, h, d))
+    for n, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+        _check(n, t, torch.bfloat16, (L, np_, bs, h, d // group))
+    for n, t in (("slot_state", slot_state), ("slot_bits", slot_bits)):
+        _check(n, t, torch.uint8, (L, r, nb, bs))
+    _check("block_table", block_table, torch.int32, (r, L, nb))
+    for n, t in (("buf_k", buf_k), ("buf_v", buf_v)):
+        _check(n, t, torch.bfloat16, (L, r, g, h, d))
+    _check("buf_len", buf_len, torch.int32, (r,))
+    if on_cpu:
+        return R.ct_paged_attention_fused_ref(*args, group=group)
+    _check_paged(d, group, k_codes, v_codes)
+    out = torch.empty_like(qh)
+    _launch("ct_paged_attention_fused", "ct_paged_attention_fused",
+            *map(_ptr, args), _ptr(out), L, r, h, gq, d, np_, bs, nb, g,
+            group, 1.0 / math.sqrt(d))
+    return out
+
+
+def paged_decode_attention_batched(qh, k_codes, v_codes, k_scales, v_scales,
+                                   slot_state, slot_bits, block_table, *,
+                                   group: int = 16):
+    """Paged attention over the shared pool for one layer, every slot.
+
+    qh [R, H, GQ, D] f32; planes [NP, BS, H, ...]; slot_state/slot_bits
+    [R, NB, BS] uint8; block_table [R, NB] int32 raw.  Returns
+    (out [R, H, GQ, D], m [R, H, GQ, 1], l [R, H, GQ, 1]) f32.
+    """
+    args = (qh, k_codes, v_codes, k_scales, v_scales, slot_state, slot_bits,
+            block_table)
+    on_cpu = _on_cpu(*args)
+    r, h, gq, d = qh.shape
+    np_, bs = k_codes.shape[:2]
+    nb = block_table.shape[-1]
+    _check("qh", qh, torch.float32)
+    for n, t in (("k_codes", k_codes), ("v_codes", v_codes)):
+        _check(n, t, torch.uint8, (np_, bs, h, d))
+    for n, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+        _check(n, t, torch.bfloat16, (np_, bs, h, d // group))
+    for n, t in (("slot_state", slot_state), ("slot_bits", slot_bits)):
+        _check(n, t, torch.uint8, (r, nb, bs))
+    _check("block_table", block_table, torch.int32, (r, nb))
+    if on_cpu:
+        return R.ct_paged_attention_batched_ref(*args, group=group)
+    _check_paged(d, group, k_codes, v_codes)
+    out = torch.empty_like(qh)
+    m = torch.empty((r, h, gq, 1), dtype=torch.float32, device=qh.device)
+    l = torch.empty_like(m)
+    _launch("ct_paged_attention_batched", "ct_paged_attention_batched",
+            *map(_ptr, args), _ptr(out), _ptr(m), _ptr(l), r, h, gq, d, np_,
+            bs, nb, group, 1.0 / math.sqrt(d))
+    return out, m, l
+
+
+def prefill_attention_stats(q, k, v, *, causal: bool = True, window: int = 0,
+                            n_valid: Optional[int] = None):
+    """Blocked causal attention with per-query flash stats.
+
+    q [S, Hq, D], k/v [S, H, D] f32.  ``n_valid`` masks the keys at index
+    ``>= n_valid`` (a padded prefill chunk).  Returns (out [S, Hq, D],
+    m [S, Hq, 1], l [S, Hq, 1]).
+    """
+    on_cpu = _on_cpu(q, k, v)
+    s_len, hq, d = q.shape
+    h = k.shape[1]
+    if hq % h:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {h}")
+    _check("q", q, torch.float32)
+    _check("k", k, torch.float32, (s_len, h, d))
+    _check("v", v, torch.float32, (s_len, h, d))
+    if on_cpu:
+        kv_valid = None if n_valid is None else \
+            torch.arange(s_len) < n_valid
+        return R.flash_prefill_stats_ref(q, k, v, causal=causal,
+                                         window=window, kv_valid=kv_valid)
+    out = torch.empty_like(q)
+    m = torch.empty((s_len, hq, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    _launch("flash_prefill", "flash_prefill_stats", _ptr(q), _ptr(k),
+            _ptr(v), _ptr(out), _ptr(m), _ptr(l), s_len, hq, h, d,
+            int(causal), int(window),
+            s_len if n_valid is None else int(n_valid), 1.0 / math.sqrt(d))
+    return out, m, l
+
+
+def tbq_group_quant(x: torch.Tensor, bits: int, group: int = 16):
+    """TBQ group quantization: x [N, D] f32 -> (codes uint8 [N, D],
+    scales bf16 [N, D // group]), bit-exact to ``quantize_group``."""
+    if bits not in (2, 4, 8):
+        raise ValueError(f"unsupported bits={bits}")
+    on_cpu = _on_cpu(x)
+    n, d = x.shape
+    if d % group:
+        raise ValueError(f"D={d} not divisible by group {group}")
+    _check("x", x, torch.float32)
+    if on_cpu:
+        return R.group_quant_ref(x, bits, group)
+    codes = torch.empty((n, d), dtype=torch.uint8, device=x.device)
+    scales = torch.empty((n, d // group), dtype=torch.bfloat16,
+                         device=x.device)
+    _launch("group_quant", "group_quant", _ptr(x), _ptr(codes),
+            _ptr(scales), n, d, group, bits)
+    return codes, scales

@@ -1,0 +1,141 @@
+"""Plain PyTorch versions of every kernel on the serving path.
+
+Ports ``repro/kernels/ref.py``.  Each function has its kernel's exact
+interface, so ``ops`` can take it for a CPU tensor, the CPU tests can hold
+it against the JAX oracles, and ``chip_smoke.py`` can hold each CUDA
+kernel against it on the card.  Batch axes the reference ``vmap``s over
+are written out.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import quantization as Q
+
+NEG_INF = -1e30
+VALID = 1
+
+
+def _masked_softmax_stats(s: torch.Tensor, valid: torch.Tensor):
+    """Flash stats of masked scores: (p / l, m, l) over the last axis."""
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    return p / l.clamp_min(1e-30), m, l
+
+
+def ct_paged_attention_batched_ref(qh, k_codes, v_codes, k_scales, v_scales,
+                                   slot_state, slot_bits, block_table, *,
+                                   group: int = 16):
+    """Paged attention over the shared quantized pool, one layer, every slot.
+
+    qh [R, H, GQ, D]; planes [NP, BS, H, ...]; slot_state/slot_bits
+    [R, NB, BS] logical; block_table [R, NB] raw (-1 clamped: unmapped
+    slots are FREE).  Returns (out [R, H, GQ, D], m, l [R, H, GQ, 1]).
+    """
+    r, _, _, d = qh.shape
+    nb, bs = slot_state.shape[1:]
+    n = nb * bs
+    table = block_table.clamp_min(0).long()
+
+    def take(plane):
+        return plane[table].reshape(r, n, *plane.shape[2:])
+
+    bits = slot_bits.reshape(r, n).to(torch.int32)[..., None, None]
+    k = Q.dequantize_by_bitcode(take(k_codes), take(k_scales).float(), bits,
+                                g=group)                     # [R, n, H, D]
+    v = Q.dequantize_by_bitcode(take(v_codes), take(v_scales).float(), bits,
+                                g=group)
+    valid = (slot_state.reshape(r, n) == VALID)[:, None, None, :]
+    s = torch.einsum("rhgd,rnhd->rhgn", qh.float(), k) / math.sqrt(d)
+    p, m, l = _masked_softmax_stats(s, valid)
+    return torch.einsum("rhgn,rnhd->rhgd", p, v), m, l
+
+
+def buffer_attention_batched_ref(qh, buf_k, buf_v, buf_len):
+    """Flash stats over the full-precision TBQ buffer of every slot.
+
+    qh [R, H, GQ, D]; buf_k/buf_v [R, G, H, D]; buf_len [R].
+    """
+    d = qh.shape[-1]
+    g = buf_k.shape[1]
+    valid = (torch.arange(g, device=qh.device)[None, :]
+             < buf_len[:, None])[:, None, None, :]
+    s = torch.einsum("rhgd,rnhd->rhgn", qh.float(),
+                     buf_k.float()) / math.sqrt(d)
+    p, m, l = _masked_softmax_stats(s, valid)
+    return torch.einsum("rhgn,rnhd->rhgd", p, buf_v.float()), m, l
+
+
+def merge_flash_ref(out_a, m_a, l_a, out_b, m_b, l_b):
+    """Merge two flash partitions; out [..., D], m/l [..., 1]."""
+    m = torch.maximum(m_a, m_b)
+    ca, cb = torch.exp(m_a - m), torch.exp(m_b - m)
+    l = (l_a * ca + l_b * cb).clamp_min(1e-30)
+    return out_a * (l_a * ca / l) + out_b * (l_b * cb / l)
+
+
+def ct_paged_attention_fused_ref(qh, k_codes, v_codes, k_scales, v_scales,
+                                 slot_state, slot_bits, block_table,
+                                 buf_k, buf_v, buf_len, *, group: int = 16):
+    """A whole decode tick's attention: per layer, the paged pool merged
+    with the fp TBQ buffer.
+
+    qh [L, R, H, GQ, D]; planes [L, NP, BS, H, ...]; slot_state/slot_bits
+    [L, R, NB, BS]; block_table [R, L, NB] raw; buf_k/buf_v
+    [L, R, G, H, D]; buf_len [R].  Returns [L, R, H, GQ, D] f32.
+    """
+    outs = []
+    for l in range(qh.shape[0]):
+        out_p, m_p, l_p = ct_paged_attention_batched_ref(
+            qh[l], k_codes[l], v_codes[l], k_scales[l], v_scales[l],
+            slot_state[l], slot_bits[l], block_table[:, l], group=group)
+        out_b, m_b, l_b = buffer_attention_batched_ref(qh[l], buf_k[l],
+                                                       buf_v[l], buf_len)
+        outs.append(merge_flash_ref(out_p, m_p, l_p, out_b, m_b, l_b))
+    return torch.stack(outs)
+
+
+def group_quant_ref(x: torch.Tensor, bits: int, group: int = 16):
+    """x [N, D] -> (codes uint8 [N, D], scales bf16 [N, D // group])."""
+    codes, scales = Q.quantize_group(x, bits, group)
+    return codes, scales.to(torch.bfloat16)
+
+
+def flash_prefill_stats_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                            kv_valid: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Causal GQA attention with per-query flash stats.
+
+    q [S, Hq, D], k/v [T, H, D]; ``kv_valid`` [T] bool masks padded keys.
+    Returns (out [S, Hq, D] f32, m [S, Hq, 1], l [S, Hq, 1]).
+    """
+    s_len, hq, d = q.shape
+    t_len, h, _ = k.shape
+    gq = hq // h
+    qh = q.reshape(s_len, h, gq, d).float()
+    scores = torch.einsum("shgd,thd->hgst", qh, k.float()) / math.sqrt(d)
+    i = torch.arange(s_len, device=q.device)[:, None]
+    j = torch.arange(t_len, device=q.device)[None, :]
+    mask = torch.ones((s_len, t_len), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i + (t_len - s_len)
+    if window > 0:
+        mask &= j > i + (t_len - s_len) - window
+    if kv_valid is not None:
+        mask &= kv_valid[None, :]
+    p, m, l = _masked_softmax_stats(scores, mask[None, None])
+    out = torch.einsum("hgst,thd->shgd", p, v.float())
+
+    def to_q(a):                                  # [h, g, s, 1] -> [s, hq, 1]
+        return a[..., 0].permute(2, 0, 1).reshape(s_len, hq, 1)
+    return out.reshape(s_len, hq, d), to_q(m), to_q(l)
+
+
+def flash_prefill_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    return flash_prefill_stats_ref(q, k, v, causal=causal, window=window)[0]

@@ -1,0 +1,110 @@
+"""Decoder-only dense transformer LM (ports ``repro/models/lm.py``: the
+parameter shapes of ``init`` and the dense teacher-forced forward).
+
+Weights stay in the reference's layout so that converting a JAX parameter
+tree is a copy: ``x @ W`` with W of shape ``[in, out]``, and every layer
+weight stacked on a leading ``[L]`` axis.  :meth:`LM.layer` returns one
+layer's parameters as the nested dict the layer functions take.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from repro_torch.config import ArchFamily, ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.layers import attention as A
+from repro_torch.layers import embedding as E
+from repro_torch.layers.common import dense_init_, embed_init_, softcap
+from repro_torch.layers.mlp import mlp
+from repro_torch.layers.norms import rmsnorm
+
+# parameter name -> nested key path of the reference's parameter tree
+LAYER_PARAMS = {
+    "wq": ("attn", "wq"), "wk": ("attn", "wk"), "wv": ("attn", "wv"),
+    "wo": ("attn", "wo"),
+    "norm1": ("norm1", "scale"), "norm2": ("norm2", "scale"),
+    "w_up": ("mlp", "w_up"), "w_gate": ("mlp", "w_gate"),
+    "w_down": ("mlp", "w_down"),
+}
+
+
+class LM(nn.Module):
+    """Dense decoder weights (no gradients: the port serves)."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if cfg.family != ArchFamily.DENSE or not cfg.mlp_gated or \
+                cfg.qkv_bias or cfg.tie_embeddings:
+            raise NotImplementedError(
+                f"{cfg.name}: the port serves gated dense decoders without "
+                f"qkv bias or tied embeddings (other families: ROADMAP "
+                f"queue 1 item 15)")
+        self.cfg = cfg
+        L, d, ff, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+        shapes = {
+            "embedding": (V, d), "lm_head": (d, V), "final_norm": (d,),
+            "wq": (L, d, cfg.q_dim), "wk": (L, d, cfg.kv_dim),
+            "wv": (L, d, cfg.kv_dim), "wo": (L, cfg.q_dim, d),
+            "norm1": (L, d), "norm2": (L, d),
+            "w_up": (L, d, ff), "w_gate": (L, d, ff), "w_down": (L, ff, d),
+        }
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=device),
+                requires_grad=False))
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> "LM":
+        """Seeded init with the reference's shapes and scales: truncated
+        normal fan-in for dense weights, N(0, 0.02) embeddings, unit norms."""
+        gen = torch.Generator(device=self.embedding.device).manual_seed(seed)
+        embed_init_(self.embedding, gen)
+        for name in ("lm_head", "wq", "wk", "wv", "wo", "w_up", "w_gate",
+                     "w_down"):
+            dense_init_(getattr(self, name), gen)
+        for name in ("norm1", "norm2", "final_norm"):
+            getattr(self, name).fill_(1.0)
+        return self
+
+    @property
+    def embed_params(self) -> dict:
+        return {"embedding": self.embedding, "lm_head": self.lm_head}
+
+    def layer(self, i: int) -> dict:
+        """Layer ``i``'s parameters as the reference's nested dict."""
+        out: dict = {}
+        for name, (group, key) in LAYER_PARAMS.items():
+            out.setdefault(group, {})[key] = getattr(self, name)[i]
+        return out
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced logits [B, S, V] of tokens [B, S] (the
+        reference's ``logits_fn`` for the dense family)."""
+        cfg = self.cfg
+        h = E.embed(self.embed_params, tokens, cfg)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        for i in range(cfg.num_layers):
+            lp = self.layer(i)
+            x1 = rmsnorm(lp["norm1"], h, cfg.norm_eps)
+            q, k, v = A._project_qkv(lp["attn"], x1, cfg)
+            q, k = A.rope_qk(q, k, positions, cfg)
+            o = A.dense_attention(q, k, v, causal=True,
+                                  window=cfg.sliding_window)
+            h = h + A.out_proj(lp["attn"], o)
+            x2 = rmsnorm(lp["norm2"], h, cfg.norm_eps)
+            h = h + mlp(lp["mlp"], x2, cfg.act, cfg.mlp_gated)
+        h = rmsnorm({"scale": self.final_norm}, h, cfg.norm_eps)
+        return softcap(E.unembed(self.embed_params, h, cfg),
+                       cfg.logit_softcap)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: Optional[Union[str, torch.device]] = None,
+                dtype: torch.dtype = torch.float32) -> LM:
+    """Random weights from ``seed`` on ``device`` (the card by default)."""
+    return LM(cfg, resolve_device(device), dtype).reset_parameters(seed)

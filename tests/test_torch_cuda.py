@@ -1,0 +1,167 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA card and the CUDA toolkit (the kernels are
+built with nvcc at first use); without a card each test skips with the
+reason.  On a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Attention kernels agree with the plain versions to 1e-4 (f32 on both
+sides, another summation order); the quantizer is bit-exact."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.config import ServeConfig, ThinKVConfig  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as R  # noqa: E402
+from repro_torch.models.lm import init_params  # noqa: E402
+from repro_torch.serving.engine import ThinKVEngine  # noqa: E402
+
+ATOL = 1e-4
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return torch.device("cuda")
+
+
+def pool_case(gen, L, R_, H, GQ, D, BS, NB, G=16):
+    NP = R_ * NB + 3
+    codes = lambda: torch.randint(0, 256, (L, NP, BS, H, D), generator=gen,
+                                  dtype=torch.uint8)
+    scales = lambda: (torch.rand((L, NP, BS, H, D // 16), generator=gen)
+                      * 0.03 + 0.002).to(torch.bfloat16)
+    table = torch.stack([torch.stack([torch.randperm(NP, generator=gen)[:NB]
+                                      for _ in range(L)])
+                         for _ in range(R_)]).to(torch.int32)
+    table[torch.rand((R_, L, NB), generator=gen) < 0.25] = -1
+    u = torch.rand((L, R_, NB, BS), generator=gen)
+    state = torch.where(u < 0.7, 1, torch.where(u < 0.85, 2, 0)) \
+        .to(torch.uint8)
+    state.masked_fill_((table < 0).permute(1, 0, 2)[..., None], 0)
+    bits = torch.tensor([2, 4, 8], dtype=torch.uint8)[
+        torch.randint(0, 3, (L, R_, NB, BS), generator=gen)]
+    return dict(qh=torch.randn((L, R_, H, GQ, D), generator=gen),
+                k_codes=codes(), v_codes=codes(), k_scales=scales(),
+                v_scales=scales(), slot_state=state, slot_bits=bits,
+                block_table=table,
+                buf_k=torch.randn((L, R_, G, H, D), generator=gen)
+                .to(torch.bfloat16),
+                buf_v=torch.randn((L, R_, G, H, D), generator=gen)
+                .to(torch.bfloat16),
+                buf_len=torch.tensor([0, G // 2, G][:R_], dtype=torch.int32))
+
+
+def on(dev, tensors):
+    return [t.to(dev) for t in tensors]
+
+
+def assert_close(got, want):
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("GQ,D,BS", [(4, 128, 16), (2, 32, 8), (8, 64, 16)])
+def test_fused_decode_attention(card, GQ, D, BS):
+    c = pool_case(torch.Generator().manual_seed(GQ), L=3, R_=3, H=2, GQ=GQ,
+                  D=D, BS=BS, NB=6)
+    n = ops.LAUNCHES["ct_paged_attention_fused"]
+    got = ops.paged_decode_attention_fused(*on(card, c.values()))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ct_paged_attention_fused"] == n + 1
+    assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
+
+
+@pytest.mark.parametrize("GQ", [4, 64, 100, 512])
+def test_batched_pool_attention_tiles_the_query_groups(card, GQ):
+    c = pool_case(torch.Generator().manual_seed(GQ), L=1, R_=2, H=2, GQ=GQ,
+                  D=128, BS=16, NB=5)
+    args = [c["qh"][0], c["k_codes"][0], c["v_codes"][0], c["k_scales"][0],
+            c["v_scales"][0], c["slot_state"][0], c["slot_bits"][0],
+            c["block_table"][:, 0].contiguous()]
+    got = ops.paged_decode_attention_batched(*on(card, args))
+    torch.cuda.synchronize()
+    assert_close(got, R.ct_paged_attention_batched_ref(*args))
+
+
+@pytest.mark.parametrize("S,n_valid,window", [
+    (128, None, 0), (16, 11, 0), (16, 1, 0), (200, None, 0),
+    (128, None, 40), (8, 5, 0)])
+def test_prefill_attention_stats(card, S, n_valid, window):
+    gen = torch.Generator().manual_seed(S)
+    q = torch.randn((S, 8, 128), generator=gen)
+    k = torch.randn((S, 2, 128), generator=gen)
+    v = torch.randn((S, 2, 128), generator=gen)
+    got = ops.prefill_attention_stats(*on(card, (q, k, v)), window=window,
+                                      n_valid=n_valid)
+    torch.cuda.synchronize()
+    kv_valid = None if n_valid is None else torch.arange(S) < n_valid
+    assert_close(got, R.flash_prefill_stats_ref(q, k, v, window=window,
+                                                kv_valid=kv_valid))
+
+
+@pytest.mark.parametrize("bits", (2, 4, 8))
+def test_group_quant_bit_exact(card, bits):
+    x = torch.randn((300, 128), generator=torch.Generator().manual_seed(bits))
+    x[0, :16] *= 1e-4
+    x[1, :16] *= 1e-6
+    x[2, :16] = 0.0
+    x[3, :16] *= 3000.0
+    x[4, :16] = 448.0 * 127.0 * 1.5
+    x[5, :16] = 448.0
+    codes, scales = ops.tbq_group_quant(x.to(card), bits)
+    torch.cuda.synchronize()
+    rc, rs = R.group_quant_ref(x, bits)
+    assert torch.equal(codes.cpu(), rc)
+    assert torch.equal(scales.cpu().view(torch.int16), rs.view(torch.int16))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x = torch.randn((64, 64), device=card)
+    with pytest.raises(TypeError):
+        ops.tbq_group_quant(x.double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.tbq_group_quant(x.t(), 4)
+    x = x[:8]
+    with pytest.raises(ValueError, match="devices"):
+        ops.prefill_attention_stats(x.view(8, 1, 64), x.cpu().view(8, 1, 64),
+                                    x.view(8, 1, 64))
+
+
+def test_engine_backends_agree_on_the_card(card):
+    mcfg = dataclasses.replace(get_smoke_config("r1-llama-8b"), num_heads=8,
+                               num_kv_heads=4, head_dim=32)
+    tk = ThinKVConfig(refresh_interval=16, group_size=16, block_size=16,
+                      token_budget=64, retention_schedule=(16, 8, 4))
+    cfg = ServeConfig(model=mcfg, thinkv=tk, max_seqs=3)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, mcfg.vocab_size, n) for n in (150, 40, 9)]
+    params = init_params(mcfg, 0, card)
+    runs = {}
+    for backend in ("kernel", "reference"):
+        ops.reset_launches()
+        eng = ThinKVEngine(cfg, params=params, backend=backend, device=card,
+                           record_logits=True)
+        eng.submit(prompts, max_new_tokens=24)
+        done = eng.run()
+        runs[backend] = (eng, {r.arrival: r.output for r in done},
+                         dict(ops.LAUNCHES))
+    (ek, tk_, lk), (er, tr, lr) = runs["kernel"], runs["reference"]
+    assert all(n > 0 for n in lk.values()), lk
+    assert lk["ct_paged_attention_fused"] == ek.metrics["ticks"]
+    assert lr["ct_paged_attention_fused"] == 0
+    assert tk_ == tr
+    for a in er.request_logits:
+        np.testing.assert_allclose(np.stack(ek.request_logits[a]),
+                                   np.stack(er.request_logits[a]),
+                                   rtol=0, atol=1e-3)
+    assert ek.audit_pool() == er.audit_pool()

@@ -1,0 +1,91 @@
+"""The port stands alone: no module of ``src/repro_torch`` (nor
+``chip_smoke.py``) imports JAX or anything of the JAX package, and its
+entry points run on the card unless the caller asks for the CPU."""
+import ast
+import pathlib
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def forbidden_imports(source: str):
+    """Top-level package names in ``FORBIDDEN`` that ``source`` imports
+    (``repro_torch`` is its own package and never matches ``repro``)."""
+    bad = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names if n.split(".")[0] in FORBIDDEN]
+    return bad
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_jax_or_reference_package_imports(path):
+    assert forbidden_imports(path.read_text()) == []
+
+
+@pytest.mark.parametrize("src,bad", [
+    ("import jax", ["jax"]),
+    ("import jax.numpy as jnp", ["jax.numpy"]),
+    ("from jaxlib import xla_client", ["jaxlib"]),
+    ("import repro", ["repro"]),
+    ("from repro.config import base", ["repro.config"]),
+    ("from repro.serving import scheduler", ["repro.serving"]),
+    ("import repro_torch", []),
+    ("from repro_torch.core import ct_cache", []),
+    ("from . import ops", []),
+])
+def test_import_check_matches_packages_exactly(src, bad):
+    assert forbidden_imports(src) == bad
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import init_params
+    from repro_torch.serving.engine import ThinKVEngine
+    cfg = get_smoke_config("r1-llama-8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ThinKVEngine(ServeConfig(model=cfg, max_seqs=1))
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ThinKVEngine(ServeConfig(model=cfg, max_seqs=1), params=params)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(prefix_cache=True), "10"), (dict(ticks_per_dispatch=2), "11"),
+    (dict(allow_forks=True), "11"), (dict(mesh=object()), "13"),
+    (dict(drift_probe=True), "12"), (dict(policy="rkv"), "12"),
+    (dict(pool_blocks=1), "10")])
+def test_options_outside_the_slice_name_their_roadmap_item(kw, item):
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.engine import ThinKVEngine
+    cfg = ServeConfig(model=get_smoke_config("r1-llama-8b"), max_seqs=1)
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        ThinKVEngine(cfg, device="cpu", **kw)
+
+
+def test_temperature_above_zero_is_not_ported():
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.engine import ThinKVEngine
+    cfg = ServeConfig(model=get_smoke_config("r1-llama-8b"), max_seqs=1,
+                      temperature=0.7)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ThinKVEngine(cfg, device="cpu")

@@ -1,0 +1,159 @@
+"""Plain versions of K1-K3 (what ``kernels.ops`` runs for CPU tensors)
+against the JAX Pallas kernels in interpret mode, and against the JAX
+oracles for the ``kv_valid`` case the Pallas kernel does not take.
+
+f32 on both sides; only the summation order differs, so the bar is 1e-5
+absolute."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import quantization as QJ  # noqa: E402
+from repro.kernels import ref as RJ  # noqa: E402
+from repro.kernels.ct_paged_attention import (  # noqa: E402
+    ct_paged_attention_batched, ct_paged_attention_fused)
+from repro.kernels.flash_prefill import flash_prefill  # noqa: E402
+from repro_torch.convert import tensor_from_numpy  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as RT  # noqa: E402
+
+ATOL = 1e-5
+
+
+def pool_inputs(seed, L, R, H, GQ, D, BS, NB, G=8):
+    """Pool planes with mixed bits, evicted/free slots and -1 table entries
+    (unmapped logical blocks hold only FREE slots), numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    NP = R * NB + 2
+    codes = lambda: rng.integers(0, 256, (L, NP, BS, H, D)).astype(np.uint8)
+    scales = lambda: np.asarray(QJ.e4m3_round(jnp.asarray(rng.uniform(
+        0.002, 0.03, (L, NP, BS, H, D // 16)).astype(np.float32)))).astype(
+            jnp.bfloat16)
+    table = np.stack([np.stack([rng.permutation(NP)[:NB]
+                                for _ in range(L)]) for _ in range(R)])
+    table = np.where(rng.random((R, L, NB)) < 0.25, -1, table).astype(
+        np.int32)
+    u = rng.random((L, R, NB, BS))
+    state = np.where(u < 0.7, 1, np.where(u < 0.85, 2, 0)).astype(np.uint8)
+    state[np.transpose(table < 0, (1, 0, 2))] = 0
+    bits = rng.choice(np.array([2, 4, 8], np.uint8), (L, R, NB, BS))
+    return dict(
+        qh=rng.standard_normal((L, R, H, GQ, D)).astype(np.float32),
+        k_codes=codes(), v_codes=codes(), k_scales=scales(),
+        v_scales=scales(), slot_state=state, slot_bits=bits,
+        block_table=table,
+        buf_k=rng.standard_normal((L, R, G, H, D)).astype(jnp.bfloat16),
+        buf_v=rng.standard_normal((L, R, G, H, D)).astype(jnp.bfloat16),
+        buf_len=np.array([0, G // 2 + 1][:R], np.int32))
+
+
+def to_torch(d):
+    return {k: tensor_from_numpy(v, "cpu") for k, v in d.items()}
+
+
+def close(t, j):
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=ATOL)
+
+
+SHAPES = [dict(GQ=2, D=16, BS=8), dict(GQ=8, D=32, BS=16),
+          dict(GQ=2, D=32, BS=16), dict(GQ=8, D=16, BS=8)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_fused_plain_matches_pallas(shape):
+    """K1: every layer and slot, pool merged with the fp TBQ buffer; slot 0
+    has an empty buffer (the pool partition alone, early in a request)."""
+    a = pool_inputs(11, L=2, R=2, H=2, NB=4, **shape)
+    out_j = ct_paged_attention_fused(*map(jnp.asarray, a.values()),
+                                     interpret=True)
+    launches = dict(ops.LAUNCHES)
+    out_t = ops.paged_decode_attention_fused(*to_torch(a).values())
+    assert ops.LAUNCHES == launches
+    close(out_t, out_j)
+
+
+def test_fused_fully_masked_pool_gives_the_buffer_result():
+    """A slot whose pool partition is fully masked returns the buffer's
+    attention (finite sentinel, no NaN from the merge)."""
+    a = pool_inputs(12, L=1, R=2, H=2, GQ=2, D=16, BS=8, NB=4)
+    a["slot_state"][:] = 0
+    a["block_table"][:] = -1
+    out_t = ops.paged_decode_attention_fused(*to_torch(a).values())
+    assert torch.isfinite(out_t).all()
+    t = to_torch(a)
+    ob, _, _ = RT.buffer_attention_batched_ref(t["qh"][0], t["buf_k"][0],
+                                               t["buf_v"][0], t["buf_len"])
+    close(out_t[0, 1], ob[1].numpy())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_batched_plain_matches_pallas(shape):
+    """K2: one layer's pool walk with (out, m, l) stats."""
+    a = pool_inputs(13, L=1, R=2, H=2, NB=4, **shape)
+    args = [a["qh"][0], a["k_codes"][0], a["v_codes"][0], a["k_scales"][0],
+            a["v_scales"][0], a["slot_state"][0], a["slot_bits"][0],
+            np.ascontiguousarray(a["block_table"][:, 0])]
+    outs_j = ct_paged_attention_batched(*map(jnp.asarray, args),
+                                        interpret=True)
+    outs_t = ops.paged_decode_attention_batched(
+        *(tensor_from_numpy(x, "cpu") for x in args))
+    for t, j in zip(outs_t, outs_j):
+        close(t, j)
+
+
+def test_merge_and_buffer_attention_match_oracles():
+    a = pool_inputs(14, L=1, R=2, H=2, GQ=4, D=16, BS=8, NB=4)
+    qh, bk, bv, bl = a["qh"][0], a["buf_k"][0], a["buf_v"][0], a["buf_len"]
+    oj, mj, lj = RJ.buffer_attention_batched_ref(*map(jnp.asarray,
+                                                      (qh, bk, bv, bl)))
+    ot, mt, lt = RT.buffer_attention_batched_ref(
+        *(tensor_from_numpy(x, "cpu") for x in (qh, bk, bv, bl)))
+    for t, j in ((ot, oj), (mt, mj), (lt, lj)):
+        close(t, j)
+    rng = np.random.default_rng(15)
+    o2 = rng.standard_normal(np.asarray(oj).shape).astype(np.float32)
+    m2 = rng.standard_normal(np.asarray(mj).shape).astype(np.float32)
+    l2 = rng.uniform(0.5, 3, np.asarray(lj).shape).astype(np.float32)
+    mj_ = RJ.merge_flash_ref(oj[1], mj[1], lj[1], jnp.asarray(o2[1]),
+                             jnp.asarray(m2[1]), jnp.asarray(l2[1]))
+    mt_ = RT.merge_flash_ref(ot[1], mt[1], lt[1], torch.from_numpy(o2[1]),
+                             torch.from_numpy(m2[1]), torch.from_numpy(l2[1]))
+    close(mt_, mj_)
+
+
+@pytest.mark.parametrize("hq,h,d", [(4, 2, 32), (8, 8, 16), (8, 1, 32)])
+def test_flash_prefill_stats_plain_matches_pallas(hq, h, d):
+    """K3 with stats, window 0, S = 128 (the big-chunk shape)."""
+    rng = np.random.default_rng(16)
+    s = 128
+    q = rng.standard_normal((s, hq, d)).astype(np.float32)
+    k = rng.standard_normal((s, h, d)).astype(np.float32)
+    v = rng.standard_normal((s, h, d)).astype(np.float32)
+    outs_j = flash_prefill(*map(jnp.asarray, (q, k, v)), block_q=64,
+                           block_k=64, interpret=True, return_stats=True)
+    outs_t = ops.prefill_attention_stats(
+        *map(torch.from_numpy, (q, k, v)))
+    for t, j in zip(outs_t, outs_j):
+        close(t, j)
+    out_j = flash_prefill(*map(jnp.asarray, (q, k, v)), block_q=64,
+                          block_k=64, interpret=True)
+    close(RT.flash_prefill_ref(*map(torch.from_numpy, (q, k, v))), out_j)
+
+
+@pytest.mark.parametrize("s,n_valid", [(8, 5), (16, 11), (16, 16), (8, 1)])
+def test_flash_prefill_n_valid_matches_kv_valid_oracle(s, n_valid):
+    """K3 with ``n_valid < S``: the padded g-sized chunk the JAX engine
+    routes to ``flash_prefill_stats_ref(kv_valid=...)``."""
+    rng = np.random.default_rng(17 + s)
+    q = rng.standard_normal((s, 8, 16)).astype(np.float32)
+    k = rng.standard_normal((s, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((s, 2, 16)).astype(np.float32)
+    outs_j = RJ.flash_prefill_stats_ref(
+        *map(jnp.asarray, (q, k, v)), kv_valid=jnp.arange(s) < n_valid)
+    outs_t = ops.prefill_attention_stats(*map(torch.from_numpy, (q, k, v)),
+                                         n_valid=n_valid)
+    for t, j in zip(outs_t, outs_j):
+        close(t, j)
