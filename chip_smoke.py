@@ -6,29 +6,49 @@
 Phases, each printing one JSON line and raising (non-zero exit) on any
 failure:
 
-1. device  — the card, torch and CUDA versions;
-2. build   — the CUDA kernels built from ``src/repro_torch/kernels/csrc``
-             with nvcc (one process per source, started together);
-3. kernels — K1-K4 against their plain PyTorch versions on the card at the
-             main path's full-width shapes (<= 1e-3 abs for attention,
-             bit-exact for the quantizer), with their times, the plain
-             version's time, the bound (the larger of bytes / 3.35 TB/s and
-             flops / the fp32 peak) and, for K3, SDPA's time as a yardstick;
-4. serve   — the port's engine on the full r1-llama-8b config (32 layers,
-             random weights from a seed), kernel backend, 4 requests of
-             1100-token prompts and 64 new tokens; launch counts are zeroed
-             just before and read just after, and every kernel must have run
-             (K1 once per tick);
-5. profile — 12 decode ticks of the same traffic under torch.profiler:
-             device time by kernel, the device's busy share, host spans;
-6. parity  — a 4-layer full-width model through the kernel and the
-             reference backends where their results must agree (see
-             ``parity``): identical tokens, logits within the reference's
-             bar between its backends (1e-3 + 1e-3 |logit|), and for
-             decode byte-identical pools.
+1. device     — the card, torch and CUDA versions;
+2. build      — the CUDA kernels built from ``src/repro_torch/kernels/csrc``
+                with nvcc (one process per source, started together);
+3. kernels    — K1-K5 and the single-request ``ct_paged_attention`` wrapper
+                against their plain PyTorch versions on the card at the
+                main paths' full-width shapes (<= 1e-3 abs for attention,
+                bit-exact for the quantizer, rtol = atol = 3e-4 for the
+                selective scan), with their times, the plain version's time,
+                the bound (the larger of bytes / 3.35 TB/s and operations /
+                the card's peak for their type) and, for K3, SDPA's time as
+                a yardstick; K3 also without its stats (``prefill_attention``);
+4. serve      — the port's engine on the full r1-llama-8b config (32 layers,
+                random weights from a seed), kernel backend, 4 requests of
+                1100-token prompts and 64 new tokens; launch counts are
+                zeroed just before and read just after, and K1-K4 must have
+                run (K1 once per tick);
+5. profile    — 12 decode ticks of the same traffic under torch.profiler:
+                device time by kernel, the device's busy share, host spans;
+6. parity     — a 4-layer full-width model through the kernel and the
+                reference backends where their results must agree (see
+                ``parity``): identical tokens, logits within the reference's
+                bar between its backends (1e-3 + 1e-3 |logit|), and for
+                decode byte-identical pools;
+7. ssm        — falcon-mamba-7b at full width and depth (64 layers, random
+                f32 weights from a seed, ~28 GB) through
+                ``serving/serve_step.py``: a 4 x 1024-token prefill (K5 in
+                every layer), 4 requests stepped through 128-token prompts
+                and 64 greedy tokens, the teacher-forced forward against
+                the decode logits at every position (rtol = atol = 5e-3),
+                and K5 against the plain scan at 4 layers
+                (1e-3 + 1e-3 |logit|, identical greedy tokens);
+8. controller — the single-request ThinKV controller (``core/thinkv.py``)
+                at r1-llama-8b's cache width (32 layers, 8 kv heads, head
+                dim 128, default ThinKVConfig): ``step_token`` over a
+                2048-token K/V stream, and at every tau boundary every
+                layer's ``thinkv_decode_attention`` through the wrapper
+                against ``decode_attention_ref`` (3e-4 + 3e-4 |r|).
 
-Then the kernels line, the card's name and power limit as nvidia-smi gives
+Then the kernels line (each kernel's launches on its own path: K1-K4 from
+the serve phase, K5 from the ssm phase's prefill, the wrapper from the
+controller phase), the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+About 2.5 minutes on one H100 80GB HBM3.
 """
 from __future__ import annotations
 
@@ -44,18 +64,23 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_FLOPS = 67e12               # H100 SXM fp32, CUDA cores (no tensor cores)
+SFU_PER_SM_CLOCK = 16           # special-function unit results (ex2) per SM
 ATOL = 1e-3
+SCAN_TOL = 3e-4                 # the JAX package's bar, scan kernel vs oracle
+SSM_TOL = 5e-3                  # the JAX package's bar, decode vs forward
 SEED = 0
+K1_K4 = ("ct_paged_attention_fused", "ct_paged_attention_batched",
+         "flash_prefill", "group_quant")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -78,10 +103,21 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(bytes_: float, flops: float):
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound(bytes_: float, flops: float, sfu_s: float = 0.0):
+    """(ms, what bounds it): bytes over HBM, f32 flops over the CUDA-core
+    peak, and ``sfu_s`` seconds of special-function work."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, max(flops / F32_FLOPS, sfu_s)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def over_bar(got, want, tol: float) -> float:
+    """max |got - want| / (tol + tol |want|): <= 1 passes the bar."""
+    import torch
+    if not torch.isfinite(got).all():
+        raise AssertionError("output is not finite")
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
 
 
 def pool_need(state, table, per_block: int):
@@ -249,6 +285,17 @@ def check_kernels(dev, mc, tk):
         emit({"phase": "kernel", **rec})
         if n_valid is None:
             recs["K3"] = rec
+            # the plain variant (no stats) at the same shape
+            out = ops.prefill_attention(q, k, v)
+            torch.cuda.synchronize()
+            b_ms, b_by = bound(nbytes(q, k, v, out), flops)
+            emit({"phase": "kernel", **rec, "shape": rec["shape"] +
+                  " (no stats: prefill_attention)",
+                  "max_abs_err": max_err(out, ref.flash_prefill_ref(q, k, v)),
+                  "ms": time_ms(lambda: ops.prefill_attention(q, k, v), 20),
+                  "plain_ms": time_ms(lambda: ref.flash_prefill_ref(q, k, v),
+                                      10, 1),
+                  "bound_ms": b_ms, "bound_by": b_by})
 
     # K4: commit quantization, with subnormal-scale and saturating groups
     N = L * G * H
@@ -281,11 +328,82 @@ def check_kernels(dev, mc, tk):
         emit({"phase": "kernel", **rec})
         if bits == 4:
             recs["K4"] = rec
+    # the single-request wrapper at r1-llama-8b's shape: a shuffled physical
+    # pool, physical metadata, a raw table with -1 entries, one K2 launch
+    NPw = NB + 16
+    state = torch.where(torch.rand((NPw, BS), generator=gen, device=dev)
+                        < 0.8, 1, 2).to(torch.uint8)
+    bits = torch.tensor([2, 4, 8], dtype=torch.uint8, device=dev)[
+        torch.randint(0, 3, (NPw, BS), generator=gen, device=dev)]
+    table = torch.randperm(NPw, generator=gen, device=dev)[:NB] \
+        .to(torch.int32)
+    table[torch.rand(NB, generator=gen, device=dev) < 0.1] = -1
+    planes = {k: c[k][0, :NPw] for k in ("k_codes", "v_codes", "k_scales",
+                                         "v_scales")}
+    q = torch.randn((mc.num_heads, D), generator=gen, device=dev)
+    args = (q, planes["k_codes"], planes["v_codes"], planes["k_scales"],
+            planes["v_scales"], state, bits, table)
+    outs = ops.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    err = max_err(outs, ref.ct_paged_attention_ref(*args))
+    logical, _ = ref.logical_metadata(state, bits, table)
+    pool_b, n_slots = pool_need(logical[None, None], table[None, None],
+                                per_block)
+    b_ms, b_by = bound(pool_b + nbytes(q, table, *outs) + 2 * NB * BS,
+                       4 * H * gq * D * n_slots)
+    recs["wrapper"] = dict(
+        name="ct_paged_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/ct_paged_attention.cu",
+        replaces="src/repro/kernels/ct_paged_attention.py:355",
+        shape=f"Hq={mc.num_heads} H={H} D={D} BS={BS} NB={NB} NP={NPw}",
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.paged_decode_attention(*args), 20),
+        plain_ms=time_ms(lambda: ref.ct_paged_attention_ref(*args), 5, 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    emit({"phase": "kernel", **recs["wrapper"]})
+
     for name, rec in recs.items():
         if name != "K4" and rec["max_abs_err"] > ATOL:
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{rec['max_abs_err']} > {ATOL}")
+    recs["K5"] = check_mamba_scan(dev, gen)
     return recs
+
+
+def check_mamba_scan(dev, gen, B=4, S=1024, di=8192, N=16):
+    """K5 at falcon-mamba-7b's prefill shape (one launch per layer for the
+    whole batch) against ``mamba_scan_ref``, rtol = atol = 3e-4."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    x = torch.randn((B, S, di), generator=gen, device=dev)
+    dt = 0.01 + 0.1 * torch.rand((B, S, di), generator=gen, device=dev)
+    b = torch.randn((B, S, N), generator=gen, device=dev)
+    c = torch.randn((B, S, N), generator=gen, device=dev)
+    a = -torch.exp(torch.randn((di, N), generator=gen, device=dev))
+    y = ops.mamba_scan(x, dt, b, c, a)
+    torch.cuda.synchronize()
+    want = ref.mamba_scan_ref(x, dt, b, c, a)
+    over = over_bar(y, want, SCAN_TOL)
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_exp = B * S * di * N
+    b_ms, b_by = bound(nbytes(x, dt, b, c, a, y), 5 * n_exp,
+                       n_exp / (SFU_PER_SM_CLOCK * sms * clock_hz))
+    rec = dict(
+        name="mamba_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan.py:64",
+        shape=f"B={B} S={S} di={di} N={N}",
+        max_abs_err=max_err(y, want), max_over_bar=over,
+        ms=time_ms(lambda: ops.mamba_scan(x, dt, b, c, a), 20),
+        plain_ms=time_ms(lambda: ref.mamba_scan_ref(x, dt, b, c, a), 2, 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        sm_clock_max_hz=clock_hz, sms=sms)
+    emit({"phase": "kernel", **rec})
+    if over > 1:
+        raise AssertionError(f"K5 disagrees with its plain version: "
+                             f"{over} x the bar (rtol = atol = {SCAN_TOL})")
+    return rec
 
 
 def serve(engine_cls, cfg, params, prompts, max_new, backend, dev):
@@ -360,22 +478,17 @@ def parity(engine_cls, cfg, params, prompts, short, max_new, dev):
             "failed": failed}
 
 
-def profile_decode(engine_cls, cfg, params, prompts, dev, ticks=12):
-    """Decode ticks of the serve phase's traffic under torch.profiler (the
-    prompts prefilled first, outside the window; the window holds one
-    commit round of all 4 slots): device time by kernel, the device's busy
-    share of the window, and the engine's host spans (tick, cache
-    maintenance)."""
+def profile_window(fn, top: int = 12) -> dict:
+    """``fn()`` under torch.profiler: the window's wall time, the device
+    time by kernel, the device's busy share, and the host spans
+    (``thinkv.*`` record_function ranges)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
-    eng = engine_cls(cfg, params=params, backend="kernel", device=dev)
-    eng.submit(prompts, max_new_tokens=ticks + 1)
-    eng.run(max_ticks=0)                       # admission + prefill
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        eng.run(max_ticks=ticks)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t1)
     spans, kernels = {}, {}
     for e in prof.events():
@@ -390,13 +503,220 @@ def profile_decode(engine_cls, cfg, params, prompts, dev, ticks=12):
             k[0] += e.device_time_total / 1e3
             k[1] += 1
     busy_ms = sum(t for t, _ in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"phase": "profile", "ticks": eng.metrics["ticks"],
-            "window_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms, "spans": spans,
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"window_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "launches": sum(c for _, c in kernels.values()),
+            "spans": spans,
             "top_kernels": [{"name": n, "ms": t, "count": c}
-                            for n, (t, c) in top],
+                            for n, (t, c) in ranked]}
+
+
+def profile_decode(engine_cls, cfg, params, prompts, dev, ticks=12):
+    """Decode ticks of the serve phase's traffic under torch.profiler (the
+    prompts prefilled first, outside the window; the window holds one
+    commit round of all 4 slots)."""
+    t0 = time.perf_counter()
+    eng = engine_cls(cfg, params=params, backend="kernel", device=dev)
+    eng.submit(prompts, max_new_tokens=ticks + 1)
+    eng.run(max_ticks=0)                       # admission + prefill
+    rec = profile_window(lambda: eng.run(max_ticks=ticks))
+    return {"phase": "profile", "ticks": eng.metrics["ticks"], **rec,
             "seconds": time.perf_counter() - t0}
+
+
+def ssm_phase(dev, rng) -> dict:
+    """falcon-mamba-7b at full width and depth through the serve steps."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.layers import embedding as E
+    from repro_torch.models import factory, ssm_lm
+    from repro_torch.serving import serve_step as SS
+    t_all = time.perf_counter()
+    cfg = get_config("falcon-mamba-7b")
+    V = cfg.vocab_size
+    model = factory.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_gb = sum(p.numel() * p.element_size()
+                    for p in params.parameters()) / 1e9
+
+    # 1. prefill: 4 prompts of 1024 tokens, K5 in every layer
+    prefill = SS.make_prefill_step(model, cfg)
+    prompts = torch.from_numpy(rng.integers(0, V, (4, 1024))).to(dev)
+    prefill(params, {"tokens": prompts[:, :16]})          # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    lg = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if lg.shape != (4, V) or not torch.isfinite(lg).all():
+        raise AssertionError(f"bad prefill logits: shape {tuple(lg.shape)}")
+    if launches["mamba_scan"] != cfg.num_layers or \
+            sum(launches.values()) != cfg.num_layers:
+        raise AssertionError(f"prefill launched {launches}: expected one "
+                             f"mamba_scan per layer ({cfg.num_layers})")
+    first = lg.argmax(-1)
+
+    # 2. decode: step 128-token prompts into the state, then 64 greedy tokens
+    step = SS.make_decode_step_fullkv(cfg)
+    short = torch.from_numpy(rng.integers(0, V, (4, 128))).to(dev)
+    st = ssm_lm.init_decode_state(cfg, 4, dev)
+    conv, h = st.conv, st.h
+    logits, seq = [], [short]
+    t0 = time.perf_counter()
+    for i in range(short.shape[1]):
+        lgt, conv, h = step(params, {"tokens": short[:, i],
+                                     "conv_state": conv, "ssm_state": h})
+        logits.append(lgt)
+    torch.cuda.synchronize()
+    prompt_s = time.perf_counter() - t0
+    new = 64
+    t0 = time.perf_counter()
+    for _ in range(new):
+        tok = logits[-1].argmax(-1)
+        seq.append(tok[:, None])
+        lgt, conv, h = step(params, {"tokens": tok, "conv_state": conv,
+                                     "ssm_state": h})
+        logits.append(lgt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    dec = torch.stack(logits, 1)                          # [4, 192, V]
+    if not torch.isfinite(dec).all():
+        raise AssertionError("decode logits are not finite")
+
+    # where the time goes: one prefill and 8 decode steps under the profiler
+    def steps(n=8):
+        c, hh, tk = conv, h, logits[-1].argmax(-1)
+        for _ in range(n):
+            lgt, c, hh = step(params, {"tokens": tk, "conv_state": c,
+                                       "ssm_state": hh})
+            tk = lgt.argmax(-1)
+    prof_decode = profile_window(steps, top=8)
+    prof_prefill = profile_window(
+        lambda: prefill(params, {"tokens": prompts}), top=8)
+
+    # 3. the teacher-forced forward (K5 in every layer) at every position
+    tf, _ = ssm_lm.logits_fn(params, {"tokens": torch.cat(seq, 1)}, cfg)
+    tf_over = over_bar(dec, tf, SSM_TOL)
+    tf_diff = float((dec - tf).abs().max())
+    del dec, tf, logits
+
+    # 4. K5 against the plain scan, 4 layers of the same weights, step 1's
+    # prompts: last-token logits and greedy tokens
+    cfg4 = dc.replace(cfg, num_layers=4)
+    last = {}
+    for backend in ("kernel", "reference"):
+        hid = ssm_lm.hidden_fn(params, {"tokens": prompts}, cfg4,
+                               backend=backend)
+        last[backend] = E.unembed(params.embed_params, hid[:, -1], cfg4)
+    torch.cuda.synchronize()
+    p4_over = over_bar(last["kernel"], last["reference"], ATOL)
+    p4_tokens = torch.equal(last["kernel"].argmax(-1),
+                            last["reference"].argmax(-1))
+    rec = {"phase": "ssm", "model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "d_inner": 2 * cfg.d_model,
+           "init_s": init_s, "params_gb": params_gb,
+           "prefill": {"prompts": 4, "prompt_len": 1024,
+                       "seconds": prefill_s,
+                       "tok_s": 4 * 1024 / prefill_s,
+                       "first_tokens": first.tolist(),
+                       "launches": launches},
+           "decode": {"requests": 4, "prompt_len": short.shape[1],
+                      "new_tokens": new, "prompt_s": prompt_s,
+                      "decode_s": decode_s,
+                      "decode_tok_s": 4 * new / decode_s,
+                      "ms_per_step": 1e3 * decode_s / new},
+           "teacher_forced": {"positions": short.shape[1] + new,
+                              "max_abs_diff": tf_diff,
+                              "max_diff_over_bar": tf_over},
+           "profile_prefill": prof_prefill,
+           "profile_decode_8_steps": prof_decode,
+           "scan_parity_4_layers": {"max_abs_diff": float(
+               (last["kernel"] - last["reference"]).abs().max()),
+               "max_diff_over_bar": p4_over, "identical_tokens": p4_tokens},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t_all}
+    emit(rec)
+    failed = [n for n, ok in (("teacher-forced vs decode", tf_over <= 1),
+                              ("4-layer scan parity", p4_over <= 1),
+                              ("4-layer greedy tokens", p4_tokens)) if not ok]
+    if failed:
+        raise AssertionError(f"ssm phase failed: {failed}")
+    return rec
+
+
+def controller_phase(dev, mc, tk, n_tokens=2048) -> dict:
+    """``step_token`` over a K/V stream at r1-llama-8b's cache width; at
+    every tau boundary, every layer's attention through the wrapper held
+    against ``decode_attention_ref``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ct_cache as CC
+    from repro_torch.core import thinkv as TV
+    from repro_torch.kernels import ops
+    t_all = time.perf_counter()
+    L, H, D = mc.num_layers, mc.num_kv_heads, mc.head_dim
+    dims = CC.make_dims(tk, L, H, D)
+    cache = CC.init_cache(dims, dev)
+    view = CC.init_pool_view(dims, dims.NB, dev)
+    rng = np.random.default_rng(SEED)
+    run = 4          # keys in runs around separated centres (no medoid ties)
+    centres = rng.standard_normal((n_tokens // run, L, H, D),
+                                  dtype=np.float32) * 3
+    keys = torch.from_numpy(np.repeat(centres, run, axis=0) + rng.standard_normal(
+        (n_tokens, L, H, D), dtype=np.float32) * 0.3).to(dev)
+    values = torch.from_numpy(rng.standard_normal(
+        (n_tokens, L, H, D), dtype=np.float32)).to(dev)
+    # planted sparsity per tau window: R -> E -> T -> R
+    sparsity = torch.tensor([0.65, 0.30, 0.92, 0.65], device=dev)
+    tau = tk.refresh_interval
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ops.reset_launches()
+    checks, worst, worst_over, step_s = 0, 0.0, 0.0, 0.0
+    for i in range(n_tokens):
+        t0 = time.perf_counter()
+        TV.step_token(tk, dims, cache, view, keys[i], values[i],
+                      sparsity[(i // tau) % 4])
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t0
+        if (i + 1) % tau:
+            continue
+        checks += 1
+        q = torch.randn((mc.num_heads, D), generator=gen, device=dev)
+        for layer in range(L):
+            got = ops.thinkv_decode_attention(dims, cache, view, q, layer)
+            want = TV.decode_attention_ref(dims, cache, view, q, layer)
+            worst = max(worst, float((got - want).abs().max()))
+            worst_over = max(worst_over, over_bar(got, want, SCAN_TOL))
+    launches = ops.LAUNCHES["ct_paged_attention"]
+    comp = TV.compression_ratio(tk, dims, cache, n_tokens)
+    seg_types = cache.seg_type[:int(cache.cur_seg) + 1].tolist()
+    rec = {"phase": "controller", "layers": L, "kv_heads": H, "head_dim": D,
+           "tokens": n_tokens, "tau_checks": checks,
+           "wrapper_launches": launches, "max_abs_err": worst,
+           "max_err_over_bar": worst_over,
+           "step_token_s": step_s, "step_token_ms": 1e3 * step_s / n_tokens,
+           "footprint_frac": comp["footprint_frac"],
+           "avg_bits": float(comp["avg_bits"]),
+           "valid_tokens_per_layer": sorted(set(
+               comp["valid_tokens"].tolist())),
+           "segment_types": seg_types,
+           "seconds": time.perf_counter() - t_all}
+    emit(rec)
+    if launches != checks * L or worst_over > 1:
+        raise AssertionError(f"controller phase failed: {launches} wrapper "
+                             f"launches for {checks * L} reads, error "
+                             f"{worst_over} x the bar")
+    return rec
 
 
 def main() -> int:
@@ -453,8 +773,8 @@ def main() -> int:
         lg = np.stack(arr)
         if lg.shape != (max_new, mc.vocab_size) or not np.isfinite(lg).all():
             raise AssertionError(f"bad logits: shape {lg.shape}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in K1_K4:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the main "
                                  f"path")
     if launches["ct_paged_attention_fused"] != m["ticks"]:
@@ -492,12 +812,20 @@ def main() -> int:
         raise AssertionError(f"kernel and reference backends disagree: "
                              f"{rec['failed']}")
 
+    del params4
+    torch.cuda.empty_cache()                 # the ssm phase needs ~28 GB
+    ssm = ssm_phase(dev, rng)
+    torch.cuda.empty_cache()
+    ctl = controller_phase(dev, mc, tk)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    lines = []
-    for rec in recs.values():
-        rec["launches"] = launches[rec["name"]]
-        lines.append({k: rec[k] for k in keys})
+    for n in ("K1", "K2", "K3", "K4"):
+        recs[n]["launches"] = launches[recs[n]["name"]]
+    recs["K5"]["launches"] = ssm["prefill"]["launches"]["mamba_scan"]
+    recs["wrapper"]["launches"] = ctl["wrapper_launches"]
+    lines = [{k: recs[n][k] for k in keys}
+             for n in ("K1", "K2", "K3", "K4", "K5", "wrapper")]
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     emit({"kernels": lines})
     print(smi, flush=True)

@@ -2,19 +2,21 @@
 
 The port keeps its own copy of the dataclasses it needs, field for field,
 so that a configuration built here describes exactly the model and cache
-the JAX package builds from the same values: :class:`ModelConfig`,
-:class:`ThinKVConfig`, :class:`ServeConfig`, the enums, and
-:func:`reduced` (the CPU smoke-size variant).
+the JAX package builds from the same values: :class:`ModelConfig` (with
+its ``ssm`` field), :class:`SSMConfig`, :class:`ThinKVConfig`,
+:class:`ServeConfig`, the enums, and :func:`reduced` (the CPU smoke-size
+variant).
 """
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 class ArchFamily(str, enum.Enum):
-    """Model family; the port serves ``DENSE`` only (see ``ROADMAP.md``)."""
+    """Model family; the port serves ``DENSE`` (the ThinKV engine) and
+    ``SSM`` (``serving/serve_step.py``) so far (see ``ROADMAP.md``)."""
 
     DENSE = "dense"
     MOE = "moe"
@@ -29,6 +31,20 @@ class PositionEmbedding(str, enum.Enum):
     SINUSOIDAL = "sinusoidal"
     LEARNED = "learned"
     NONE = "none"
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """State-space mixer geometry (``repro/config/base.py:52-59``); the
+    ``head_dim``, ``ngroups`` and ``chunk_size`` fields are Mamba-2's."""
+
+    state_size: int = 16          # N
+    conv_width: int = 4
+    expand: int = 2               # d_inner = expand * d_model
+    dt_rank: int = 0              # 0 -> ceil(d_model / 16)
+    head_dim: int = 64
+    ngroups: int = 1
+    chunk_size: int = 128
 
 
 @dataclass(frozen=True)
@@ -52,6 +68,7 @@ class ModelConfig:
     sliding_window: int = 0
     act: str = "silu"
     mlp_gated: bool = True
+    ssm: Optional[SSMConfig] = None
     logit_softcap: float = 0.0
 
     def __post_init__(self):
@@ -110,7 +127,7 @@ class ServeConfig:
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests (the JAX package's
-    ``reduced`` for the dense family)."""
+    ``reduced`` for the dense and SSM families)."""
     kw: Dict[str, Any] = dict(
         num_layers=2,
         d_model=64,
@@ -121,5 +138,10 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab_size=256,
         name=cfg.name + "-smoke",
     )
+    if cfg.ssm is not None:
+        kw["ssm"] = replace(cfg.ssm, state_size=min(cfg.ssm.state_size, 16),
+                            head_dim=16, chunk_size=16)
+    if cfg.family == ArchFamily.SSM:
+        kw.update(num_heads=0, num_kv_heads=0, d_ff=0)
     kw.update(overrides)
     return replace(cfg, **kw)

@@ -12,10 +12,10 @@ from typing import Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ArchFamily, ModelConfig
 from repro_torch.core import ct_cache as CC
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import LAYER_PARAMS, LM
+from repro_torch.models import lm, ssm_lm
 
 _BIT_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
               "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
@@ -34,18 +34,24 @@ def tensor_from_numpy(a, device: Device = None) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
-                      device: Device = None) -> LM:
-    """The reference's parameter tree (numpy leaves) -> the port's LM."""
-    lm = LM(cfg, resolve_device(device))
+                      device: Device = None) -> Union[lm.LM, ssm_lm.SSMLM]:
+    """The reference's parameter tree (numpy leaves) -> the port's model:
+    ``LM`` for the dense family, ``SSMLM`` (tied embedding, no lm_head;
+    ``mixer`` and ``norm`` per layer) for the SSM family."""
+    dev = resolve_device(device)
     src = {"embedding": tree["embed"]["embedding"],
-           "lm_head": tree["embed"]["lm_head"],
            "final_norm": tree["final_norm"]["scale"]}
-    for name, (group, key) in LAYER_PARAMS.items():
+    if cfg.family == ArchFamily.SSM:
+        model, layer_params = ssm_lm.SSMLM(cfg, dev), ssm_lm.LAYER_PARAMS
+    else:
+        model, layer_params = lm.LM(cfg, dev), lm.LAYER_PARAMS
+        src["lm_head"] = tree["embed"]["lm_head"]
+    for name, (group, key) in layer_params.items():
         src[name] = tree["layers"][group][key]
     with torch.no_grad():
         for name, a in src.items():
-            getattr(lm, name).copy_(tensor_from_numpy(a, lm.embedding.device))
-    return lm
+            getattr(model, name).copy_(tensor_from_numpy(a, dev))
+    return model
 
 
 def cache_from_numpy(fields: Mapping, device: Device = None) -> CC.CTCache:

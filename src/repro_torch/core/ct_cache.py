@@ -1,5 +1,7 @@
-"""Continuous Thinking (CT) paged KV cache (ports ``repro/core/ct_cache.py``,
-the parts the unpressured serving path runs).
+"""Continuous Thinking (CT) paged KV cache (ports ``repro/core/ct_cache.py``:
+the parts the unpressured serving path runs, and the single-request API of
+the ThinKV controller ``core/thinkv.step_token``: ``append_token``,
+``commit_and_evict_if_full``, ``dequant_layer``, ``valid_counts``).
 
 Data model, as in the reference:
 
@@ -353,6 +355,35 @@ def refresh(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
 
 
 # ---------------------------------------------------------------------------
+# Single-request write side (the controller, ``core/thinkv.step_token``)
+# ---------------------------------------------------------------------------
+
+def commit_and_evict_if_full(cfg: ThinKVConfig, dims: CacheDims,
+                             cache: CTCache, view: PoolView,
+                             policy=None) -> Tuple[CTCache, PoolView]:
+    """When the buffer is full, commit it as a group and enforce the
+    per-layer budget (the reference's ``lax.cond`` is a host branch on
+    ``buf_len``).  Updates in place; returns (cache, view)."""
+    if int(cache.buf_len) >= dims.G:
+        commit_group(cfg, dims, cache, view, policy)
+        budget_evict(cfg, dims, cache, view, policy=policy)
+    return cache, view
+
+
+def append_token(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
+                 view: PoolView, k_t: torch.Tensor, v_t: torch.Tensor,
+                 policy=None) -> Tuple[CTCache, PoolView]:
+    """Append one token's [L, H, D] KV to the bf16 buffer; commit when full.
+    Updates in place; returns (cache, view)."""
+    i = int(cache.buf_len)
+    cache.buf_k[:, i] = k_t.to(torch.bfloat16)
+    cache.buf_v[:, i] = v_t.to(torch.bfloat16)
+    cache.buf_len.add_(1)
+    cache.num_tokens.add_(1)
+    return commit_and_evict_if_full(cfg, dims, cache, view, policy)
+
+
+# ---------------------------------------------------------------------------
 # Shared global block pool
 # ---------------------------------------------------------------------------
 
@@ -533,14 +564,35 @@ def engine_advance(cfg: ThinKVConfig, dims: CacheDims, pool: GlobalPool,
 
 
 # ---------------------------------------------------------------------------
-# Footprint accounting
+# Read side: dequantize, counts, footprint accounting
 # ---------------------------------------------------------------------------
 
+def dequant_layer(dims: CacheDims, cache: CTCache, view: PoolView,
+                  layer: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain read of one layer of a single request's paged view:
+    (k, v [NS, H, D] f32, valid [NS] bool)."""
+    k_codes, v_codes, k_scales, v_scales = view_flat(view)
+    bits = cache.slot_bits[layer].to(torch.int32)[:, None, None]
+    k = Q.dequantize_by_bitcode(k_codes[layer], k_scales[layer].float(),
+                                bits)
+    v = Q.dequantize_by_bitcode(v_codes[layer], v_scales[layer].float(),
+                                bits)
+    return k, v, cache.slot_state[layer] == VALID
+
+
+def valid_counts(cache: CTCache) -> torch.Tensor:
+    """VALID slots per layer, [L] int64 (the reference's is int32)."""
+    return (cache.slot_state == VALID).sum(-1)
+
+
 def memory_stats(dims: CacheDims, cache: CTCache) -> dict:
-    """Physical footprint and pressure of one request's cache."""
+    """Physical footprint and pressure of one request's cache (the
+    reference's signature has an unused ``cfg`` first; the port drops
+    it)."""
     used_blocks = (cache.block_type >= 0).sum(-1)
     valid = cache.slot_state == VALID
-    n_valid = valid.sum(-1)
+    n_valid = valid_counts(cache)
     eff_bits = torch.where(valid, cache.slot_bits.float(), 0.0)
     avg_bits = eff_bits.sum() / valid.float().sum().clamp_min(1.0)
     bytes_per_slot = (2 * dims.H * dims.D // (2 if dims.nibble else 1)
@@ -559,15 +611,3 @@ def metadata_bytes(dims: CacheDims) -> int:
 
 def buffer_bytes(dims: CacheDims) -> int:
     return dims.L * 2 * 2 * dims.G * dims.H * dims.D
-
-
-def compression_ratio(dims: CacheDims, cache: CTCache,
-                      full_tokens: int) -> dict:
-    """ThinKV footprint vs an uncompressed bf16 cache of ``full_tokens``
-    (ports ``repro/core/thinkv.compression_ratio``)."""
-    stats = memory_stats(dims, cache)
-    full_bytes = full_tokens * 2 * 2 * dims.H * dims.D * dims.L
-    phys = float(stats["physical_bytes"].sum())
-    ratio = (phys + metadata_bytes(dims) + buffer_bytes(dims)) / \
-        max(full_bytes, 1)
-    return {**stats, "footprint_frac": ratio, "full_bytes": full_bytes}

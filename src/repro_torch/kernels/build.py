@@ -35,6 +35,7 @@ SIGNATURES = {
         "ct_paged_attention", [P] * 11 + [I] * 8 + [F, P]),
     "flash_prefill_stats": ("flash_prefill", [P] * 6 + [I] * 7 + [F, P]),
     "group_quant": ("group_quant", [P] * 3 + [I] * 4 + [P]),
+    "mamba_scan": ("mamba_scan", [P] * 6 + [I] * 4 + [P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

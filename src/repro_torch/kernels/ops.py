@@ -11,8 +11,15 @@ Kernels (TPU kernel each replaces in brackets):
 
 * ``paged_decode_attention_fused``   K1 [ct_paged_attention_fused]
 * ``paged_decode_attention_batched`` K2 [ct_paged_attention_batched]
+* ``paged_decode_attention``         K2 through the single-request wrapper
+                                     [ct_paged_attention]
 * ``prefill_attention_stats``        K3 [flash_prefill(return_stats=True)]
+* ``prefill_attention``              K3, stats discarded [flash_prefill]
 * ``tbq_group_quant``                K4 [group_quant]
+* ``mamba_scan``                     K5 [mamba_scan]
+
+``buffer_attention`` and ``thinkv_decode_attention`` are the reference's
+plain-array helpers of the single-request controller around the wrapper.
 """
 from __future__ import annotations
 
@@ -21,11 +28,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import quantization as Q
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as R
 
 LAUNCHES = {"ct_paged_attention_fused": 0, "ct_paged_attention_batched": 0,
-            "flash_prefill": 0, "group_quant": 0}
+            "ct_paged_attention": 0, "flash_prefill": 0, "group_quant": 0,
+            "mamba_scan": 0}
 
 
 def reset_launches() -> None:
@@ -122,6 +131,49 @@ def paged_decode_attention_batched(qh, k_codes, v_codes, k_scales, v_scales,
     [R, NB, BS] uint8; block_table [R, NB] int32 raw.  Returns
     (out [R, H, GQ, D], m [R, H, GQ, 1], l [R, H, GQ, 1]) f32.
     """
+    return _batched("ct_paged_attention_batched", qh, k_codes, v_codes,
+                    k_scales, v_scales, slot_state, slot_bits, block_table,
+                    group)
+
+
+def paged_decode_attention(q, k_codes, v_codes, k_scales, v_scales,
+                           slot_state, slot_bits, block_table, *,
+                           group: int = 16):
+    """Single-request paged attention (the wrapper ``ct_paged_attention``):
+    the PHYSICAL ``[NP, BS]`` metadata is gathered through the raw table
+    ``[NB]`` (``ref.logical_metadata``: an unmapped -1 entry reads block 0
+    with its state masked to FREE), then one K2 launch with R = 1, counted
+    as
+    ``LAUNCHES["ct_paged_attention"]``.
+
+    q [Hq, D] f32; planes [NP, BS, H, ...]; slot_state/slot_bits [NP, BS]
+    uint8; block_table [NB] int32.  Returns (out [Hq, D], m [H, GQ, 1],
+    l [H, GQ, 1]) f32.
+    """
+    _on_cpu(q, k_codes, v_codes, k_scales, v_scales, slot_state, slot_bits,
+            block_table)
+    hq, d = q.shape
+    np_, bs, h = k_codes.shape[:3]
+    if hq % h:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {h}")
+    _check("q", q, torch.float32)
+    for n, t in (("slot_state", slot_state), ("slot_bits", slot_bits)):
+        _check(n, t, torch.uint8, (np_, bs))
+    _check("block_table", block_table, torch.int32)
+    if block_table.dim() != 1:
+        raise ValueError(f"block_table: expected [NB], got "
+                         f"{tuple(block_table.shape)}")
+    state, bits = R.logical_metadata(slot_state, slot_bits, block_table)
+    out, m, l = _batched("ct_paged_attention",
+                         q.reshape(1, h, hq // h, d), k_codes, v_codes,
+                         k_scales, v_scales, state[None], bits[None],
+                         block_table[None], group)
+    return out[0].reshape(hq, d), m[0], l[0]
+
+
+def _batched(name, qh, k_codes, v_codes, k_scales, v_scales, slot_state,
+             slot_bits, block_table, group):
+    """K2's checks and launch, counted under ``name``."""
     args = (qh, k_codes, v_codes, k_scales, v_scales, slot_state, slot_bits,
             block_table)
     on_cpu = _on_cpu(*args)
@@ -142,10 +194,46 @@ def paged_decode_attention_batched(qh, k_codes, v_codes, k_scales, v_scales,
     out = torch.empty_like(qh)
     m = torch.empty((r, h, gq, 1), dtype=torch.float32, device=qh.device)
     l = torch.empty_like(m)
-    _launch("ct_paged_attention_batched", "ct_paged_attention_batched",
-            *map(_ptr, args), _ptr(out), _ptr(m), _ptr(l), r, h, gq, d, np_,
-            bs, nb, group, 1.0 / math.sqrt(d))
+    _launch(name, "ct_paged_attention_batched", *map(_ptr, args), _ptr(out),
+            _ptr(m), _ptr(l), r, h, gq, d, np_, bs, nb, group,
+            1.0 / math.sqrt(d))
     return out, m, l
+
+
+def buffer_attention(q, buf_k, buf_v, buf_len):
+    """Flash stats over one request's full-precision TBQ buffer (plain
+    torch, as in the reference).  q [Hq, D]; buf_k/buf_v [G, H, D];
+    buf_len [] int.  Returns (out [Hq, D], m [H, GQ, 1], l [H, GQ, 1])."""
+    hq, d = q.shape
+    h = buf_k.shape[1]
+    out, m, l = R.buffer_attention_batched_ref(
+        q.reshape(1, h, hq // h, d), buf_k[None], buf_v[None],
+        buf_len.reshape(1))
+    return out[0].reshape(hq, d), m[0], l[0]
+
+
+def thinkv_decode_attention(dims, cache, view, q: torch.Tensor,
+                            layer: int) -> torch.Tensor:
+    """One layer's ThinKV decode attention for a single request: its paged
+    pool through :func:`paged_decode_attention` (the request's view is its
+    physical pool, so the table is the identity) merged with the fp buffer.
+
+    ``dims``/``cache``/``view`` are ``core.ct_cache``'s CacheDims, CTCache
+    and PoolView; q [Hq, D] f32.  Returns out [Hq, D] f32.
+    """
+    hq, d = q.shape
+    table = torch.arange(dims.NB, dtype=torch.int32, device=q.device)
+    shp = (dims.NB, dims.BS)
+    out_p, m_p, l_p = paged_decode_attention(
+        q, view.k_codes[layer], view.v_codes[layer], view.k_scales[layer],
+        view.v_scales[layer], cache.slot_state[layer].reshape(shp),
+        cache.slot_bits[layer].reshape(shp), table, group=Q.GROUP)
+    out_b, m_b, l_b = buffer_attention(q, cache.buf_k[layer],
+                                       cache.buf_v[layer], cache.buf_len)
+    h = m_p.shape[0]
+    merged = R.merge_flash_ref(out_p.reshape(h, -1, d), m_p, l_p,
+                               out_b.reshape(h, -1, d), m_b, l_b)
+    return merged.reshape(hq, d)
 
 
 def prefill_attention_stats(q, k, v, *, causal: bool = True, window: int = 0,
@@ -177,6 +265,42 @@ def prefill_attention_stats(q, k, v, *, causal: bool = True, window: int = 0,
             int(causal), int(window),
             s_len if n_valid is None else int(n_valid), 1.0 / math.sqrt(d))
     return out, m, l
+
+
+def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Blocked causal attention for prefill (``flash_prefill`` without
+    stats): K3, whose flash stats are discarded.  q [S, Hq, D], k/v
+    [S, H, D] f32 -> out [S, Hq, D]."""
+    return prefill_attention_stats(q, k, v, causal=causal, window=window)[0]
+
+
+def mamba_scan(x, dt, b, c, a):
+    """Mamba-1 selective scan from ``h_0 = 0`` (K5).
+
+    x, dt [S, di] or [B, S, di]; b, c [S, N] or [B, S, N]; a [di, N]
+    (negative); all f32, N <= 16.  Returns y shaped like x, f32.  A
+    leading batch axis makes one launch for every row.
+    """
+    on_cpu = _on_cpu(x, dt, b, c, a)
+    if x.dim() not in (2, 3):
+        raise ValueError(f"x: expected [S, di] or [B, S, di], got "
+                         f"{tuple(x.shape)}")
+    *lead, s_len, di = x.shape
+    n = a.shape[-1]
+    if not 1 <= n <= 16:
+        raise ValueError(f"mamba_scan takes a state size of 1 to 16 "
+                         f"(got N={n})")
+    _check("x", x, torch.float32)
+    _check("dt", dt, torch.float32, x.shape)
+    _check("b", b, torch.float32, (*lead, s_len, n))
+    _check("c", c, torch.float32, (*lead, s_len, n))
+    _check("a", a, torch.float32, (di, n))
+    if on_cpu:
+        return R.mamba_scan_ref(x, dt, b, c, a)
+    y = torch.empty_like(x)
+    _launch("mamba_scan", "mamba_scan", _ptr(x), _ptr(dt), _ptr(b), _ptr(c),
+            _ptr(a), _ptr(y), lead[0] if lead else 1, s_len, di, n)
+    return y
 
 
 def tbq_group_quant(x: torch.Tensor, bits: int, group: int = 16):

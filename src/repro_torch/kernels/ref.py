@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of every kernel on the serving path.
+"""Plain PyTorch versions of every kernel of the port (K1-K5 and the
+single-request ``ct_paged_attention`` wrapper).
 
 Ports ``repro/kernels/ref.py``.  Each function has its kernel's exact
 interface, so ``ops`` can take it for a CPU tensor, the CPU tests can hold
 it against the JAX oracles, and ``chip_smoke.py`` can hold each CUDA
 kernel against it on the card.  Batch axes the reference ``vmap``s over
-are written out.
+are written out (``mamba_scan_ref`` also takes an optional leading batch
+axis, which K5 does).
 """
 from __future__ import annotations
 
@@ -54,6 +56,35 @@ def ct_paged_attention_batched_ref(qh, k_codes, v_codes, k_scales, v_scales,
     s = torch.einsum("rhgd,rnhd->rhgn", qh.float(), k) / math.sqrt(d)
     p, m, l = _masked_softmax_stats(s, valid)
     return torch.einsum("rhgn,rnhd->rhgd", p, v), m, l
+
+
+def logical_metadata(slot_state, slot_bits, block_table):
+    """PHYSICAL ``[NP, BS]`` slot_state/slot_bits -> the request's logical
+    ``[NB, BS]`` view through its raw table ``[NB]``.  An unmapped (-1)
+    entry gathers physical block 0 with its state masked to FREE, so -1
+    means "no tokens here" whatever block 0 holds."""
+    safe = block_table.clamp_min(0).long()
+    state = torch.where((block_table >= 0)[:, None], slot_state[safe], 0)
+    return state.to(slot_state.dtype), slot_bits[safe]
+
+
+def ct_paged_attention_ref(q, k_codes, v_codes, k_scales, v_scales,
+                           slot_state, slot_bits, block_table, *,
+                           group: int = 16):
+    """Single-request paged attention (the reference's
+    ``ct_paged_attention_ref``): physical metadata through
+    :func:`logical_metadata`, then the batched version with R = 1.
+
+    q [Hq, D]; planes [NP, BS, H, ...]; slot_state/slot_bits [NP, BS];
+    block_table [NB] raw.  Returns (out [Hq, D], m, l [H, GQ, 1]).
+    """
+    hq, d = q.shape
+    h = k_codes.shape[2]
+    state, bits = logical_metadata(slot_state, slot_bits, block_table)
+    out, m, l = ct_paged_attention_batched_ref(
+        q.reshape(1, h, hq // h, d), k_codes, v_codes, k_scales, v_scales,
+        state[None], bits[None], block_table[None], group=group)
+    return out[0].reshape(hq, d), m[0], l[0]
 
 
 def buffer_attention_batched_ref(qh, buf_k, buf_v, buf_len):
@@ -139,3 +170,22 @@ def flash_prefill_stats_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 def flash_prefill_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return flash_prefill_stats_ref(q, k, v, causal=causal, window=window)[0]
+
+
+def mamba_scan_ref(x, dt, b, c, a) -> torch.Tensor:
+    """Mamba-1 selective scan, sequential over time from ``h_0 = 0``:
+    ``h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t``, ``y_t = h_t . C_t``.
+
+    x, dt [..., S, di]; b, c [..., S, N]; a [di, N] (negative).  Leading
+    batch axes are optional (the reference's is unbatched).  Returns
+    y [..., S, di] f32.
+    """
+    x, dt, b, c, a = (t.float() for t in (x, dt, b, c, a))
+    h = x.new_zeros(x.shape[:-2] + a.shape)
+    ys = []
+    for t in range(x.shape[-2]):
+        dt_t = dt[..., t, :, None]
+        h = torch.exp(dt_t * a) * h + (dt_t * x[..., t, :, None]) * \
+            b[..., t, None, :]
+        ys.append((h * c[..., t, None, :]).sum(-1))
+    return torch.stack(ys, dim=-2)

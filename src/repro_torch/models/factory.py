@@ -1,0 +1,51 @@
+"""Model factory (ports ``repro/models/factory.py``: ``Model`` and
+``build_model``) for the families the port has: DENSE (``models/lm.py``)
+and SSM (``models/ssm_lm.py``).  MoE, VLM, encoder-decoder and hybrid
+raise NotImplementedError (ROADMAP queue 1 item 15).
+
+``input_specs`` is not ported: it builds ``jax.ShapeDtypeStruct`` stand-ins
+for the XLA dry-run's lowering, which has no PyTorch meaning.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Union
+
+import torch
+
+from repro_torch.config import ArchFamily, ModelConfig
+from repro_torch.models import lm, ssm_lm
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    raise NotImplementedError("training losses are not ported yet (ROADMAP "
+                              "queue 1 item 16)")
+
+
+_FAMILY_MODULES = {ArchFamily.DENSE: lm, ArchFamily.SSM: ssm_lm}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable
+    logits: Callable
+    loss: Callable
+    module: object
+
+    def init_params(self, seed: int = 0,
+                    device: Optional[Union[str, torch.device]] = None,
+                    dtype: torch.dtype = torch.float32):
+        """Random weights from ``seed`` on ``device`` (the card by
+        default)."""
+        return self.init(self.cfg, seed, device, dtype)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family not in _FAMILY_MODULES:
+        raise NotImplementedError(
+            f"the {cfg.family.value} family is not ported yet (ROADMAP queue "
+            f"1 item 15)")
+    mod = _FAMILY_MODULES[cfg.family]
+    return Model(cfg=cfg, init=mod.init_params, logits=mod.logits_fn,
+                 loss=loss_fn, module=mod)

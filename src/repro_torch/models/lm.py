@@ -8,7 +8,7 @@ layer's parameters as the nested dict the layer functions take.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -101,6 +101,14 @@ class LM(nn.Module):
         h = rmsnorm({"scale": self.final_norm}, h, cfg.norm_eps)
         return softcap(E.unembed(self.embed_params, h, cfg),
                        cfg.logit_softcap)
+
+
+def logits_fn(params: LM, batch: dict, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced logits [B, S, V] of ``batch["tokens"]`` and the
+    auxiliary loss (0: no MoE), the reference's ``logits_fn`` interface."""
+    logits = params(batch["tokens"])
+    return logits, logits.new_zeros(())
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,

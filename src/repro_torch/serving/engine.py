@@ -44,6 +44,7 @@ import torch
 from repro_torch.config import ArchFamily, ServeConfig
 from repro_torch.core import ct_cache as CC
 from repro_torch.core import quantization as Q
+from repro_torch.core import thinkv as TV
 from repro_torch.core.policy import get_policy
 from repro_torch.core.thoughts import row_sparsity
 from repro_torch.device import resolve_device, set_f32_numerics
@@ -138,6 +139,10 @@ class ThinKVEngine:
                  ticks_per_dispatch: int = 1, allow_forks: bool = False,
                  mesh=None, policy=None, drift_probe: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
+        if cfg.model.family == ArchFamily.SSM:
+            raise ValueError(
+                f"{cfg.model.name} is attention-free: it has no KV cache for "
+                f"ThinKV to compress; serve it through serving/serve_step.py")
         if cfg.model.family != ArchFamily.DENSE:
             _not_ported(f"the {cfg.model.family.value} family", "15")
         if prefix_cache:
@@ -585,7 +590,7 @@ class ThinKVEngine:
         return CC.check_pool_invariants(self.pool, self.tables)
 
     def slot_stats(self, i: int) -> Dict:
-        comp = CC.compression_ratio(self.dims, self.caches.slot(i),
+        comp = TV.compression_ratio(self.tk, self.dims, self.caches.slot(i),
                                     int(self._slot_ntok[i]))
         return {k: (v.tolist() if torch.is_tensor(v) else v)
                 for k, v in comp.items()}

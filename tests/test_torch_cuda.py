@@ -7,7 +7,9 @@ reason.  On a machine with a card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Attention kernels agree with the plain versions to 1e-4 (f32 on both
-sides, another summation order); the quantizer is bit-exact."""
+sides, another summation order); the quantizer is bit-exact; the selective
+scan agrees to rtol = atol = 3e-4 (the JAX package's bar between its scan
+kernel and its oracle)."""
 import dataclasses
 
 import numpy as np
@@ -19,6 +21,7 @@ from repro_torch.config import ServeConfig, ThinKVConfig  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
+from repro_torch.models import ssm_lm  # noqa: E402
 from repro_torch.models.lm import init_params  # noqa: E402
 from repro_torch.serving.engine import ThinKVEngine  # noqa: E402
 
@@ -156,7 +159,10 @@ def test_engine_backends_agree_on_the_card(card):
         runs[backend] = (eng, {r.arrival: r.output for r in done},
                          dict(ops.LAUNCHES))
     (ek, tk_, lk), (er, tr, lr) = runs["kernel"], runs["reference"]
-    assert all(n > 0 for n in lk.values()), lk
+    engine_kernels = ("ct_paged_attention_fused", "ct_paged_attention_batched",
+                      "flash_prefill", "group_quant")
+    assert all(lk[k] > 0 for k in engine_kernels), lk
+    assert lk["mamba_scan"] == lk["ct_paged_attention"] == 0, lk
     assert lk["ct_paged_attention_fused"] == ek.metrics["ticks"]
     assert lr["ct_paged_attention_fused"] == 0
     assert tk_ == tr
@@ -165,3 +171,73 @@ def test_engine_backends_agree_on_the_card(card):
                                    np.stack(er.request_logits[a]),
                                    rtol=0, atol=1e-3)
     assert ek.audit_pool() == er.audit_pool()
+
+
+@pytest.mark.parametrize("lead,S,di,N", [
+    ((), 64, 128, 16), ((3,), 100, 200, 16), ((2,), 1, 1, 16),
+    ((), 37, 130, 8), ((4,), 300, 256, 16)])
+def test_mamba_scan(card, lead, S, di, N):
+    """K5, ragged S (not a multiple of the 16-step chunk) and di (not a
+    multiple of the 128-channel block) included."""
+    gen = torch.Generator().manual_seed(S + di)
+    x = torch.randn(lead + (S, di), generator=gen)
+    dt = 0.01 + 0.1 * torch.rand(lead + (S, di), generator=gen)
+    b = torch.randn(lead + (S, N), generator=gen)
+    c = torch.randn(lead + (S, N), generator=gen)
+    a = -torch.exp(torch.randn((di, N), generator=gen))
+    n = ops.LAUNCHES["mamba_scan"]
+    got = ops.mamba_scan(*on(card, (x, dt, b, c, a)))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_scan"] == n + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), R.mamba_scan_ref(x, dt, b, c, a),
+                               rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("GQ,D", [(1, 32), (4, 128), (4, 64)])
+def test_single_request_wrapper(card, GQ, D):
+    """The ``ct_paged_attention`` wrapper: physical metadata gathered
+    through a shuffled raw table with -1 entries, one K2 launch."""
+    gen = torch.Generator().manual_seed(GQ * D)
+    c = pool_case(gen, L=1, R_=1, H=2, GQ=GQ, D=D, BS=16, NB=6)
+    NP = c["k_codes"].shape[1]
+    state = torch.randint(0, 3, (NP, 16), generator=gen).to(torch.uint8)
+    bits = c["slot_bits"][0, 0][torch.randint(0, 6, (NP,), generator=gen)]
+    table = c["block_table"][0, 0].clone()
+    table[1] = -1
+    state[table.clamp_min(0).long()[1]] = 1
+    args = [c["qh"][0, 0].reshape(2 * GQ, D), c["k_codes"][0],
+            c["v_codes"][0], c["k_scales"][0], c["v_scales"][0], state,
+            bits.contiguous(), table]
+    before = dict(ops.LAUNCHES)
+    got = ops.paged_decode_attention(*on(card, args))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ct_paged_attention"] == \
+        before["ct_paged_attention"] + 1
+    assert ops.LAUNCHES["ct_paged_attention_batched"] == \
+        before["ct_paged_attention_batched"]
+    assert_close(got, R.ct_paged_attention_ref(*args))
+
+
+def test_prefill_attention_without_stats(card):
+    gen = torch.Generator().manual_seed(7)
+    q = torch.randn((128, 8, 128), generator=gen)
+    k = torch.randn((128, 2, 128), generator=gen)
+    v = torch.randn((128, 2, 128), generator=gen)
+    got = ops.prefill_attention(*on(card, (q, k, v)), window=40)
+    torch.cuda.synchronize()
+    assert_close(got, R.flash_prefill_ref(q, k, v, window=40))
+
+
+def test_ssm_backends_agree_on_the_card(card):
+    """The smoke falcon-mamba through K5 and through the plain scan, on the
+    card: teacher-forced logits within the engine backends' bar."""
+    cfg = get_smoke_config("falcon-mamba-7b")
+    m = ssm_lm.init_params(cfg, 0, card)
+    toks = torch.randint(0, cfg.vocab_size, (3, 50),
+                         generator=torch.Generator().manual_seed(0)).to(card)
+    n = ops.LAUNCHES["mamba_scan"]
+    lk, _ = ssm_lm.logits_fn(m, {"tokens": toks}, cfg, backend="kernel")
+    lr, _ = ssm_lm.logits_fn(m, {"tokens": toks}, cfg, backend="reference")
+    assert ops.LAUNCHES["mamba_scan"] == n + cfg.num_layers
+    torch.testing.assert_close(lk, lr, rtol=1e-3, atol=1e-3)

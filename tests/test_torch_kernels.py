@@ -157,3 +157,20 @@ def test_flash_prefill_n_valid_matches_kv_valid_oracle(s, n_valid):
                                          n_valid=n_valid)
     for t, j in zip(outs_t, outs_j):
         close(t, j)
+
+
+@pytest.mark.parametrize("window", (0, 40))
+def test_prefill_attention_plain_matches_pallas(window):
+    """K3 without stats (``ops.prefill_attention``, the plain variant's
+    entry): S = 128 with and without a sliding window."""
+    rng = np.random.default_rng(18 + window)
+    q = rng.standard_normal((128, 4, 32)).astype(np.float32)
+    k = rng.standard_normal((128, 2, 32)).astype(np.float32)
+    v = rng.standard_normal((128, 2, 32)).astype(np.float32)
+    out_j = flash_prefill(*map(jnp.asarray, (q, k, v)), window=window,
+                          block_q=64, block_k=64, interpret=True)
+    launches = dict(ops.LAUNCHES)
+    out_t = ops.prefill_attention(*map(torch.from_numpy, (q, k, v)),
+                                  window=window)
+    assert ops.LAUNCHES == launches
+    close(out_t, out_j)
