@@ -2,6 +2,10 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # every phase, one CUDA card
+    python3 chip_smoke.py --ab DIR   # DIR/src (a parent checkout) against
+                                     # this tree: kernels, serve and
+                                     # prefill_profile, in the order
+                                     # parent, this, this, parent
 
 Phases, each printing one JSON line and raising (non-zero exit) on any
 failure:
@@ -13,16 +17,22 @@ failure:
                 against their plain PyTorch versions on the card at the
                 main paths' full-width shapes (<= 1e-3 abs for attention,
                 bit-exact for the quantizer, rtol = atol = 3e-4 for the
-                selective scan), with their times, the plain version's time,
-                the bound (the larger of bytes / 3.35 TB/s and operations /
-                the card's peak for their type) and, for K3, SDPA's time as
-                a yardstick; K3 also without its stats (``prefill_attention``);
+                selective scan), with their device time (``device_ms``) and
+                eager time, the plain version's time, the bound (the larger
+                of bytes / 3.35 TB/s and operations / the peak of the units
+                that run them, named in ``bound_peak``) and, for K3, SDPA's
+                time as a yardstick; K3 also without its stats
+                (``prefill_attention``);
 4. serve      — the port's engine on the full r1-llama-8b config (32 layers,
                 random weights from a seed), kernel backend, 4 requests of
                 1100-token prompts and 64 new tokens; launch counts are
                 zeroed just before and read just after, and K1-K4 must have
-                run (K1 once per tick);
-5. profile    — 12 decode ticks of the same traffic under torch.profiler:
+                run (K1 once per tick, K2 and K3 once per prefill chunk and
+                layer: big chunks at GQ 512 / S 128, g-chunks at GQ 64 /
+                S 16);
+5. prefill_profile — one prompt's prefill under torch.profiler: K2's and
+                K3's device time, the device's busy share, host spans;
+   profile    — 12 decode ticks of the same traffic under torch.profiler:
                 device time by kernel, the device's busy share, host spans;
 6. parity     — a 4-layer full-width model through the kernel and the
                 reference backends where their results must agree (see
@@ -45,10 +55,10 @@ failure:
                 against ``decode_attention_ref`` (3e-4 + 3e-4 |r|).
 
 Then the kernels line (each kernel's launches on its own path: K1-K4 from
-the serve phase, K5 from the ssm phase's prefill, the wrapper from the
-controller phase), the card's name and power limit as nvidia-smi gives
-them, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
-About 2.5 minutes on one H100 80GB HBM3.
+the serve phase, K2 and K3 also by shape, K5 from the ssm phase's
+prefill, the wrapper from the controller phase), the card's name and power
+limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.  3.5 to 4.5 minutes on one H100 80GB HBM3.
 """
 from __future__ import annotations
 
@@ -60,10 +70,16 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(HERE, "src"))
+# --src DIR imports the port from another tree (the A/B run's parent)
+SRC = os.path.abspath(sys.argv[sys.argv.index("--src") + 1]) \
+    if "--src" in sys.argv else os.path.join(HERE, "src")
+sys.path.insert(0, SRC)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_FLOPS = 67e12               # H100 SXM fp32, CUDA cores (no tensor cores)
+F64_TC_FLOPS = 67e12            # H100 SXM fp64 tensor cores (K2, K3 products)
+PEAKS = {"f32": (F32_FLOPS, "fp32 CUDA cores 67 TFLOP/s"),
+         "f64tc": (F64_TC_FLOPS, "fp64 tensor cores 67 TFLOP/s")}
 SFU_PER_SM_CLOCK = 16           # special-function unit results (ex2) per SM
 ATOL = 1e-3
 SCAN_TOL = 3e-4                 # the JAX package's bar, scan kernel vs oracle
@@ -84,7 +100,35 @@ def nvidia_smi(fields: str = "name,power.limit") -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def device_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured in a CUDA graph,
+    the graph replayed ``reps`` times between CUDA events.  The replay
+    launches the same kernels with no host work between them, so a launch
+    shorter than its host dispatch is timed too (``time_ms`` times the
+    dispatch then)."""
+    import torch
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Eager time of one ``fn()`` (host dispatch included): CUDA events
+    around ``iters`` calls."""
     import torch
     for _ in range(warmup):
         fn()
@@ -103,12 +147,16 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(bytes_: float, flops: float, sfu_s: float = 0.0):
-    """(ms, what bounds it): bytes over HBM, f32 flops over the CUDA-core
-    peak, and ``sfu_s`` seconds of special-function work."""
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, max(flops / F32_FLOPS, sfu_s)
+def bound(bytes_: float, flops: float, sfu_s: float = 0.0,
+          peak: str = "f32"):
+    """(ms, what bounds it, the peak used): bytes over HBM, flops over the
+    peak of the units the kernel runs them on (``PEAKS``), and ``sfu_s``
+    seconds of special-function work."""
+    rate, name = PEAKS[peak]
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, max(flops / rate, sfu_s)
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations",
+            f"HBM 3.35 TB/s; {name}")
 
 
 def over_bar(got, want, tol: float) -> float:
@@ -181,9 +229,29 @@ def pool_case(gen, dev, L, R, H, D, BS, NB, NP, G=16, GQ=4):
                               dtype=torch.int32))
 
 
+def kernel_record(name, source, replaces, shape, err, fn, plain, bound_,
+                  library=None, plain_iters=5, **extra):
+    """One kernel's record: device and eager times of ``fn``, the plain
+    version's eager time, the bound (ms, by, peak) and its share."""
+    ms = device_ms(fn)
+    b_ms, b_by, b_peak = bound_
+    rec = dict(name=name, route="cuda",
+               source=f"src/repro_torch/kernels/csrc/{source}",
+               replaces=f"src/repro/kernels/{replaces}", shape=shape,
+               max_abs_err=err, ms=ms, eager_ms=time_ms(fn, 20),
+               plain_ms=time_ms(plain, plain_iters, 1), bound_ms=b_ms,
+               bound_by=b_by, bound_peak=b_peak, bound_share=b_ms / ms,
+               library_ms=None if library is None else device_ms(library),
+               **extra)
+    emit({"phase": "kernel", **rec})
+    return rec
+
+
 def check_kernels(dev, mc, tk):
-    """K1-K4 vs their plain versions at full width; returns per-kernel
-    records (timings from this run)."""
+    """K1-K4 and the wrapper vs their plain versions at full width; returns
+    per-kernel records keyed K1, K2 (GQ 512), K2_64, K2_4, K3 (S 128),
+    K3_16, K4, wrapper, K5 (timings from this run).  ``ms`` is device time
+    (``device_ms``), ``eager_ms`` the same calls dispatched one by one."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -192,6 +260,7 @@ def check_kernels(dev, mc, tk):
     NB = int(tk.token_budget * 2) // BS
     NP = R * NB
     recs = {}
+    paged = ("ct_paged_attention.cu", "ct_paged_attention.py")
 
     # K1: a whole decode tick's attention
     c = pool_case(gen, dev, L, R, H, D, BS, NB, NP, G, gq)
@@ -203,26 +272,19 @@ def check_kernels(dev, mc, tk):
     pool_b, n_slots = pool_need(c["slot_state"], c["block_table"], per_block)
     n_buf = L * int(c["buf_len"].sum())
     flops = 4 * H * gq * D * (n_slots + n_buf)
-    b_ms, b_by = bound(
-        pool_b + nbytes(c["qh"], c["slot_state"], c["slot_bits"],
-                        c["block_table"], c["buf_len"], out)
-        + 2 * n_buf * H * D * 2, flops)
-    recs["K1"] = dict(
-        name="ct_paged_attention_fused", route="cuda",
-        source="src/repro_torch/kernels/csrc/ct_paged_attention.cu",
-        replaces="src/repro/kernels/ct_paged_attention.py:204",
-        shape=f"L={L} R={R} H={H} GQ={gq} D={D} BS={BS} NB={NB}",
-        max_abs_err=err,
-        ms=time_ms(lambda: ops.paged_decode_attention_fused(*args), 20),
-        plain_ms=time_ms(lambda: ref.ct_paged_attention_fused_ref(*args), 3,
-                         1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    emit({"phase": "kernel", **recs["K1"]})
+    recs["K1"] = kernel_record(
+        "ct_paged_attention_fused", paged[0], f"{paged[1]}:204",
+        f"L={L} R={R} H={H} GQ={gq} D={D} BS={BS} NB={NB}", err,
+        lambda: ops.paged_decode_attention_fused(*args),
+        lambda: ref.ct_paged_attention_fused_ref(*args),
+        bound(pool_b + nbytes(c["qh"], c["slot_state"], c["slot_bits"],
+                              c["block_table"], c["buf_len"], out)
+              + 2 * n_buf * H * D * 2, flops), plain_iters=3)
 
     # K2: frozen-pool partition of prefill chunks (queries folded into GQ)
     layer = {k: c[k][0] for k in ("k_codes", "v_codes", "k_scales",
                                   "v_scales")}
-    for GQ in (gq, 16 * gq, 128 * gq):
+    for GQ, key in ((gq, "K2_4"), (16 * gq, "K2_64"), (128 * gq, "K2")):
         qh = torch.randn((1, H, GQ, D), generator=gen, device=dev)
         args = (qh, layer["k_codes"], layer["v_codes"], layer["k_scales"],
                 layer["v_scales"], c["slot_state"][0, :1].contiguous(),
@@ -233,25 +295,17 @@ def check_kernels(dev, mc, tk):
         err = max_err(outs, ref.ct_paged_attention_batched_ref(*args))
         pool_b, n_slots = pool_need(args[5][None], args[7][:, None],
                                     per_block)
-        b_ms, b_by = bound(pool_b + nbytes(qh, *args[5:], *outs),
-                           4 * H * GQ * D * n_slots)
-        rec = dict(
-            name="ct_paged_attention_batched", route="cuda",
-            source="src/repro_torch/kernels/csrc/ct_paged_attention.cu",
-            replaces="src/repro/kernels/ct_paged_attention.py:285",
-            shape=f"R=1 H={H} GQ={GQ} D={D} BS={BS} NB={NB}",
-            max_abs_err=err,
-            ms=time_ms(lambda: ops.paged_decode_attention_batched(*args), 20),
-            plain_ms=time_ms(
-                lambda: ref.ct_paged_attention_batched_ref(*args), 5, 1),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        emit({"phase": "kernel", **rec})
-        if GQ == 128 * gq:
-            recs["K2"] = rec            # the big-chunk shape (most launches)
+        recs[key] = kernel_record(
+            "ct_paged_attention_batched", paged[0], f"{paged[1]}:285",
+            f"R=1 H={H} GQ={GQ} D={D} BS={BS} NB={NB}", err,
+            lambda: ops.paged_decode_attention_batched(*args),
+            lambda: ref.ct_paged_attention_batched_ref(*args),
+            bound(pool_b + nbytes(qh, *args[5:], *outs),
+                  4 * H * GQ * D * n_slots, peak="f64tc"))
 
     # K3: intra-chunk causal attention with stats (big chunk; g-chunk)
     F = torch.nn.functional
-    for S, n_valid in ((128, None), (G, 11)):
+    for S, n_valid, key in ((128, None, "K3"), (G, 11, "K3_16")):
         q = torch.randn((S, mc.num_heads, D), generator=gen, device=dev)
         k = torch.randn((S, H, D), generator=gen, device=dev)
         v = torch.randn((S, H, D), generator=gen, device=dev)
@@ -264,38 +318,30 @@ def check_kernels(dev, mc, tk):
         nv = S if n_valid is None else n_valid
         pairs = sum(min(i + 1, nv) for i in range(S))
         flops = 4 * mc.num_heads * pairs * D
-        b_ms, b_by = bound(nbytes(q, k[:nv], v[:nv], *outs), flops)
         # SDPA yardstick on the same inputs (kv heads repeated for GQA)
         qt = q.transpose(0, 1)[None]
         kt, vt = (x.transpose(0, 1).repeat_interleave(gq, 0)[None]
                   for x in (k, v))
-        rec = dict(
-            name="flash_prefill", route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_prefill.cu",
-            replaces="src/repro/kernels/flash_prefill.py:83",
-            shape=f"S={S} Hq={mc.num_heads} H={H} D={D} n_valid={nv}",
-            max_abs_err=err,
-            ms=time_ms(lambda: ops.prefill_attention_stats(
-                q, k, v, n_valid=n_valid), 20),
-            plain_ms=time_ms(lambda: ref.flash_prefill_stats_ref(
-                q, k, v, kv_valid=kv_valid), 10, 1),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), 20))
-        emit({"phase": "kernel", **rec})
+        recs[key] = kernel_record(
+            "flash_prefill", "flash_prefill.cu", "flash_prefill.py:83",
+            f"S={S} Hq={mc.num_heads} H={H} D={D} n_valid={nv}", err,
+            lambda: ops.prefill_attention_stats(q, k, v, n_valid=n_valid),
+            lambda: ref.flash_prefill_stats_ref(q, k, v, kv_valid=kv_valid),
+            bound(nbytes(q, k[:nv], v[:nv], *outs), flops, peak="f64tc"),
+            library=lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), plain_iters=10)
         if n_valid is None:
-            recs["K3"] = rec
             # the plain variant (no stats) at the same shape
             out = ops.prefill_attention(q, k, v)
             torch.cuda.synchronize()
-            b_ms, b_by = bound(nbytes(q, k, v, out), flops)
-            emit({"phase": "kernel", **rec, "shape": rec["shape"] +
-                  " (no stats: prefill_attention)",
-                  "max_abs_err": max_err(out, ref.flash_prefill_ref(q, k, v)),
-                  "ms": time_ms(lambda: ops.prefill_attention(q, k, v), 20),
-                  "plain_ms": time_ms(lambda: ref.flash_prefill_ref(q, k, v),
-                                      10, 1),
-                  "bound_ms": b_ms, "bound_by": b_by})
+            kernel_record(
+                "flash_prefill", "flash_prefill.cu", "flash_prefill.py:83",
+                recs[key]["shape"] + " (no stats: prefill_attention)",
+                max_err(out, ref.flash_prefill_ref(q, k, v)),
+                lambda: ops.prefill_attention(q, k, v),
+                lambda: ref.flash_prefill_ref(q, k, v),
+                bound(nbytes(q, k, v, out), flops, peak="f64tc"),
+                plain_iters=10)
 
     # K4: commit quantization, with subnormal-scale and saturating groups
     N = L * G * H
@@ -316,16 +362,12 @@ def check_kernels(dev, mc, tk):
                                                   .sum())
             raise AssertionError(f"group_quant bits={bits}: {bad} codes or "
                                  f"scales differ from the plain version")
-        b_ms, b_by = bound(nbytes(x, codes, scales), 8 * N * D)
-        rec = dict(
-            name="group_quant", route="cuda",
-            source="src/repro_torch/kernels/csrc/group_quant.cu",
-            replaces="src/repro/kernels/group_quant.py:70",
-            shape=f"N={N} D={D} bits={bits}", max_abs_err=0.0,
-            ms=time_ms(lambda: ops.tbq_group_quant(x, bits), 50),
-            plain_ms=time_ms(lambda: ref.group_quant_ref(x, bits), 10, 1),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        emit({"phase": "kernel", **rec})
+        rec = kernel_record(
+            "group_quant", "group_quant.cu", "group_quant.py:70",
+            f"N={N} D={D} bits={bits}", 0.0,
+            lambda: ops.tbq_group_quant(x, bits),
+            lambda: ref.group_quant_ref(x, bits),
+            bound(nbytes(x, codes, scales), 8 * N * D), plain_iters=10)
         if bits == 4:
             recs["K4"] = rec
     # the single-request wrapper at r1-llama-8b's shape: a shuffled physical
@@ -349,24 +391,22 @@ def check_kernels(dev, mc, tk):
     logical, _ = ref.logical_metadata(state, bits, table)
     pool_b, n_slots = pool_need(logical[None, None], table[None, None],
                                 per_block)
-    b_ms, b_by = bound(pool_b + nbytes(q, table, *outs) + 2 * NB * BS,
-                       4 * H * gq * D * n_slots)
-    recs["wrapper"] = dict(
-        name="ct_paged_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/ct_paged_attention.cu",
-        replaces="src/repro/kernels/ct_paged_attention.py:355",
-        shape=f"Hq={mc.num_heads} H={H} D={D} BS={BS} NB={NB} NP={NPw}",
-        max_abs_err=err,
-        ms=time_ms(lambda: ops.paged_decode_attention(*args), 20),
-        plain_ms=time_ms(lambda: ref.ct_paged_attention_ref(*args), 5, 1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    emit({"phase": "kernel", **recs["wrapper"]})
+    recs["wrapper"] = kernel_record(
+        "ct_paged_attention", paged[0], f"{paged[1]}:355",
+        f"Hq={mc.num_heads} H={H} D={D} BS={BS} NB={NB} NP={NPw}", err,
+        lambda: ops.paged_decode_attention(*args),
+        lambda: ref.ct_paged_attention_ref(*args),
+        bound(pool_b + nbytes(q, table, *outs) + 2 * NB * BS,
+              4 * H * gq * D * n_slots, peak="f64tc"))
 
     for name, rec in recs.items():
         if name != "K4" and rec["max_abs_err"] > ATOL:
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{rec['max_abs_err']} > {ATOL}")
     recs["K5"] = check_mamba_scan(dev, gen)
+    over = [n for n, r in recs.items() if r["bound_share"] > 1]
+    if over:
+        raise AssertionError(f"a bound above the measured time: {over}")
     return recs
 
 
@@ -387,19 +427,16 @@ def check_mamba_scan(dev, gen, B=4, S=1024, di=8192, N=16):
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_exp = B * S * di * N
-    b_ms, b_by = bound(nbytes(x, dt, b, c, a, y), 5 * n_exp,
-                       n_exp / (SFU_PER_SM_CLOCK * sms * clock_hz))
-    rec = dict(
-        name="mamba_scan", route="cuda",
-        source="src/repro_torch/kernels/csrc/mamba_scan.cu",
-        replaces="src/repro/kernels/mamba_scan.py:64",
-        shape=f"B={B} S={S} di={di} N={N}",
-        max_abs_err=max_err(y, want), max_over_bar=over,
-        ms=time_ms(lambda: ops.mamba_scan(x, dt, b, c, a), 20),
-        plain_ms=time_ms(lambda: ref.mamba_scan_ref(x, dt, b, c, a), 2, 1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        sm_clock_max_hz=clock_hz, sms=sms)
-    emit({"phase": "kernel", **rec})
+    b_ms, b_by, b_peak = bound(nbytes(x, dt, b, c, a, y), 5 * n_exp,
+                               n_exp / (SFU_PER_SM_CLOCK * sms * clock_hz))
+    rec = kernel_record(
+        "mamba_scan", "mamba_scan.cu", "mamba_scan.py:64",
+        f"B={B} S={S} di={di} N={N}", max_err(y, want),
+        lambda: ops.mamba_scan(x, dt, b, c, a),
+        lambda: ref.mamba_scan_ref(x, dt, b, c, a),
+        (b_ms, b_by, b_peak + f"; exp on the SFUs ({SFU_PER_SM_CLOCK} per "
+         f"SM per clock at {clock_hz / 1e6:.0f} MHz)"), plain_iters=2,
+        max_over_bar=over, sm_clock_max_hz=clock_hz, sms=sms)
     if over > 1:
         raise AssertionError(f"K5 disagrees with its plain version: "
                              f"{over} x the bar (rtol = atol = {SCAN_TOL})")
@@ -478,10 +515,17 @@ def parity(engine_cls, cfg, params, prompts, short, max_new, dev):
             "failed": failed}
 
 
+# device kernel names of K2 and K3 (this tree's and the parent design's)
+KERNEL_GROUPS = {"K2": ("paged_split_kernel", "merge_splits_kernel",
+                        "paged_attn_kernel<false"),
+                 "K3": ("flash_prefill_kernel",)}
+
+
 def profile_window(fn, top: int = 12) -> dict:
     """``fn()`` under torch.profiler: the window's wall time, the device
-    time by kernel, the device's busy share, and the host spans
-    (``thinkv.*`` record_function ranges)."""
+    time by kernel (and of K2's and K3's kernels together), the device's
+    busy share, and the host spans (``thinkv.*`` record_function
+    ranges)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -504,12 +548,32 @@ def profile_window(fn, top: int = 12) -> dict:
             k[1] += 1
     busy_ms = sum(t for t, _ in kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    groups = {}
+    for g, names in KERNEL_GROUPS.items():
+        hits = [tc for n, tc in kernels.items() if any(x in n for x in names)]
+        groups[g] = {"ms": sum(t for t, _ in hits),
+                     "count": sum(c for _, c in hits)}
     return {"window_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms,
             "launches": sum(c for _, c in kernels.values()),
-            "spans": spans,
+            "spans": spans, "kernel_groups": groups,
             "top_kernels": [{"name": n, "ms": t, "count": c}
                             for n, (t, c) in ranked]}
+
+
+def profile_prefill(engine_cls, cfg, params, prompt, dev) -> dict:
+    """One prompt's chunked prefill (1100 tokens: 8 big chunks and 5
+    g-chunks, every layer) under torch.profiler: whether K2's and K3's
+    device time reaches ``prefill_s``."""
+    t0 = time.perf_counter()
+    eng = engine_cls(cfg, params=params, backend="kernel", device=dev)
+    eng.submit([prompt], max_new_tokens=1)
+    rec = profile_window(lambda: eng.run(max_ticks=0))
+    m = eng.metrics
+    return {"phase": "prefill_profile", "prompt_len": len(prompt),
+            "big_chunks": m["prefill_big_chunks"],
+            "g_chunks": m["prefill_chunks"], "prefill_s": m["prefill_s"],
+            **rec, "seconds": time.perf_counter() - t0}
 
 
 def profile_decode(engine_cls, cfg, params, prompts, dev, ticks=12):
@@ -719,16 +783,99 @@ def controller_phase(dev, mc, tk, n_tokens=2048) -> dict:
     return rec
 
 
+def serve_phase(engine_cls, cfg, params, prompts, max_new, init_s, dev):
+    """The main path: the engine serves ``prompts`` with launch counts zeroed
+    just before and read just after; K1-K4 must have run (K1 once per tick,
+    K2 and K3 once per prefill chunk and layer, split by shape)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    mc = cfg.model
+    ops.reset_launches()
+    eng, done = serve(engine_cls, cfg, params, prompts, max_new, "kernel",
+                      dev)
+    launches = dict(ops.LAUNCHES)
+    audit = eng.audit_pool()
+    m = eng.metrics
+    if len(done) != len(prompts) or any(len(r.output) != max_new
+                                        for r in done):
+        raise AssertionError("not every request finished with its tokens")
+    for arr in eng.request_logits.values():
+        lg = np.stack(arr)
+        if lg.shape != (max_new, mc.vocab_size) or not np.isfinite(lg).all():
+            raise AssertionError(f"bad logits: shape {lg.shape}")
+    for k in K1_K4:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the main "
+                                 f"path")
+    if launches["ct_paged_attention_fused"] != m["ticks"]:
+        raise AssertionError(f"K1 launched {launches['ct_paged_attention_fused']}"
+                             f" times over {m['ticks']} ticks")
+    # a big chunk folds prefill_chunk queries into K2's GQ, a g-chunk G
+    gq = mc.num_heads // mc.num_kv_heads
+    big, small = eng.prefill_chunk, eng.dims.G
+    nb, ng = m["prefill_big_chunks"] * mc.num_layers, \
+        m["prefill_chunks"] * mc.num_layers
+    by_shape = {"ct_paged_attention_batched": {f"GQ={big * gq}": nb,
+                                               f"GQ={small * gq}": ng},
+                "flash_prefill": {f"S={big}": nb, f"S={small}": ng}}
+    for k, shapes in by_shape.items():
+        if sum(shapes.values()) != launches[k]:
+            raise AssertionError(f"{k}: {launches[k]} launches, but the "
+                                 f"chunks account for {shapes}")
+    rec = {"phase": "serve", "layers": mc.num_layers, "requests": len(done),
+           "prompt_len": len(prompts[0]), "max_new": max_new,
+           "init_s": init_s, "wall_s": m["wall_s"],
+           "prefill_s": m["prefill_s"], "decode_s": m["decode_s"],
+           "ticks": m["ticks"], "tokens": m["tokens"],
+           "decode_tok_s": m["tokens"] / m["decode_s"],
+           "ms_per_tick": 1e3 * m["decode_s"] / m["ticks"],
+           "prefill_chunks": m["prefill_chunks"],
+           "prefill_big_chunks": m["prefill_big_chunks"],
+           "footprint_frac": float(np.mean(
+               [r.stats["footprint_frac"] for r in done])),
+           "avg_bits": float(np.mean([r.stats["avg_bits"] for r in done])),
+           "launches": launches, "launches_by_shape": by_shape,
+           "audit_claimed": audit["claimed"][:4],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(rec)
+    return rec
+
+
+def ab(parent: str) -> int:
+    """The parent tree (``parent``/src, its kernels built there) and this
+    one, each in its own process, in turns: parent, this, this, parent;
+    each runs the kernels, serve and prefill_profile phases."""
+    runs = []
+    for tree in (parent, HERE, HERE, parent):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--ab-run", "--src",
+             os.path.join(os.path.abspath(tree), "src")],
+            capture_output=True, text=True)
+        sys.stderr.write(out.stderr[-4000:])
+        if out.returncode:
+            print(out.stdout[-4000:], flush=True)
+            return out.returncode
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        emit(runs[-1])
+    emit({"phase": "ab", "order": ["parent", "change", "change", "parent"],
+          "runs": runs})
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    if "--ab" in sys.argv:
+        return ab(sys.argv[sys.argv.index("--ab") + 1])
+    ab_run = "--ab-run" in sys.argv
     import numpy as np
     from repro_torch.config import ServeConfig, ThinKVConfig
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
     from repro_torch.models.lm import init_params
     from repro_torch.serving.engine import ThinKVEngine
 
@@ -737,14 +884,16 @@ def main() -> int:
     smi = nvidia_smi()
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "src": SRC})
 
     t0 = time.perf_counter()
     build.build_all()
     logs = build.build_logs()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if "registers" in ln or "spill" in ln
+                        or "entry function" in ln]
                     for k, v in logs.items()}})
 
     mc = get_config("r1-llama-8b")
@@ -761,40 +910,21 @@ def main() -> int:
     t0 = time.perf_counter()
     params = init_params(mc, SEED, dev)
     init_s = time.perf_counter() - t0
-    ops.reset_launches()
-    eng, done = serve(ThinKVEngine, cfg, params, prompts, max_new, "kernel",
+    srv = serve_phase(ThinKVEngine, cfg, params, prompts, max_new, init_s,
                       dev)
-    launches = dict(ops.LAUNCHES)
-    audit = eng.audit_pool()
-    m = eng.metrics
-    if len(done) != 4 or any(len(r.output) != max_new for r in done):
-        raise AssertionError("not every request finished with its tokens")
-    for arr in eng.request_logits.values():
-        lg = np.stack(arr)
-        if lg.shape != (max_new, mc.vocab_size) or not np.isfinite(lg).all():
-            raise AssertionError(f"bad logits: shape {lg.shape}")
-    for k in K1_K4:
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} never launched on the main "
-                                 f"path")
-    if launches["ct_paged_attention_fused"] != m["ticks"]:
-        raise AssertionError(f"K1 launched {launches['ct_paged_attention_fused']}"
-                             f" times over {m['ticks']} ticks")
-    emit({"phase": "serve", "layers": mc.num_layers, "requests": len(done),
-          "prompt_len": 1100, "max_new": max_new, "init_s": init_s,
-          "wall_s": m["wall_s"], "prefill_s": m["prefill_s"],
-          "decode_s": m["decode_s"], "ticks": m["ticks"],
-          "tokens": m["tokens"],
-          "decode_tok_s": m["tokens"] / m["decode_s"],
-          "ms_per_tick": 1e3 * m["decode_s"] / m["ticks"],
-          "prefill_chunks": m["prefill_chunks"],
-          "prefill_big_chunks": m["prefill_big_chunks"],
-          "footprint_frac": float(np.mean(
-              [r.stats["footprint_frac"] for r in done])),
-          "avg_bits": float(np.mean([r.stats["avg_bits"] for r in done])),
-          "launches": launches, "audit_claimed": audit["claimed"][:4],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    del eng
+    pre = profile_prefill(ThinKVEngine, cfg, params, prompts[0], dev)
+    emit(pre)
+    if ab_run:
+        emit({"tree": SRC, "nvidia_smi": smi,
+              "kernels": {n: {k: r[k] for k in ("shape", "ms", "eager_ms",
+                                                "max_abs_err")}
+                          for n, r in recs.items()},
+              "serve": {k: srv[k] for k in ("prefill_s", "decode_s",
+                                            "ms_per_tick", "wall_s")},
+              "prefill_profile": {k: pre[k] for k in (
+                  "window_ms", "device_busy_ms", "idle_share", "spans",
+                  "kernel_groups", "prefill_s")}})
+        return 0
     emit(profile_decode(ThinKVEngine, cfg, params, prompts, dev))
     del params
     torch.cuda.empty_cache()
@@ -819,13 +949,25 @@ def main() -> int:
     ctl = controller_phase(dev, mc, tk)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_peak", "eager_ms")
+    launches = srv["launches"]
     for n in ("K1", "K2", "K3", "K4"):
         recs[n]["launches"] = launches[recs[n]["name"]]
     recs["K5"]["launches"] = ssm["prefill"]["launches"]["mamba_scan"]
     recs["wrapper"]["launches"] = ctl["wrapper_launches"]
     lines = [{k: recs[n][k] for k in keys}
              for n in ("K1", "K2", "K3", "K4", "K5", "wrapper")]
+    # K2 and K3 beside each shape of the serve phase: launches and times
+    for line, name, shapes in (
+            (lines[1], "ct_paged_attention_batched", ("K2", "K2_64")),
+            (lines[2], "flash_prefill", ("K3", "K3_16"))):
+        line["by_shape"] = {
+            shape: {"launches": n, "ms": recs[key]["ms"],
+                    "bound_ms": recs[key]["bound_ms"],
+                    "library_ms": recs[key]["library_ms"]}
+            for (shape, n), key in zip(
+                srv["launches_by_shape"][name].items(), shapes)}
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     emit({"kernels": lines})
     print(smi, flush=True)

@@ -4,9 +4,10 @@ Each source is compiled by its own ``nvcc`` process (all started together)
 into a shared library with a plain C interface for ``sm_90a``, then loaded
 with ``ctypes``.  The build runs at first use, from the sources in the
 checkout alone, into ``build/repro_torch_kernels/<hash>/`` at the root of
-the checkout (git-ignored), keyed by a hash of the sources and flags so a
-changed kernel is rebuilt and an unchanged one is loaded as is.  Nothing is
-built when this module is imported.
+the checkout (git-ignored), keyed by a hash of the sources, the headers
+they share (``csrc/*.cuh``) and the flags, so a changed kernel is rebuilt
+and an unchanged one is loaded as is.  Nothing is built when this module
+is imported.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ SIGNATURES = {
     "ct_paged_attention_fused": (
         "ct_paged_attention", [P] * 12 + [I] * 10 + [F, P]),
     "ct_paged_attention_batched": (
-        "ct_paged_attention", [P] * 11 + [I] * 8 + [F, P]),
+        "ct_paged_attention", [P] * 13 + [I] * 9 + [F, P]),
     "flash_prefill_stats": ("flash_prefill", [P] * 6 + [I] * 7 + [F, P]),
     "group_quant": ("group_quant", [P] * 3 + [I] * 4 + [P]),
     "mamba_scan": ("mamba_scan", [P] * 6 + [I] * 4 + [P]),
@@ -51,7 +52,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -11,122 +11,267 @@
 // prefill chunks need).  It writes out [S, Hq, D] and the flash stats
 // m, l [S, Hq] for the merge with the paged-pool partition.
 //
-// Bound on this card: bytes at the engine's shapes (S <= 128: q, k, v and
-// out are a few MB, the flops a few hundred MFLOP).  Design: one thread
-// block per (q head, tile of BQ queries) loops over key tiles up to the
-// diagonal (the TPU's sequential kv grid axis); the q tile, the current
-// k/v tile, the score tile and (m, l, acc) stay in shared memory, so each
-// k/v row is read once per query tile and only the output and stats are
-// written back.  CUDA-core fp32 math; no tensor cores or TMA yet.
+// What bounds it at the engine's shapes (S 128 for a big chunk, S 16 with
+// n_valid <= 16 for a g-chunk; Hq 32, H 8, D 128): neither bytes (~1 MB)
+// nor operations (~0.13 GFLOP, 0.002 ms at 67 TFLOP/s) but latency: the
+// launch, the loads of the last query tile's 128 keys and its serial
+// softmax.  The first design (one block per q head and 32-query tile,
+// every K/V tile loaded once per q head, dot products over shared memory
+// on CUDA cores, four barriers per key tile, the accumulator
+// round-tripping through shared memory) took 0.125 ms at S 128, 6.6x SDPA.
+//
+// Design: a row is one (query, q head) pair; the GQ q heads of a kv head
+// are contiguous in q, so one block of 16 rows (4 queries x 4 heads at
+// r1-llama-8b, no padding to a query tile: at S 16 a kv head's 64 rows fill
+// 4 blocks exactly) holds every q head of its queries and loads each key
+// once for all of them.  The block's 8 warps split the keys, 8 each per
+// 64-key tile, so the causal diagonal's longest rows are spread over the
+// SM's four schedulers; each warp keeps its scores, probabilities,
+// running (m, l) and output accumulator in registers (mma fragments, row
+// max and sum reduced over the 4 lanes of a row by shuffles), and the
+// warps' partials are merged once at the end through shared memory, as
+// the reference merges two partitions.  Both products run on the tensor
+// cores in f64 (f64_mma.cuh: exact products, 53-bit sums).  q and the
+// tile's keys arrive by cp.async (zero-filled past S), only up to the
+// block's causal, n_valid and window range; warps whose 8 keys fall
+// outside it skip the tile.  Blocks run longest rows first; registers are
+// capped for two blocks per SM.  The dynamic shared memory attribute is
+// set once per instantiation.
+//
+// ptxas (sm_90a, -O3; chip_smoke.py's build phase on an H100): D 128: 128
+// registers, 20 bytes of spill stores and loads; D 64: 128 registers,
+// 8 / 4 bytes; D 32: 96, D 16: 72 registers, no spills.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "f64_mma.cuh"
+
 #define NEG_INF (-1e30f)
-#define THREADS 128
-#define BQ 32
-#define BK 32
+#define WARPS 8
+#define THREADS (WARPS * 32)
+#define ROWS 16                 // (query, q head) rows per block
+#define KPW 8                   // keys per warp and tile
+#define BK (WARPS * KPW)        // keys per tile: warp w takes [8w, 8w + 8)
 
-__host__ __device__ inline size_t fp_smem_words(int D) {
-  return (size_t)BQ * D * 2 + (size_t)BK * (D + 1) + (size_t)BK * D +
-         (size_t)BQ * BK + 3 * BQ;
-}
+template <int D>
+struct Layout {
+  static constexpr int LD = D + 4;          // row stride (floats): no bank
+  static constexpr int Q = ROWS * LD;       // conflicts on fragment loads
+  static constexpr int KV = BK * LD;
+  static constexpr int MLD = D + 8;         // row stride of the merge
+  static constexpr int PART = ROWS * MLD + 2 * ROWS;   // one warp's o, m, l
+  static constexpr int KVM = 2 * KV > WARPS * PART ? 2 * KV : WARPS * PART;
+  static constexpr int BYTES = (Q + KVM) * 4;   // q, then k, v or the merge
+};
 
-__global__ void __launch_bounds__(THREADS)
+template <int D>
+__global__ void __launch_bounds__(THREADS, 2)
 flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ mo, float* __restrict__ lo, int S,
-                     int Hq, int H, int D, int causal, int window,
-                     int n_valid, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* acc = qs + BQ * D;
-  float* ks = acc + BQ * D;
-  float* vs = ks + BK * (D + 1);
-  float* sc = vs + BK * D;
-  float* m = sc + BQ * BK;
-  float* l = m + BQ;
-  float* corr = l + BQ;
-  const int tid = threadIdx.x;
-  const int hq = blockIdx.x;
-  const int hk = hq / (Hq / H);
-  const int q0 = blockIdx.y * BQ;
+                     int Hq, int H, int causal, int window, int n_valid,
+                     float scale) {
+  using LY = Layout<D>;
+  constexpr int LD = LY::LD, NT = D / 8;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + LY::Q;
+  float* vs = ks + LY::KV;
 
-  for (int e = tid; e < BQ * D; e += blockDim.x) {
-    int i = e / D, d = e % D;
-    qs[e] = q0 + i < S ? q[((size_t)(q0 + i) * Hq + hq) * D + d] : 0.f;
-    acc[e] = 0.f;
+  const int GQ = Hq / H;
+  const int hk = blockIdx.x;
+  // the longest rows (last queries: most keys under causality) first
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int nrows = S * GQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kvalid = min(S, n_valid);
+
+  // keys [lo, hi) a row attends; a row past S attends none
+  auto key_hi = [&](int r) {
+    if (r >= nrows) return 0;
+    return causal ? min(kvalid, r / GQ + 1) : kvalid;
+  };
+  auto key_lo = [&](int r) {
+    return window > 0 ? r / GQ - window + 1 : 0;
+  };
+  const int b_hi = key_hi(min(row0 + ROWS, nrows) - 1);
+  const int b_lo = key_lo(row0);
+  const int t_lo = max(0, b_lo) / KPW * KPW;
+  const int ntiles = b_hi > t_lo ? (b_hi - t_lo + BK - 1) / BK : 0;
+
+  // the rows of tile it the block attends (whole 8-key warp spans; zero
+  // past S), by cp.async
+  auto load_tile = [&](int it) {
+    const int k0 = t_lo + it * BK;
+    const int rows = min(BK, (b_hi - k0 + KPW - 1) / KPW * KPW);
+    constexpr int CPR = D / 4;                 // 16-byte chunks per row
+    for (int c = tid; c < rows * CPR; c += THREADS) {
+      const int j = c / CPR, d = (c % CPR) * 4;
+      const bool in = k0 + j < S;
+      const size_t off = ((size_t)(in ? k0 + j : 0) * H + hk) * D + d;
+      cp_async16(ks + j * LD + d, k + off, in);
+      cp_async16(vs + j * LD + d, v + off, in);
+    }
+    cp_async_commit();
+  };
+  // the block's q rows (zero past S) arrive with the first tile
+  if (ntiles > 0) {
+    for (int c = tid; c < ROWS * (D / 4); c += THREADS) {
+      const int i = c / (D / 4), d = (c % (D / 4)) * 4;
+      const int r = min(row0 + i, nrows - 1);
+      cp_async16(qs + i * LD + d,
+                 q + ((size_t)(r / GQ) * Hq + hk * GQ + r % GQ) * D + d,
+                 row0 + i < nrows);
+    }
+    load_tile(0);
   }
-  for (int i = tid; i < BQ; i += blockDim.x) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+
+  // this lane's rows a = g and b = g + 8 of the block
+  const int ra = row0 + g, rb = ra + 8;
+  const int hi_a = key_hi(ra), hi_b = key_hi(rb);
+  const int lo_a = key_lo(ra), lo_b = key_lo(rb);
+
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it > 0) {
+      __syncthreads();                        // the last tile is consumed
+      load_tile(it);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    const int kw = t_lo + it * BK + KPW * warp;   // this warp's 8 keys
+    if (kw < b_hi && kw + KPW > b_lo) {
+      const float* kb = ks + (KPW * warp + g) * LD + t;
+      const float* vb = vs + (KPW * warp + 2 * t) * LD + g;
+      // scores in f64 (exact products, 53-bit sums)
+      double sd[4] = {0.0, 0.0, 0.0, 0.0};
+      const float* qa = qs + g * LD + t;
+#pragma unroll
+      for (int k0 = 0; k0 < D; k0 += 16) {
+        double a[8], b[4];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          a[e] = qa[(e % 2) * 8 * LD + k0 + 4 * (e / 2)];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = kb[k0 + 4 * j];
+        mma_f64(sd, a, b);
+      }
+      // mask, scale, online softmax over the rows a and b
+      float s[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kw + 2 * t + (e & 1);
+        const bool ok = e < 2 ? key >= lo_a && key < hi_a
+                              : key >= lo_b && key < hi_b;
+        s[e] = ok ? (float)sd[e] * scale : NEG_INF;
+      }
+      float mx_a = fmaxf(m_a, fmaxf(s[0], s[1]));
+      float mx_b = fmaxf(m_b, fmaxf(s[2], s[3]));
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float c_a = expf(m_a - mx_a), c_b = expf(m_b - mx_b);
+      m_a = mx_a;
+      m_b = mx_b;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mx = e < 2 ? mx_a : mx_b;
+        s[e] = s[e] > 0.5f * NEG_INF ? expf(s[e] - mx) : 0.f;
+      }
+      l_a = l_a * c_a + s[0] + s[1];
+      l_b = l_b * c_b + s[2] + s[3];
+      // o += P V in f64, the warp's 8 keys as one k step in the order
+      // (0, 2, 4, 6, 1, 3, 5, 7)
+      const double pa[4] = {s[0], s[2], s[1], s[3]};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const double b[2] = {vb[n * 8], vb[n * 8 + LD]};
+        double od[4] = {0.0, 0.0, 0.0, 0.0};
+        mma_f64_k8(od, pa, b);
+        o[n][0] = o[n][0] * c_a + (float)od[0];
+        o[n][1] = o[n][1] * c_a + (float)od[1];
+        o[n][2] = o[n][2] * c_b + (float)od[2];
+        o[n][3] = o[n][3] * c_b + (float)od[3];
+      }
+    }
+  }
+
+  // merge the warps' partials (o, m, l) of the 16 rows through shared
+  // memory (the k/v tile, free after the barrier), as the reference merges
+  // two partitions
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   __syncthreads();
+  constexpr int MLD = LY::MLD;
+  float* part = ks + warp * LY::PART;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<float2*>(part + g * MLD + n * 8 + 2 * t) =
+        make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(part + (g + 8) * MLD + n * 8 + 2 * t) =
+        make_float2(o[n][2], o[n][3]);
+  }
+  if (t == 0) {
+    part[ROWS * MLD + g] = m_a;
+    part[ROWS * MLD + g + 8] = m_b;
+    part[ROWS * MLD + ROWS + g] = l_a;
+    part[ROWS * MLD + ROWS + g + 8] = l_b;
+  }
+  __syncthreads();
+  constexpr int TPR = THREADS / ROWS;          // threads per row
+  constexpr int CPT = D / TPR;                 // columns per thread
+  const int row = tid / TPR, c0 = tid % TPR;   // columns c0 + TPR i
+  const int r = row0 + row;
+  if (r >= nrows) return;
+  const float* stats = ks + ROWS * MLD;
+  float M = NEG_INF;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) M = fmaxf(M, stats[w * LY::PART + row]);
+  float wt[WARPS], L = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    wt[w] = expf(stats[w * LY::PART + row] - M);
+    L += wt[w] * stats[w * LY::PART + ROWS + row];
+  }
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  const size_t orow = (size_t)(r / GQ) * Hq + hk * GQ + r % GQ;
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+      acc = fmaf(wt[w], ks[w * LY::PART + row * MLD + c0 + TPR * c], acc);
+    out[orow * D + c0 + TPR * c] = acc * inv;
+  }
+  if (tid % TPR == 0) {
+    mo[orow] = M;
+    lo[orow] = L;
+  }
+}
 
-  int kend = min(S, n_valid);
-  if (causal) kend = min(kend, q0 + BQ);
-  int kstart = 0;
-  if (window > 0) kstart = max(0, q0 - window + 1) / BK * BK;
-  for (int k0 = kstart; k0 < kend; k0 += BK) {
-    for (int e = tid; e < BK * D; e += blockDim.x) {
-      int j = e / D, d = e % D;
-      bool in = k0 + j < S;
-      size_t idx = ((size_t)(k0 + j) * H + hk) * D + d;
-      ks[j * (D + 1) + d] = in ? k[idx] : 0.f;
-      vs[j * D + d] = in ? v[idx] : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < BQ * BK; e += blockDim.x) {
-      int i = e / BK, j = e % BK;
-      int qi = q0 + i, kj = k0 + j;
-      bool ok = qi < S && kj < S && kj < n_valid && (!causal || kj <= qi) &&
-                (window <= 0 || kj > qi - window);
-      float s = NEG_INF;
-      if (ok) {
-        const float* qr = qs + i * D;
-        const float* kr = ks + j * (D + 1);
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot += qr[d] * kr[d];
-        s = dot * scale;
-      }
-      sc[e] = s;
-    }
-    __syncthreads();
-    for (int i = tid; i < BQ; i += blockDim.x) {
-      float mp = m[i], mx = mp;
-      for (int j = 0; j < BK; ++j) mx = fmaxf(mx, sc[i * BK + j]);
-      float sum = 0.f;
-      for (int j = 0; j < BK; ++j) {
-        float s = sc[i * BK + j];
-        float p = s > 0.5f * NEG_INF ? expf(s - mx) : 0.f;
-        sc[i * BK + j] = p;
-        sum += p;
-      }
-      float c = expf(mp - mx);
-      l[i] = l[i] * c + sum;
-      corr[i] = c;
-      m[i] = mx;
-    }
-    __syncthreads();
-    for (int e = tid; e < BQ * D; e += blockDim.x) {
-      int i = e / D, d = e % D;
-      float a = acc[e] * corr[i];
-      for (int j = 0; j < BK; ++j) a += sc[i * BK + j] * vs[j * D + d];
-      acc[e] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < BQ * D; e += blockDim.x) {
-    int i = e / D, d = e % D;
-    if (q0 + i < S)
-      out[((size_t)(q0 + i) * Hq + hq) * D + d] = acc[e] / fmaxf(l[i], 1e-30f);
-  }
-  for (int i = tid; i < BQ; i += blockDim.x) {
-    if (q0 + i < S) {
-      mo[(size_t)(q0 + i) * Hq + hq] = m[i];
-      lo[(size_t)(q0 + i) * Hq + hq] = l[i];
-    }
-  }
+template <int D>
+static int launch(const float* q, const float* k, const float* v, float* out,
+                  float* mo, float* lo, int S, int Hq, int H, int causal,
+                  int window, int n_valid, float scale, cudaStream_t stream) {
+  static int granted = 0;
+  cudaError_t err =
+      allow_smem(flash_prefill_kernel<D>, Layout<D>::BYTES, granted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(H, (S * (Hq / H) + ROWS - 1) / ROWS);
+  flash_prefill_kernel<D><<<grid, THREADS, Layout<D>::BYTES, stream>>>(
+      q, k, v, out, mo, lo, S, Hq, H, causal, window, n_valid, scale);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int flash_prefill_stats(const void* q, const void* k,
@@ -134,14 +279,17 @@ extern "C" int flash_prefill_stats(const void* q, const void* k,
                                    void* lo, int S, int Hq, int H, int D,
                                    int causal, int window, int n_valid,
                                    float scale, void* stream) {
-  size_t smem = fp_smem_words(D) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(Hq, (S + BQ - 1) / BQ);
-  flash_prefill_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out,
-      (float*)mo, (float*)lo, S, Hq, H, D, causal, window, n_valid, scale);
-  return (int)cudaGetLastError();
+  if (S <= 0) return 0;
+  auto f = [&](auto fn) {
+    return fn((const float*)q, (const float*)k, (const float*)v, (float*)out,
+              (float*)mo, (float*)lo, S, Hq, H, causal, window, n_valid,
+              scale, (cudaStream_t)stream);
+  };
+  switch (D) {
+    case 16: return f(launch<16>);
+    case 32: return f(launch<32>);
+    case 64: return f(launch<64>);
+    case 128: return f(launch<128>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -23,6 +23,7 @@ plain-array helpers of the single-request controller around the wrapper.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -70,6 +71,27 @@ def _check_paged(d: int, group: int, *planes: torch.Tensor) -> None:
                          f"group={group})")
     if any(p.data_ptr() % 4 for p in planes):
         raise ValueError("code planes must be 4-byte aligned")
+
+
+def _aligned(what: str, n: int, *ts: torch.Tensor) -> None:
+    if any(t.data_ptr() % n for t in ts):
+        raise ValueError(f"{what} must be {n}-byte aligned")
+
+
+K2_ROWS = 64            # query rows per K2 block (csrc/ct_paged_attention.cu)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kv_splits(r: int, h: int, gq: int, nb: int, sms: int) -> int:
+    """How many shares K2 cuts each (slot, kv head, 64-row tile) walk of
+    the live pool blocks into: enough that about two blocks run on each of
+    the card's ``sms`` SMs, at most one share per table entry and 32."""
+    tiles = r * h * -(-gq // K2_ROWS)
+    return max(1, min(2 * sms // tiles, nb, 32))
 
 
 def _launch(name: str, fn: str, *args) -> None:
@@ -191,12 +213,22 @@ def _batched(name, qh, k_codes, v_codes, k_scales, v_scales, slot_state,
     if on_cpu:
         return R.ct_paged_attention_batched_ref(*args, group=group)
     _check_paged(d, group, k_codes, v_codes)
+    if group != 16 or bs % 8 or bs > 32:
+        raise ValueError(f"K2 takes a scale per 16 lanes and a block size "
+                         f"of 8, 16, 24 or 32 (got group={group}, BS={bs})")
+    _aligned("qh and the code planes", 16, qh, k_codes, v_codes)
+    _aligned("scale planes", 4, k_scales, v_scales)
     out = torch.empty_like(qh)
     m = torch.empty((r, h, gq, 1), dtype=torch.float32, device=qh.device)
     l = torch.empty_like(m)
+    ns = kv_splits(r, h, gq, nb, _sm_count(qh.device.index or 0))
+    part = torch.empty((ns, r, h, gq, d) if ns > 1 else (0,),
+                       dtype=torch.float32, device=qh.device)
+    pml = torch.empty((ns, r, h, gq, 2) if ns > 1 else (0,),
+                      dtype=torch.float32, device=qh.device)
     _launch(name, "ct_paged_attention_batched", *map(_ptr, args), _ptr(out),
-            _ptr(m), _ptr(l), r, h, gq, d, np_, bs, nb, group,
-            1.0 / math.sqrt(d))
+            _ptr(m), _ptr(l), _ptr(part), _ptr(pml), r, h, gq, d, np_, bs,
+            nb, group, ns, 1.0 / math.sqrt(d))
     return out, m, l
 
 
@@ -257,6 +289,9 @@ def prefill_attention_stats(q, k, v, *, causal: bool = True, window: int = 0,
             torch.arange(s_len) < n_valid
         return R.flash_prefill_stats_ref(q, k, v, causal=causal,
                                          window=window, kv_valid=kv_valid)
+    if d not in (16, 32, 64, 128):
+        raise ValueError(f"K3 takes head_dim 16, 32, 64 or 128 (got {d})")
+    _aligned("q, k and v", 16, q, k, v)
     out = torch.empty_like(q)
     m = torch.empty((s_len, hq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of every kernel of the port (K1-K5 and the
-single-request ``ct_paged_attention`` wrapper).
+single-request ``ct_paged_attention`` wrapper), and of K2's split-KV
+decomposition (``ct_paged_attention_split_ref``).
 
 Ports ``repro/kernels/ref.py``.  Each function has its kernel's exact
 interface, so ``ops`` can take it for a CPU tensor, the CPU tests can hold
@@ -56,6 +57,45 @@ def ct_paged_attention_batched_ref(qh, k_codes, v_codes, k_scales, v_scales,
     s = torch.einsum("rhgd,rnhd->rhgn", qh.float(), k) / math.sqrt(d)
     p, m, l = _masked_softmax_stats(s, valid)
     return torch.einsum("rhgn,rnhd->rhgd", p, v), m, l
+
+
+def ct_paged_attention_split_ref(qh, k_codes, v_codes, k_scales, v_scales,
+                                 slot_state, slot_bits, block_table, *,
+                                 splits: int, group: int = 16):
+    """K2's split-KV walk in plain torch, the CUDA kernel's decomposition
+    of :func:`ct_paged_attention_batched_ref`: per slot, the live logical
+    blocks (those holding a VALID slot, in table order) are cut into
+    ``splits`` shares, share s taking ``[s n // splits, (s + 1) n //
+    splits)`` of the n live blocks; each share gives a partial (unnormalised
+    out, m, l) (an empty one ``(0, -1e30, 0)``) and the partials are merged
+    as ``merge_splits_kernel`` does.  Same signature and result as the
+    batched version."""
+    r, h, gq, d = qh.shape
+    outs, ms, ls = [], [], []
+    for i in range(r):
+        live = torch.nonzero((slot_state[i] == VALID).any(-1)).flatten()
+        n = live.numel()
+        parts = []
+        for s in range(splits):
+            b = live[s * n // splits:(s + 1) * n // splits]
+            if b.numel():
+                o, m, l = ct_paged_attention_batched_ref(
+                    qh[i:i + 1], k_codes, v_codes, k_scales, v_scales,
+                    slot_state[i:i + 1, b], slot_bits[i:i + 1, b],
+                    block_table[i:i + 1, b], group=group)
+                parts.append((o * l, m, l))
+            else:
+                m = qh.new_full((1, h, gq, 1), NEG_INF)
+                parts.append((torch.zeros_like(qh[i:i + 1]), m,
+                              torch.zeros_like(m)))
+        m = torch.stack([p[1] for p in parts]).amax(0)
+        w = [torch.exp(p[1] - m) for p in parts]
+        l = sum(wi * p[2] for wi, p in zip(w, parts))
+        acc = sum(wi * p[0] for wi, p in zip(w, parts))
+        outs.append(acc / l.clamp_min(1e-30))
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(outs), torch.cat(ms), torch.cat(ls)
 
 
 def logical_metadata(slot_state, slot_bits, block_table):

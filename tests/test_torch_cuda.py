@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.config import ServeConfig, ThinKVConfig  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core import quantization as Q  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.models import ssm_lm  # noqa: E402
@@ -94,6 +95,109 @@ def test_batched_pool_attention_tiles_the_query_groups(card, GQ):
     got = ops.paged_decode_attention_batched(*on(card, args))
     torch.cuda.synchronize()
     assert_close(got, R.ct_paged_attention_batched_ref(*args))
+
+
+def batched_args(c):
+    return [c["qh"][0], c["k_codes"][0], c["v_codes"][0], c["k_scales"][0],
+            c["v_scales"][0], c["slot_state"][0], c["slot_bits"][0],
+            c["block_table"][:, 0].contiguous()]
+
+
+def batched_f64(qh, k_codes, v_codes, k_scales, v_scales, slot_state,
+                slot_bits, block_table, group=16):
+    """K2's plain version (``ct_paged_attention_batched_ref``) evaluated in
+    float64: the dequantized values are exact in f32, the scores, softmax
+    and sums are not rounded to f32.  At NB 128 (2048 keys) the f32 plain
+    version's own rounding of l (~50) reaches ~1e-4, so the full-width
+    tests hold l to this evaluation at the same bar."""
+    r, _, _, d = qh.shape
+    n = slot_state.shape[1] * slot_state.shape[2]
+    table = block_table.clamp_min(0).long()
+
+    def deq(codes, scales):
+        bits = slot_bits.reshape(r, n).to(torch.int32)[..., None, None]
+        return Q.dequantize_by_bitcode(
+            codes[table].reshape(r, n, *codes.shape[2:]),
+            scales[table].reshape(r, n, *scales.shape[2:]).float(), bits,
+            g=group).double()
+    k, v = deq(k_codes, k_scales), deq(v_codes, v_scales)
+    valid = (slot_state.reshape(r, n) == 1)[:, None, None, :]
+    s = torch.einsum("rhgd,rnhd->rhgn", qh.double(), k) / d ** 0.5
+    s = torch.where(valid, s, -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("rhgn,rnhd->rhgd", p / l.clamp_min(1e-30), v)
+    return out.float(), m.float(), l.float()
+
+
+def launched_once(name, fn, *args):
+    """``fn(*args)`` synchronised, checking that it added exactly one to
+    its kernel's launch count."""
+    n = ops.LAUNCHES[name]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == n + 1
+    return got
+
+
+@pytest.mark.parametrize("GQ", [512, 64, 4])
+def test_batched_pool_attention_full_width(card, GQ):
+    """K2 at r1-llama-8b's width (H 8, D 128, BS 16, NB 128) at the big
+    chunk's, the g-chunk's and the single request's query-group sizes."""
+    c = pool_case(torch.Generator().manual_seed(GQ), L=1, R_=1, H=8, GQ=GQ,
+                  D=128, BS=16, NB=128)
+    args = batched_args(c)
+    got = launched_once("ct_paged_attention_batched",
+                        ops.paged_decode_attention_batched, *on(card, args))
+    assert_close(got[:2], R.ct_paged_attention_batched_ref(*args)[:2])
+    assert_close(got, batched_f64(*args))
+
+
+@pytest.mark.parametrize("case", ["empty", "last_block_only", "all_evicted",
+                                  "ragged"])
+def test_batched_pool_attention_edges_of_the_walk(card, case):
+    """K2 where its live-block walk has an edge: every table entry -1, one
+    live block at the last entry, a mapped block whose slots are all
+    EVICTED, a ragged GQ (100: a partly filled 64-row tile)."""
+    c = pool_case(torch.Generator().manual_seed(5), L=1, R_=2, H=8,
+                  GQ=100 if case == "ragged" else 4, D=128, BS=16, NB=128)
+    st, tb = c["slot_state"], c["block_table"]
+    if case != "ragged":
+        tb.fill_(-1)
+        st.zero_()
+    if case == "last_block_only":
+        tb[:, 0, -1] = torch.tensor([3, 7])
+        st[0, :, -1, 5] = 1
+    elif case == "all_evicted":
+        tb[:, 0, 1] = torch.tensor([3, 7])
+        st[0, :, 1] = 2
+    args = batched_args(c)
+    got = launched_once("ct_paged_attention_batched",
+                        ops.paged_decode_attention_batched, *on(card, args))
+    assert_close(got[:2], R.ct_paged_attention_batched_ref(*args)[:2])
+    assert_close(got, batched_f64(*args))
+    if case in ("empty", "all_evicted"):
+        assert float(got[1].max()) == float(np.float32(-1e30))
+        assert float(got[2].abs().max()) == float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("S,n_valid,window", [
+    (128, None, 0), (16, 1, 0), (16, 11, 0), (16, 16, 0), (200, None, 0),
+    (128, None, 40)])
+def test_prefill_attention_stats_full_width(card, S, n_valid, window):
+    """K3 at r1-llama-8b's heads (Hq 32, H 8, D 128): the big chunk, the
+    g-chunk with 1, 11 and 16 valid keys, a ragged S and a window."""
+    gen = torch.Generator().manual_seed(S + (n_valid or 0))
+    q = torch.randn((S, 32, 128), generator=gen)
+    k = torch.randn((S, 8, 128), generator=gen)
+    v = torch.randn((S, 8, 128), generator=gen)
+    got = launched_once(
+        "flash_prefill", lambda *a: ops.prefill_attention_stats(
+            *a, window=window, n_valid=n_valid), *on(card, (q, k, v)))
+    kv_valid = None if n_valid is None else torch.arange(S) < n_valid
+    assert_close(got, R.flash_prefill_stats_ref(q, k, v, window=window,
+                                                kv_valid=kv_valid))
 
 
 @pytest.mark.parametrize("S,n_valid,window", [

@@ -174,3 +174,60 @@ def test_prefill_attention_plain_matches_pallas(window):
                                   window=window)
     assert ops.LAUNCHES == launches
     close(out_t, out_j)
+
+
+def _batched_args(a):
+    return [a["qh"][0], a["k_codes"][0], a["v_codes"][0], a["k_scales"][0],
+            a["v_scales"][0], a["slot_state"][0], a["slot_bits"][0],
+            np.ascontiguousarray(a["block_table"][:, 0])]
+
+
+def _pool_edge(case):
+    """K2 inputs whose live-block walk has an edge: no live block, one live
+    block at the last table entry, a mapped block whose slots are all
+    EVICTED (2), or a ragged GQ; unmapped (-1) entries hold FREE slots."""
+    a = pool_inputs(19, L=1, R=2, H=2, GQ=100 if case == "ragged" else 4,
+                    D=32, BS=16, NB=5)
+    st, tb = a["slot_state"], a["block_table"]
+    if case == "empty":
+        tb[:] = -1
+        st[:] = 0
+    elif case in ("last_block_only", "all_evicted"):
+        last = case == "last_block_only"
+        tb[:] = -1
+        tb[:, 0, -1 if last else 1] = [3, 7]
+        st[:] = 0
+        if last:
+            st[0, :, -1, 3] = 1
+        else:
+            st[0, :, 1] = 2
+    return a
+
+
+@pytest.mark.parametrize("splits", (1, 3, 7))
+@pytest.mark.parametrize("case", ("random", "empty", "last_block_only",
+                                  "all_evicted", "ragged"))
+def test_split_kv_decomposition_matches_pallas(case, splits):
+    """K2's split-KV walk (live blocks only, ``splits`` shares, flash merge
+    of the partials) against the Pallas kernel in interpret mode: a fully
+    masked row stays (out 0, m -1e30, l 0), with no NaN."""
+    args = _batched_args(_pool_edge(case))
+    outs_j = ct_paged_attention_batched(*map(jnp.asarray, args),
+                                        interpret=True)
+    outs_t = RT.ct_paged_attention_split_ref(
+        *(tensor_from_numpy(x, "cpu") for x in args), splits=splits)
+    for t, j in zip(outs_t, outs_j):
+        assert torch.isfinite(t).all()
+        close(t, j)
+    if case in ("empty", "all_evicted"):
+        assert float(outs_t[1].max()) == float(np.float32(-1e30))
+        assert float(outs_t[2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("gq,want", [(512, 4), (64, 32), (4, 32), (100, 16)])
+def test_kv_splits_fill_the_card(gq, want):
+    """K2's share count at r1-llama-8b's shapes (R 1, H 8, NB 128) on 132
+    SMs: about two blocks per SM, at most 32 shares and one per entry."""
+    assert ops.kv_splits(1, 8, gq, 128, 132) == want
+    assert ops.kv_splits(1, 8, gq, 3, 132) == 3
+    assert ops.kv_splits(4, 8, 512, 128, 132) == 1
