@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py            # every phase, one CUDA card
     python3 chip_smoke.py --ab DIR   # DIR/src (a parent checkout) against
-                                     # this tree: kernels, serve and
-                                     # prefill_profile, in the order
-                                     # parent, this, this, parent
+                                     # this tree: kernels, serve,
+                                     # prefill_profile, profile and the
+                                     # ssm prefill, in the order parent,
+                                     # this, this, parent
 
 Phases, each printing one JSON line and raising (non-zero exit) on any
 failure:
@@ -515,17 +516,20 @@ def parity(engine_cls, cfg, params, prompts, short, max_new, dev):
             "failed": failed}
 
 
-# device kernel names of K2 and K3 (this tree's and the parent design's)
-KERNEL_GROUPS = {"K2": ("paged_split_kernel", "merge_splits_kernel",
+# device kernel names of K1, K2, K3 and K5 (this tree's and the parent
+# designs')
+KERNEL_GROUPS = {"K1": ("fused_attn_kernel",),
+                 "K2": ("paged_split_kernel", "merge_splits_kernel",
                         "paged_attn_kernel<false"),
-                 "K3": ("flash_prefill_kernel",)}
+                 "K3": ("flash_prefill_kernel",),
+                 "K5": ("mamba_scan_kernel",)}
 
 
 def profile_window(fn, top: int = 12) -> dict:
     """``fn()`` under torch.profiler: the window's wall time, the device
-    time by kernel (and of K2's and K3's kernels together), the device's
-    busy share, and the host spans (``thinkv.*`` record_function
-    ranges)."""
+    time by kernel (and of each of K1, K2, K3 and K5's kernels together),
+    the device's busy share, and the host spans (``thinkv.*``
+    record_function ranges)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -589,17 +593,17 @@ def profile_decode(engine_cls, cfg, params, prompts, dev, ticks=12):
             "seconds": time.perf_counter() - t0}
 
 
-def ssm_phase(dev, rng) -> dict:
-    """falcon-mamba-7b at full width and depth through the serve steps."""
-    import dataclasses as dc
-
+def ssm_prefill(dev, rng):
+    """falcon-mamba-7b at full width and depth (random f32 weights from the
+    seed): a 4 x 1024-token prefill with launch counts zeroed just before
+    and read just after (K5 once per layer and nothing else), then the same
+    prefill under torch.profiler (the device's busy share, K5's share of
+    it).  Returns (cfg, params, prompts, record)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.layers import embedding as E
-    from repro_torch.models import factory, ssm_lm
+    from repro_torch.models import factory
     from repro_torch.serving import serve_step as SS
-    t_all = time.perf_counter()
     cfg = get_config("falcon-mamba-7b")
     V = cfg.vocab_size
     model = factory.build_model(cfg)
@@ -608,10 +612,6 @@ def ssm_phase(dev, rng) -> dict:
     params = model.init_params(SEED, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    params_gb = sum(p.numel() * p.element_size()
-                    for p in params.parameters()) / 1e9
-
-    # 1. prefill: 4 prompts of 1024 tokens, K5 in every layer
     prefill = SS.make_prefill_step(model, cfg)
     prompts = torch.from_numpy(rng.integers(0, V, (4, 1024))).to(dev)
     prefill(params, {"tokens": prompts[:, :16]})          # warm-up
@@ -628,7 +628,35 @@ def ssm_phase(dev, rng) -> dict:
             sum(launches.values()) != cfg.num_layers:
         raise AssertionError(f"prefill launched {launches}: expected one "
                              f"mamba_scan per layer ({cfg.num_layers})")
-    first = lg.argmax(-1)
+    prof = profile_window(lambda: prefill(params, {"tokens": prompts}),
+                          top=8)
+    busy = prof["device_busy_ms"]
+    rec = {"prompts": 4, "prompt_len": 1024, "layers": cfg.num_layers,
+           "init_s": init_s, "params_gb": sum(
+               p.numel() * p.element_size()
+               for p in params.parameters()) / 1e9,
+           "seconds": prefill_s, "tok_s": 4 * 1024 / prefill_s,
+           "first_tokens": lg.argmax(-1).tolist(), "launches": launches,
+           "busy_share": 1 - prof["idle_share"],
+           "k5_ms": prof["kernel_groups"]["K5"]["ms"],
+           "k5_share": prof["kernel_groups"]["K5"]["ms"] / busy,
+           "profile": prof}
+    return cfg, params, prompts, rec
+
+
+def ssm_phase(dev, rng) -> dict:
+    """falcon-mamba-7b at full width and depth through the serve steps."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.layers import embedding as E
+    from repro_torch.models import ssm_lm
+    from repro_torch.serving import serve_step as SS
+    t_all = time.perf_counter()
+
+    # 1. prefill: 4 prompts of 1024 tokens, K5 in every layer
+    cfg, params, prompts, pre = ssm_prefill(dev, rng)
+    V = cfg.vocab_size
 
     # 2. decode: step 128-token prompts into the state, then 64 greedy tokens
     step = SS.make_decode_step_fullkv(cfg)
@@ -657,7 +685,7 @@ def ssm_phase(dev, rng) -> dict:
     if not torch.isfinite(dec).all():
         raise AssertionError("decode logits are not finite")
 
-    # where the time goes: one prefill and 8 decode steps under the profiler
+    # where the time goes: 8 decode steps under the profiler
     def steps(n=8):
         c, hh, tk = conv, h, logits[-1].argmax(-1)
         for _ in range(n):
@@ -665,8 +693,6 @@ def ssm_phase(dev, rng) -> dict:
                                        "ssm_state": hh})
             tk = lgt.argmax(-1)
     prof_decode = profile_window(steps, top=8)
-    prof_prefill = profile_window(
-        lambda: prefill(params, {"tokens": prompts}), top=8)
 
     # 3. the teacher-forced forward (K5 in every layer) at every position
     tf, _ = ssm_lm.logits_fn(params, {"tokens": torch.cat(seq, 1)}, cfg)
@@ -688,12 +714,10 @@ def ssm_phase(dev, rng) -> dict:
                             last["reference"].argmax(-1))
     rec = {"phase": "ssm", "model": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "d_inner": 2 * cfg.d_model,
-           "init_s": init_s, "params_gb": params_gb,
-           "prefill": {"prompts": 4, "prompt_len": 1024,
-                       "seconds": prefill_s,
-                       "tok_s": 4 * 1024 / prefill_s,
-                       "first_tokens": first.tolist(),
-                       "launches": launches},
+           "init_s": pre["init_s"], "params_gb": pre["params_gb"],
+           "prefill": {k: pre[k] for k in (
+               "prompts", "prompt_len", "seconds", "tok_s", "first_tokens",
+               "launches", "busy_share", "k5_ms", "k5_share")},
            "decode": {"requests": 4, "prompt_len": short.shape[1],
                       "new_tokens": new, "prompt_s": prompt_s,
                       "decode_s": decode_s,
@@ -702,7 +726,7 @@ def ssm_phase(dev, rng) -> dict:
            "teacher_forced": {"positions": short.shape[1] + new,
                               "max_abs_diff": tf_diff,
                               "max_diff_over_bar": tf_over},
-           "profile_prefill": prof_prefill,
+           "profile_prefill": pre["profile"],
            "profile_decode_8_steps": prof_decode,
            "scan_parity_4_layers": {"max_abs_diff": float(
                (last["kernel"] - last["reference"]).abs().max()),
@@ -845,7 +869,9 @@ def serve_phase(engine_cls, cfg, params, prompts, max_new, init_s, dev):
 def ab(parent: str) -> int:
     """The parent tree (``parent``/src, its kernels built there) and this
     one, each in its own process, in turns: parent, this, this, parent;
-    each runs the kernels, serve and prefill_profile phases."""
+    each runs the kernels, serve, prefill_profile and profile phases and
+    falcon-mamba-7b's 4 x 1024-token prefill (``ssm_prefill``, full
+    depth)."""
     runs = []
     for tree in (parent, HERE, HERE, parent):
         out = subprocess.run(
@@ -914,7 +940,13 @@ def main() -> int:
                       dev)
     pre = profile_prefill(ThinKVEngine, cfg, params, prompts[0], dev)
     emit(pre)
+    prof = profile_decode(ThinKVEngine, cfg, params, prompts, dev)
+    emit(prof)
+    del params
+    torch.cuda.empty_cache()
     if ab_run:
+        _, ssm_params, _, ssm_pre = ssm_prefill(dev, rng)
+        del ssm_params
         emit({"tree": SRC, "nvidia_smi": smi,
               "kernels": {n: {k: r[k] for k in ("shape", "ms", "eager_ms",
                                                 "max_abs_err")}
@@ -923,11 +955,21 @@ def main() -> int:
                                             "ms_per_tick", "wall_s")},
               "prefill_profile": {k: pre[k] for k in (
                   "window_ms", "device_busy_ms", "idle_share", "spans",
-                  "kernel_groups", "prefill_s")}})
+                  "kernel_groups", "prefill_s")},
+              "profile": {"ticks": prof["ticks"],
+                          "window_ms": prof["window_ms"],
+                          "device_busy_ms": prof["device_busy_ms"],
+                          "idle_share": prof["idle_share"],
+                          "busy_ms_per_tick":
+                              prof["device_busy_ms"] / prof["ticks"],
+                          "k1_ms_per_tick":
+                              prof["kernel_groups"]["K1"]["ms"]
+                              / prof["ticks"],
+                          "k1_launches": prof["kernel_groups"]["K1"]["count"]},
+              "ssm_prefill": {k: ssm_pre[k] for k in (
+                  "layers", "seconds", "tok_s", "busy_share", "k5_ms",
+                  "k5_share")}})
         return 0
-    emit(profile_decode(ThinKVEngine, cfg, params, prompts, dev))
-    del params
-    torch.cuda.empty_cache()
 
     # ---- parity: kernel vs reference backend, 4 layers at full width ----
     t0 = time.perf_counter()

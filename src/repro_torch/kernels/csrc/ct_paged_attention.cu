@@ -16,15 +16,48 @@
 // the query rows.  K1 then attends the fp TBQ buffer (pos < buf_len[r]) as
 // one last tile and writes the merged, normalised output.
 //
-// K1 (fused_attn_kernel, unchanged since its second design): bound by bytes
-// (GQ = 4: ~4 flops per code byte, far below the fp32 ridge).  The TPU's
-// sequential block grid axis is a loop inside one thread block per (layer,
-// slot, kv head, tile of query rows); each pool block is read once per
-// thread block with 4-byte loads along D, dequantized once into shared
-// memory and reused by every query row of the tile.  A query row belongs
-// to a warp (TPR = 32 threads, each holding D / 32 of its dimensions, with
-// query, running max, sum and accumulator in registers); a score is a
-// partial dot product reduced by warp shuffles.
+// K1 (fused_attn_kernel) is bound by bytes: at GQ 4 it does ~4 fp32 FMAs
+// per code byte, far below the fp32 ridge, so its bound is the live pool
+// blocks read once.  Its first design (one block per (layer, slot, kv
+// head), a warp per query row) took 1.28 ms against a 0.12 ms bound on an
+// H100: it walked all NB table entries (unmapped ones decoded and then
+// masked), with three barriers and no prefetch per entry (each pool
+// block's load latency exposed), decoded nvfp4 through a constant-memory
+// table whose lanes' indices serialise, and reduced every score over 32
+// lanes with a 5-stage shuffle.  This design, still one block of 4 warps
+// per (layer, slot, kv head, tile of up to 8 query rows):
+//   * walks only live blocks: the block copies the slot's table row
+//     (clamped as the reference clamps), state and bits to shared memory
+//     and compacts the logical blocks that hold a VALID slot (ballot +
+//     popc), as K2 does; the fp TBQ buffer is one more item at the end;
+//   * deals the items to the warps (warp w takes items w, w + 4, ...) for
+//     all query rows of the tile; each warp runs its own pipeline with no
+//     block barrier: the next item's raw codes and scales arrive by
+//     cp.async in a two-stage ring while the current one is decoded and
+//     attended (__syncwarp only), and the four warps' (m, l, acc) are
+//     merged once through shared memory at the end;
+//   * a key row is covered by LG = 16 lanes of DPT = D / 16 dimensions
+//     (two keys side by side per warp at D 128); each lane holds its
+//     dimensions of every query row (q and acc in registers) and decodes
+//     its code bytes without a branch: codes become value + 128 in a byte
+//     by prmt lookups (tables chosen by selects from the key's bits),
+//     placed under the exponent of 2^23 and subtracted out (prmt + fadd
+//     per value, no conversion unit); the per-16-lane scale (and nvfp4's
+//     1/2) multiplies the partial dot product, not each code;
+//   * a tile of 32 / RB keys gives each lane RB x KS = 16 partial scores,
+//     summed over its 16 lanes by a transposing butterfly without selects
+//     (15 shuffles; the lane takes its keys and rows in an order permuted
+//     by its lane index, so every step keeps the same half), each lane
+//     ending with one (row, key) score; the softmax runs one score per
+//     lane and its probabilities reach the P.V loop through a per-warp
+//     shared-memory row; the accumulator is rescaled only when a row's
+//     maximum moved;
+//   * products stay on the fp32 CUDA cores (exact enough for the 1e-4 bar
+//     at GQ <= 8; bytes, not products, bound the kernel).
+// Its times on an H100 are in PERF.md.  What holds it above its
+// bound is instruction issue in the decode and the FMAs; more warps per
+// SM, a third ring stage, eight warps per block and two score folds per
+// tile were tried and were no faster.
 //
 // K2 (paged_split_kernel + merge_splits_kernel): a big prefill chunk folds
 // 512 query rows into GQ (a g-chunk 64, the wrapper 4), so K2 is bound by
@@ -55,8 +88,10 @@
 //
 // ptxas (sm_90a, -O3; chip_smoke.py's build phase on an H100):
 // paged_split_kernel D 128 / 64 / 32: 186 / 141 / 95 registers;
-// merge_splits_kernel: 32 registers; no spills.  K1 (fused_attn_kernel)
-// 32-56 registers, 12 bytes of spill stores for TPR 8, D 64.
+// merge_splits_kernel: 32 registers; no spills.  fused_attn_kernel (K1,
+// capped at 170 registers for 3 blocks per SM) D 128 at RB 4 (the serve
+// tick): 151 registers, no spills; D 128 at RB 8: 168 registers and 136
+// bytes of spill stores; D 64 and 32: 96-159 registers, no spills.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -64,273 +99,10 @@
 #include "f64_mma.cuh"
 
 #define NEG_INF (-1e30f)
-#define THREADS 128
 
-// nvfp4 magnitudes of index 0..7 (sign is bit 3): e2m1 values
-__constant__ float kFp4[8] = {0.f, 0.5f, 1.f, 1.5f, 2.f, 3.f, 4.f, 6.f};
-
-__device__ __forceinline__ float decode_code(uint32_t c, int bits) {
-  if (bits == 2) {
-    uint32_t c2 = c & 3u;
-    return c2 == 3u ? -1.f : (c2 == 1u ? 1.f : 0.f);
-  }
-  if (bits == 4) {
-    float mag = kFp4[c & 7u];
-    return (c & 8u) ? -mag : mag;
-  }
-  return (float)(int8_t)(uint8_t)c;
-}
-
-// Decode one [T, D] pool block of K and V into shared memory (row stride D).
-// Threads cover 4 consecutive lanes each; D % 4 == 0 and group % 4 == 0.
-__device__ __forceinline__ void load_pool_tile(
-    float* ks, float* vs, const uint8_t* __restrict__ kc,
-    const uint8_t* __restrict__ vc, const __nv_bfloat16* __restrict__ ksc,
-    const __nv_bfloat16* __restrict__ vsc, const int* bits, size_t row0,
-    int H, int h, int D, int group, int T) {
-  const int SG = D / group;
-  const int words = T * D / 4;
-  for (int w = threadIdx.x; w < words; w += blockDim.x) {
-    const int j = (w * 4) / D, d = (w * 4) % D;
-    const size_t row = (row0 + j) * H + h;
-    const uint32_t kw = *reinterpret_cast<const uint32_t*>(kc + row * D + d);
-    const uint32_t vw = *reinterpret_cast<const uint32_t*>(vc + row * D + d);
-    const float ksv = __bfloat162float(ksc[row * SG + d / group]);
-    const float vsv = __bfloat162float(vsc[row * SG + d / group]);
-    const int b = bits[j];
-    float4 kd, vd;
-    kd.x = decode_code(kw, b) * ksv;
-    kd.y = decode_code(kw >> 8, b) * ksv;
-    kd.z = decode_code(kw >> 16, b) * ksv;
-    kd.w = decode_code(kw >> 24, b) * ksv;
-    vd.x = decode_code(vw, b) * vsv;
-    vd.y = decode_code(vw >> 8, b) * vsv;
-    vd.z = decode_code(vw >> 16, b) * vsv;
-    vd.w = decode_code(vw >> 24, b) * vsv;
-    *reinterpret_cast<float4*>(ks + j * D + d) = kd;
-    *reinterpret_cast<float4*>(vs + j * D + d) = vd;
-  }
-}
-
-// Partial dot product of this thread's DPT lanes of q with one key row.
-template <int DPT>
-__device__ __forceinline__ float partial_dot(const float (&q)[DPT],
-                                             const float* kr) {
-  float part = 0.f;
-  if constexpr (DPT % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < DPT; i += 4) {
-      const float4 k4 = *reinterpret_cast<const float4*>(kr + i);
-      part = fmaf(q[i], k4.x, part);
-      part = fmaf(q[i + 1], k4.y, part);
-      part = fmaf(q[i + 2], k4.z, part);
-      part = fmaf(q[i + 3], k4.w, part);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) part = fmaf(q[i], kr[i], part);
-  }
-  return part;
-}
-
-// Online-softmax update of one query row's (m, l, acc) with the T keys of
-// the tile in shared memory, KB keys at a time (one rescale per KB keys;
-// the KB shuffle reductions are independent, so they overlap).  The TPR
-// threads of the row (consecutive lanes of one warp) each hold DPT of its
-// D dimensions.  Masked keys score NEG_INF and weigh 0, as in the
-// reference.
-template <int TPR, int DPT>
-__device__ __forceinline__ void attend_tile(
-    const float* ks, const float* vs, const int* valid, int T, int D, int d0,
-    const float (&q)[DPT], float& m, float& l, float (&acc)[DPT],
-    float scale) {
-  constexpr int KB = 4;
-  for (int j0 = 0; j0 < T; j0 += KB) {
-    float s[KB];
-    bool ok[KB];
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      ok[k] = j0 + k < T && valid[j0 + k];
-      s[k] = ok[k] ? partial_dot<DPT>(q, ks + (j0 + k) * D + d0) : 0.f;
-    }
-#pragma unroll
-    for (int o = TPR / 2; o > 0; o >>= 1) {
-#pragma unroll
-      for (int k = 0; k < KB; ++k)
-        s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
-    }
-    float mn = m;
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      s[k] = ok[k] ? s[k] * scale : NEG_INF;
-      mn = fmaxf(mn, s[k]);
-    }
-    const float corr = expf(m - mn);
-    float p[KB], psum = 0.f;
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      p[k] = ok[k] ? expf(s[k] - mn) : 0.f;
-      psum += p[k];
-    }
-    l = l * corr + psum;
-    m = mn;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= corr;
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      if (!ok[k]) continue;                  // uniform across the block
-      const float* vr = vs + (j0 + k) * D + d0;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] = fmaf(p[k], vr[i], acc[i]);
-    }
-  }
-}
-
-
-// K1: one block per (l, r, h, query tile), L layers, buffer tile last.
-template <int TPR, int DPT>
-__global__ void __launch_bounds__(THREADS)
-fused_attn_kernel(const float* __restrict__ qh,
-                  const uint8_t* __restrict__ kc, const uint8_t* __restrict__ vc,
-                  const __nv_bfloat16* __restrict__ ksc,
-                  const __nv_bfloat16* __restrict__ vsc,
-                  const uint8_t* __restrict__ state,
-                  const uint8_t* __restrict__ sbits,
-                  const int32_t* __restrict__ table,
-                  const __nv_bfloat16* __restrict__ bk,
-                  const __nv_bfloat16* __restrict__ bv,
-                  const int32_t* __restrict__ blen,
-                  float* __restrict__ out,
-                  int L, int R, int H, int GQ, int D, int NP, int BS, int NB,
-                  int G, int group, float scale) {
-  constexpr int RB = THREADS / TPR;          // query rows per block
-  extern __shared__ float smem[];
-  const int T = BS > G ? BS : G;
-  float* ks = smem;
-  float* vs = ks + T * D;
-  int* valid = reinterpret_cast<int*>(vs + T * D);
-  int* bits = valid + T;
-
-  const int ntiles = (GQ + RB - 1) / RB;
-  int bid = blockIdx.x;
-  const int tile = bid % ntiles; bid /= ntiles;
-  const int h = bid % H; bid /= H;
-  const int r = bid % R;
-  const int l = bid / R;
-  const int tid = threadIdx.x;
-  const int row = tile * RB + tid / TPR;
-  const bool live = row < GQ;
-  const int d0 = (tid % TPR) * DPT;
-  const size_t lr = (size_t)l * R + r;       // (layer, slot)
-
-  float q[DPT], acc[DPT];
-  const float* qr = qh + ((lr * H + h) * GQ + (live ? row : 0)) * D + d0;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    q[i] = live ? qr[i] : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = NEG_INF, lsum = 0.f;
-
-  const size_t meta = lr * NB * BS;
-  for (int b = 0; b < NB; ++b) {
-    int phys = table[((size_t)r * L + l) * NB + b];
-    phys = phys < 0 ? 0 : (phys >= NP ? NP - 1 : phys);
-    for (int j = tid; j < BS; j += blockDim.x) {
-      valid[j] = state[meta + (size_t)b * BS + j] == 1;
-      bits[j] = sbits[meta + (size_t)b * BS + j];
-    }
-    __syncthreads();
-    load_pool_tile(ks, vs, kc, vc, ksc, vsc, bits,
-                   ((size_t)l * NP + phys) * BS, H, h, D, group, BS);
-    __syncthreads();
-    attend_tile<TPR, DPT>(ks, vs, valid, BS, D, d0, q, m, lsum, acc, scale);
-    __syncthreads();
-  }
-
-  // the fp TBQ buffer: G rows, valid below buf_len[r]
-  const int n = blen[r];
-  for (int j = tid; j < G; j += blockDim.x) valid[j] = j < n;
-  const size_t brow0 = lr * G;
-  for (int e = tid; e < G * D; e += blockDim.x) {
-    const int j = e / D, d = e % D;
-    const size_t bi = ((brow0 + j) * H + h) * D + d;
-    ks[j * D + d] = __bfloat162float(bk[bi]);
-    vs[j * D + d] = __bfloat162float(bv[bi]);
-  }
-  __syncthreads();
-  attend_tile<TPR, DPT>(ks, vs, valid, G, D, d0, q, m, lsum, acc, scale);
-
-  if (live) {
-    const size_t orow = (lr * H + h) * GQ + row;
-    const float inv = 1.f / fmaxf(lsum, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) out[orow * D + d0 + i] = acc[i] * inv;
-  }
-}
-
-typedef void (*FusedFn)(const float*, const uint8_t*, const uint8_t*,
-                        const __nv_bfloat16*, const __nv_bfloat16*,
-                        const uint8_t*, const uint8_t*, const int32_t*,
-                        const __nv_bfloat16*, const __nv_bfloat16*,
-                        const int32_t*, float*, int, int, int, int, int, int,
-                        int, int, int, int, float);
-
-// The instantiation for D lanes split over TPR threads (D / TPR in
-// {1, 2, 4} for a warp per row, {4, 8, 16} for 8 threads per row).
-static FusedFn pick_fused(int tpr, int D) {
-  if (tpr == 32) {
-    if (D == 32) return fused_attn_kernel<32, 1>;
-    if (D == 64) return fused_attn_kernel<32, 2>;
-    if (D == 128) return fused_attn_kernel<32, 4>;
-  } else {
-    if (D == 32) return fused_attn_kernel<8, 4>;
-    if (D == 64) return fused_attn_kernel<8, 8>;
-    if (D == 128) return fused_attn_kernel<8, 16>;
-  }
-  return nullptr;
-}
-
-extern "C" int ct_paged_attention_fused(
-    const void* qh, const void* kc, const void* vc, const void* ks,
-    const void* vs, const void* state, const void* bits, const void* table,
-    const void* bk, const void* bv, const void* blen, void* out, int L, int R,
-    int H, int GQ, int D, int NP, int BS, int NB, int G, int group,
-    float scale, void* stream) {
-  if (D % 4 || group % 4 || D % group) return (int)cudaErrorInvalidValue;
-  // a warp per query row while a tile of 4 rows covers GQ; else 8 threads
-  // per row, 16 rows per block
-  const int tpr = GQ <= THREADS / 32 ? 32 : 8;
-  FusedFn fn = pick_fused(tpr, D);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  const int ntiles = (GQ + THREADS / tpr - 1) / (THREADS / tpr);
-  const int T = BS > G ? BS : G;
-  const size_t smem = (size_t)T * D * 2 * sizeof(float) + 2 * T * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fn<<<L * R * H * ntiles, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)qh, (const uint8_t*)kc, (const uint8_t*)vc,
-      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs,
-      (const uint8_t*)state, (const uint8_t*)bits, (const int32_t*)table,
-      (const __nv_bfloat16*)bk, (const __nv_bfloat16*)bv,
-      (const int32_t*)blen, (float*)out, L, R, H, GQ, D, NP, BS, NB, G, group,
-      scale);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K2: split-KV walk of the live pool blocks on the tensor cores
-// ---------------------------------------------------------------------------
-
-#define K2_THREADS 128
-#define K2_ROWS 64              // query rows per block: 4 warps x 16
-#define MAX_KT 4                // BS <= 32: at most 4 eight-key sub-tiles
-
-// shared memory of one K2 block, in bytes from the start, for D, BS, NB
-// decode_code with the nvfp4 magnitudes packed in a register (twice each
-// e2m1 value, a nibble per index) instead of a constant-memory table,
-// whose lanes' differing indices would serialise
+// decode one code with the nvfp4 magnitudes packed in a register (twice
+// each e2m1 value, a nibble per index) instead of a constant-memory table,
+// whose lanes' differing indices would serialise (K2's decode)
 __device__ __forceinline__ float decode_reg(uint32_t c, int bits) {
   if (bits == 2) {
     const uint32_t c2 = c & 3u;
@@ -343,6 +115,534 @@ __device__ __forceinline__ float decode_reg(uint32_t c, int bits) {
   return (float)(int8_t)(uint8_t)c;
 }
 
+// ---------------------------------------------------------------------------
+// K1: a whole decode tick; warps split the live blocks of a (layer, slot,
+// kv head) walk
+// ---------------------------------------------------------------------------
+
+#define K1_WARPS 4
+#define K1_THREADS (K1_WARPS * 32)
+#define K1_STAGES 2             // ring of raw pool blocks per warp
+#define K1_PB 40                // floats per warp: p [32], corrections [<= 8]
+
+// How a warp covers a key row of D dimensions: DPT dimensions per lane, LG
+// lanes per key, KG keys side by side.
+template <int D>
+struct K1Shape {
+  static constexpr int DPT = D == 128 ? 8 : 4;
+  static constexpr int LG = D / DPT;
+  static constexpr int KG = 32 / LG;
+};
+
+// PTX prmt in its default mode (a selector nibble with bit 3 set copies the
+// sign of the selected byte into all 8 bits)
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// The codes of one row, four per word (one per byte), as integers in f32:
+// ternary -1/0/1, nvfp4 twice its e2m1 value (the caller halves the scale),
+// else int8.  Each becomes a byte holding value + 128 (lookups by prmt: an
+// index of 2 or 3 bits per byte, packed into a selector), is placed under
+// the exponent of 2^23 and subtracted out.  No branch: the tables are
+// chosen by selects (once per row), so lanes that decode rows of other
+// bits do not diverge and the caller's loop over keys stays straight-line.
+template <int NW>
+__device__ __forceinline__ void decode_row(const uint32_t (&w)[NW], int bits,
+                                           float (&v)[4 * NW]) {
+  const bool fp4 = bits == 4, lut = bits == 2 || fp4;
+  const uint32_t mask = fp4 ? 0x07070707u : 0x03030303u;
+  // indices 0..7: 128 + 2|e2m1| and 128 - 2|e2m1| (nvfp4, sign bit 3), or
+  // 128 + (0, 1, 0, -1) (ternary, no sign bit)
+  const uint32_t pos = fp4 ? 0x83828180u : 0x7F808180u;
+  const uint32_t neg = fp4 ? 0x7D7E7F80u : 0x7F808180u;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const uint32_t t = w[k] & mask;
+    const uint32_t sel = prmt(t | (t >> 4), 0u, 0x0020u);
+    const uint32_t p = prmt(pos, 0x8C888684u, sel);
+    const uint32_t n = prmt(neg, 0x74787A7Cu, sel);
+    const uint32_t sgn = prmt(w[k] << 4, 0u, 0xBA98u);
+    const uint32_t b = lut ? (p & ~sgn) | (n & sgn) : w[k] ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[4 * k + i] =
+          __uint_as_float(prmt(b, 0x4B000000u, 0x7540u + i)) - 8388736.f;
+  }
+}
+
+// this lane's DPT code bytes of one row, as DPT / 4 words
+template <int DPT>
+__device__ __forceinline__ void load_codes(const uint8_t* p,
+                                           uint32_t (&w)[DPT / 4]) {
+  if constexpr (DPT == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x;
+    w[1] = u.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// this lane's DPT bf16 values of one buffer row, as f32
+template <int DPT>
+__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p,
+                                          float (&v)[DPT]) {
+  uint32_t u[DPT / 2];
+  if constexpr (DPT == 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    u[0] = x.x; u[1] = x.y; u[2] = x.z; u[3] = x.w;
+  } else {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    u[0] = x.x; u[1] = x.y;
+  }
+#pragma unroll
+  for (int k = 0; k < DPT / 2; ++k) {
+    v[2 * k] = __uint_as_float(u[k] << 16);
+    v[2 * k + 1] = __uint_as_float(u[k] & 0xFFFF0000u);
+  }
+}
+
+// A transposing butterfly over groups of 2 HALF lanes, with no select:
+// position p of lane l holds the partial of index p ^ l, so every step
+// keeps positions [0, HALF) and adds the partner's [HALF, 2 HALF), which
+// are the partner's own kept indices.  From HALF = n / 2 down to 1, lane l
+// of the group ends with the group's sum of index l in v[0] (n - 1
+// shuffles for n sums).
+template <int HALF, int N>
+__device__ __forceinline__ void fold(float (&v)[N]) {
+#pragma unroll
+  for (int k = 0; k < HALF; ++k)
+    v[k] += __shfl_xor_sync(0xffffffffu, v[k + HALF], HALF);
+  if constexpr (HALF > 1) fold<HALF / 2>(v);
+}
+
+// RB floats of a warp's probability rows (16-byte aligned)
+template <int RB>
+__device__ __forceinline__ void load_row(const float* p, float (&x)[RB]) {
+  if constexpr (RB % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < RB; r += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + r);
+      x[r] = f.x;
+      x[r + 1] = f.y;
+      x[r + 2] = f.z;
+      x[r + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) x[r] = p[r];
+  }
+}
+
+// One warp's online softmax over nkeys keys, KT = 32 / RB at a time: KG
+// keys side by side, each over LG lanes, for KS = LG / RB steps.  kf(j,
+// cv) fills this lane's DPT values of key j (the unscaled codes) and
+// returns the factor that scales them into the score's units; vf(j, cv)
+// does the same for the value row; ok(j) says whether key j is attended.
+// Keys a tile holds past nkeys read key nkeys - 1 and are masked; a masked
+// key's row is decoded all the same (its score is dropped, its value's
+// factor zeroed), so a tile is one straight-line block.
+//
+// Scores: at step s a lane of group g takes key (s ^ l % KS) KG + g and
+// the query rows r ^ l / KS (qp holds them so permuted), so that its LG
+// partials sit where fold() wants them; lane l of group g ends with the
+// score of row l / KS and key (l % KS) KG + g, and keeps that row's (m, l)
+// over its keys.  pb holds a tile's probabilities [KT][RB] and the rows'
+// corrections [RB].  acc holds the group's share of the output (keys of
+// the group), summed over the groups by the caller.
+template <int D, int RB, class KF, class VF, class OK>
+__device__ __forceinline__ void attend_keys(
+    int nkeys, KF kf, VF vf, OK ok, const float (&qp)[RB][K1Shape<D>::DPT],
+    float (&acc)[RB][K1Shape<D>::DPT], float& m_own, float& l_own,
+    float* pb, int lane) {
+  using SH = K1Shape<D>;
+  constexpr int DPT = SH::DPT, LG = SH::LG, KG = SH::KG;
+  constexpr int KT = 32 / RB, KS = LG / RB;
+  const int g = lane / LG, l = lane % LG;
+  const int rr = l / KS, jl = (l % KS) * KG + g;
+  for (int j0 = 0; j0 < nkeys; j0 += KT) {
+    float part[LG];
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      float cv[DPT];
+      const int j = j0 + (s ^ (l % KS)) * KG + g;
+      const float f = kf(min(j, nkeys - 1), cv);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        float sc = 0.f;
+#pragma unroll
+        for (int i = 0; i < DPT; ++i) sc = fmaf(qp[r][i], cv[i], sc);
+        part[r * KS + s] = sc * f;
+      }
+    }
+    fold<LG / 2>(part);                         // row rr, key j0 + jl
+    const bool valid = j0 + jl < nkeys && ok(j0 + jl);
+    const float sv = valid ? part[0] : NEG_INF;
+    float mx = sv;
+#pragma unroll
+    for (int o = 1; o < KS; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+#pragma unroll
+    for (int o = LG; o < 32; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float mn = fmaxf(m_own, mx);
+    const float corr = expf(m_own - mn);
+    const float p = valid ? expf(sv - mn) : 0.f;
+    l_own = l_own * corr + p;
+    m_own = mn;
+    pb[jl * RB + rr] = p;
+    if (lane % KS == 0 && lane < LG) pb[32 + rr] = corr;
+    __syncwarp();
+    if (__any_sync(0xffffffffu, corr != 1.f)) {   // some row's max moved
+      float cr[RB];
+      load_row<RB>(pb + 32, cr);
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int i = 0; i < DPT; ++i) acc[r][i] *= cr[r];
+    }
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const int jj = s * KG + g, j = j0 + jj;
+      float cv[DPT], pr[RB];
+      const float f = vf(min(j, nkeys - 1), cv);
+      const float fu = j < nkeys && ok(j) ? f : 0.f;
+      load_row<RB>(pb + jj * RB, pr);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float pv = pr[r] * fu;
+#pragma unroll
+        for (int i = 0; i < DPT; ++i) acc[r][i] = fmaf(pv, cv[i], acc[r][i]);
+      }
+    }
+    __syncwarp();                     // pb is rewritten by the next tile
+  }
+}
+
+// shared memory of one K1 block, in bytes from the start
+struct K1Layout {
+  int stage, pbuf, state, bits, list, phys, count, bytes;
+  __host__ __device__ K1Layout(int D, int BS, int NB, int SG, int RB) {
+    stage = (2 * BS * D + 2 * BS * SG * 2 + 15) / 16 * 16;  // codes, scales
+    const int walk = K1_WARPS * K1_STAGES * stage;
+    const int merge = K1_WARPS * (RB * D + 2 * RB) * 4;     // acc, m, l
+    pbuf = ((walk > merge ? walk : merge) + 15) / 16 * 16;  // ring | merge
+    state = pbuf + K1_WARPS * K1_PB * 4;
+    bits = state + NB * BS;
+    list = (bits + NB * BS + 15) / 16 * 16;
+    phys = list + NB * 4;
+    count = phys + NB * 4;
+    bytes = count + 16;
+  }
+};
+
+// K1: one block per (l, r, h, tile of RB query rows); the scale group is 16
+// lanes and BS a multiple of 4
+template <int D, int RB>
+__global__ void __launch_bounds__(K1_THREADS, 3)
+fused_attn_kernel(const float* __restrict__ qh,
+                  const uint8_t* __restrict__ kc, const uint8_t* __restrict__ vc,
+                  const __nv_bfloat16* __restrict__ ksc,
+                  const __nv_bfloat16* __restrict__ vsc,
+                  const uint8_t* __restrict__ state,
+                  const uint8_t* __restrict__ sbits,
+                  const int32_t* __restrict__ table,
+                  const __nv_bfloat16* __restrict__ bk,
+                  const __nv_bfloat16* __restrict__ bv,
+                  const int32_t* __restrict__ blen,
+                  float* __restrict__ out,
+                  int L, int R, int H, int GQ, int NP, int BS, int NB, int G,
+                  float scale) {
+  using SH = K1Shape<D>;
+  constexpr int DPT = SH::DPT, LG = SH::LG, KG = SH::KG, KS = LG / RB;
+  constexpr int SG = D / 16;
+  const K1Layout ly(D, BS, NB, SG, RB);
+  extern __shared__ float4 smem4[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
+  uint8_t* st = sm + ly.state;
+  uint8_t* bt = sm + ly.bits;
+  int* list = reinterpret_cast<int*>(sm + ly.list);
+  int* phys = reinterpret_cast<int*>(sm + ly.phys);
+  int* count = reinterpret_cast<int*>(sm + ly.count);
+
+  const int ntiles = (GQ + RB - 1) / RB;
+  int bid = blockIdx.x;
+  const int tile = bid % ntiles; bid /= ntiles;
+  const int h = bid % H; bid /= H;
+  const int r = bid % R;
+  const int l = bid / R;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lg = lane % LG;                  // this lane's place in its key
+  const size_t lr = (size_t)l * R + r;       // (layer, slot)
+  const int row0 = tile * RB;
+
+  // 1. the slot's table row for this layer (clamped as the reference
+  //    clamps), state and bits, and its live logical blocks in table order
+  for (int b = tid; b < NB; b += K1_THREADS) {
+    const int p = table[((size_t)r * L + l) * NB + b];
+    phys[b] = p < 0 ? 0 : (p >= NP ? NP - 1 : p);
+  }
+  const int nmeta = NB * BS;
+  const uint8_t* sg = state + lr * nmeta;
+  const uint8_t* bg = sbits + lr * nmeta;
+  if ((((uintptr_t)sg | (uintptr_t)bg) & 3) == 0) {
+    for (int w = tid; w < nmeta / 4; w += K1_THREADS) {
+      reinterpret_cast<uint32_t*>(st)[w] =
+          reinterpret_cast<const uint32_t*>(sg)[w];
+      reinterpret_cast<uint32_t*>(bt)[w] =
+          reinterpret_cast<const uint32_t*>(bg)[w];
+    }
+  } else {
+    for (int e = tid; e < nmeta; e += K1_THREADS) {
+      st[e] = sg[e];
+      bt[e] = bg[e];
+    }
+  }
+  // this lane's dimensions of the tile's query rows (zero past GQ), rows
+  // permuted as attend_keys takes them
+  float qp[RB][DPT], acc[RB][DPT];
+#pragma unroll
+  for (int rr = 0; rr < RB; ++rr) {
+    const int row = row0 + (rr ^ (lg / KS));
+    const bool in = row < GQ;
+    const float* qr = qh + ((lr * H + h) * GQ + (in ? row : 0)) * D;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) {
+      qp[rr][i] = in ? qr[lg * DPT + i] : 0.f;
+      acc[rr][i] = 0.f;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int b0 = 0; b0 < NB; b0 += 32) {
+      const int b = b0 + lane;
+      bool any = false;
+      if (b < NB) {
+        const uint32_t* w = reinterpret_cast<const uint32_t*>(st + b * BS);
+        for (int j = 0; j < BS / 4; ++j) {      // a byte equal to 1
+          const uint32_t x = w[j] ^ 0x01010101u;
+          any |= ((x - 0x01010101u) & ~x & 0x80808080u) != 0;
+        }
+      }
+      const uint32_t mask = __ballot_sync(0xffffffffu, any);
+      if (any) list[n + __popc(mask & ((1u << lane) - 1u))] = b;
+      n += __popc(mask);
+    }
+    if (lane == 0) *count = n;
+  }
+  __syncthreads();
+  const int n_live = *count;
+
+  // 2. the warp's items: live blocks w, w + K1_WARPS, ... then the buffer
+  //    (item n_live); a pool block's raw codes and scales arrive by
+  //    cp.async into stage k % K1_STAGES of the warp's ring, K1_STAGES - 1
+  //    items ahead
+  uint8_t* ring = sm + warp * K1_STAGES * ly.stage;
+  float* pb = reinterpret_cast<float*>(sm + ly.pbuf) + warp * K1_PB;
+  // a stage holds 2 BS rows of codes (K rows, then V rows) and then 2 BS
+  // rows of scales; a lane copies one 16-byte chunk of every RPP-th code
+  // row and one 4-byte chunk of every SRP-th scale row
+  constexpr int CPR = D / 16, RPP = 32 / CPR;   // chunks per code row
+  constexpr int SPR = SG / 2, SRP = 32 / SPR;   // 4-byte chunks per scale row
+  const size_t HD = (size_t)H * D, HS = (size_t)H * SG;
+  auto load = [&](int k) {
+    const int i = warp + k * K1_WARPS;
+    if (i < n_live) {
+      const size_t rw0 = ((size_t)l * NP + phys[list[i]]) * BS;
+      uint8_t* rs = ring + (k % K1_STAGES) * ly.stage;
+      const int dc = (lane % CPR) * 16;
+      const uint8_t* gk = kc + rw0 * HD + (size_t)h * D + dc;
+      const uint8_t* gv = vc + rw0 * HD + (size_t)h * D + dc;
+      for (int row = lane / CPR; row < 2 * BS; row += RPP) {
+        const bool v = row >= BS;
+        cp_async16(rs + row * D + dc,
+                   (v ? gv : gk) + (size_t)(v ? row - BS : row) * HD);
+      }
+      const int sc = (lane % SPR) * 2;
+      const __nv_bfloat16* sk = ksc + rw0 * HS + (size_t)h * SG + sc;
+      const __nv_bfloat16* sv_ = vsc + rw0 * HS + (size_t)h * SG + sc;
+      uint8_t* rsc = rs + 2 * BS * D + sc * 2;
+      for (int row = lane / SPR; row < 2 * BS; row += SRP) {
+        const bool v = row >= BS;
+        cp_async4(rsc + row * SG * 2,
+                  (v ? sv_ : sk) + (size_t)(v ? row - BS : row) * HS);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float m_own = NEG_INF, l_own = 0.f;
+  const int mine = n_live + 1 > warp
+                       ? (n_live + 1 - warp + K1_WARPS - 1) / K1_WARPS : 0;
+  const int grp = lg * DPT / 16;                // this lane's scale group
+#pragma unroll
+  for (int k = 0; k < K1_STAGES - 1; ++k) load(k);
+  for (int k = 0; k < mine; ++k) {
+    load(k + K1_STAGES - 1);
+    cp_async_wait<K1_STAGES - 1>();             // item k is here
+    __syncwarp();
+    const int i = warp + k * K1_WARPS;
+    if (i < n_live) {
+      const int b = list[i];
+      const uint8_t* sv = st + b * BS;
+      const uint8_t* bb = bt + b * BS;
+      const uint8_t* rs = ring + (k % K1_STAGES) * ly.stage;
+      const __nv_bfloat16* rsc =
+          reinterpret_cast<const __nv_bfloat16*>(rs + 2 * BS * D);
+      auto code_row = [&](int plane, int j, float (&cv)[DPT]) {
+        const int bits = bb[j];
+        uint32_t w[DPT / 4];
+        load_codes<DPT>(rs + (plane * BS + j) * D + lg * DPT, w);
+        decode_row<DPT / 4>(w, bits, cv);
+        const float sc = __bfloat162float(rsc[(plane * BS + j) * SG + grp]);
+        return bits == 4 ? 0.5f * sc : sc;
+      };
+      attend_keys<D, RB>(
+          BS, [&](int j, float (&cv)[DPT]) { return code_row(0, j, cv) * scale; },
+          [&](int j, float (&cv)[DPT]) { return code_row(1, j, cv); },
+          [&](int j) { return sv[j] == 1; }, qp, acc, m_own, l_own, pb, lane);
+    } else {
+      // the fp TBQ buffer: G rows, valid below buf_len[r]
+      const int n = min(blen[r], G);
+      const size_t brow = lr * G;
+      auto row = [&](const __nv_bfloat16* p, int j, float (&cv)[DPT]) {
+        load_bf16<DPT>(p + ((brow + j) * H + h) * D + lg * DPT, cv);
+      };
+      attend_keys<D, RB>(
+          n, [&](int j, float (&cv)[DPT]) { row(bk, j, cv); return scale; },
+          [&](int j, float (&cv)[DPT]) { row(bv, j, cv); return 1.f; },
+          [](int) { return true; }, qp, acc, m_own, l_own, pb, lane);
+    }
+    __syncwarp();                               // stage k % K1_STAGES is free
+  }
+
+  // 3. this warp's (m, l, acc): l and acc summed over the lanes and groups
+  //    that share a row; then the warps' merged through shared memory (the
+  //    ring, once every warp's walk is done), as the reference merges two
+  //    partitions
+#pragma unroll
+  for (int o = 1; o < KS; o <<= 1)
+    l_own += __shfl_xor_sync(0xffffffffu, l_own, o);
+#pragma unroll
+  for (int o = LG; o < 32; o <<= 1) {
+    l_own += __shfl_xor_sync(0xffffffffu, l_own, o);
+#pragma unroll
+    for (int rr = 0; rr < RB; ++rr)
+#pragma unroll
+      for (int i = 0; i < DPT; ++i)
+        acc[rr][i] += __shfl_xor_sync(0xffffffffu, acc[rr][i], o);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  constexpr int PART = RB * D + 2 * RB;
+  float* mg = reinterpret_cast<float*>(sm);
+  if (lane < LG) {
+#pragma unroll
+    for (int rr = 0; rr < RB; ++rr)
+#pragma unroll
+      for (int i = 0; i < DPT; ++i)
+        mg[warp * PART + rr * D + lane * DPT + i] = acc[rr][i];
+    if (lane % KS == 0) {
+      mg[warp * PART + RB * D + lane / KS] = m_own;
+      mg[warp * PART + RB * D + RB + lane / KS] = l_own;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < RB * D; e += K1_THREADS) {
+    const int rr = e / D, d = e % D;
+    if (row0 + rr >= GQ) continue;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < K1_WARPS; ++w) M = fmaxf(M, mg[w * PART + RB * D + rr]);
+    float Ls = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < K1_WARPS; ++w) {
+      const float wt = expf(mg[w * PART + RB * D + rr] - M);
+      Ls += wt * mg[w * PART + RB * D + RB + rr];
+      o = fmaf(wt, mg[w * PART + e], o);
+    }
+    out[((lr * H + h) * GQ + row0 + rr) * D + d] = o / fmaxf(Ls, 1e-30f);
+  }
+}
+
+template <int D, int RB>
+static int launch_fused(const float* qh, const uint8_t* kc, const uint8_t* vc,
+                        const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                        const uint8_t* st, const uint8_t* bits,
+                        const int32_t* table, const __nv_bfloat16* bk,
+                        const __nv_bfloat16* bv, const int32_t* blen,
+                        float* out, int L, int R, int H, int GQ, int NP,
+                        int BS, int NB, int G, float scale,
+                        cudaStream_t stream) {
+  static int granted = 0;
+  const K1Layout ly(D, BS, NB, D / 16, RB);
+  cudaError_t err = allow_smem(fused_attn_kernel<D, RB>, ly.bytes, granted);
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = (GQ + RB - 1) / RB;
+  fused_attn_kernel<D, RB><<<L * R * H * ntiles, K1_THREADS, ly.bytes,
+                             stream>>>(qh, kc, vc, ks, vs, st, bits, table,
+                                       bk, bv, blen, out, L, R, H, GQ, NP,
+                                       BS, NB, G, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+static int launch_fused_rows(int GQ, const float* qh, const uint8_t* kc,
+                             const uint8_t* vc, const __nv_bfloat16* ks,
+                             const __nv_bfloat16* vs, const uint8_t* st,
+                             const uint8_t* bits, const int32_t* table,
+                             const __nv_bfloat16* bk, const __nv_bfloat16* bv,
+                             const int32_t* blen, float* out, int L, int R,
+                             int H, int NP, int BS, int NB, int G,
+                             float scale, cudaStream_t stream) {
+  // query rows per block: GQ rounded up to a power of two, at most 8
+  auto f = [&](auto fn) {
+    return fn(qh, kc, vc, ks, vs, st, bits, table, bk, bv, blen, out, L, R,
+              H, GQ, NP, BS, NB, G, scale, stream);
+  };
+  if (GQ <= 1) return f(launch_fused<D, 1>);
+  if (GQ <= 2) return f(launch_fused<D, 2>);
+  if (GQ <= 4) return f(launch_fused<D, 4>);
+  return f(launch_fused<D, 8>);
+}
+
+extern "C" int ct_paged_attention_fused(
+    const void* qh, const void* kc, const void* vc, const void* ks,
+    const void* vs, const void* state, const void* bits, const void* table,
+    const void* bk, const void* bv, const void* blen, void* out, int L, int R,
+    int H, int GQ, int D, int NP, int BS, int NB, int G, int group,
+    float scale, void* stream) {
+  if (group != 16 || BS % 4 || BS <= 0) return (int)cudaErrorInvalidValue;
+  if (L == 0 || R == 0 || H == 0 || GQ == 0) return 0;
+  auto f = [&](auto fn) {
+    return fn(GQ, (const float*)qh, (const uint8_t*)kc, (const uint8_t*)vc,
+              (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs,
+              (const uint8_t*)state, (const uint8_t*)bits,
+              (const int32_t*)table, (const __nv_bfloat16*)bk,
+              (const __nv_bfloat16*)bv, (const int32_t*)blen, (float*)out, L,
+              R, H, NP, BS, NB, G, scale, (cudaStream_t)stream);
+  };
+  switch (D) {
+    case 32: return f(launch_fused_rows<32>);
+    case 64: return f(launch_fused_rows<64>);
+    case 128: return f(launch_fused_rows<128>);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: split-KV walk of the live pool blocks on the tensor cores
+// ---------------------------------------------------------------------------
+
+#define K2_THREADS 128
+#define K2_ROWS 64              // query rows per block: 4 warps x 16
+#define MAX_KT 4                // BS <= 32: at most 4 eight-key sub-tiles
+
+// shared memory of one K2 block, in bytes from the start, for D, BS, NB
 struct K2Layout {
   int deq, raw, raw_stage, state, bits, list, phys, count, bytes;
   __host__ __device__ K2Layout(int D, int BS, int NB, int SG) {

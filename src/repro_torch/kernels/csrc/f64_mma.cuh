@@ -1,5 +1,6 @@
-// f64 tensor-core products and cp.async copies, shared by the attention
-// kernels (K2 in ct_paged_attention.cu, K3 in flash_prefill.cu), sm_90a.
+// f64 tensor-core products and cp.async copies, sm_90a: the products for
+// K2 (ct_paged_attention.cu) and K3 (flash_prefill.cu), the copies for
+// them, K1 and K5 (mamba_scan.cu).
 //
 // Why f64: the kernels are held to 1e-4 against their f32 plain versions
 // on out and on the flash stats (m, l).  One TF32 product (10 mantissa
@@ -54,10 +55,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                :: "r"(s), "l"(src), "r"(full ? 16 : 0) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+// 4 bytes global -> shared, asynchronous; zero-filled when !full
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full = true) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-               :: "r"(s), "l"(src) : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(s), "l"(src), "r"(full ? 4 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

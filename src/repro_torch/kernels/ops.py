@@ -137,6 +137,13 @@ def paged_decode_attention_fused(qh, k_codes, v_codes, k_scales, v_scales,
     if on_cpu:
         return R.ct_paged_attention_fused_ref(*args, group=group)
     _check_paged(d, group, k_codes, v_codes)
+    if group != 16 or bs % 4:
+        raise ValueError(f"K1 takes a scale per 16 lanes and a block size "
+                         f"that is a multiple of 4 (got group={group}, "
+                         f"BS={bs})")
+    _aligned("the code planes", 16, k_codes, v_codes)
+    _aligned("scale planes", 4, k_scales, v_scales)
+    _aligned("buffer planes", 16, buf_k, buf_v)
     out = torch.empty_like(qh)
     _launch("ct_paged_attention_fused", "ct_paged_attention_fused",
             *map(_ptr, args), _ptr(out), L, r, h, gq, d, np_, bs, nb, g,

@@ -1,6 +1,8 @@
 """Plain PyTorch versions of every kernel of the port (K1-K5 and the
-single-request ``ct_paged_attention`` wrapper), and of K2's split-KV
-decomposition (``ct_paged_attention_split_ref``).
+single-request ``ct_paged_attention`` wrapper), and of the CUDA kernels'
+decompositions: K1's warp-split walk (``ct_paged_attention_fused_warps_ref``),
+K2's split-KV walk (``ct_paged_attention_split_ref``) and K5's split state
+lanes (``mamba_scan_lanes_ref``).
 
 Ports ``repro/kernels/ref.py``.  Each function has its kernel's exact
 interface, so ``ops`` can take it for a CPU tensor, the CPU tests can hold
@@ -70,32 +72,50 @@ def ct_paged_attention_split_ref(qh, k_codes, v_codes, k_scales, v_scales,
     out, m, l) (an empty one ``(0, -1e30, 0)``) and the partials are merged
     as ``merge_splits_kernel`` does.  Same signature and result as the
     batched version."""
-    r, h, gq, d = qh.shape
     outs, ms, ls = [], [], []
-    for i in range(r):
-        live = torch.nonzero((slot_state[i] == VALID).any(-1)).flatten()
+    for i in range(qh.shape[0]):
+        live = _live_blocks(slot_state[i])
         n = live.numel()
-        parts = []
-        for s in range(splits):
-            b = live[s * n // splits:(s + 1) * n // splits]
-            if b.numel():
-                o, m, l = ct_paged_attention_batched_ref(
-                    qh[i:i + 1], k_codes, v_codes, k_scales, v_scales,
-                    slot_state[i:i + 1, b], slot_bits[i:i + 1, b],
-                    block_table[i:i + 1, b], group=group)
-                parts.append((o * l, m, l))
-            else:
-                m = qh.new_full((1, h, gq, 1), NEG_INF)
-                parts.append((torch.zeros_like(qh[i:i + 1]), m,
-                              torch.zeros_like(m)))
-        m = torch.stack([p[1] for p in parts]).amax(0)
-        w = [torch.exp(p[1] - m) for p in parts]
-        l = sum(wi * p[2] for wi, p in zip(w, parts))
-        acc = sum(wi * p[0] for wi, p in zip(w, parts))
-        outs.append(acc / l.clamp_min(1e-30))
+        parts = [_pool_partial(qh[i:i + 1], k_codes, v_codes, k_scales,
+                               v_scales, slot_state[i:i + 1],
+                               slot_bits[i:i + 1], block_table[i:i + 1],
+                               live[s * n // splits:(s + 1) * n // splits],
+                               group) for s in range(splits)]
+        out, m, l = _merge_partials(parts)
+        outs.append(out)
         ms.append(m)
         ls.append(l)
     return torch.cat(outs), torch.cat(ms), torch.cat(ls)
+
+
+def _live_blocks(state):
+    """The logical blocks of one slot's [NB, BS] state that hold a VALID
+    slot, in table order (the kernels' compacted walk)."""
+    return torch.nonzero((state == VALID).any(-1)).flatten()
+
+
+def _pool_partial(qh, k_codes, v_codes, k_scales, v_scales, slot_state,
+                  slot_bits, block_table, blocks, group):
+    """One share of a slot's pool walk (``blocks``, logical indices) as an
+    unnormalised partial (out * l, m, l); an empty share is (0, -1e30, 0)."""
+    if blocks.numel():
+        o, m, l = ct_paged_attention_batched_ref(
+            qh, k_codes, v_codes, k_scales, v_scales, slot_state[:, blocks],
+            slot_bits[:, blocks], block_table[:, blocks], group=group)
+        return o * l, m, l
+    m = qh.new_full(qh.shape[:-1] + (1,), NEG_INF)
+    return torch.zeros_like(qh), m, torch.zeros_like(m)
+
+
+def _merge_partials(parts):
+    """The flash merge of unnormalised partials (acc, m, l): (out, m, l) with
+    out = sum_s e^(m_s - M) acc_s / max(L, 1e-30), M = max_s m_s and
+    L = sum_s e^(m_s - M) l_s (rows no share saw keep M = -1e30, L = 0)."""
+    m = torch.stack([p[1] for p in parts]).amax(0)
+    w = [torch.exp(p[1] - m) for p in parts]
+    l = sum(wi * p[2] for wi, p in zip(w, parts))
+    acc = sum(wi * p[0] for wi, p in zip(w, parts))
+    return acc / l.clamp_min(1e-30), m, l
 
 
 def logical_metadata(slot_state, slot_bits, block_table):
@@ -171,6 +191,41 @@ def ct_paged_attention_fused_ref(qh, k_codes, v_codes, k_scales, v_scales,
     return torch.stack(outs)
 
 
+def ct_paged_attention_fused_warps_ref(qh, k_codes, v_codes, k_scales,
+                                       v_scales, slot_state, slot_bits,
+                                       block_table, buf_k, buf_v, buf_len, *,
+                                       warps: int = 4, group: int = 16):
+    """K1's walk in plain torch, the CUDA kernel's decomposition of
+    :func:`ct_paged_attention_fused_ref`: per (layer, slot), the items of
+    the walk are the live logical blocks (those holding a VALID slot, in
+    table order) and then the fp TBQ buffer; warp w of ``warps`` takes items
+    w, w + warps, ...; each warp's unnormalised partial (out, m, l) over its
+    items (an empty one ``(0, -1e30, 0)``) is merged with the others.  Same
+    signature and result as the fused version."""
+    out = torch.empty(qh.shape, dtype=torch.float32, device=qh.device)
+    for li in range(qh.shape[0]):
+        for i in range(qh.shape[1]):
+            q = qh[li, i:i + 1]
+            live = _live_blocks(slot_state[li, i])
+            parts = []
+            for w in range(warps):
+                mine = live[w::warps]
+                acc, m, l = _pool_partial(
+                    q, k_codes[li], v_codes[li], k_scales[li], v_scales[li],
+                    slot_state[li, i:i + 1], slot_bits[li, i:i + 1],
+                    block_table[i:i + 1, li], mine, group)
+                if (live.numel() - w) % warps == 0:     # the buffer item
+                    ob, mb, lb = buffer_attention_batched_ref(
+                        q, buf_k[li, i:i + 1], buf_v[li, i:i + 1],
+                        buf_len[i:i + 1])
+                    o, m, l = _merge_partials([(acc, m, l),
+                                               (ob * lb, mb, lb)])
+                    acc = o * l
+                parts.append((acc, m, l))
+            out[li, i] = _merge_partials(parts)[0][0]
+    return out
+
+
 def group_quant_ref(x: torch.Tensor, bits: int, group: int = 16):
     """x [N, D] -> (codes uint8 [N, D], scales bf16 [N, D // group])."""
     codes, scales = Q.quantize_group(x, bits, group)
@@ -228,4 +283,37 @@ def mamba_scan_ref(x, dt, b, c, a) -> torch.Tensor:
         h = torch.exp(dt_t * a) * h + (dt_t * x[..., t, :, None]) * \
             b[..., t, None, :]
         ys.append((h * c[..., t, None, :]).sum(-1))
+    return torch.stack(ys, dim=-2)
+
+
+def mamba_scan_lanes_ref(x, dt, b, c, a, *, lanes: int = 2,
+                         state: int = 16) -> torch.Tensor:
+    """K5's arithmetic order in plain torch, the CUDA kernel's decomposition
+    of :func:`mamba_scan_ref`: the N state lanes of a channel are padded
+    to ``state`` (A, B and C zero past N) and split over ``lanes`` threads
+    of ``state // lanes`` lanes each; a thread sums its lanes' h_t[n] C_t[n]
+    in order, and the threads' partials are summed by a butterfly (pairs
+    of neighbours first).  Same signature and result as the plain scan."""
+    x, dt, b, c, a = (t.float() for t in (x, dt, b, c, a))
+    pad = state - a.shape[-1]
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, pad))
+    c = torch.nn.functional.pad(c, (0, pad))
+    per = state // lanes
+    h = x.new_zeros(x.shape[:-2] + a.shape)
+    ys = []
+    for t in range(x.shape[-2]):
+        dt_t = dt[..., t, :, None]
+        h = torch.exp(dt_t * a) * h + (dt_t * x[..., t, :, None]) * \
+            b[..., t, None, :]
+        hc = (h * c[..., t, None, :]).unflatten(-1, (lanes, per))
+        part = hc[..., 0]
+        for k in range(1, per):
+            part = part + hc[..., k]
+        step = 1                       # the xor butterfly over the lanes
+        while step < lanes:
+            part = part + part.unflatten(-1, (-1, 2, step)).flip(-2) \
+                .flatten(-3)
+            step *= 2
+        ys.append(part[..., 0])
     return torch.stack(ys, dim=-2)

@@ -85,6 +85,52 @@ def test_fused_decode_attention(card, GQ, D, BS):
     assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
 
 
+def test_fused_decode_attention_full_width(card):
+    """K1 at the serve tick's shape (r1-llama-8b: L 32, H 8, GQ 4, D 128;
+    4 slots, BS 16, NB 128, G 16), one launch for the whole tick."""
+    c = pool_case(torch.Generator().manual_seed(32), L=32, R_=4, H=8, GQ=4,
+                  D=128, BS=16, NB=128)
+    c["buf_len"] = torch.tensor([0, 5, 16, 16], dtype=torch.int32)
+    got = launched_once("ct_paged_attention_fused",
+                        ops.paged_decode_attention_fused,
+                        *on(card, c.values()))
+    assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
+
+
+@pytest.mark.parametrize("case", ["empty", "last_block_only", "all_evicted",
+                                  "few_live", "buf_empty", "buf_full"])
+def test_fused_decode_attention_edges_of_the_walk(card, case):
+    """K1 where its warp-split walk has an edge: every table entry -1, one
+    live block at the last entry, a mapped block whose slots are all
+    EVICTED, two live blocks (fewer than its 4 warps), an empty and a full
+    fp buffer; bits mixed 2/4/8 throughout."""
+    c = pool_case(torch.Generator().manual_seed(6), L=2, R_=2, H=8, GQ=4,
+                  D=128, BS=16, NB=128)
+    st, tb = c["slot_state"], c["block_table"]
+    if case in ("empty", "last_block_only", "all_evicted", "few_live"):
+        tb.fill_(-1)
+        st.zero_()
+    if case == "last_block_only":
+        tb[:, :, -1] = torch.tensor([[3, 7], [8, 1]])
+        st[:, :, -1, 5] = 1
+    elif case == "all_evicted":
+        tb[:, :, 1] = torch.tensor([[3, 7], [8, 1]])
+        st[:, :, 1] = 2
+    elif case == "few_live":
+        tb[:, :, 1:3] = torch.tensor([[[3, 4], [7, 9]], [[8, 2], [1, 0]]])
+        st[:, :, 1:3, ::3] = 1
+    elif case == "buf_empty":
+        c["buf_len"].zero_()
+    elif case == "buf_full":
+        c["buf_len"].fill_(16)
+    got = launched_once("ct_paged_attention_fused",
+                        ops.paged_decode_attention_fused,
+                        *on(card, c.values()))
+    assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
+    if case == "empty":
+        assert float(got[:, 0].abs().max()) == 0.0        # buf_len[0] = 0
+
+
 @pytest.mark.parametrize("GQ", [4, 64, 100, 512])
 def test_batched_pool_attention_tiles_the_query_groups(card, GQ):
     c = pool_case(torch.Generator().manual_seed(GQ), L=1, R_=2, H=2, GQ=GQ,
@@ -282,7 +328,7 @@ def test_engine_backends_agree_on_the_card(card):
     ((), 37, 130, 8), ((4,), 300, 256, 16)])
 def test_mamba_scan(card, lead, S, di, N):
     """K5, ragged S (not a multiple of the 16-step chunk) and di (not a
-    multiple of the 128-channel block) included."""
+    multiple of the 32-channel block) included."""
     gen = torch.Generator().manual_seed(S + di)
     x = torch.randn(lead + (S, di), generator=gen)
     dt = 0.01 + 0.1 * torch.rand(lead + (S, di), generator=gen)
@@ -295,6 +341,22 @@ def test_mamba_scan(card, lead, S, di, N):
     assert ops.LAUNCHES["mamba_scan"] == n + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.cpu(), R.mamba_scan_ref(x, dt, b, c, a),
+                               rtol=3e-4, atol=3e-4)
+
+
+def test_mamba_scan_full_prefill_shape(card):
+    """K5 at falcon-mamba-7b's prefill (B 4, S 1024, d_inner 8192, N 16),
+    one launch for every batch row, against the plain scan on the card."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    B, S, di, N = 4, 1024, 8192, 16
+    x = torch.randn((B, S, di), generator=gen, device=card)
+    dt = 0.01 + 0.1 * torch.rand((B, S, di), generator=gen, device=card)
+    b = torch.randn((B, S, N), generator=gen, device=card)
+    c = torch.randn((B, S, N), generator=gen, device=card)
+    a = -torch.exp(torch.randn((di, N), generator=gen, device=card))
+    got = launched_once("mamba_scan", ops.mamba_scan, x, dt, b, c, a)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, R.mamba_scan_ref(x, dt, b, c, a),
                                rtol=3e-4, atol=3e-4)
 
 

@@ -231,3 +231,51 @@ def test_kv_splits_fill_the_card(gq, want):
     assert ops.kv_splits(1, 8, gq, 128, 132) == want
     assert ops.kv_splits(1, 8, gq, 3, 132) == 3
     assert ops.kv_splits(4, 8, 512, 128, 132) == 1
+
+
+def _fused_edge(case):
+    """K1 inputs whose warp-split walk has an edge: no live block, one live
+    block at the last table entry, a mapped block whose slots are all
+    EVICTED, two live blocks (fewer than the kernel's 4 warps), an empty
+    or a full fp buffer; "random" mixes 2/4/8 bits, evicted and free slots
+    and -1 entries."""
+    a = pool_inputs(20, L=2, R=2, H=2, GQ=4, D=32, BS=16, NB=5)
+    st, tb = a["slot_state"], a["block_table"]
+    G = a["buf_k"].shape[2]
+    if case in ("empty", "last_block_only", "all_evicted", "few_live"):
+        tb[:] = -1
+        st[:] = 0
+    if case == "last_block_only":
+        tb[:, :, -1] = [[3, 7], [8, 1]]
+        st[:, :, -1, 5] = 1
+    elif case == "all_evicted":
+        tb[:, :, 1] = [[3, 7], [8, 1]]
+        st[:, :, 1] = 2
+    elif case == "few_live":
+        tb[:, :, 1:3] = [[[3, 4], [7, 9]], [[8, 2], [1, 0]]]
+        st[:, :, 1:3, ::3] = 1
+    elif case == "buf_empty":
+        a["buf_len"][:] = 0
+    elif case == "buf_full":
+        a["buf_len"][:] = G
+    return a
+
+
+@pytest.mark.parametrize("warps", (1, 4))
+@pytest.mark.parametrize("case", ("random", "empty", "last_block_only",
+                                  "all_evicted", "few_live", "buf_empty",
+                                  "buf_full"))
+def test_fused_warp_decomposition_matches_pallas(case, warps):
+    """K1's walk (live blocks and then the fp buffer as items, dealt to
+    ``warps`` warps in turn, flash merge of the warps' partials) against
+    the Pallas kernel in interpret mode, within 1e-5: a slot with no live
+    block and an empty buffer gives 0, with no NaN."""
+    a = _fused_edge(case)
+    out_j = ct_paged_attention_fused(*map(jnp.asarray, a.values()),
+                                     interpret=True)
+    out_t = RT.ct_paged_attention_fused_warps_ref(*to_torch(a).values(),
+                                                  warps=warps)
+    assert torch.isfinite(out_t).all()
+    close(out_t, out_j)
+    if case == "empty":
+        assert float(out_t[:, 0].abs().max()) == 0.0      # buf_len[0] = 0

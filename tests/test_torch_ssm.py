@@ -262,3 +262,17 @@ def test_engine_refuses_the_attention_free_family():
     cfg = ServeConfig(model=get_smoke_config(ARCH), max_seqs=1)
     with pytest.raises(ValueError, match="serve_step"):
         ThinKVEngine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("s,di,n", [(40, 96, 5), (33, 64, 16), (24, 128, 8)])
+def test_mamba_scan_lanes_decomposition_matches_pallas(s, di, n):
+    """K5's arithmetic order (a channel's state lanes padded to 16 and
+    split over 2 threads, partial sums joined by a butterfly) against the
+    Pallas kernel in interpret mode (3e-4, the JAX package's bar) and its
+    oracle (1e-5), at ragged S, d_inner and N."""
+    args = scan_inputs(s * di + n, s, di, n)
+    y_k = mamba_scan(*map(jnp.asarray, args), d_block=64, chunk=32,
+                     interpret=True)
+    y_t = RT.mamba_scan_lanes_ref(*map(torch.from_numpy, args))
+    close(y_t, y_k, atol=3e-4, rtol=3e-4)
+    close(y_t, RJ.mamba_scan_ref(*map(jnp.asarray, args)))
