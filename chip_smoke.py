@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py            # every phase, one CUDA card
     python3 chip_smoke.py --ab DIR   # DIR/src (a parent checkout) against
-                                     # this tree: kernels, serve,
-                                     # prefill_profile, profile and the
-                                     # ssm prefill, in the order parent,
-                                     # this, this, parent
+                                     # this tree: kernels, commit_profile,
+                                     # serve, prefill_profile, profile and
+                                     # the ssm prefill, in the order
+                                     # parent, this, this, parent
 
 Phases, each printing one JSON line and raising (non-zero exit) on any
 failure:
@@ -23,14 +23,27 @@ failure:
                 of bytes / 3.35 TB/s and operations / the peak of the units
                 that run them, named in ``bound_peak``) and, for K3, SDPA's
                 time as a yardstick; K3 also without its stats
-                (``prefill_attention``);
+                (``prefill_attention``); K4 at a commit's shape (K and V
+                bf16 [32, 16, 8, 128], one launch, at each thought's width)
+                and through its direct entry (f32 [N, D], bits 2, 4, 8);
+   commit_profile — one group commit at r1-llama-8b's cache width under
+                torch.profiler: the device kernels and copies it runs;
+   trace      — K1-K4 against their plain versions at the flash trace's
+                shapes (head_dim 16, BS 8, K2 split and merged, K1 and K2
+                also at an odd kv head count; 1e-3 abs, K4 bit-exact), then
+                the flash trace (the JAX engine's parameters)
+                on the kernel and the reference backend, each held to the
+                JAX reference engine's record
+                (``tests/golden/torch_flash_trace.npz``): identical tokens,
+                logits within 1e-3, equal counters and pool audit, K1 once
+                per tick, K2 and K3 launched, K4 once per commit;
 4. serve      — the port's engine on the full r1-llama-8b config (32 layers,
                 random weights from a seed), kernel backend, 4 requests of
                 1100-token prompts and 64 new tokens; launch counts are
                 zeroed just before and read just after, and K1-K4 must have
                 run (K1 once per tick, K2 and K3 once per prefill chunk and
                 layer: big chunks at GQ 512 / S 128, g-chunks at GQ 64 /
-                S 16);
+                S 16; K4 once per group commit, 288);
 5. prefill_profile — one prompt's prefill under torch.profiler: K2's and
                 K3's device time, the device's busy share, host spans;
    profile    — 12 decode ticks of the same traffic under torch.profiler:
@@ -59,7 +72,7 @@ Then the kernels line (each kernel's launches on its own path: K1-K4 from
 the serve phase, K2 and K3 also by shape, K5 from the ssm phase's
 prefill, the wrapper from the controller phase), the card's name and power
 limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX.  3.5 to 4.5 minutes on one H100 80GB HBM3.
+Imports nothing of JAX.  About 6 minutes on one H100 80GB HBM3.
 """
 from __future__ import annotations
 
@@ -230,6 +243,62 @@ def pool_case(gen, dev, L, R, H, D, BS, NB, NP, G=16, GQ=4):
                               dtype=torch.int32))
 
 
+def commit_buffers(gen, dev, L, G, H, D):
+    """A commit's bf16 K and V buffers [L, G, H, D], their first groups
+    with an amax in the E4M3 subnormal scale range, at zero, and at and
+    past the 448 saturation edge."""
+    import torch
+    x = torch.randn((2, L * G * H, D), generator=gen, device=dev)
+    x[:, 0, :16] *= 1e-4
+    x[:, 1, :16] *= 1e-6
+    x[:, 2, :16] = 0.0
+    x[:, 3, :16] *= 3000.0
+    x[:, 4, :16] = 448.0 * 127.0 * 1.5
+    x[:, 5, :16] = 448.0
+    x[1] *= 40.0
+    return [a.reshape(L, G, H, D).to(torch.bfloat16) for a in x]
+
+
+def commit_quant(ops, ref, k, v, bits, levels):
+    """(the tree's quantization of one commit, its plain version): one K4
+    launch (``tbq_commit_quant``), or on a tree from before it (an A/B
+    parent) what that tree's commit ran: both buffers widened to f32, K4
+    at every level, the thought's selected."""
+    if hasattr(ops, "tbq_commit_quant"):
+        return (lambda: ops.tbq_commit_quant(k, v, bits, levels),
+                lambda: ref.group_quant_commit_ref(k, v, bits, levels))
+
+    def per_level(quant):
+        import torch
+
+        def one(x, b):
+            codes, scales = quant(x.reshape(-1, x.shape[-1]), b)
+            return codes.reshape(x.shape), scales.reshape(*x.shape[:-1], -1)
+
+        def run():
+            kf, vf, out = k.float(), v.float(), None
+            for b in levels:
+                q = (*one(kf, b), *one(vf, b))
+                out = q if out is None else tuple(
+                    torch.where(bits == b, n, o) for n, o in zip(q, out))
+            return out
+        return run
+    return per_level(ops.tbq_group_quant), per_level(ref.group_quant_ref)
+
+
+def assert_same_quant(got, want, what):
+    """Codes and scale bits equal (K4 is held bit-exact)."""
+    import torch
+    bad = 0
+    for g, w in zip(got, want):
+        if g.dtype == torch.bfloat16:
+            g, w = g.view(torch.int16), w.view(torch.int16)
+        bad += int((g != w).sum())
+    if bad:
+        raise AssertionError(f"group_quant {what}: {bad} codes or scales "
+                             f"differ from the plain version")
+
+
 def kernel_record(name, source, replaces, shape, err, fn, plain, bound_,
                   library=None, plain_iters=5, **extra):
     """One kernel's record: device and eager times of ``fn``, the plain
@@ -344,33 +413,38 @@ def check_kernels(dev, mc, tk):
                 bound(nbytes(q, k, v, out), flops, peak="f64tc"),
                 plain_iters=10)
 
-    # K4: commit quantization, with subnormal-scale and saturating groups
+    # K4: one commit's quantization (L x G x H rows of D, K and V in bf16)
+    # at each thought's width, with subnormal-scale, zero and saturating
+    # groups; then the direct entry (f32 [N, D]) at bits 2, 4 and 8
+    k, v = commit_buffers(gen, dev, L, G, H, D)
+    levels = tuple(sorted(set(tk.precision)))
+    for thought, width in enumerate(tk.precision):
+        bits = torch.tensor(width, dtype=torch.int32, device=dev)
+        fn, plain = commit_quant(ops, ref, k, v, bits, levels)
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        assert_same_quant(got, want, f"commit, thought {thought}")
+    outs = fn()
+    recs["K4"] = kernel_record(
+        "group_quant", "group_quant.cu", "group_quant.py:70",
+        f"commit: K, V bf16 [L={L}, G={G}, H={H}, D={D}] at bits "
+        f"{width} of {levels}", 0.0, fn, plain,
+        bound(nbytes(k, v, bits, *outs), 8 * 2 * k.numel()), plain_iters=10)
     N = L * G * H
-    x = torch.randn((N, D), generator=gen, device=dev)
-    x[0, :16] *= 1e-4
-    x[1, :16] *= 1e-6
-    x[2, :16] = 0.0
-    x[3, :16] *= 3000.0
-    x[4, :16] = 448.0 * 127.0 * 1.5
+    x = k.float().reshape(N, D)
     for bits in (2, 4, 8):
         codes, scales = ops.tbq_group_quant(x, bits)
         torch.cuda.synchronize()
-        rc, rs = ref.group_quant_ref(x, bits)
-        if not (torch.equal(codes, rc) and
-                torch.equal(scales.view(torch.int16), rs.view(torch.int16))):
-            bad = int((codes != rc).sum()) + int((scales.view(torch.int16)
-                                                   != rs.view(torch.int16))
-                                                  .sum())
-            raise AssertionError(f"group_quant bits={bits}: {bad} codes or "
-                                 f"scales differ from the plain version")
+        assert_same_quant((codes, scales), ref.group_quant_ref(x, bits),
+                          f"direct, bits {bits}")
         rec = kernel_record(
             "group_quant", "group_quant.cu", "group_quant.py:70",
-            f"N={N} D={D} bits={bits}", 0.0,
+            f"direct: N={N} D={D} bits={bits}", 0.0,
             lambda: ops.tbq_group_quant(x, bits),
             lambda: ref.group_quant_ref(x, bits),
             bound(nbytes(x, codes, scales), 8 * N * D), plain_iters=10)
         if bits == 4:
-            recs["K4"] = rec
+            recs["K4_direct"] = rec
     # the single-request wrapper at r1-llama-8b's shape: a shuffled physical
     # pool, physical metadata, a raw table with -1 entries, one K2 launch
     NPw = NB + 16
@@ -401,7 +475,7 @@ def check_kernels(dev, mc, tk):
               4 * H * gq * D * n_slots, peak="f64tc"))
 
     for name, rec in recs.items():
-        if name != "K4" and rec["max_abs_err"] > ATOL:
+        if not name.startswith("K4") and rec["max_abs_err"] > ATOL:
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{rec['max_abs_err']} > {ATOL}")
     recs["K5"] = check_mamba_scan(dev, gen)
@@ -516,18 +590,18 @@ def parity(engine_cls, cfg, params, prompts, short, max_new, dev):
             "failed": failed}
 
 
-# device kernel names of K1, K2, K3 and K5 (this tree's and the parent
-# designs')
+# device kernel names of K1-K5 (this tree's and the parent designs')
 KERNEL_GROUPS = {"K1": ("fused_attn_kernel",),
                  "K2": ("paged_split_kernel", "merge_splits_kernel",
                         "paged_attn_kernel<false"),
                  "K3": ("flash_prefill_kernel",),
+                 "K4": ("group_quant_kernel",),
                  "K5": ("mamba_scan_kernel",)}
 
 
 def profile_window(fn, top: int = 12) -> dict:
     """``fn()`` under torch.profiler: the window's wall time, the device
-    time by kernel (and of each of K1, K2, K3 and K5's kernels together),
+    time by kernel (and of each of K1-K5's kernels together),
     the device's busy share, and the host spans (``thinkv.*``
     record_function ranges)."""
     import torch
@@ -807,10 +881,169 @@ def controller_phase(dev, mc, tk, n_tokens=2048) -> dict:
     return rec
 
 
+def check_trace_kernels(dev, cfg) -> dict:
+    """K1-K4 at the flash trace's shapes (``cfg``: head_dim 16, BS 8, the
+    128-token big chunk and the g-chunk, the commit [L, G, H, D]) against
+    their plain versions on the same card tensors: <= 1e-3 abs for
+    attention, bit-exact for the quantizer.  K2 runs its split walk
+    (NS > 1), so the merge is held too; K1 and K2 also run at an odd kv
+    head count, where the half of a row's scale word alternates from row
+    to row.  Raises on a mismatch."""
+    import torch
+    from repro_torch.core.ct_cache import make_dims
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    mc, tk = cfg.model, cfg.thinkv
+    dims = make_dims(tk, mc.num_layers, mc.num_kv_heads, mc.head_dim)
+    L, H, D, BS, NB, G = dims.L, dims.H, dims.D, dims.BS, dims.NB, dims.G
+    gq, R, C = mc.num_heads // H, cfg.max_seqs, 128
+    sms = ops._sm_count(dev.index or 0)
+    errs = {}
+    # K1: a tick at the trace's shape; GQ 8 over 3 kv heads is two 4-row
+    # tiles per (layer, slot, kv head) and an odd row-to-row parity
+    for h, g in ((H, gq), (3, 8)):
+        c = pool_case(gen, dev, L, R, h, D, BS, NB, R * NB, G, g)
+        args = tuple(c.values())
+        errs[f"K1 H={h} GQ={g}"] = max_err(
+            ops.paged_decode_attention_fused(*args),
+            ref.ct_paged_attention_fused_ref(*args))
+    # K2: the big chunk's and the g-chunk's queries folded into GQ
+    for h, g in ((H, C * gq), (H, G * gq), (3, 64)):
+        c = pool_case(gen, dev, 1, 1, h, D, BS, NB, NB, G, g)
+        args = (c["qh"][0], c["k_codes"][0], c["v_codes"][0],
+                c["k_scales"][0], c["v_scales"][0], c["slot_state"][0],
+                c["slot_bits"][0], c["block_table"][:, 0].contiguous())
+        ns = ops.kv_splits(1, h, g, NB, sms)
+        if ns < 2:
+            raise AssertionError(f"K2 at H={h} GQ={g} NB={NB}: {ns} share, "
+                                 f"the merge is not run")
+        errs[f"K2 H={h} GQ={g} NS={ns}"] = max_err(
+            ops.paged_decode_attention_batched(*args),
+            ref.ct_paged_attention_batched_ref(*args))
+    # K3: the big chunk, and a g-chunk with a ragged tail
+    for S, n_valid in ((C, None), (G, 5)):
+        q = torch.randn((S, mc.num_heads, D), generator=gen, device=dev)
+        k = torch.randn((S, H, D), generator=gen, device=dev)
+        v = torch.randn((S, H, D), generator=gen, device=dev)
+        kv_valid = None if n_valid is None else \
+            torch.arange(S, device=dev) < n_valid
+        errs[f"K3 S={S} n_valid={n_valid}"] = max_err(
+            ops.prefill_attention_stats(q, k, v, n_valid=n_valid),
+            ref.flash_prefill_stats_ref(q, k, v, kv_valid=kv_valid))
+    torch.cuda.synchronize()
+    bad = {n: e for n, e in errs.items() if not e <= ATOL}
+    # K4: a commit of the trace, bit-exact at each thought's width
+    k, v = commit_buffers(gen, dev, L, G, H, D)
+    levels = tuple(sorted(set(tk.precision)))
+    for thought, width in enumerate(tk.precision):
+        bits = torch.tensor(width, dtype=torch.int32, device=dev)
+        fn, plain = commit_quant(ops, ref, k, v, bits, levels)
+        assert_same_quant(fn(), plain(), f"trace commit [{L}, {G}, {H}, "
+                          f"{D}], thought {thought}")
+    errs["K4 commit"] = 0.0
+    emit({"phase": "trace_kernels", "head_dim": D, "block_size": BS,
+          "blocks": NB, "max_abs_err": errs})
+    if bad:
+        raise AssertionError(f"a kernel at the trace's shapes disagrees "
+                             f"with its plain version: {bad} > {ATOL}")
+    return errs
+
+
+def trace_phase(dev) -> dict:
+    """The flash trace at its config (r1-llama-8b's smoke form with 8 q and
+    8 kv heads at head_dim 16, a 128-token big chunk, g-chunks, eviction
+    and refresh) with the JAX engine's parameters, on the kernel and then
+    the reference backend, each held to the JAX reference engine's record
+    (``tests/golden/torch_flash_trace.npz``): identical tokens, logits
+    within 1e-3, equal counters and pool audit; the kernel backend
+    launches K1 once per tick and K2 and K3, both launch K4 once per
+    commit.  First K1-K4 are held against their plain versions at the
+    trace's shapes (``check_trace_kernels``).  Launch counts are zeroed
+    just before each run."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import trace_record as TR
+    t0 = time.perf_counter()
+    rec = TR.load(os.path.join(HERE, "tests", "golden",
+                               "torch_flash_trace.npz"))
+    commits = TR.expected_commits(rec)
+    kernel_errs = check_trace_kernels(dev, TR.serve_config(rec))
+    runs, failed, params = {}, [], None
+    for backend in ("kernel", "reference"):
+        ops.reset_launches()
+        eng, done, _ = TR.replay(rec, backend, dev, params)
+        launches = dict(ops.LAUNCHES)
+        params = eng.model
+        bad, worst = TR.mismatches(rec, eng, done)
+        k1 = launches["ct_paged_attention_fused"]
+        if backend == "reference" and k1:
+            bad.append(f"K1 launched {k1} times")
+        if backend == "kernel" and k1 != eng.metrics["ticks"]:
+            bad.append(f"K1 launched {k1} times over "
+                       f"{eng.metrics['ticks']} ticks")
+        if backend == "kernel" and not all(launches[k] > 0 for k in K1_K4):
+            bad.append(f"a kernel never launched: {launches}")
+        if launches["group_quant"] != commits:
+            bad.append(f"K4 launched {launches['group_quant']} times for "
+                       f"{commits} commits")
+        runs[backend] = {"tokens": {r.arrival: r.output for r in done},
+                         "max_abs_logit_diff": worst,
+                         "ticks": eng.metrics["ticks"],
+                         "launches": launches, "mismatches": bad}
+        failed += [f"{backend}: {b}" for b in bad]
+    mc = TR.serve_config(rec).model
+    out = {"phase": "trace", "trace": "flash", "head_dim": mc.head_dim,
+           "heads": mc.num_heads, "kv_heads": mc.num_kv_heads,
+           "layers": mc.num_layers, "commits": commits,
+           "record_tokens": rec["tokens"], "kernels_max_abs_err": kernel_errs,
+           **runs,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if failed:
+        raise AssertionError(f"the flash trace differs from the JAX "
+                             f"record: {failed}")
+    return out
+
+
+def commit_profile(dev, mc, tk) -> dict:
+    """One group commit (``commit_group``) at r1-llama-8b's cache width (32
+    layers, 8 kv heads, head_dim 128, default ThinKVConfig) under
+    torch.profiler, after a warm-up commit: the device kernels and copies
+    it runs (K4 among them) and their device time."""
+    import torch
+    from repro_torch.core import ct_cache as CC
+    from repro_torch.kernels import ops
+    dims = CC.make_dims(tk, mc.num_layers, mc.num_kv_heads, mc.head_dim)
+    cache = CC.init_cache(dims, dev)
+    view = CC.init_pool_view(dims, dims.NB, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def fill():
+        cache.buf_k.normal_(generator=gen)
+        cache.buf_v.normal_(generator=gen)
+        cache.buf_len.fill_(dims.G)
+        cache.num_tokens.add_(dims.G)
+    fill()
+    CC.commit_group(tk, dims, cache, view)
+    fill()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rec = profile_window(lambda: CC.commit_group(tk, dims, cache, view),
+                         top=40)
+    out = {"phase": "commit_profile", "L": dims.L, "G": dims.G, "H": dims.H,
+           "D": dims.D, "group_quant_launches": ops.LAUNCHES["group_quant"],
+           "device_ops": rec["launches"], "device_busy_ms":
+           rec["device_busy_ms"], "window_ms": rec["window_ms"],
+           "ops": [(k["name"], k["count"], k["ms"])
+                   for k in rec["top_kernels"]]}
+    emit(out)
+    return out
+
+
 def serve_phase(engine_cls, cfg, params, prompts, max_new, init_s, dev):
     """The main path: the engine serves ``prompts`` with launch counts zeroed
     just before and read just after; K1-K4 must have run (K1 once per tick,
-    K2 and K3 once per prefill chunk and layer, split by shape)."""
+    K2 and K3 once per prefill chunk and layer, split by shape, K4 once per
+    group commit: every G tokens a request writes)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -847,6 +1080,14 @@ def serve_phase(engine_cls, cfg, params, prompts, max_new, init_s, dev):
         if sum(shapes.values()) != launches[k]:
             raise AssertionError(f"{k}: {launches[k]} launches, but the "
                                  f"chunks account for {shapes}")
+    commits = sum((len(p) + max_new - 1) // small for p in prompts)
+    # a tree from before the one-launch commit (an A/B parent) ran K4 on K
+    # and V at every precision level
+    per_commit = 1 if hasattr(ops, "tbq_commit_quant") else \
+        2 * len(set(cfg.thinkv.precision))
+    if launches["group_quant"] != commits * per_commit:
+        raise AssertionError(f"group_quant: {launches['group_quant']} "
+                             f"launches for {commits} commits")
     rec = {"phase": "serve", "layers": mc.num_layers, "requests": len(done),
            "prompt_len": len(prompts[0]), "max_new": max_new,
            "init_s": init_s, "wall_s": m["wall_s"],
@@ -859,7 +1100,8 @@ def serve_phase(engine_cls, cfg, params, prompts, max_new, init_s, dev):
            "footprint_frac": float(np.mean(
                [r.stats["footprint_frac"] for r in done])),
            "avg_bits": float(np.mean([r.stats["avg_bits"] for r in done])),
-           "launches": launches, "launches_by_shape": by_shape,
+           "commits": commits, "launches": launches,
+           "launches_by_shape": by_shape,
            "audit_claimed": audit["claimed"][:4],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(rec)
@@ -927,6 +1169,9 @@ def main() -> int:
     t0 = time.perf_counter()
     recs = check_kernels(dev, mc, tk)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
+    com = commit_profile(dev, mc, tk)
+    if not ab_run:
+        trace_phase(dev)
 
     # ---- serve: the main path at full width and depth ----
     cfg = ServeConfig(model=mc, thinkv=tk, max_seqs=4)
@@ -951,8 +1196,13 @@ def main() -> int:
               "kernels": {n: {k: r[k] for k in ("shape", "ms", "eager_ms",
                                                 "max_abs_err")}
                           for n, r in recs.items()},
-              "serve": {k: srv[k] for k in ("prefill_s", "decode_s",
-                                            "ms_per_tick", "wall_s")},
+              "serve": {**{k: srv[k] for k in ("prefill_s", "decode_s",
+                                               "ms_per_tick", "wall_s",
+                                               "commits")},
+                        "k4_launches": srv["launches"]["group_quant"]},
+              "commit_profile": {k: com[k] for k in (
+                  "group_quant_launches", "device_ops", "device_busy_ms",
+                  "window_ms", "ops")},
               "prefill_profile": {k: pre[k] for k in (
                   "window_ms", "device_busy_ms", "idle_share", "spans",
                   "kernel_groups", "prefill_s")},

@@ -25,9 +25,10 @@ Differences of form (not of function) from the reference:
   from the engine's host mirrors of ``num_tokens`` / ``buf_len``, and a
   refresh reads the slot's segment table back once (to skip segments TBE
   would not touch);
-* the commit's quantization goes through the K4 kernel
-  (``kernels.ops.tbq_group_quant``) on the card, bit-exact to
-  ``quantize_group``.
+* the commit's quantization is one K4 launch on the card
+  (``kernels.ops.tbq_commit_quant``) that reads the bf16 buffers and the
+  thought's bit width on the device, bit-exact to ``quantize_group`` at
+  every level followed by the reference's selection.
 
 COW, incref, claim, extract and restore (the prefix cache and preemption)
 are not ported yet (ROADMAP queue 1 item 10).
@@ -175,26 +176,14 @@ def init_cache(dims: CacheDims, device: torch.device,
 def _quantize_group_by_thought(cfg: ThinKVConfig, k: torch.Tensor,
                                v: torch.Tensor, thought: torch.Tensor,
                                policy=None):
-    """Quantize [L, G, H, D] K/V at psi(thought) bits through K4.  The bit
-    width is a device value, so every precision level of the policy is
-    computed and selected (as the reference does; no read-back)."""
+    """Quantize the bf16 [L, G, H, D] K/V buffers at psi(thought) bits in
+    one K4 launch.  The bit width is a device value, resolved on the device
+    against the policy's precision levels as the reference's selection
+    over every level resolves it (no read-back)."""
     policy = get_policy(policy)
     bits = policy.psi_bits(thought, cfg)
-
-    def quant(x, b):
-        codes, scales = ops.tbq_group_quant(
-            x.reshape(-1, x.shape[-1]).contiguous(), b)
-        return codes.reshape(x.shape), scales.reshape(*x.shape[:-1], -1)
-
-    kc = ks = vc = vs = None
-    for b in policy.precision_levels(cfg):
-        (kc2, ks2), (vc2, vs2) = quant(k, b), quant(v, b)
-        if kc is None:
-            kc, ks, vc, vs = kc2, ks2, vc2, vs2
-            continue
-        sel = bits == b
-        kc, ks = torch.where(sel, kc2, kc), torch.where(sel, ks2, ks)
-        vc, vs = torch.where(sel, vc2, vc), torch.where(sel, vs2, vs)
+    kc, ks, vc, vs = ops.tbq_commit_quant(k, v, bits,
+                                          policy.precision_levels(cfg))
     return kc, ks, vc, vs, bits
 
 
@@ -234,7 +223,7 @@ def commit_group(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
     positions = cache.num_tokens - G + torch.arange(G, dtype=torch.int32,
                                                     device=dev)
     kc, ks, vc, vs, bits = _quantize_group_by_thought(
-        cfg, cache.buf_k.float(), cache.buf_v.float(), t, policy)
+        cfg, cache.buf_k, cache.buf_v, t, policy)
     idx, ok = _alloc_slots(dims, cache.slot_state, cache.block_type, t)
     lrow = torch.arange(L, device=dev)[:, None].expand(L, G)
     li, si = lrow[ok], idx[ok]

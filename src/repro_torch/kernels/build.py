@@ -36,6 +36,7 @@ SIGNATURES = {
         "ct_paged_attention", [P] * 13 + [I] * 9 + [F, P]),
     "flash_prefill_stats": ("flash_prefill", [P] * 6 + [I] * 7 + [F, P]),
     "group_quant": ("group_quant", [P] * 3 + [I] * 4 + [P]),
+    "group_quant_commit": ("group_quant", [P] * 7 + [I] * 3 + [P]),
     "mamba_scan": ("mamba_scan", [P] * 6 + [I] * 4 + [P]),
 }
 

@@ -86,12 +86,19 @@
 //     cp.async while the current one is decoded and attended, with one
 //     barrier per pool block (raw codes and decoded tiles double-buffered).
 //
+// Head_dim 16 (the trace config's; both kernels): a pool row has one bf16
+// scale, and cp.async copies no fewer than 4 bytes, so the aligned 4-byte
+// word holding it is staged (it lies inside the 4-byte aligned plane) and
+// the element's parity picks its half; K1 tiles at most 4 query rows (its
+// key row is 4 lanes wide); merge_splits_kernel takes half a warp per row.
+//
 // ptxas (sm_90a, -O3; chip_smoke.py's build phase on an H100):
-// paged_split_kernel D 128 / 64 / 32: 186 / 141 / 95 registers;
+// paged_split_kernel D 128 / 64 / 32 / 16: 186 / 141 / 95 / 80 registers;
 // merge_splits_kernel: 32 registers; no spills.  fused_attn_kernel (K1,
 // capped at 170 registers for 3 blocks per SM) D 128 at RB 4 (the serve
 // tick): 151 registers, no spills; D 128 at RB 8: 168 registers and 136
-// bytes of spill stores; D 64 and 32: 96-159 registers, no spills.
+// bytes of spill stores; D 64 and 32: 96-159 registers, D 16: 88-102, no
+// spills.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -126,7 +133,8 @@ __device__ __forceinline__ float decode_reg(uint32_t c, int bits) {
 #define K1_PB 40                // floats per warp: p [32], corrections [<= 8]
 
 // How a warp covers a key row of D dimensions: DPT dimensions per lane, LG
-// lanes per key, KG keys side by side.
+// lanes per key, KG keys side by side.  At D 16 a key row is LG = 4 lanes of
+// one code word each (launch_fused_rows keeps RB <= LG there).
 template <int D>
 struct K1Shape {
   static constexpr int DPT = D == 128 ? 8 : 4;
@@ -322,11 +330,28 @@ __device__ __forceinline__ void attend_keys(
   }
 }
 
+// bytes a pool row's scales take in shared memory: SG bf16, or at SG 1
+// (D 16) the aligned 4-byte word that holds the row's one scale, since
+// cp.async copies no fewer than 4 bytes (scale_half picks its half)
+__host__ __device__ constexpr int scale_row_bytes(int SG) {
+  return SG == 1 ? 4 : 2 * SG;
+}
+
+// the half of its aligned word that the bf16 at element e of a 4-byte
+// aligned scale plane sits in
+__device__ __forceinline__ int scale_half(size_t e) { return (int)(e & 1); }
+
+// the aligned 4-byte word holding a bf16 of a 4-byte aligned plane: it
+// lies inside the plane, whose size in bytes is a multiple of 4
+__device__ __forceinline__ const void* scale_word(const __nv_bfloat16* p) {
+  return reinterpret_cast<const void*>((uintptr_t)p & ~(uintptr_t)3);
+}
+
 // shared memory of one K1 block, in bytes from the start
 struct K1Layout {
   int stage, pbuf, state, bits, list, phys, count, bytes;
   __host__ __device__ K1Layout(int D, int BS, int NB, int SG, int RB) {
-    stage = (2 * BS * D + 2 * BS * SG * 2 + 15) / 16 * 16;  // codes, scales
+    stage = (2 * BS * D + 2 * BS * scale_row_bytes(SG) + 15) / 16 * 16;
     const int walk = K1_WARPS * K1_STAGES * stage;
     const int merge = K1_WARPS * (RB * D + 2 * RB) * 4;     // acc, m, l
     pbuf = ((walk > merge ? walk : merge) + 15) / 16 * 16;  // ring | merge
@@ -447,7 +472,8 @@ fused_attn_kernel(const float* __restrict__ qh,
   // rows of scales; a lane copies one 16-byte chunk of every RPP-th code
   // row and one 4-byte chunk of every SRP-th scale row
   constexpr int CPR = D / 16, RPP = 32 / CPR;   // chunks per code row
-  constexpr int SPR = SG / 2, SRP = 32 / SPR;   // 4-byte chunks per scale row
+  constexpr int SRB = scale_row_bytes(SG);
+  constexpr int SPR = SRB / 4, SRP = 32 / SPR;  // 4-byte chunks per scale row
   const size_t HD = (size_t)H * D, HS = (size_t)H * SG;
   auto load = [&](int k) {
     const int i = warp + k * K1_WARPS;
@@ -468,8 +494,9 @@ fused_attn_kernel(const float* __restrict__ qh,
       uint8_t* rsc = rs + 2 * BS * D + sc * 2;
       for (int row = lane / SPR; row < 2 * BS; row += SRP) {
         const bool v = row >= BS;
-        cp_async4(rsc + row * SG * 2,
-                  (v ? sv_ : sk) + (size_t)(v ? row - BS : row) * HS);
+        const __nv_bfloat16* src =
+            (v ? sv_ : sk) + (size_t)(v ? row - BS : row) * HS;
+        cp_async4(rsc + row * SRB, SG == 1 ? scale_word(src) : src);
       }
     }
     cp_async_commit();
@@ -493,12 +520,16 @@ fused_attn_kernel(const float* __restrict__ qh,
       const uint8_t* rs = ring + (k % K1_STAGES) * ly.stage;
       const __nv_bfloat16* rsc =
           reinterpret_cast<const __nv_bfloat16*>(rs + 2 * BS * D);
+      // element of key 0's scale in either plane (same index in both)
+      const size_t e0 = ((size_t)l * NP + phys[b]) * BS * HS + (size_t)h * SG;
       auto code_row = [&](int plane, int j, float (&cv)[DPT]) {
         const int bits = bb[j];
         uint32_t w[DPT / 4];
         load_codes<DPT>(rs + (plane * BS + j) * D + lg * DPT, w);
         decode_row<DPT / 4>(w, bits, cv);
-        const float sc = __bfloat162float(rsc[(plane * BS + j) * SG + grp]);
+        const int si = SG == 1 ? scale_half(e0 + (size_t)j * HS) : grp;
+        const float sc =
+            __bfloat162float(rsc[(plane * BS + j) * (SRB / 2) + si]);
         return bits == 4 ? 0.5f * sc : sc;
       };
       attend_keys<D, RB>(
@@ -599,15 +630,23 @@ static int launch_fused_rows(int GQ, const float* qh, const uint8_t* kc,
                              const int32_t* blen, float* out, int L, int R,
                              int H, int NP, int BS, int NB, int G,
                              float scale, cudaStream_t stream) {
-  // query rows per block: GQ rounded up to a power of two, at most 8
+  // query rows per block: GQ rounded up to a power of two, at most 8, and
+  // at most LG: attend_keys gives each lane KS = LG / RB key steps a tile,
+  // so at D 16 (4 lanes per key) a tile takes 4 rows and GQ > 4 is tiled
+  // over more blocks (each decodes its pool blocks again: cheap at D 16,
+  // and no lane is left without a whole score to fold)
   auto f = [&](auto fn) {
     return fn(qh, kc, vc, ks, vs, st, bits, table, bk, bv, blen, out, L, R,
               H, GQ, NP, BS, NB, G, scale, stream);
   };
   if (GQ <= 1) return f(launch_fused<D, 1>);
   if (GQ <= 2) return f(launch_fused<D, 2>);
-  if (GQ <= 4) return f(launch_fused<D, 4>);
-  return f(launch_fused<D, 8>);
+  if constexpr (K1Shape<D>::LG < 8) {
+    return f(launch_fused<D, 4>);
+  } else {
+    if (GQ <= 4) return f(launch_fused<D, 4>);
+    return f(launch_fused<D, 8>);
+  }
 }
 
 extern "C" int ct_paged_attention_fused(
@@ -627,6 +666,7 @@ extern "C" int ct_paged_attention_fused(
               R, H, NP, BS, NB, G, scale, (cudaStream_t)stream);
   };
   switch (D) {
+    case 16: return f(launch_fused_rows<16>);
     case 32: return f(launch_fused_rows<32>);
     case 64: return f(launch_fused_rows<64>);
     case 128: return f(launch_fused_rows<128>);
@@ -649,7 +689,7 @@ struct K2Layout {
     const int LD = D + 4;
     deq = K2_ROWS * LD * 4;                    // q rows [64][LD] f32 first
     raw = deq + 2 * 2 * BS * LD * 4;           // decoded k, v: 2 stages
-    raw_stage = 2 * BS * D + 2 * BS * SG * 2;  // k, v codes; k, v scales
+    raw_stage = 2 * BS * D + 2 * BS * scale_row_bytes(SG);  // codes; scales
     state = raw + 2 * raw_stage;
     bits = state + NB * BS;
     list = (bits + NB * BS + 15) / 16 * 16;
@@ -672,9 +712,10 @@ paged_split_kernel(const float* __restrict__ qh,
                    float* __restrict__ out, float* __restrict__ mo,
                    float* __restrict__ lo, float* __restrict__ part,
                    float* __restrict__ pml, int R, int H, int GQ, int NP,
-                   int BS, int NB, int group, int NS, float scale) {
+                   int BS, int NB, int NS, float scale) {
   constexpr int LD = D + 4, NT = D / 8;
-  const int SG = D / group, KT = BS / 8;
+  constexpr int SG = D / 16, SRB = scale_row_bytes(SG);   // a scale per 16
+  const int KT = BS / 8;
   const K2Layout ly(D, BS, NB, SG);
   extern __shared__ float4 smem4[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
@@ -764,13 +805,15 @@ paged_split_kernel(const float* __restrict__ qh,
         cp_async16(rs + plane * BS * D + j * D + d,
                    (plane ? vc : kc) + ((row0 + j) * H + h) * D + d);
       }
-      const int spr = SG / 2;                   // 4-byte chunks per row
+      constexpr int spr = SRB / 4;              // 4-byte chunks per row
       uint8_t* rsc = rs + 2 * BS * D;
       for (int c = tid; c < 2 * BS * spr; c += K2_THREADS) {
         const int plane = c / (BS * spr), cc = c % (BS * spr);
         const int j = cc / spr, w = cc % spr;
-        cp_async4(rsc + (plane * BS + j) * SG * 2 + 4 * w,
-                  (plane ? vsc : ksc) + ((row0 + j) * H + h) * SG + 2 * w);
+        const __nv_bfloat16* src =
+            (plane ? vsc : ksc) + ((row0 + j) * H + h) * SG + 2 * w;
+        cp_async4(rsc + (plane * BS + j) * SRB + 4 * w,
+                  SG == 1 ? scale_word(src) : src);
       }
     }
     cp_async_commit();
@@ -781,13 +824,15 @@ paged_split_kernel(const float* __restrict__ qh,
     const uint8_t* rs = raw + (i & 1) * ly.raw_stage;
     const __nv_bfloat16* rsc =
         reinterpret_cast<const __nv_bfloat16*>(rs + 2 * BS * D);
+    const size_t row0 = (size_t)phys[list[first + i]] * BS;
     float* kd = deq + (i & 1) * 2 * BS * LD;
     const int words = BS * D / 4;
     for (int w = tid; w < 2 * words; w += K2_THREADS) {
       const int plane = w >= words, ww = w - plane * words;
       const int j = ww / (D / 4), d = (ww % (D / 4)) * 4;
       const uint32_t cw = reinterpret_cast<const uint32_t*>(rs)[w];
-      const float sc = __bfloat162float(rsc[(plane * BS + j) * SG + d / 16]);
+      const int si = SG == 1 ? scale_half((row0 + j) * H + h) : d / 16;
+      const float sc = __bfloat162float(rsc[(plane * BS + j) * (SRB / 2) + si]);
       const int b = bits[j];
       *reinterpret_cast<float4*>(kd + (plane * BS + j) * LD + d) =
           make_float4(decode_reg(cw, b) * sc, decode_reg(cw >> 8, b) * sc,
@@ -940,44 +985,60 @@ paged_split_kernel(const float* __restrict__ qh,
   }
 }
 
-// The flash merge of NS partials (unnormalised out, m, l) of each row, a
-// warp per row: out = sum_s e^(m_s - M) out_s / max(L, 1e-30) with
-// M = max_s m_s and L = sum_s e^(m_s - M) l_s.  Rows no split saw keep
-// M = -1e30, L = 0, out = 0.
+// The flash merge of NS partials (unnormalised out, m, l) of each row, RL =
+// min(D, 32) lanes per row (a warp, or at D 16 half a warp: two rows per
+// warp), PER = D / RL values a lane: out = sum_s e^(m_s - M) out_s /
+// max(L, 1e-30) with M = max_s m_s and L = sum_s e^(m_s - M) l_s.  Rows no
+// split saw keep M = -1e30, L = 0, out = 0.
 template <int D>
 __global__ void __launch_bounds__(128)
 merge_splits_kernel(const float* __restrict__ part,
                     const float* __restrict__ pml, float* __restrict__ out,
                     float* __restrict__ mo, float* __restrict__ lo, int rows,
                     int NS) {
-  constexpr int PER = D / 32;
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  // lane s holds split s's stats (NS <= 32)
-  const bool has = lane < NS;
-  const size_t own = (size_t)lane * rows + row;
-  const float ms = has ? pml[2 * own] : NEG_INF;
-  const float ls = has ? pml[2 * own + 1] : 0.f;
-  float M = ms;
+  constexpr int RL = D < 32 ? D : 32, PER = D / RL;
+  constexpr int SPL = 32 / RL;                  // splits a lane holds
+  static_assert(SPL <= 2, "merge_splits_kernel takes D >= 16");
+  const int row_raw = (blockIdx.x * blockDim.x + threadIdx.x) / RL;
+  const int lane = threadIdx.x % RL;
+  // a row past the end computes row 0 with its half warp and writes nothing
+  // (the shuffles below take the whole warp)
+  const bool live = row_raw < rows;
+  const int row = live ? row_raw : 0;
+  // lane i of the row holds the stats of splits i and i + RL (NS <= 32)
+  float ms[SPL], ls[SPL], M = NEG_INF;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int k = 0; k < SPL; ++k) {
+    const int s = lane + k * RL;
+    const size_t own = (size_t)s * rows + row;
+    ms[k] = s < NS ? pml[2 * own] : NEG_INF;
+    ls[k] = s < NS ? pml[2 * own + 1] : 0.f;
+    M = fmaxf(M, ms[k]);
+  }
+#pragma unroll
+  for (int off = RL / 2; off > 0; off >>= 1)
     M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
-  const float w = has ? expf(ms - M) : 0.f;
-  float L = w * ls;
+  float w[SPL], L = 0.f;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int k = 0; k < SPL; ++k) {
+    w[k] = lane + k * RL < NS ? expf(ms[k] - M) : 0.f;
+    L += w[k] * ls[k];
+  }
+#pragma unroll
+  for (int off = RL / 2; off > 0; off >>= 1)
     L += __shfl_xor_sync(0xffffffffu, L, off);
   float acc[PER];
 #pragma unroll
   for (int e = 0; e < PER; ++e) acc[e] = 0.f;
 #pragma unroll 4
   for (int s = 0; s < NS; ++s) {
-    const float ws = __shfl_sync(0xffffffffu, w, s);
+    const float ws = __shfl_sync(0xffffffffu, s < RL ? w[0] : w[SPL - 1],
+                                 s % RL, RL);
     const float* src = part + ((size_t)s * rows + row) * D + lane * PER;
 #pragma unroll
     for (int e = 0; e < PER; ++e) acc[e] = fmaf(ws, src[e], acc[e]);
   }
+  if (!live) return;
   const float inv = 1.f / fmaxf(L, 1e-30f);
 #pragma unroll
   for (int e = 0; e < PER; ++e) out[(size_t)row * D + lane * PER + e] = acc[e] * inv;
@@ -994,20 +1055,19 @@ static int launch_batched(const float* qh, const uint8_t* kc,
                           const uint8_t* bits, const int32_t* table,
                           float* out, float* mo, float* lo, float* part,
                           float* pml, int R, int H, int GQ, int NP, int BS,
-                          int NB, int group, int NS, float scale,
-                          cudaStream_t stream) {
+                          int NB, int NS, float scale, cudaStream_t stream) {
   static int granted = 0;
-  const K2Layout ly(D, BS, NB, D / group);
+  const K2Layout ly(D, BS, NB, D / 16);
   cudaError_t err = allow_smem(paged_split_kernel<D>, ly.bytes, granted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(NS * ((GQ + K2_ROWS - 1) / K2_ROWS), H, R);
   paged_split_kernel<D><<<grid, K2_THREADS, ly.bytes, stream>>>(
       qh, kc, vc, ks, vs, st, bits, table, out, mo, lo, part, pml, R, H, GQ,
-      NP, BS, NB, group, NS, scale);
+      NP, BS, NB, NS, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || NS == 1) return (int)err;
-  const int rows = R * H * GQ;
-  merge_splits_kernel<D><<<(rows + 3) / 4, 128, 0, stream>>>(
+  const int rows = R * H * GQ, lanes = D < 32 ? D : 32;
+  merge_splits_kernel<D><<<(rows * lanes + 127) / 128, 128, 0, stream>>>(
       part, pml, out, mo, lo, rows, NS);
   return (int)cudaGetLastError();
 }
@@ -1028,10 +1088,11 @@ extern "C" int ct_paged_attention_batched(
               (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs,
               (const uint8_t*)state, (const uint8_t*)bits,
               (const int32_t*)table, (float*)out, (float*)mo, (float*)lo,
-              (float*)part, (float*)pml, R, H, GQ, NP, BS, NB, group, NS,
+              (float*)part, (float*)pml, R, H, GQ, NP, BS, NB, NS,
               scale, (cudaStream_t)stream);
   };
   switch (D) {
+    case 16: return f(launch_batched<16>);
     case 32: return f(launch_batched<32>);
     case 64: return f(launch_batched<64>);
     case 128: return f(launch_batched<128>);

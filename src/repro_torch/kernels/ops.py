@@ -16,6 +16,7 @@ Kernels (TPU kernel each replaces in brackets):
 * ``prefill_attention_stats``        K3 [flash_prefill(return_stats=True)]
 * ``prefill_attention``              K3, stats discarded [flash_prefill]
 * ``tbq_group_quant``                K4 [group_quant]
+* ``tbq_commit_quant``               K4, one launch per CT cache commit
 * ``mamba_scan``                     K5 [mamba_scan]
 
 ``buffer_attention`` and ``thinkv_decode_attention`` are the reference's
@@ -62,12 +63,16 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
                          f"{tuple(t.shape)}")
 
 
+PAGED_HEAD_DIMS = (16, 32, 64, 128)     # K1's and K2's instances
+
+
 def _check_paged(d: int, group: int, *planes: torch.Tensor) -> None:
-    """What the paged kernels take: head_dim 32, 64 or 128 in whole scale
-    groups, code planes readable 4 bytes at a time."""
-    if d not in (32, 64, 128) or d % group or group % 4:
-        raise ValueError(f"paged attention kernels take head_dim 32, 64 or "
-                         f"128 in groups of a multiple of 4 (got D={d}, "
+    """What the paged kernels take: a head_dim they have an instance for
+    (:data:`PAGED_HEAD_DIMS`) in whole scale groups, code planes readable 4
+    bytes at a time."""
+    if d not in PAGED_HEAD_DIMS or d % group or group % 4:
+        raise ValueError(f"paged attention kernels take head_dim 16, 32, 64 "
+                         f"or 128 in groups of a multiple of 4 (got D={d}, "
                          f"group={group})")
     if any(p.data_ptr() % 4 for p in planes):
         raise ValueError("code planes must be 4-byte aligned")
@@ -357,9 +362,51 @@ def tbq_group_quant(x: torch.Tensor, bits: int, group: int = 16):
     _check("x", x, torch.float32)
     if on_cpu:
         return R.group_quant_ref(x, bits, group)
+    if group != Q.GROUP:
+        raise ValueError(f"K4 takes a scale per {Q.GROUP} lanes (got "
+                         f"group={group})")
+    _aligned("x", 16, x)
     codes = torch.empty((n, d), dtype=torch.uint8, device=x.device)
     scales = torch.empty((n, d // group), dtype=torch.bfloat16,
                          device=x.device)
     _launch("group_quant", "group_quant", _ptr(x), _ptr(codes),
             _ptr(scales), n, d, group, bits)
     return codes, scales
+
+
+def tbq_commit_quant(buf_k: torch.Tensor, buf_v: torch.Tensor,
+                     bits: torch.Tensor, levels):
+    """One CT cache commit's quantization in one K4 launch: the bf16 TBQ
+    buffers buf_k/buf_v [..., D] at the width ``bits`` (an int32 scalar
+    tensor on their device, ``policy.psi_bits``) resolves to against the
+    policy's precision ``levels``: the bits if they are a level, else the
+    first level (the reference's selection chain).  Returns (k codes uint8,
+    k scales bf16 [..., D // 16], v codes, v scales), bit-exact to
+    ``ref.group_quant_commit_ref``; nothing is read back to the host."""
+    levels = tuple(int(b) for b in levels)
+    if not levels or any(b not in (2, 4, 8) for b in levels):
+        raise ValueError(f"precision levels must be a non-empty subset of "
+                         f"(2, 4, 8) (got {levels})")
+    on_cpu = _on_cpu(buf_k, buf_v, bits)
+    d, group = buf_k.shape[-1], Q.GROUP
+    if d % group:
+        raise ValueError(f"D={d} not divisible by group {group}")
+    _check("buf_k", buf_k, torch.bfloat16)
+    _check("buf_v", buf_v, torch.bfloat16, buf_k.shape)
+    _check("bits", bits, torch.int32, ())
+    if not buf_k.device == buf_v.device == bits.device:
+        raise ValueError(f"buffers and bits on different devices: "
+                         f"{buf_k.device}, {buf_v.device}, {bits.device}")
+    if on_cpu:
+        return R.group_quant_commit_ref(buf_k, buf_v, bits, levels)
+    _aligned("buf_k and buf_v", 16, buf_k, buf_v)
+    shape, dev = buf_k.shape, buf_k.device
+    kc, vc = (torch.empty(shape, dtype=torch.uint8, device=dev)
+              for _ in range(2))
+    ks, vs = (torch.empty((*shape[:-1], d // group), dtype=torch.bfloat16,
+                          device=dev) for _ in range(2))
+    _launch("group_quant", "group_quant_commit", _ptr(buf_k), _ptr(buf_v),
+            _ptr(kc), _ptr(vc), _ptr(ks), _ptr(vs), _ptr(bits),
+            buf_k.numel() // group, levels[0],
+            sum(1 << b for b in set(levels)))
+    return kc, ks, vc, vs

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of every kernel of the port (K1-K5 and the
-single-request ``ct_paged_attention`` wrapper), and of the CUDA kernels'
-decompositions: K1's warp-split walk (``ct_paged_attention_fused_warps_ref``),
-K2's split-KV walk (``ct_paged_attention_split_ref``) and K5's split state
-lanes (``mamba_scan_lanes_ref``).
+"""Plain PyTorch versions of every kernel of the port (K1-K5, K4's
+one-launch commit and the single-request ``ct_paged_attention`` wrapper),
+and of the CUDA kernels' decompositions: K1's warp-split walk
+(``ct_paged_attention_fused_warps_ref``), K2's split-KV walk
+(``ct_paged_attention_split_ref``) and K5's split state lanes
+(``mamba_scan_lanes_ref``).
 
 Ports ``repro/kernels/ref.py``.  Each function has its kernel's exact
 interface, so ``ops`` can take it for a CPU tensor, the CPU tests can hold
@@ -230,6 +231,29 @@ def group_quant_ref(x: torch.Tensor, bits: int, group: int = 16):
     """x [N, D] -> (codes uint8 [N, D], scales bf16 [N, D // group])."""
     codes, scales = Q.quantize_group(x, bits, group)
     return codes, scales.to(torch.bfloat16)
+
+
+def group_quant_commit_ref(buf_k: torch.Tensor, buf_v: torch.Tensor,
+                           bits: torch.Tensor, levels):
+    """One commit's quantization as the reference selects it
+    (``_quantize_group_by_thought``): K and V [..., D] quantized at every
+    precision level in ``levels``, the first level's result replaced by
+    the level equal to ``bits`` (a 0-d tensor).  Returns (k codes, k scales
+    bf16, v codes, v scales)."""
+    def quant(x, b):
+        codes, scales = group_quant_ref(x.float().reshape(-1, x.shape[-1]),
+                                        b)
+        return codes.reshape(x.shape), scales.reshape(*x.shape[:-1], -1)
+
+    out = None
+    for b in levels:
+        q = (*quant(buf_k, b), *quant(buf_v, b))
+        if out is None:
+            out = q
+            continue
+        sel = bits == b
+        out = tuple(torch.where(sel, new, old) for new, old in zip(q, out))
+    return out
 
 
 def flash_prefill_stats_ref(q, k, v, *, causal: bool = True, window: int = 0,

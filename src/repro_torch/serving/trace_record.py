@@ -1,0 +1,132 @@
+"""Replay a recorded greedy serving trace through the port's engine and hold
+it to the record.
+
+A record is a numpy archive written from the JAX package's engine
+(``tests/golden/torch_flash_trace.npz``, by
+``tests/test_torch_trace_fixture.py``): the model's parameters, the trace's
+settings and prompts, and what the reference engine gave (tokens and
+logits per request, engine counters, the pool audit).  Reading it takes
+numpy only, so a machine without JAX (the card's) holds the port to the
+live JAX record.  Archive keys:
+
+* ``settings``: JSON — ``model`` (a smoke config name), ``num_heads``,
+  ``num_kv_heads``, ``thinkv`` (ThinKVConfig fields), ``slots``,
+  ``max_new``, ``priorities``;
+* ``record``: JSON — ``counters`` (engine metrics by name), ``audit``
+  (``audit_pool()``);
+* ``prompt_<i>`` (int64), ``tokens_<arrival>`` (int64), ``logits_<arrival>``
+  ([max_new, vocab] f32);
+* ``param/<path>``: the parameter tree's leaves, ``/``-joined paths.
+
+It lives in the package, not under ``tests/``, because ``chip_smoke.py``
+replays the record on the card from a checkout whose ``src`` is all it puts
+on the path; the engine's own serving path never calls it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import ServeConfig, ThinKVConfig
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import ops
+from repro_torch.serving.engine import ThinKVEngine
+
+PARAM = "param/"
+
+
+def unflatten(flat: Dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        *heads, leaf = path.split("/")
+        node = tree
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = v
+    return tree
+
+
+def load(path) -> dict:
+    """The record at ``path``: settings, params (a nested dict of numpy
+    arrays), prompts, tokens and logits by arrival, counters, audit."""
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    settings = json.loads(str(arrays["settings"]))
+    record = json.loads(str(arrays["record"]))
+    arrivals = sorted(int(k.split("_")[1]) for k in arrays
+                      if k.startswith("tokens_"))
+    n_prompts = sum(k.startswith("prompt_") for k in arrays)
+    return {"settings": settings,
+            "params": unflatten({k[len(PARAM):]: v for k, v in arrays.items()
+                                 if k.startswith(PARAM)}),
+            "prompts": [arrays[f"prompt_{i}"] for i in range(n_prompts)],
+            "tokens": {a: arrays[f"tokens_{a}"].tolist() for a in arrivals},
+            "logits": {a: arrays[f"logits_{a}"] for a in arrivals},
+            "counters": record["counters"], "audit": record["audit"]}
+
+
+def serve_config(rec: dict) -> ServeConfig:
+    s = rec["settings"]
+    mcfg = dataclasses.replace(get_smoke_config(s["model"]),
+                               num_heads=s["num_heads"],
+                               num_kv_heads=s["num_kv_heads"])
+    tk = ThinKVConfig(**{k: tuple(v) if isinstance(v, list) else v
+                         for k, v in s["thinkv"].items()})
+    return ServeConfig(model=mcfg, thinkv=tk, max_seqs=s["slots"])
+
+
+def expected_commits(rec: dict) -> int:
+    """Group commits of the trace: every G tokens a request writes (its
+    prompt and every generated token but the last)."""
+    g, new = serve_config(rec).thinkv.group_size, rec["settings"]["max_new"]
+    return sum((len(p) + new - 1) // g for p in rec["prompts"])
+
+
+def replay(rec: dict, backend: str, device, params=None
+           ) -> Tuple[ThinKVEngine, list, Dict[str, int]]:
+    """Serve the record's prompts greedily on ``device`` with ``backend``;
+    returns (engine, finished requests, kernel launches of the run)."""
+    cfg = serve_config(rec)
+    if params is None:
+        params = params_from_numpy(rec["params"], cfg.model, device)
+    eng = ThinKVEngine(cfg, params=params, backend=backend, device=device,
+                       record_logits=True)
+    before = dict(ops.LAUNCHES)
+    eng.submit(rec["prompts"], max_new_tokens=rec["settings"]["max_new"],
+               priorities=rec["settings"]["priorities"])
+    done = eng.run()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    return eng, done, {k: ops.LAUNCHES[k] - before[k] for k in before}
+
+
+def mismatches(rec: dict, eng: ThinKVEngine, done, atol: float = 1e-3
+               ) -> Tuple[List[str], float]:
+    """What of the replay differs from the record: (descriptions, the
+    largest per-request logit difference).  Tokens, counters and the pool
+    audit must be equal, logits within ``atol``."""
+    bad = []
+    got = {r.arrival: list(r.output) for r in done}
+    if got != rec["tokens"]:
+        bad.append(f"tokens {got} != {rec['tokens']}")
+    worst = 0.0
+    for a, want in rec["logits"].items():
+        have = eng.request_logits.get(a)
+        if have is None or np.stack(have).shape != want.shape:
+            bad.append(f"request {a}: no logits of shape {want.shape}")
+            continue
+        worst = max(worst, float(np.abs(np.stack(have) - want).max()))
+    if not worst <= atol:
+        bad.append(f"logits differ by {worst} > {atol}")
+    counters = {k: int(eng.metrics[k]) for k in rec["counters"]}
+    if counters != rec["counters"]:
+        bad.append(f"counters {counters} != {rec['counters']}")
+    audit = eng.audit_pool()
+    if audit != rec["audit"]:
+        bad.append(f"pool audit {audit} != {rec['audit']}")
+    return bad, worst

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card, and the
+flash trace (head_dim 16) on the card against the JAX engine's record.
 
 Every test here needs a CUDA card and the CUDA toolkit (the kernels are
 built with nvcc at first use); without a card each test skips with the
@@ -11,6 +12,7 @@ sides, another summation order); the quantizer is bit-exact; the selective
 scan agrees to rtol = atol = 3e-4 (the JAX package's bar between its scan
 kernel and its oracle)."""
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -19,14 +21,18 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.config import ServeConfig, ThinKVConfig  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core import ct_cache as CT  # noqa: E402
 from repro_torch.core import quantization as Q  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.models import ssm_lm  # noqa: E402
 from repro_torch.models.lm import init_params  # noqa: E402
+from repro_torch.serving import trace_record as TR  # noqa: E402
 from repro_torch.serving.engine import ThinKVEngine  # noqa: E402
 
 ATOL = 1e-4
+FLASH_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "golden", "torch_flash_trace.npz")
 
 
 @pytest.fixture
@@ -360,7 +366,8 @@ def test_mamba_scan_full_prefill_shape(card):
                                rtol=3e-4, atol=3e-4)
 
 
-@pytest.mark.parametrize("GQ,D", [(1, 32), (4, 128), (4, 64)])
+@pytest.mark.parametrize("GQ,D", [(1, 32), (4, 128), (4, 64), (1, 16),
+                                  (4, 16)])
 def test_single_request_wrapper(card, GQ, D):
     """The ``ct_paged_attention`` wrapper: physical metadata gathered
     through a shuffled raw table with -1 entries, one K2 launch."""
@@ -407,3 +414,152 @@ def test_ssm_backends_agree_on_the_card(card):
     lr, _ = ssm_lm.logits_fn(m, {"tokens": toks}, cfg, backend="reference")
     assert ops.LAUNCHES["mamba_scan"] == n + cfg.num_layers
     torch.testing.assert_close(lk, lr, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("GQ,BS,H", [(1, 8, 8), (1, 16, 3), (2, 8, 8),
+                                     (2, 16, 3), (4, 8, 3), (4, 16, 8),
+                                     (8, 8, 3), (8, 16, 8)])
+def test_fused_decode_attention_head_dim_16(card, GQ, BS, H):
+    """K1 at head_dim 16 (the trace config's): one scale per pool row (its
+    aligned word copied, the half picked by the element's parity, which
+    moves from row to row at an odd H), and tiles of at most 4 query rows
+    (GQ 8 takes two per (layer, slot, kv head)); one launch."""
+    c = pool_case(torch.Generator().manual_seed(16 * GQ + BS + H), L=2,
+                  R_=3, H=H, GQ=GQ, D=16, BS=BS, NB=6)
+    got = launched_once("ct_paged_attention_fused",
+                        ops.paged_decode_attention_fused,
+                        *on(card, c.values()))
+    assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
+
+
+@pytest.mark.parametrize("GQ,NB,H", [(4, 1, 8), (4, 6, 3), (100, 6, 8),
+                                     (64, 12, 3), (1, 6, 8)])
+def test_batched_pool_attention_head_dim_16(card, GQ, NB, H):
+    """K2 at head_dim 16, with one share (NB 1) and with the walk split
+    over several blocks and merged (merge_splits_kernel, two rows per
+    warp at D 16)."""
+    c = pool_case(torch.Generator().manual_seed(GQ + NB + H), L=1, R_=2,
+                  H=H, GQ=GQ, D=16, BS=8, NB=NB)
+    args = batched_args(c)
+    ns = ops.kv_splits(2, H, GQ, NB, ops._sm_count(0))
+    assert ns == 1 if NB == 1 else ns > 1
+    got = launched_once("ct_paged_attention_batched",
+                        ops.paged_decode_attention_batched, *on(card, args))
+    assert_close(got, R.ct_paged_attention_batched_ref(*args))
+
+
+def test_paged_wrappers_refuse_head_dims_without_an_instance(card):
+    for d in (48, 256):
+        c = pool_case(torch.Generator().manual_seed(d), L=1, R_=1, H=2, GQ=2,
+                      D=d, BS=8, NB=2)
+        with pytest.raises(ValueError, match="head_dim 16, 32, 64 or 128"):
+            ops.paged_decode_attention_fused(*on(card, c.values()))
+        with pytest.raises(ValueError, match="head_dim 16, 32, 64 or 128"):
+            ops.paged_decode_attention_batched(*on(card, batched_args(c)))
+
+
+def commit_buffers(gen, L, G, H, D):
+    """bf16 K/V buffers with groups whose amax falls in the E4M3 subnormal
+    scale range, at zero, and at and past the 448 saturation edge."""
+    x = torch.randn((2, L * G * H, D), generator=gen)
+    x[:, 0, :16] *= 1e-4
+    x[:, 1, :16] *= 1e-6
+    x[:, 2, :16] = 0.0
+    x[:, 3, :16] *= 3000.0
+    x[:, 4, :16] = 448.0 * 127.0 * 1.5
+    x[:, 5, :16] = 448.0
+    x[1] *= 40.0
+    return [a.reshape(L, G, H, D).to(torch.bfloat16) for a in x]
+
+
+def same_quant(got, want):
+    for g, w in zip(got, want):
+        g = g.cpu()
+        if w.dtype == torch.bfloat16:
+            g, w = g.view(torch.int16), w.view(torch.int16)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("D", (16, 128))
+@pytest.mark.parametrize("thought", (0, 1, 2))
+@pytest.mark.parametrize("precision", [(2, 4, 4), (2, 4, 8), (8, 8, 8)])
+def test_commit_quant_bit_exact(card, precision, thought, D):
+    """A commit's quantization, one K4 launch reading the thought's width
+    on the card, bit-exact to the plain version (every level quantized,
+    the thought's selected): codes, scale bits and the bits."""
+    from repro_torch.config import ThinKVConfig as TKC
+    k, v = commit_buffers(torch.Generator().manual_seed(D + thought), L=3,
+                          G=16, H=8, D=D)
+    cfg = TKC(precision=precision)
+    t = torch.tensor(thought, dtype=torch.int32)
+    want = CT._quantize_group_by_thought(cfg, k, v, t)
+    got = launched_once("group_quant", CT._quantize_group_by_thought, cfg,
+                        k.to(card), v.to(card), t.to(card))
+    same_quant(got, want)
+    assert int(got[4]) == precision[thought]
+
+
+def test_commit_quant_takes_the_first_level_for_other_bits(card):
+    k, v = commit_buffers(torch.Generator().manual_seed(1), L=2, G=16, H=8,
+                          D=128)
+    for bits in (8, 3, 0, 4):
+        b = torch.tensor(bits, dtype=torch.int32)
+        got = launched_once("group_quant", ops.tbq_commit_quant, k.to(card),
+                            v.to(card), b.to(card), (2, 4))
+        same_quant(got, R.group_quant_commit_ref(k, v, b, (2, 4)))
+
+
+def test_a_cuda_commit_is_one_group_quant_launch(card):
+    """commit_group on the card: one K4 launch and no other kernel of the
+    port; the pool and metadata it writes equal the CPU commit's."""
+    tk = ThinKVConfig(group_size=16, block_size=16, precision=(2, 4, 8))
+    dims = CT.make_dims(tk, 4, 8, 128)
+    k, v = commit_buffers(torch.Generator().manual_seed(2), L=4, G=16, H=8,
+                          D=128)
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        cache = CT.init_cache(dims, dev)
+        view = CT.init_pool_view(dims, dims.NB, dev)
+        cache.buf_k.copy_(k)
+        cache.buf_v.copy_(v)
+        cache.buf_len.fill_(16)
+        cache.num_tokens.fill_(16)
+        cache.cur_thought.fill_(1)
+        before = dict(ops.LAUNCHES)
+        CT.commit_group(tk, dims, cache, view)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[dev.type] = (cache, view, {n: ops.LAUNCHES[n] - before[n]
+                                       for n in before})
+    assert out["cuda"][2] == dict(out["cpu"][2], group_quant=1)
+    assert not any(out["cpu"][2].values())
+    same_quant(out["cuda"][1], out["cpu"][1])
+    for f in ("slot_state", "slot_bits", "slot_pos", "block_type"):
+        assert torch.equal(getattr(out["cuda"][0], f).cpu(),
+                           getattr(out["cpu"][0], f)), f
+
+
+def test_flash_trace_on_the_card_gives_the_jax_record(card):
+    """The flash trace (head_dim 16, 8 kv heads, a 128-token big chunk,
+    g-chunks, eviction and refresh) on the card with the JAX engine's
+    parameters, held to the JAX reference engine's record
+    (``tests/golden/torch_flash_trace.npz``, checked against the live
+    engine on the CPU by ``tests/test_torch_trace_fixture.py``): identical
+    tokens, per-request logits within 1e-3, equal counters and pool audit,
+    on the kernel backend (K1 once per tick, K2, K3 and K4 launched, K4
+    once per commit) and on the reference backend."""
+    rec = TR.load(FLASH_RECORD)
+    params = None
+    for backend in ("kernel", "reference"):
+        eng, done, launches = TR.replay(rec, backend, card, params)
+        params = eng.model
+        bad, worst = TR.mismatches(rec, eng, done)
+        assert not bad, (backend, bad)
+        assert launches["group_quant"] == TR.expected_commits(rec)
+        if backend == "kernel":
+            assert launches["ct_paged_attention_fused"] == \
+                eng.metrics["ticks"] > 0
+            assert all(launches[k] > 0 for k in (
+                "ct_paged_attention_batched", "flash_prefill")), launches
+        else:
+            assert launches["ct_paged_attention_fused"] == 0

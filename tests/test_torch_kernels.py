@@ -279,3 +279,17 @@ def test_fused_warp_decomposition_matches_pallas(case, warps):
     close(out_t, out_j)
     if case == "empty":
         assert float(out_t[:, 0].abs().max()) == 0.0      # buf_len[0] = 0
+
+
+@pytest.mark.parametrize("d,ok", [(16, True), (32, True), (64, True),
+                                  (128, True), (8, False), (48, False),
+                                  (256, False)])
+def test_paged_kernels_take_the_head_dims_they_have_instances_for(d, ok):
+    """K1 and K2 have CUDA instances for head_dim 16 (the trace config's),
+    32, 64 and 128; the wrappers' check refuses any other on the card."""
+    plane = torch.zeros(64, dtype=torch.uint8)
+    if ok:
+        ops._check_paged(d, 16, plane)
+    else:
+        with pytest.raises(ValueError, match="head_dim 16, 32, 64 or 128"):
+            ops._check_paged(d, 16, plane)

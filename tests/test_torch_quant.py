@@ -99,3 +99,87 @@ def test_group_quant_plain_version_matches_pallas_kernel(bits, shape):
     assert st.dtype == torch.bfloat16
     np.testing.assert_array_equal(st.view(torch.int16).numpy(),
                                   np.asarray(sk).view(np.int16))
+
+
+def buffers(shape, seed):
+    """bf16 K/V commit buffers [L, G, H, D] whose first groups hold the
+    edge rows of :func:`edge_inputs` (as bf16)."""
+    L, G, H, D = shape
+    k = edge_inputs(L * G * H, D, seed).astype(jnp.bfloat16)
+    v = (edge_inputs(L * G * H, D, seed + 1) * 40).astype(jnp.bfloat16)
+    return k.reshape(shape), v.reshape(shape)
+
+
+@pytest.mark.parametrize("thought", (0, 1, 2))
+@pytest.mark.parametrize("precision", [(2, 4, 4), (2, 4, 8), (4, 8, 8),
+                                       (8, 8, 8)])
+def test_commit_quantization_matches_reference_selection(precision, thought):
+    """A commit's quantization (``_quantize_group_by_thought``: one K4 launch
+    on the card, its plain version here) against the reference's, which
+    quantizes at every precision level and selects the thought's: codes,
+    scale bits and the returned bits equal, for every thought under mixed
+    precisions."""
+    from repro.config import ThinKVConfig as JTK
+    from repro.core import ct_cache as CJ
+    from repro_torch.config import ThinKVConfig
+    from repro_torch.convert import tensor_from_numpy
+    from repro_torch.core import ct_cache as CT
+    k, v = buffers((2, 8, 2, 32), seed=10 * thought + precision[1])
+    want = CJ._quantize_group_by_thought(
+        JTK(precision=precision), jnp.asarray(k).astype(jnp.float32),
+        jnp.asarray(v).astype(jnp.float32), jnp.int32(thought))
+    launches = dict(ops.LAUNCHES)
+    got = CT._quantize_group_by_thought(
+        ThinKVConfig(precision=precision), tensor_from_numpy(k, "cpu"),
+        tensor_from_numpy(v, "cpu"), torch.tensor(thought, dtype=torch.int32))
+    assert ops.LAUNCHES == launches
+    assert got[4].dtype == torch.int32 and int(got[4]) == \
+        precision[thought] == int(want[4])
+    for g, w, name in zip(got, want, ("k codes", "k scales", "v codes",
+                                      "v scales")):
+        g = g.view(torch.int16) if g.dtype == torch.bfloat16 else g
+        same_bits(g.numpy(), np.asarray(w).view(
+            np.int16 if w.dtype == jnp.bfloat16 else np.uint8))
+
+
+def test_commit_quant_takes_the_first_level_for_other_bits():
+    """Bits that name no precision level select the first level, as the
+    reference's selection chain does."""
+    k, v = buffers((1, 4, 2, 32), seed=3)
+    kt, vt = (torch.from_numpy(np.array(a.view(np.uint16))).view(
+        torch.bfloat16) for a in (k, v))
+    def as_np(t):
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t) \
+            .numpy()
+    for bits, want in ((8, 2), (4, 4), (0, 2)):
+        got = ops.tbq_commit_quant(
+            kt, vt, torch.tensor(bits, dtype=torch.int32), (2, 4))
+        kc, ks = QT.quantize_group(kt.float(), want)
+        vc, vs = QT.quantize_group(vt.float(), want)
+        for g, w in zip(got, (kc, ks.to(torch.bfloat16), vc,
+                              vs.to(torch.bfloat16))):
+            same_bits(as_np(g), as_np(w))
+
+
+@pytest.mark.parametrize("case", ["levels", "empty_levels", "dtype", "bits",
+                                  "bits_shape", "shape", "head_dim"])
+def test_commit_quant_refuses_what_it_does_not_take(case):
+    k = torch.zeros((2, 4, 1, 32), dtype=torch.bfloat16)
+    v, bits, levels = k.clone(), torch.tensor(4, dtype=torch.int32), (2, 4)
+    err = ValueError
+    if case == "levels":
+        levels = (2, 3)
+    elif case == "empty_levels":
+        levels = ()
+    elif case == "dtype":
+        k, err = k.float(), TypeError
+    elif case == "bits":
+        bits, err = bits.long(), TypeError
+    elif case == "bits_shape":
+        bits = bits.reshape(1)
+    elif case == "shape":
+        v = v[:, :2].contiguous()
+    elif case == "head_dim":
+        k, v = k[..., :24].contiguous(), v[..., :24].contiguous()
+    with pytest.raises(err):
+        ops.tbq_commit_quant(k, v, bits, levels)
