@@ -28,15 +28,17 @@ failure:
                 and through its direct entry (f32 [N, D], bits 2, 4, 8);
    commit_profile — one group commit at r1-llama-8b's cache width under
                 torch.profiler: the device kernels and copies it runs;
-   trace      — K1-K4 against their plain versions at the flash trace's
-                shapes (head_dim 16, BS 8, K2 split and merged, K1 and K2
-                also at an odd kv head count; 1e-3 abs, K4 bit-exact), then
-                the flash trace (the JAX engine's parameters)
-                on the kernel and the reference backend, each held to the
-                JAX reference engine's record
-                (``tests/golden/torch_flash_trace.npz``): identical tokens,
-                logits within 1e-3, equal counters and pool audit, K1 once
-                per tick, K2 and K3 launched, K4 once per commit;
+   trace      — K1-K4 against their plain versions at the traces' shapes
+                (head_dim 16, BS 8, K2 split and merged, K1 and K2 also at
+                an odd kv head count; 1e-3 abs, K4 bit-exact), then the
+                flash trace and the pressure trace (the JAX engine's
+                parameters; the pressure trace oversubscribes a 14-block
+                pool with the prefix cache on) on the kernel and the
+                reference backend, each held to the JAX reference engine's
+                record (``tests/golden/torch_{flash,pressure}_trace.npz``):
+                identical tokens, logits within 1e-3, equal counters and
+                pool audit, K1 once per tick, K2 and K3 launched, K4 once
+                per commit the run made;
 4. serve      — the port's engine on the full r1-llama-8b config (32 layers,
                 random weights from a seed), kernel backend, 4 requests of
                 1100-token prompts and 64 new tokens; launch counts are
@@ -48,6 +50,18 @@ failure:
                 K3's device time, the device's busy share, host spans;
    profile    — 12 decode ticks of the same traffic under torch.profiler:
                 device time by kernel, the device's busy share, host spans;
+   pressure   — the oversubscribed pool at r1-llama-8b's full width (32
+                layers, random weights, kernel backend, 4 slots, ThinKVConfig
+                with a 512-token budget), the prefix cache on: 8 requests of
+                384-768 tokens (four share a 256-token prefix, priorities
+                0/1) and 64 new tokens on a pool of ``frac * 4 * NB`` blocks,
+                ``frac`` the first of 0.5, 0.45, ... whose run preempts,
+                resumes, hits the cache and COW-faults without a spill
+                storm; every request's tokens, clean audits after the run
+                and after every preemption and resume, every resume
+                bit-exact against its spill, K1 once per tick and K4 once
+                per commit; against an unpressured pool without the cache
+                and against the reference backend only reported;
 6. parity     — a 4-layer full-width model through the kernel and the
                 reference backends where their results must agree (see
                 ``parity``): identical tokens, logits within the reference's
@@ -69,10 +83,10 @@ failure:
                 against ``decode_attention_ref`` (3e-4 + 3e-4 |r|).
 
 Then the kernels line (each kernel's launches on its own path: K1-K4 from
-the serve phase, K2 and K3 also by shape, K5 from the ssm phase's
-prefill, the wrapper from the controller phase), the card's name and power
-limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX.  About 6 minutes on one H100 80GB HBM3.
+the serve phase, and from the pressure phase as ``launches_pressure``, K2
+and K3 also by shape, K5 from the ssm phase's prefill, the wrapper from
+the controller phase), the card's name and power limit as nvidia-smi gives
+them, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -572,7 +586,7 @@ def parity(engine_cls, cfg, params, prompts, short, max_new, dev):
                          backend=prefill_backend or backend)
         eng.submit(reqs, max_new_tokens=n)
         if prefill_backend:
-            eng._admit_and_prefill()
+            eng.run(max_ticks=0)               # admission + prefill
             eng.backend = backend
         return eng, eng.run()
 
@@ -949,58 +963,76 @@ def check_trace_kernels(dev, cfg) -> dict:
     return errs
 
 
+TRACE_RECORDS = ("flash", "pressure")
+
+
 def trace_phase(dev) -> dict:
-    """The flash trace at its config (r1-llama-8b's smoke form with 8 q and
-    8 kv heads at head_dim 16, a 128-token big chunk, g-chunks, eviction
-    and refresh) with the JAX engine's parameters, on the kernel and then
-    the reference backend, each held to the JAX reference engine's record
-    (``tests/golden/torch_flash_trace.npz``): identical tokens, logits
-    within 1e-3, equal counters and pool audit; the kernel backend
-    launches K1 once per tick and K2 and K3, both launch K4 once per
-    commit.  First K1-K4 are held against their plain versions at the
-    trace's shapes (``check_trace_kernels``).  Launch counts are zeroed
+    """The flash and the pressure trace at their config (r1-llama-8b's smoke
+    form with 8 q and 8 kv heads at head_dim 16) with the JAX engine's
+    parameters, on the kernel and then the reference backend, each held to
+    the JAX reference engine's record (``tests/golden/torch_<trace>_
+    trace.npz``): identical tokens, logits within 1e-3, equal counters and
+    pool audit.  The flash trace runs a 128-token big chunk, g-chunks,
+    eviction and refresh on an unpressured pool; the pressure trace a
+    14-block pool for 3 slots with the prefix cache (preemption, resume,
+    prefix hits, COW faults; block tables alias shared blocks).  The kernel
+    backend launches K1 once per tick and K2 and K3; both launch K4 once per
+    commit the run made (the engine's ``commits``, which for the flash
+    trace must also equal its length arithmetic: prefix hits skip
+    commits).  First K1-K4 are held against their plain versions at the
+    traces' shapes (``check_trace_kernels``).  Launch counts are zeroed
     just before each run."""
     from repro_torch.kernels import ops
     from repro_torch.serving import trace_record as TR
     t0 = time.perf_counter()
-    rec = TR.load(os.path.join(HERE, "tests", "golden",
-                               "torch_flash_trace.npz"))
-    commits = TR.expected_commits(rec)
-    kernel_errs = check_trace_kernels(dev, TR.serve_config(rec))
-    runs, failed, params = {}, [], None
-    for backend in ("kernel", "reference"):
-        ops.reset_launches()
-        eng, done, _ = TR.replay(rec, backend, dev, params)
-        launches = dict(ops.LAUNCHES)
-        params = eng.model
-        bad, worst = TR.mismatches(rec, eng, done)
-        k1 = launches["ct_paged_attention_fused"]
-        if backend == "reference" and k1:
-            bad.append(f"K1 launched {k1} times")
-        if backend == "kernel" and k1 != eng.metrics["ticks"]:
-            bad.append(f"K1 launched {k1} times over "
-                       f"{eng.metrics['ticks']} ticks")
-        if backend == "kernel" and not all(launches[k] > 0 for k in K1_K4):
-            bad.append(f"a kernel never launched: {launches}")
-        if launches["group_quant"] != commits:
-            bad.append(f"K4 launched {launches['group_quant']} times for "
-                       f"{commits} commits")
-        runs[backend] = {"tokens": {r.arrival: r.output for r in done},
-                         "max_abs_logit_diff": worst,
-                         "ticks": eng.metrics["ticks"],
-                         "launches": launches, "mismatches": bad}
-        failed += [f"{backend}: {b}" for b in bad]
-    mc = TR.serve_config(rec).model
-    out = {"phase": "trace", "trace": "flash", "head_dim": mc.head_dim,
-           "heads": mc.num_heads, "kv_heads": mc.num_kv_heads,
-           "layers": mc.num_layers, "commits": commits,
-           "record_tokens": rec["tokens"], "kernels_max_abs_err": kernel_errs,
-           **runs,
-           "seconds": time.perf_counter() - t0}
+    recs = {name: TR.load(os.path.join(HERE, "tests", "golden",
+                                       f"torch_{name}_trace.npz"))
+            for name in TRACE_RECORDS}
+    kernel_errs = check_trace_kernels(dev, TR.serve_config(recs["flash"]))
+    out, failed = {"phase": "trace", "kernels_max_abs_err": kernel_errs}, []
+    for name, rec in recs.items():
+        runs, params = {}, None
+        for backend in ("kernel", "reference"):
+            ops.reset_launches()
+            eng, done, _ = TR.replay(rec, backend, dev, params)
+            launches = dict(ops.LAUNCHES)
+            params = eng.model
+            bad, worst = TR.mismatches(rec, eng, done)
+            m = eng.metrics
+            k1 = launches["ct_paged_attention_fused"]
+            if backend == "reference" and k1:
+                bad.append(f"K1 launched {k1} times")
+            if backend == "kernel" and k1 != m["ticks"]:
+                bad.append(f"K1 launched {k1} times over {m['ticks']} ticks")
+            if backend == "kernel" and not all(launches[k] > 0
+                                               for k in K1_K4):
+                bad.append(f"a kernel never launched: {launches}")
+            if launches["group_quant"] != m["commits"]:
+                bad.append(f"K4 launched {launches['group_quant']} times "
+                           f"for {m['commits']} commits")
+            if name == "flash" and m["commits"] != TR.expected_commits(rec):
+                bad.append(f"{m['commits']} commits, "
+                           f"{TR.expected_commits(rec)} expected")
+            runs[backend] = {
+                "tokens": {r.arrival: r.output for r in done},
+                "max_abs_logit_diff": worst,
+                "counters": {k: m[k] for k in rec["counters"]},
+                "commits": m["commits"], "launches": launches,
+                "mismatches": bad}
+            failed += [f"{name} {backend}: {b}" for b in bad]
+        mc = TR.serve_config(rec).model
+        out[name] = {"head_dim": mc.head_dim, "heads": mc.num_heads,
+                     "kv_heads": mc.num_kv_heads, "layers": mc.num_layers,
+                     "pool_blocks": rec["settings"].get("pool_blocks"),
+                     "prefix_cache": rec["settings"].get("prefix_cache",
+                                                         False),
+                     "record_tokens": rec["tokens"],
+                     "record_counters": rec["counters"], **runs}
+    out["seconds"] = time.perf_counter() - t0
     emit(out)
     if failed:
-        raise AssertionError(f"the flash trace differs from the JAX "
-                             f"record: {failed}")
+        raise AssertionError(f"a trace differs from the JAX record: "
+                             f"{failed}")
     return out
 
 
@@ -1108,6 +1140,328 @@ def serve_phase(engine_cls, cfg, params, prompts, max_new, init_s, dev):
     return rec
 
 
+PRESSURE_FRAC = 0.5      # of the worst case, 4 slots x NB blocks
+PRESSURE_BUDGET = 512
+PRESSURE_ATOL = 1e-4     # K1 and K2 on the pressure phase's aliased pool
+
+
+def pressure_traffic(vocab: int, rng):
+    """8 requests of 384-768 prompt tokens; requests 0, 2, 4 and 6 share a
+    256-token prefix; priorities alternate 0/1."""
+    import numpy as np
+    lens = rng.integers(384, 769, 8)
+    shared = rng.integers(0, vocab, 256)
+    prompts = [np.concatenate([shared, rng.integers(0, vocab, n - 256)])
+               if i % 2 == 0 else rng.integers(0, vocab, n)
+               for i, n in enumerate(lens)]
+    return [p.astype(np.int64) for p in prompts], [i % 2 for i in range(8)]
+
+
+def aliased_tables(gen, dev, L, NB, NP):
+    """Block tables [4, L, NB] over a pool of NP >= 2 NB blocks in which
+    slots share physical blocks by construction, as prefix hits and COW
+    sources do: per layer, slots 1 and 2 map slot 0's first NB/4 blocks at
+    the same positions (a three-way prefix), slot 3 maps slot 0's second
+    half at its own first half; every other entry is a block of its own or
+    -1."""
+    import torch
+    assert NP >= 2 * NB, (NP, NB)
+    q, h = NB // 4, NB // 2
+    none = torch.full((h,), -1, dtype=torch.long, device=dev)
+    rows = []
+    for _ in range(L):
+        perm = torch.randperm(NP, generator=gen, device=dev)
+        rows.append(torch.stack([
+            perm[:NB],
+            torch.cat([perm[:q], perm[NB:2 * NB - q]]),
+            torch.cat([perm[:q], perm[2 * NB - q:2 * NB], none]),
+            torch.cat([perm[h:NB], none])]))
+    return torch.stack(rows, 1).to(torch.int32)
+
+
+def check_pressure_kernels(dev, mc, dims, pool_blocks) -> dict:
+    """K1 and K2 at the pressure phase's shapes against their plain
+    versions on the same card tensors: NB 64, a pool of ``pool_blocks``
+    (fewer than 4 x NB) and tables that alias blocks across slots
+    (``aliased_tables``), each slot with its own metadata.  K1 over the
+    tick; K2 on slot 1 (a quarter of its table shared) at GQ 4, 64 and 512,
+    each asserted to split its walk (NS > 1) so the merge runs.  Outputs
+    and running maxima are held at PRESSURE_ATOL; K2's l at ATOL, since
+    the f32 plain version's own rounding of l over ~1000 keys nears 1e-4
+    (``tests/test_torch_cuda.py::batched_f64``).  Raises on a miss."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    L, H, D, BS, NB, G = dims.L, dims.H, dims.D, dims.BS, dims.NB, dims.G
+    gq, R = mc.num_heads // H, 4
+    c = pool_case(gen, dev, L, R, H, D, BS, NB, pool_blocks, G, gq)
+    c["block_table"] = aliased_tables(gen, dev, L, NB, pool_blocks)
+    c["slot_state"].masked_fill_(
+        (c["block_table"] < 0).permute(1, 0, 2)[..., None], 0)
+    args = tuple(c.values())
+    errs = {"K1": max_err(ops.paged_decode_attention_fused(*args),
+                          ref.ct_paged_attention_fused_ref(*args))}
+    bars = {"K1": PRESSURE_ATOL}
+    sms = ops._sm_count(dev.index or 0)
+    for GQ in (gq, 16 * gq, 128 * gq):
+        qh = torch.randn((1, H, GQ, D), generator=gen, device=dev)
+        args = (qh, c["k_codes"][0], c["v_codes"][0], c["k_scales"][0],
+                c["v_scales"][0], c["slot_state"][0, 1:2].contiguous(),
+                c["slot_bits"][0, 1:2].contiguous(),
+                c["block_table"][1:2, 0].contiguous())
+        ns = ops.kv_splits(1, H, GQ, NB, sms)
+        if ns < 2:
+            raise AssertionError(f"K2 at GQ={GQ} NB={NB}: {ns} share, the "
+                                 f"merge is not run")
+        got = ops.paged_decode_attention_batched(*args)
+        want = ref.ct_paged_attention_batched_ref(*args)
+        name = f"K2 GQ={GQ} NS={ns}"
+        errs[name] = max_err(got[:2], want[:2])
+        errs[name + " l"] = max_err(got[2], want[2])
+        bars.update({name: PRESSURE_ATOL, name + " l": ATOL})
+    torch.cuda.synchronize()
+    bad = {n: e for n, e in errs.items() if not e <= bars[n]}
+    if bad:
+        raise AssertionError(f"K1/K2 on the aliased pool of {pool_blocks} "
+                             f"blocks disagree with their plain versions: "
+                             f"{bad}")
+    return errs
+
+
+def watch_pool(eng, storm: int):
+    """Wrap ``eng._preempt`` and ``eng._resume``: audit the pool after each,
+    hold every successful resume bit-exact against its spill (metadata and
+    buffers, and the planes gathered through the new table over every
+    mapped block), and raise past ``storm`` preemptions (a spill storm:
+    victims resumed and preempted again at every commit).  Returns the
+    log of resumes checked."""
+    import torch
+    from repro_torch.core import ct_cache as CC
+    preempt, resume = eng._preempt, eng._resume
+    log = {"resumes_checked": 0, "audits": 0}
+
+    def as_bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    def wrapped_preempt(slot):
+        if eng.metrics["preemptions"] >= storm:
+            raise AssertionError(f"spill storm: more than {storm} "
+                                 f"preemptions")
+        preempt(slot)
+        eng.audit_pool()
+        log["audits"] += 1
+
+    def wrapped_resume(slot, st):
+        ok = resume(slot, st)
+        eng.audit_pool()
+        log["audits"] += 1
+        if not ok:
+            return ok
+        i, dev = slot.idx, eng.device
+        bad = [f for f in CC.CTCache.FIELDS
+               if not torch.equal(as_bits(getattr(eng.caches, f)[i]),
+                                  as_bits(getattr(st.cache, f).to(dev)))]
+        table = eng.tables[i]
+        mapped = table >= 0
+        want = st.mapped if st.shared_table is None else \
+            st.mapped | (st.shared_table >= 0)
+        want = torch.as_tensor(want, device=dev)
+        if not torch.equal(mapped, want):
+            bad.append("mapped blocks")
+        view = CC.gather_view(eng.pool.view, table)
+        bad += [name for name, got, sp in zip(CC.PoolView._fields, view,
+                                              st.view)
+                if not torch.equal(as_bits(got[mapped]),
+                                   as_bits(sp.to(dev)[mapped]))]
+        if bad:
+            raise AssertionError(f"resume of slot {i} is not bit-exact: "
+                                 f"{bad}")
+        log["resumes_checked"] += 1
+        return ok
+    eng._preempt, eng._resume = wrapped_preempt, wrapped_resume
+    return log
+
+
+def clock_headroom(eng):
+    """Wrap the engine's two headroom steps in host clocks: the decode
+    tick's clock (``decode_s``) starts after ``_ensure_decode_headroom``,
+    the prefill's (``prefill_s``) takes in ``_ensure_prefill_headroom``.
+    Returns the seconds spent in each, summed over the run."""
+    clocks = {"decode_headroom_s": 0.0, "prefill_headroom_s": 0.0}
+
+    def clocked(fn, key):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                clocks[key] += time.perf_counter() - t0
+        return run
+    eng._ensure_decode_headroom = clocked(eng._ensure_decode_headroom,
+                                          "decode_headroom_s")
+    eng._ensure_prefill_headroom = clocked(eng._ensure_prefill_headroom,
+                                           "prefill_headroom_s")
+    return clocks
+
+
+def pressure_serve(engine_cls, cfg, params, prompts, priorities, max_new,
+                   dev, backend, pool_blocks, prefix_cache, watch=True):
+    """Serve the pressure traffic; returns (engine, finished, launches, the
+    watch log or, unwatched, the headroom clocks, seconds)."""
+    import torch
+    from repro_torch.kernels import ops
+    eng = engine_cls(cfg, params=params, backend=backend, device=dev,
+                     record_logits=True, pool_blocks=pool_blocks,
+                     prefix_cache=prefix_cache)
+    log = watch_pool(eng, 8 * len(prompts)) if watch else clock_headroom(eng)
+    eng.submit(prompts, max_new_tokens=max_new, priorities=priorities)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    seconds = time.perf_counter() - t0
+    return eng, done, dict(ops.LAUNCHES), log, seconds
+
+
+def cow_compare_ms(eng) -> float:
+    """Device time of what ``track_cow`` adds to a commit at this engine's
+    width: a copy of the slot's gathered view and ``changed_slots`` over
+    it (slot 0's table, all NB blocks gathered as the commit does)."""
+    from repro_torch.core import ct_cache as CC
+    view = CC.gather_view(eng.pool.view, eng.tables[0])
+
+    def once():
+        view0 = CC.PoolView(*(p.clone() for p in view))
+        return CC.changed_slots(view0, view)
+    return device_ms(once, iters=5, reps=3)
+
+
+def pressure_phase(engine_cls, params, mc, dev, max_new=64) -> dict:
+    """The oversubscribed pool at r1-llama-8b's width: 4 slots, the kernel
+    backend, ThinKVConfig defaults but a 512-token budget (so requests of
+    384-768 + 64 tokens are evicted and a commit can write into a shared
+    block: with the default 1024 nothing is ever evicted, and no shared
+    block is written), the prefix cache on, 8 requests
+    (``pressure_traffic``, numpy seed 0), 64 new tokens each, a pool of
+    PRESSURE_FRAC x 4 x NB blocks.  First K1 and K2 are held against their
+    plain versions on an aliased pool of that size
+    (``check_pressure_kernels``).  Held in the served run: every request's
+    64 tokens, finite logits, preemptions, resumes, prefix hits and COW
+    faults all > 0 and no spill storm, the audit after the run and after
+    every preemption and resume, every resume bit-exact, no commit claim
+    failed (the engine raises), K1 once per tick and K4 once per commit.
+    The times come from the same run served again without those checks,
+    its headroom steps clocked apart.  Reported only: the tokens and logits
+    against the same requests on an unpressured pool without the prefix
+    cache, and against the reference backend on the same pool."""
+    import numpy as np
+    import torch
+    from repro_torch.config import ServeConfig, ThinKVConfig
+    from repro_torch.core import ct_cache as CC
+    t_phase = time.perf_counter()
+    tk = ThinKVConfig(token_budget=PRESSURE_BUDGET)
+    cfg = ServeConfig(model=mc, thinkv=tk, max_seqs=4)
+    prompts, priorities = pressure_traffic(
+        mc.vocab_size, np.random.default_rng(SEED))
+    dims = CC.make_dims(tk, mc.num_layers, mc.num_kv_heads, mc.head_dim)
+    counters = ("preemptions", "resumes", "prefix_hits", "cow_faults")
+    pool_blocks = int(4 * dims.NB * PRESSURE_FRAC)
+    kernel_errs = check_pressure_kernels(dev, mc, dims, pool_blocks)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    eng, done, launches, log, watched_s = pressure_serve(
+        engine_cls, cfg, params, prompts, priorities, max_new, dev, "kernel",
+        pool_blocks, True)
+    m = eng.metrics
+    failed = []
+    zero = [k for k in counters if m[k] == 0]
+    if zero:
+        failed.append(f"counters at 0: {zero}")
+    if len(done) != len(prompts) or any(len(r.output) != max_new
+                                        for r in done):
+        failed.append("not every request finished with its tokens")
+    for arr in eng.request_logits.values():
+        lg = np.stack(arr)
+        if lg.shape != (max_new, mc.vocab_size) or not np.isfinite(lg).all():
+            failed.append(f"bad logits: shape {lg.shape}")
+            break
+    audit = eng.audit_pool()
+    if launches["ct_paged_attention_fused"] != m["ticks"]:
+        failed.append(f"K1 launched {launches['ct_paged_attention_fused']} "
+                      f"times over {m['ticks']} ticks")
+    if launches["group_quant"] != m["commits"]:
+        failed.append(f"K4 launched {launches['group_quant']} times for "
+                      f"{m['commits']} commits")
+    if not all(launches[k] > 0 for k in K1_K4):
+        failed.append(f"a kernel never launched: {launches}")
+    if log["resumes_checked"] != m["resumes"]:
+        failed.append(f"{log['resumes_checked']} of {m['resumes']} resumes "
+                      f"checked")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 \
+        if dev.type == "cuda" else None
+    cow_ms = cow_compare_ms(eng) if dev.type == "cuda" else None
+
+    def against(other):
+        eo, do_ = other[0], other[1]
+        mine = {r.arrival: r.output for r in done}
+        theirs = {r.arrival: r.output for r in do_}
+        worst = max(float(np.abs(np.stack(eng.request_logits[a]) -
+                                 np.stack(eo.request_logits[a])).max())
+                    for a in eng.request_logits)
+        return {"identical_tokens": mine == theirs,
+                "requests_identical": sum(mine[a] == theirs.get(a)
+                                          for a in mine),
+                "max_abs_logit_diff": worst,
+                "counters": {k: eo.metrics[k] for k in counters + (
+                    "ticks", "prefill_chunks", "prefill_big_chunks")}}
+    # the timed twin: the same run without the audits and resume checks
+    timed = pressure_serve(engine_cls, cfg, params, prompts, priorities,
+                           max_new, dev, "kernel", pool_blocks, True,
+                           watch=False)
+    tm, clocks = timed[0].metrics, timed[3]
+    twin = against(timed)
+    unpressured = against(pressure_serve(
+        engine_cls, cfg, params, prompts, priorities, max_new, dev, "kernel",
+        None, False, watch=False))
+    reference = against(pressure_serve(
+        engine_cls, cfg, params, prompts, priorities, max_new, dev,
+        "reference", pool_blocks, True))
+    rec = {"phase": "pressure", "layers": mc.num_layers,
+           "d_model": mc.d_model, "heads": mc.num_heads,
+           "kv_heads": mc.num_kv_heads, "head_dim": mc.head_dim,
+           "budget": tk.token_budget, "NB": dims.NB, "slots": 4,
+           "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+           "max_new": max_new, "frac": PRESSURE_FRAC,
+           "pool_blocks": pool_blocks, "worst_case_blocks": 4 * dims.NB,
+           "kernel_max_abs_err": kernel_errs,
+           **{k: m[k] for k in counters + (
+               "prefix_tokens_skipped", "ticks", "tokens", "commits",
+               "prefill_chunks", "prefill_big_chunks", "admissions",
+               "queue_wait_ticks")},
+           "audit_claimed": audit["claimed"][:4],
+           "audits": log["audits"], "resumes_bit_exact": log["resumes_checked"],
+           "launches": launches, "watched_run_s": watched_s,
+           # times of the unwatched twin; decode_s (and so ms/tick) leaves
+           # out decode_headroom_s, prefill_s takes in prefill_headroom_s
+           "run_s": timed[4], "prefill_s": tm["prefill_s"],
+           "decode_s": tm["decode_s"],
+           "ms_per_tick": 1e3 * tm["decode_s"] / max(tm["ticks"], 1),
+           **clocks, "spill_s": tm["spill_s"],
+           "spill_bytes_per_preemption":
+               tm["spill_bytes"] / max(tm["preemptions"], 1),
+           "spill_s_per_preemption":
+               tm["spill_s"] / max(tm["preemptions"], 1),
+           "cow_compare_ms": cow_ms, "peak_mem_gb": peak_gb,
+           "twin": twin, "vs_unpressured": unpressured,
+           "vs_reference_backend": reference,
+           "failed": failed, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if failed:
+        raise AssertionError(f"pressure phase failed: {failed}")
+    return rec
+
+
 def ab(parent: str) -> int:
     """The parent tree (``parent``/src, its kernels built there) and this
     one, each in its own process, in turns: parent, this, this, parent;
@@ -1187,6 +1541,8 @@ def main() -> int:
     emit(pre)
     prof = profile_decode(ThinKVEngine, cfg, params, prompts, dev)
     emit(prof)
+    if not ab_run:
+        prs = pressure_phase(ThinKVEngine, params, mc, dev)
     del params
     torch.cuda.empty_cache()
     if ab_run:
@@ -1246,10 +1602,12 @@ def main() -> int:
     launches = srv["launches"]
     for n in ("K1", "K2", "K3", "K4"):
         recs[n]["launches"] = launches[recs[n]["name"]]
+        recs[n]["launches_pressure"] = prs["launches"][recs[n]["name"]]
     recs["K5"]["launches"] = ssm["prefill"]["launches"]["mamba_scan"]
     recs["wrapper"]["launches"] = ctl["wrapper_launches"]
-    lines = [{k: recs[n][k] for k in keys}
-             for n in ("K1", "K2", "K3", "K4", "K5", "wrapper")]
+    lines = [{k: recs[n][k] for k in keys + (
+        ("launches_pressure",) if "launches_pressure" in recs[n] else ())}
+        for n in ("K1", "K2", "K3", "K4", "K5", "wrapper")]
     # K2 and K3 beside each shape of the serve phase: launches and times
     for line, name, shapes in (
             (lines[1], "ct_paged_attention_batched", ("K2", "K2_64")),

@@ -1,7 +1,8 @@
 """Continuous Thinking (CT) paged KV cache (ports ``repro/core/ct_cache.py``:
-the parts the unpressured serving path runs, and the single-request API of
-the ThinKV controller ``core/thinkv.step_token``: ``append_token``,
-``commit_and_evict_if_full``, ``dequant_layer``, ``valid_counts``).
+the parts the serving engine runs on its shared, oversubscribed pool, and
+the single-request API of the ThinKV controller ``core/thinkv.step_token``:
+``append_token``, ``commit_and_evict_if_full``, ``dequant_layer``,
+``valid_counts``).
 
 Data model, as in the reference:
 
@@ -30,8 +31,11 @@ Differences of form (not of function) from the reference:
   thought's bit width on the device, bit-exact to ``quantize_group`` at
   every level followed by the reference's selection.
 
-COW, incref, claim, extract and restore (the prefix cache and preemption)
-are not ported yet (ROADMAP queue 1 item 10).
+The shared-pool operations of the oversubscribed pool are here too: the
+COW step (``changed_slots``, ``sync_block_tables`` with a dirty mask,
+``cow_blocks``), references (``incref_blocks``, ``release_blocks``) and the
+spill pair (``claim_blocks``, ``extract_request``, ``restore_request``).
+Physical ids are the reference's: claims take the lowest free id.
 """
 from __future__ import annotations
 
@@ -458,34 +462,141 @@ def _rank_alloc(refcount: torch.Tensor, need: torch.Tensor):
     return cand.to(torch.int32), got
 
 
+def changed_slots(view_old: PoolView, view_new: PoolView) -> torch.Tensor:
+    """Per-slot content-change mask ``[L, NS]`` between two per-request
+    views (the COW dirty detector): a slot is dirty iff any of its four
+    planes differ.  bf16 scales are compared by their bits."""
+    def per(a, b):
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        L, nb, bs = a.shape[:3]
+        return (a != b).reshape(L, nb * bs, -1).any(-1)
+    out = per(view_old[0], view_new[0])
+    for a, b in zip(view_old[1:], view_new[1:]):
+        out |= per(a, b)
+    return out
+
+
 def sync_block_tables(dims: CacheDims, pool: GlobalPool, table: torch.Tensor,
-                      cache: CTCache, view: PoolView) -> torch.Tensor:
+                      cache: CTCache, view: PoolView,
+                      dirty_slots: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reconcile a request's logical blocks with the pool after a CT update:
-    decref released blocks, map newly claimed logical blocks to free
-    physical ids (lowest first), revert claims the pool could not back, and
-    scatter the view back.  No block is shared on this path (the prefix
-    cache is off), so no COW fault can arise.  Returns the per-layer
-    allocation-failure mask [L, NB]; table, pool and cache change in place.
-    """
+    decref released blocks (free at refcount 0), COW-fault every SHARED
+    block (refcount > 1) whose content the update changed, map newly
+    claimed logical blocks and COW copies to free physical ids (lowest
+    first), scatter the view back, and revert what the pool could not back.
+
+    ``dirty_slots`` is :func:`changed_slots`' ``[L, NS]`` mask (None: no
+    block can be shared, COW cannot trigger).  A COW fault decrefs the
+    shared source and claims a fresh block, into which the scatter writes
+    the request's whole block; the source's planes are never written.  A
+    COW claim that fails re-attaches the source, masks its scatter and
+    reverts only the dirty slots to FREE; a fresh claim that fails reverts
+    its whole block.  Returns ``(alloc_failed, cow)``, both ``[L, NB]``
+    masks; table, pool and cache change in place."""
     new_bt = cache.block_type
     freed = (new_bt == -1) & (table >= 0)
     _add_refs(pool.refcount, table, freed, -1)
     table.masked_fill_(freed, UNMAPPED)
+    if dirty_slots is None:
+        cow = torch.zeros_like(freed)
+    else:
+        dirty = dirty_slots.reshape(table.shape[0], dims.NB, dims.BS).any(-1)
+        rc_at = pool.refcount.gather(1, table.clamp_min(0).long())
+        cow = (table >= 0) & dirty & (rc_at > 1)
+        old_phys = torch.where(cow, table, UNMAPPED)
+        _add_refs(pool.refcount, table, cow, -1)
+        table.masked_fill_(cow, UNMAPPED)
     need = (new_bt >= 0) & (table < 0)
     cand, got = _rank_alloc(pool.refcount, need)
     table.copy_(torch.where(got, cand, table))
     _add_refs(pool.refcount, table, got, 1)
     failed = need & ~got
-    cache.slot_state.masked_fill_(
-        failed.repeat_interleave(dims.BS, dim=1), FREE)
-    cache.block_type.masked_fill_(failed, -1)
-    scatter_view(pool.view, table, view)
-    return failed
+    failed_cow = cow & ~got
+    if dirty_slots is not None:
+        table.copy_(torch.where(failed_cow, old_phys, table))
+        _add_refs(pool.refcount, table, failed_cow, 1)
+        failed_slots = (failed & ~failed_cow).repeat_interleave(dims.BS, 1) \
+            | (failed_cow.repeat_interleave(dims.BS, 1) & dirty_slots)
+    else:
+        failed_slots = failed.repeat_interleave(dims.BS, 1)
+    cache.slot_state.masked_fill_(failed_slots, FREE)
+    cache.block_type.masked_fill_(failed & ~failed_cow, -1)
+    scatter_view(pool.view, table.masked_fill(failed_cow, UNMAPPED), view)
+    return failed, cow & got
 
 
 def release_blocks(pool: GlobalPool, table: torch.Tensor) -> None:
-    """Drop one reference on every mapped block of ``table``."""
+    """Drop one reference on every mapped block of ``table`` (a retiring or
+    spilling request, an evicted prefix-cache entry); a block returns to
+    the free list at refcount 0."""
     _add_refs(pool.refcount, table, table >= 0, -1)
+
+
+def incref_blocks(pool: GlobalPool, table: torch.Tensor) -> None:
+    """Add one reference to every mapped block of ``table``: a new holder
+    (a prefix-cache hit or registration) pins the blocks' content, so any
+    later writer COW-faults instead of writing them in place."""
+    _add_refs(pool.refcount, table, table >= 0, 1)
+
+
+def cow_blocks(dims: CacheDims, pool: GlobalPool, table: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Explicit COW fault for the masked, mapped, SHARED logical blocks:
+    claim a fresh block each, copy the planes, swap the table entries and
+    decref the sources.  Blocks this table owns alone (refcount 1) are
+    skipped, so a source's count stays >= 1 and no source is reclaimed
+    within the call.  A failed claim re-attaches the old mapping.  Returns
+    ``ok`` (a bool tensor); pool and table change in place."""
+    view = gather_view(pool.view, table)
+    rc_at = pool.refcount.gather(1, table.clamp_min(0).long())
+    sel = mask & (table >= 0) & (rc_at > 1)
+    old_phys = torch.where(sel, table, UNMAPPED)
+    _add_refs(pool.refcount, table, sel, -1)
+    cand, got = _rank_alloc(pool.refcount, sel)
+    table.copy_(torch.where(got, cand, table))
+    _add_refs(pool.refcount, table, got, 1)
+    failed = sel & ~got
+    table.copy_(torch.where(failed, old_phys, table))
+    _add_refs(pool.refcount, table, failed, 1)
+    scatter_view(pool.view, torch.where(got, table, UNMAPPED), view)
+    return ~failed.any()
+
+
+# ---------------------------------------------------------------------------
+# Preemption: spill a request's physical blocks to the host, restore later
+# ---------------------------------------------------------------------------
+
+def claim_blocks(pool: GlobalPool, mapped: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Map every True entry of ``mapped`` [L, NB] to a fresh physical block
+    (lowest free id first, per layer); returns ``(table, ok)``, ``ok``
+    False when some layer's free list could not back the whole mapping.
+    The refcounts change in place."""
+    cand, got = _rank_alloc(pool.refcount, mapped)
+    table = torch.where(got, cand, UNMAPPED).to(torch.int32)
+    _add_refs(pool.refcount, table, got, 1)
+    return table, ~(mapped & ~got).any()
+
+
+def extract_request(pool: GlobalPool, table: torch.Tensor
+                    ) -> Tuple[PoolView, torch.Tensor]:
+    """A request's physical blocks for a host spill: its paged view
+    gathered through the table (a copy) and the ``[L, NB]`` mapped mask.
+    Unmapped blocks gather block 0; restore never scatters them."""
+    return gather_view(pool.view, table), table >= 0
+
+
+def restore_request(pool: GlobalPool, mapped: torch.Tensor, view: PoolView
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Claim fresh physical blocks for a spilled request's mapped logical
+    blocks and scatter its planes back through the new table; reads go
+    through the table in logical order, so the result is bit-exact.
+    Returns ``(table, ok)``."""
+    table, ok = claim_blocks(pool, mapped)
+    scatter_view(pool.view, table, view)
+    return table, ok
 
 
 def check_pool_invariants(pool: GlobalPool, tables, extra_tables=()) -> dict:
@@ -521,15 +632,20 @@ def check_pool_invariants(pool: GlobalPool, tables, extra_tables=()) -> dict:
 def engine_advance(cfg: ThinKVConfig, dims: CacheDims, pool: GlobalPool,
                    table: torch.Tensor, cache: CTCache,
                    sparsity: torch.Tensor, *, num_tokens: int, buf_len: int,
-                   n_new: int = 1, policy=None) -> Tuple[bool, int, int]:
+                   n_new: int = 1, track_cow: bool = False, policy=None
+                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+                              int, int]:
     """``n_new`` tokens were written into the slot's buffer: commit (with
     budget eviction) when the buffer is full, refresh every tau tokens,
     and reconcile the block table — the pool is touched only then.
 
     ``num_tokens`` / ``buf_len`` are the engine's host mirrors of the
-    slot's counters before the write.  Returns (whether a commit claim
-    failed — a tensor the caller checks once —, new num_tokens, new
-    buf_len).
+    slot's counters before the write.  With ``track_cow`` (on whenever a
+    block can be shared) the pre-commit view is kept and compared with the
+    post-commit one, and every shared block the commit changed COW-faults
+    (:func:`sync_block_tables`).  Returns (whether a commit claim failed,
+    the commit's COW-fault count — tensors the caller reads once, None when
+    nothing was due —, new num_tokens, new buf_len).
     """
     policy = get_policy(policy)
     cache.buf_len.add_(n_new)
@@ -538,9 +654,10 @@ def engine_advance(cfg: ThinKVConfig, dims: CacheDims, pool: GlobalPool,
     at_commit = buf_len >= dims.G
     at_refresh = num_tokens % cfg.refresh_interval == 0
     if not (at_commit or at_refresh):
-        return None, num_tokens, buf_len
+        return None, None, num_tokens, buf_len
     with torch.profiler.record_function("thinkv.maintain"):
         view = gather_view(pool.view, table)
+        view0 = PoolView(*(p.clone() for p in view)) if track_cow else None
         if at_commit:
             commit_group(cfg, dims, cache, view, policy)
             budget_evict(cfg, dims, cache, view, policy=policy)
@@ -548,8 +665,10 @@ def engine_advance(cfg: ThinKVConfig, dims: CacheDims, pool: GlobalPool,
         if at_refresh:
             with torch.profiler.record_function("thinkv.refresh"):
                 refresh(cfg, dims, cache, view, sparsity, policy)
-        failed = sync_block_tables(dims, pool, table, cache, view)
-    return failed.any(), num_tokens, buf_len
+        dirty = changed_slots(view0, view) if track_cow else None
+        failed, cow = sync_block_tables(dims, pool, table, cache, view,
+                                        dirty_slots=dirty)
+    return failed.any(), cow.sum(), num_tokens, buf_len
 
 
 # ---------------------------------------------------------------------------

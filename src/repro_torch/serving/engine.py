@@ -1,5 +1,6 @@
-"""ThinKV serving engine, first slice (ports ``repro/serving/engine.py`` for
-a dense model served greedily on an unpressured pool).
+"""ThinKV serving engine (ports ``repro/serving/engine.py`` for a dense model
+served greedily, on a shared pool that may be oversubscribed and shared
+through a copy-on-write prefix cache).
 
 Same dataflow as the reference (see its module docstring):
 
@@ -14,6 +15,22 @@ Same dataflow as the reference (see its module docstring):
 * group commit, budget eviction, thought refresh and TBE annealing on the
   shared paged pool.
 
+Pool pressure, as in the reference: watermark admission (a budget-derived
+block estimate per request, exact for a preempted one, shrunk by a prefix
+hit); preemption ahead of need before every tick and prefill chunk whose
+commits (fresh claims plus one COW claim per shared block) the free list
+cannot back — prefix-cache entries decay first (LRU), then victims
+(lowest priority, most private blocks) spill their private blocks,
+metadata and buffer to host memory (:class:`PreemptedState`) and keep
+their references to shared blocks; resume claims fresh blocks, scatters
+the spill back and re-attaches the shared ones, bit-exact.  With
+``prefix_cache=True`` prefill states are registered at commit-aligned
+boundaries, a hit maps the cached blocks (refcount + 1) and prefills only
+the tail, and a commit that changes a shared block COW-faults it.
+``Prefix`` has the reference's resident and portable forms
+(``detach_prefix`` / ``insert`` into any slot).  The host loop is
+``serving.orchestrator``; ``run`` goes through it.
+
 Backends: ``kernel`` runs the hand-written CUDA kernels through
 ``kernels.ops`` (K1 fused decode attention per tick; K2 frozen-pool + K3
 intra-chunk attention per prefill layer, big chunks and g-chunks alike;
@@ -24,11 +41,12 @@ their plain versions.
 
 Host control flow replaces ``lax.cond``: commits and refreshes are decided
 from host mirrors of each slot's ``num_tokens`` / ``buf_len``, and the
-sparsity probe runs only on ticks where some slot refreshes.
+sparsity probe runs only on ticks where some slot refreshes.  The pool's
+host accounting reads the refcounts back once per pass, and not at all
+while no block can be shared, as the reference does.
 
 Not in this slice (each raises NotImplementedError naming the ROADMAP
-item): an oversubscribed pool with preemption, the prefix cache / COW,
-multi-tick dispatch, forks, sampling at temperature > 0, tensor
+item): multi-tick dispatch, forks, sampling at temperature > 0, tensor
 parallelism, the drift probe, other retention policies, MoE/VLM families.
 """
 from __future__ import annotations
@@ -56,6 +74,7 @@ from repro_torch.layers.common import softcap
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import rmsnorm
 from repro_torch.models.lm import LM, init_params
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import Request, Scheduler
 
 NEG_INF = -1e30
@@ -106,25 +125,83 @@ def _probs_sparsity(p_t: torch.Tensor, valid_t: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass
-class Prefix:
-    """Result of :meth:`ThinKVEngine.prefill`: the KV lives in the pool
-    under ``slot``'s block table (resident form only in this slice)."""
+class PreemptedState:
+    """Host copy of a paused request's device state (the reference's, less
+    the sampling key, which belongs to sampling at temperature > 0).
 
-    length: int
-    first_token: int
-    logits: np.ndarray
-    slot: int
+    ``view`` holds the pool planes gathered through the request's table
+    ([L, NB, BS, ...] CPU tensors; bf16 stays torch bf16), ``mapped`` the
+    PRIVATE logical blocks resume claims fresh blocks for, ``cache`` the
+    request's metadata and TBQ buffer (CPU tensors), ``shared_table`` the
+    physical ids of the SHARED blocks whose reference the paused request
+    keeps (re-attached verbatim on resume; -1 elsewhere)."""
+
+    view: CC.PoolView
+    mapped: np.ndarray              # [L, NB] bool
+    cache: CC.CTCache
+    tokens_out: int
+    next_token: int
+    shared_table: Optional[np.ndarray] = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in
+                   [*self.view, *(getattr(self.cache, f)
+                                  for f in CC.CTCache.FIELDS)])
 
 
 @dataclasses.dataclass
-class TickResult:
-    """One decode tick: next tokens [R], validity [R], logits [R, V]."""
+class Prefix:
+    """Result of :meth:`ThinKVEngine.prefill`, in one of two forms.
 
-    tick: int
-    tokens: np.ndarray
-    valid: np.ndarray
-    logits: np.ndarray
-    alloc_fail: bool
+    RESIDENT (``slot >= 0``, ``state`` None): the KV lives in the pool under
+    ``slot``'s block table; ``insert`` into that slot seeds the feed.
+    PORTABLE (``state`` set by :meth:`ThinKVEngine.detach_prefix`, the
+    spill format preemption uses): ``insert`` claims fresh blocks and
+    scatters the planes into any slot of an engine with the same dims."""
+
+    length: int
+    first_token: int
+    logits: Optional[np.ndarray]
+    slot: int = -1
+    state: Optional[PreemptedState] = None
+
+
+class TickResult:
+    """One decode tick: next tokens [R], logits [R, V], the commit-failure
+    flag and the per-slot COW faults.  Holds the device tensors;
+    :meth:`block` copies them to the host once (the orchestrator runs it
+    off the event loop)."""
+
+    def __init__(self, tick: int, tokens: torch.Tensor, logits: torch.Tensor,
+                 flags: torch.Tensor, t0: float):
+        self.tick, self.t0 = tick, t0
+        self._dev = (tokens, logits, flags)
+        self._host = None
+
+    def block(self) -> "TickResult":
+        if self._host is None:
+            tokens, logits, flags = self._dev
+            flags = flags.cpu().numpy()
+            self._host = (tokens.cpu().numpy(), logits.float().cpu().numpy(),
+                          bool(flags[-1]), flags[:-1])
+        return self
+
+    @property
+    def tokens_host(self) -> np.ndarray:
+        return self.block()._host[0]
+
+    @property
+    def logits_host(self) -> np.ndarray:
+        return self.block()._host[1]
+
+    @property
+    def alloc_fail_host(self) -> bool:
+        return self.block()._host[2]
+
+    @property
+    def cow_per_slot_host(self) -> np.ndarray:
+        return self.block()._host[3]
 
 
 class ThinKVEngine:
@@ -145,8 +222,6 @@ class ThinKVEngine:
                 f"ThinKV to compress; serve it through serving/serve_step.py")
         if cfg.model.family != ArchFamily.DENSE:
             _not_ported(f"the {cfg.model.family.value} family", "15")
-        if prefix_cache:
-            _not_ported("the prefix cache", "10")
         if ticks_per_dispatch != 1:
             _not_ported("multi-tick dispatch", "11")
         if allow_forks:
@@ -184,9 +259,6 @@ class ThinKVEngine:
         self.scheduler = Scheduler(R)
         self.num_pool_blocks = pool_blocks if pool_blocks is not None \
             else R * self.dims.NB
-        if self.num_pool_blocks < R * self.dims.NB:
-            _not_ported("an oversubscribed pool (pool_blocks < max_seqs * "
-                        "NB) with preemption", "10")
         self.pool = CC.init_global_pool(self.dims, self.num_pool_blocks,
                                         self.device)
         self.tables = CC.init_block_table(self.dims, self.device, batch=R)
@@ -204,15 +276,27 @@ class ThinKVEngine:
         self.metrics: Dict[str, float] = {
             "ticks": 0, "tokens": 0, "dispatches": 0, "prefill_tokens": 0,
             "prefill_chunks": 0, "prefill_big_chunks": 0,
-            "admissions": 0, "queue_wait_ticks": 0,
-            "prefill_s": 0.0, "decode_s": 0.0}
-        self._queued_at: Dict[int, int] = {}
+            "preemptions": 0, "resumes": 0, "admissions": 0,
+            "queue_wait_ticks": 0, "prefix_hits": 0,
+            "prefix_tokens_skipped": 0, "cow_faults": 0, "forks": 0,
+            "cancellations": 0, "commits": 0, "spill_bytes": 0,
+            "spill_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0}
+        # no block can be shared without the prefix cache (forks are not
+        # ported): the COW compare runs only with it
+        self._track_cow = bool(prefix_cache)
+        self.prefix_cache = PrefixCache(self.dims) if prefix_cache else None
+        self._spilled: Dict[int, PreemptedState] = {}   # arrival -> spill
+        self._queued_at: Dict[int, int] = {}            # arrival -> tick
         # host mirrors of every slot's num_tokens / buf_len: commits and
         # refreshes are decided here, never read back from the card
         self._slot_ntok = np.zeros(R, np.int64)
         self._slot_buflen = np.zeros(R, np.int64)
         self._feed = np.zeros(R, np.int64)
-        self._fails: List[torch.Tensor] = []     # commit-failure flags
+        # commit-failure flags and (slot, COW-fault count) pairs of the
+        # calls since the last read-back
+        self._fails: List[torch.Tensor] = []
+        self._cows: List[tuple] = []
+        self.last_orchestrator = None
         # worst-case fresh blocks one group commit claims per layer
         self._cc = -(-self.dims.G // self.dims.BS)
 
@@ -269,22 +353,43 @@ class ThinKVEngine:
                                   o_c, m_c, l_c).to(q.dtype)
 
     def _advance(self, i: int, sparsity, n_new: int) -> None:
-        fail, self._slot_ntok[i], self._slot_buflen[i] = CC.engine_advance(
-            self.tk, self.dims, self.pool, self.tables[i],
-            self.caches.slot(i), sparsity,
-            num_tokens=int(self._slot_ntok[i]),
-            buf_len=int(self._slot_buflen[i]), n_new=n_new,
-            policy=self.policy)
+        if self._slot_buflen[i] + n_new >= self.dims.G:
+            self.metrics["commits"] += 1
+        fail, cow, self._slot_ntok[i], self._slot_buflen[i] = \
+            CC.engine_advance(
+                self.tk, self.dims, self.pool, self.tables[i],
+                self.caches.slot(i), sparsity,
+                num_tokens=int(self._slot_ntok[i]),
+                buf_len=int(self._slot_buflen[i]), n_new=n_new,
+                track_cow=self._track_cow, policy=self.policy)
         if fail is not None:
             self._fails.append(fail)
+            self._cows.append((i, cow))
+
+    def _flags(self) -> torch.Tensor:
+        """Per-slot COW faults [R] and the commit-failure flag of the calls
+        since the last read, packed as one int64 tensor [R + 1] on the
+        device; the lists are emptied."""
+        R, dev = self.cfg.max_seqs, self.device
+        flags = torch.zeros(R + 1, dtype=torch.int64, device=dev)
+        for i, cow in self._cows:
+            flags[i] += cow
+        if self._fails:
+            flags[R] = torch.stack(self._fails).any()
+        self._fails, self._cows = [], []
+        return flags
 
     def _check_fails(self) -> None:
-        """Assert no commit claim failed (one read-back per call)."""
-        fails, self._fails = self._fails, []
-        if fails and bool(torch.stack(fails).any()):
+        """Fold the COW faults into the metrics and assert that no commit
+        claim failed (one read-back per call)."""
+        if not self._fails:
+            return
+        flags = self._flags().cpu().numpy()
+        self.metrics["cow_faults"] += int(flags[:-1].sum())
+        if flags[-1]:
             raise AssertionError(
-                "commit allocation failed on an unpressured pool (pool "
-                "accounting bug — data would have been dropped)")
+                "prefill commit allocation failed despite headroom checks "
+                "(pool accounting bug — data would have been dropped)")
 
     # ------------------------------------------------------------------
     # decode tick
@@ -477,34 +582,362 @@ class ThinKVEngine:
             self._advance(i, sparsity, dims.G)
         return self._logits(h[C - 1])
 
-    def _free_per_layer(self) -> np.ndarray:
-        return self.pool.free.sum(1).cpu().numpy().astype(np.int64)
+    # ------------------------------------------------------------------
+    # oversubscribed-pool admission + preemption (host side)
+    # ------------------------------------------------------------------
 
-    def _prefill(self, i: int, prompt: np.ndarray) -> np.ndarray:
-        """Chunked prefill of slot ``i``: 128-multiple big chunks first,
-        then the tail in chunks of g; returns last-token logits."""
+    def _free_per_layer(self) -> np.ndarray:
+        return (self.pool.refcount == 0).sum(1).cpu().numpy().astype(np.int64)
+
+    def _host_pool(self):
+        """(refcounts [L, NP], every slot's table [R, L, NB]) on the host:
+        one read-back of each, shared by a whole pass."""
+        return self.pool.refcount.cpu().numpy(), self.tables.cpu().numpy()
+
+    @staticmethod
+    def _split_table(table_np: np.ndarray, rc: np.ndarray):
+        """``[L, NB]`` (private, shared) masks of a block table against the
+        refcounts: a block is PRIVATE iff this table holds its only
+        reference.  Releasing the table frees exactly its private blocks;
+        only its shared blocks can demand COW claims."""
+        mapped = table_np >= 0
+        rc_at = np.take_along_axis(rc, np.clip(table_np, 0, None), axis=1)
+        private = mapped & (rc_at == 1)
+        return private, mapped & ~private
+
+    def _split_held(self, i: int, rc: np.ndarray, tables: np.ndarray):
+        """Per-layer (private, shared) mapped-block counts of slot ``i``."""
+        private, shared = self._split_table(tables[i], rc)
+        return (private.sum(axis=1).astype(np.int64),
+                shared.sum(axis=1).astype(np.int64))
+
+    def _commit_due(self, i: int) -> bool:
+        """Does slot ``i``'s next written token trigger a group commit?"""
+        return (self._slot_ntok[i] + 1) % self.dims.G == 0
+
+    def _cow_demand(self, i: int, host) -> int:
+        """Worst-case extra fresh blocks slot ``i``'s next commit can claim
+        through COW faults: one per shared block it maps.  ``host`` is the
+        caller's ``_host_pool()``; None means no block can be shared."""
+        return int(self._split_held(i, *host)[1].max()) if host is not None \
+            else 0
+
+    def _sharing_possible(self) -> bool:
+        """Can any refcount exceed 1?  False while the prefix cache holds
+        no entry, no hit ever mapped shared blocks and no spill keeps
+        shared references: the headroom paths then read no refcounts."""
+        return self.prefix_cache is not None and (
+            bool(self.prefix_cache.entries)
+            or self.metrics["prefix_hits"] > 0
+            or any(st.shared_table is not None
+                   and (st.shared_table >= 0).any()
+                   for st in self._spilled.values()))
+
+    def _decay_prefix_cache(self, needed, free: np.ndarray = None) -> bool:
+        """Evict prefix-cache entries until every layer's free count reaches
+        ``needed``, the cache is empty, or no cached block can free; runs
+        before any preemption.  The victim is the LRU entry that frees a
+        block now (the most recently used one is spared while another
+        remains); plain LRU order breaks chains of overlapping entries.
+        Returns True if an entry was evicted."""
+        if self.prefix_cache is None:
+            return False
+        if free is None:
+            free = self._free_per_layer()
+        if not (self.prefix_cache.entries and (free < needed).any()):
+            return False
+        # one refcount read per call; evictions are mirrored on the host
+        rc = self.pool.refcount.cpu().numpy().copy()
+        cache_refs = np.zeros_like(rc)
+        for t in self.prefix_cache.cached_tables():
+            for l in range(self.dims.L):
+                np.add.at(cache_refs[l], t[l][t[l] >= 0], 1)
+        evicted = False
+        while self.prefix_cache.entries and (free < needed).any():
+            if not ((cache_refs > 0) & (cache_refs == rc)).any():
+                break            # nothing decay could ever free
+            lru = self.prefix_cache.lru_entries()
+            cand = lru[:-1] if len(lru) > 1 else lru   # spare the MRU
+            pick = next((e for e in cand
+                         if self._split_table(e.table, rc)[0].any()),
+                        cand[0])
+            for l in range(self.dims.L):
+                ids = pick.table[l][pick.table[l] >= 0]
+                np.subtract.at(rc[l], ids, 1)
+                np.subtract.at(cache_refs[l], ids, 1)
+            self.prefix_cache.evict_entry(self.pool, pick)
+            evicted = True
+            free = (rc == 0).sum(axis=1).astype(np.int64)
+        return evicted
+
+    def _demote_spilled_shared(self) -> bool:
+        """Last-resort valve: turn every spill's retained shared references
+        into private spill state (decref them, fold them into ``mapped``),
+        so decay can free blocks a cache entry and a spill co-hold.  Sound
+        because the spill snapshots every mapped block and shared content
+        is immutable.  Returns True if a reference was released."""
+        changed = False
+        for st in self._spilled.values():
+            if st.shared_table is None or not (st.shared_table >= 0).any():
+                continue
+            CC.release_blocks(self.pool, torch.as_tensor(
+                st.shared_table, device=self.device))
+            st.mapped = st.mapped | (st.shared_table >= 0)
+            st.shared_table = None
+            changed = True
+        return changed
+
+    def _watermark_blocks(self, req: Request) -> np.ndarray:
+        """Per-layer block estimate for admitting ``req`` ([L]): a preempted
+        request's spilled private mapping plus one commit's claim; a fresh
+        one's budget bound ceil((budget + g) / BS) plus one commit's claim,
+        capped by NB and by its own length, less a prefix hit's blocks
+        (floored at one commit's claim)."""
+        dims = self.dims
+        st = self._spilled.get(req.arrival)
+        if st is not None:
+            return st.mapped.sum(axis=1).astype(np.int64) + self._cc
+        cap = min(len(req.prompt) + int(req.max_new_tokens),
+                  self.tk.token_budget + dims.G)
+        est = np.full(dims.L, min(dims.NB, -(-cap // dims.BS) + self._cc),
+                      np.int64)
+        if self.prefix_cache is not None:
+            # a probe (record=False) still freshens the entry, so decay
+            # takes the entry this estimate relies on last
+            hit = self.prefix_cache.lookup(req.prompt, record=False)
+            if hit is not None:
+                est = np.maximum(est - hit.blocks_per_layer, self._cc)
+        return est
+
+    def _admission_gate(self):
+        """Watermark gate for one admission sweep: admit while every
+        layer's free count covers the request's estimate after reserving
+        one commit's claim per running slot; each admission reserves its
+        estimate; a refusal first decays unreferenced cache entries.  One
+        free-count read per sweep, re-read only after a decay."""
+        running = sum(not s.free for s in self.scheduler.slots)
+        state = {"reserved": np.full(self.dims.L, running * self._cc,
+                                     np.int64),
+                 "free": self._free_per_layer()}
+
+        def gate(req: Request) -> bool:
+            need = self._watermark_blocks(req)
+            while True:
+                if np.all(state["free"] - state["reserved"] >= need):
+                    state["reserved"] = state["reserved"] + need
+                    return True
+                if not self._decay_prefix_cache(need + state["reserved"]):
+                    return False
+                state["free"] = self._free_per_layer()
+        return gate
+
+    def _victim_exclude(self) -> tuple:
+        """Slots admitted this sweep whose prefill has not run: they hold
+        no blocks and have nothing to spill."""
+        return tuple(s.idx for s in self.scheduler.active_slots()
+                     if self._slot_ntok[s.idx] == 0)
+
+    def _select_victim(self, exclude: tuple):
+        """The scheduler's victim (lowest priority, most private blocks,
+        youngest) and its private blocks per layer, from one read-back."""
+        host = self._host_pool()
+        victim = self.scheduler.select_victim(
+            lambda i: int(self._split_held(i, *host)[0].max()),
+            exclude=exclude)
+        held = None if victim is None else \
+            self._split_held(victim.idx, *host)[0]
+        return victim, held
+
+    def _spill(self, i: int, mapped: np.ndarray, tokens_out: int,
+               next_token: int, shared_table=None) -> PreemptedState:
+        """Slot ``i``'s planes (gathered through its table) and cache,
+        copied to host memory."""
+        t0 = time.perf_counter()
+        view, _ = CC.extract_request(self.pool, self.tables[i])
+        cpu = torch.device("cpu")
+        st = PreemptedState(
+            view=CC.PoolView(*(p.to(cpu) for p in view)), mapped=mapped,
+            cache=CC.CTCache(**{f: getattr(self.caches, f)[i].to(
+                cpu, copy=True) for f in CC.CTCache.FIELDS}),
+            tokens_out=tokens_out, next_token=next_token,
+            shared_table=shared_table)
+        self.metrics["spill_s"] += time.perf_counter() - t0
+        self.metrics["spill_bytes"] += st.nbytes
+        return st
+
+    def _preempt(self, slot) -> None:
+        """Pause a running request: spill its PRIVATE blocks, table and
+        cache to host memory and decref them; its SHARED blocks (refcount
+        > 1) free nothing and are immutable, so it keeps those references
+        and re-attaches them on resume."""
+        i, req = slot.idx, slot.request
+        assert self._slot_ntok[i] > 0, \
+            "preempting a slot that never started (nothing to spill)"
+        table_np = self.tables[i].cpu().numpy()
+        private, shared = self._split_table(
+            table_np, self.pool.refcount.cpu().numpy())
+        self._spilled[req.arrival] = self._spill(
+            i, private, slot.tokens_out, int(self._feed[i]),
+            np.where(shared, table_np, -1).astype(np.int32))
+        self._release_slot(i, torch.as_tensor(
+            np.where(private, table_np, -1).astype(np.int32),
+            device=self.device))
+        self.scheduler.preempt(slot)
+        self._queued_at[req.arrival] = self.metrics["ticks"]
+        self.metrics["preemptions"] += 1
+
+    def _resume(self, slot, st: PreemptedState) -> bool:
+        """Re-admit a preempted request through :meth:`insert`; False (pool
+        and slot untouched) when the free list cannot back its mapping."""
+        prefix = Prefix(length=int(st.cache.num_tokens),
+                        first_token=st.next_token, logits=None, state=st)
+        if not self.insert(prefix, slot.idx):
+            return False
+        slot.tokens_out = st.tokens_out
+        self.metrics["resumes"] += 1
+        return True
+
+    def _ensure_decode_headroom(self) -> None:
+        """Preempt ahead of need so the coming tick's commits cannot fail:
+        each committing slot claims at most ceil(g/BS) fresh blocks per
+        layer plus one per shared block it maps.  Cache entries decay
+        first; then victims, until the free list covers the committing
+        slots (preempting the last one zeroes the demand)."""
+        sch = self.scheduler
+        committing = {s.idx for s in sch.active_slots()
+                      if self._commit_due(s.idx)}
+        if not committing:
+            return
+        host = self._host_pool() if self._sharing_possible() else None
+        demand = {i: self._cc + self._cow_demand(i, host)
+                  for i in committing}
+        need = sum(demand.values())
+        free = (host[0] == 0).sum(axis=1).astype(np.int64) \
+            if host is not None else self._free_per_layer()
+        if self._decay_prefix_cache(need, free=free):
+            free = self._free_per_layer()
+        while need > 0 and int(free.min()) < need:
+            victim, held = self._select_victim(self._victim_exclude())
+            assert victim is not None    # a committing slot always remains
+            free = free + held
+            if victim.idx in committing:
+                committing.discard(victim.idx)
+                need -= demand.pop(victim.idx)
+            self._preempt(victim)
+
+    def _ensure_prefill_headroom(self, idx: int, n_blocks: int) -> None:
+        """Free headroom for one prefill-chunk commit of slot ``idx`` (COW
+        claims included): decay cache entries, then preempt OTHER slots.
+        Raises only when nothing is preemptible and the pool still cannot
+        back the commit."""
+        host = self._host_pool() if self._sharing_possible() else None
+        n_blocks = n_blocks + self._cow_demand(idx, host)
+        free = (host[0] == 0).sum(axis=1).astype(np.int64) \
+            if host is not None else self._free_per_layer()
+        if self._decay_prefix_cache(n_blocks, free=free):
+            free = self._free_per_layer()
+        while int(free.min()) < n_blocks:
+            victim, held = self._select_victim((idx,) +
+                                               self._victim_exclude())
+            if victim is None:
+                if self._demote_spilled_shared():
+                    self._decay_prefix_cache(n_blocks)
+                    free = self._free_per_layer()
+                    if int(free.min()) >= n_blocks:
+                        break
+                raise RuntimeError(
+                    f"pool exhausted: {self.num_pool_blocks} physical "
+                    f"blocks cannot back one prefill commit ({n_blocks} "
+                    f"blocks/layer) for the only block-holding request — "
+                    f"nothing is preemptible")
+            free = free + held
+            self._preempt(victim)
+
+    def _release_slot(self, i: int, table: Optional[torch.Tensor] = None
+                      ) -> None:
+        """Decref ``table`` (default: everything slot ``i`` maps; a
+        preemption passes its private mapping) and reset the slot."""
+        CC.release_blocks(self.pool, self.tables[i] if table is None
+                          else table)
+        self.tables[i].fill_(CC.UNMAPPED)
+        self.caches.slot(i).copy_(self._fresh)
+        self._slot_ntok[i] = 0
+        self._slot_buflen[i] = 0
+
+    def audit_pool(self) -> Dict:
+        """Assert the refcount invariants across every holder: slot tables,
+        prefix-cache entries and spills' retained shared tables."""
+        extra = [st.shared_table for st in self._spilled.values()
+                 if st.shared_table is not None]
+        if self.prefix_cache is not None:
+            extra += self.prefix_cache.cached_tables()
+        return CC.check_pool_invariants(self.pool, self.tables, extra)
+
+    # ------------------------------------------------------------------
+    # prefill with the prefix cache
+    # ------------------------------------------------------------------
+
+    def _prefill(self, i: int, prompt: np.ndarray) -> torch.Tensor:
+        """Chunked prefill of slot ``i``; returns the last-token logits.
+
+        A prefix-cache hit maps the cached blocks (one more reference),
+        restores the snapshot and skips the covered chunks (an exact
+        full-prompt hit runs no forward).  Then 128-multiple big chunks,
+        each only while the free list covers its worst-case claims (C/g
+        commits with no frees between, plus one COW claim per shared
+        block), then chunks of g, each after ``_ensure_prefill_headroom``.
+        Commit-aligned boundaries and the end of the prompt are registered
+        in the cache.  The slot's rows change in place; preempting other
+        slots for headroom never touches them."""
         dims, C, BC = self.dims, self.dims.G, self.prefill_chunk
+        pc = self.prefix_cache
         s0, logits = 0, None
+        hit = pc.lookup(prompt) if pc is not None else None
+        if hit is not None:
+            table = torch.as_tensor(hit.table, device=self.device)
+            CC.incref_blocks(self.pool, table)
+            self.tables[i].copy_(table)
+            self.caches.slot(i).copy_(hit.cache)
+            s0 = hit.length
+            # a boundary entry's buffer is empty, a full_only one holds
+            # the prompt's last partial chunk
+            self._slot_ntok[i], self._slot_buflen[i] = s0, s0 % C
+            logits = hit.logits
+            self.metrics["prefix_hits"] += 1
+            self.metrics["prefix_tokens_skipped"] += s0
+
+        def register(boundary: int) -> None:
+            if pc is not None and boundary > 0:
+                pc.register(self.pool, prompt, boundary, self.tables[i],
+                            self.caches.slot(i), logits,
+                            full_only=boundary % C != 0)
+
         big_claims = (BC // C) * self._cc if BC else 0
         while BC and len(prompt) - s0 >= BC:
-            # a big chunk commits C/g groups with no frees in between: it
-            # runs only when the free list covers their worst-case claim
-            mapped = (self.tables[i] >= 0).sum(1).cpu().numpy()
-            need = np.minimum(big_claims, dims.NB - mapped)
-            if (self._free_per_layer() < need).any():
-                break
+            t_np = self.tables[i].cpu().numpy()
+            rc = self.pool.refcount.cpu().numpy()   # one read per chunk
+            shared = self._split_table(t_np, rc)[1]
+            need = np.minimum(big_claims, dims.NB - (t_np >= 0).sum(1)) + \
+                shared.sum(1)
+            free = (rc == 0).sum(axis=1).astype(np.int64)
+            if self._decay_prefix_cache(need, free=free):
+                free = self._free_per_layer()
+            if (free < need).any():
+                break            # tight pool: g-sized chunks from here on
             logits = self._prefill_big(i, prompt[s0:s0 + BC])
             self.metrics["prefill_big_chunks"] += 1
             s0 += BC
+            register(s0)
         for s in range(s0, len(prompt), C):
-            if int(self._free_per_layer().min()) < self._cc:
-                _not_ported("preempting other slots for prefill headroom",
-                            "10")
-            logits = self._prefill_chunk(i, prompt[s:s + C])
+            self._ensure_prefill_headroom(i, self._cc)
+            chunk = prompt[s:s + C]
+            logits = self._prefill_chunk(i, chunk)
             self.metrics["prefill_chunks"] += 1
+            register(s + len(chunk))
         self._check_fails()
-        self.metrics["prefill_tokens"] += len(prompt)
-        return logits.float().cpu().numpy()
+        self.metrics["prefill_tokens"] += len(prompt) - (
+            hit.length if hit is not None else 0)
+        return logits
 
     # ------------------------------------------------------------------
     # the device-facing seam: prefill / insert / generate / consume
@@ -522,34 +955,68 @@ class ThinKVEngine:
             self._queued_at[req.arrival] = self.metrics["ticks"]
 
     def prefill(self, prompt: np.ndarray, slot_idx: int) -> Prefix:
-        """Chunked prefill of ``prompt`` into ``slot_idx`` + greedy first
-        token; the KV stays resident in the pool."""
+        """Chunked prefill of ``prompt`` into ``slot_idx`` (prefix-cache hits
+        and headroom preemption of other slots happen inside) + greedy
+        first token; returns the RESIDENT prefix."""
         t0 = time.perf_counter()
         with torch.profiler.record_function("thinkv.prefill"):
             logits = self._prefill(slot_idx, np.asarray(prompt))
+            logits = logits.float().cpu().numpy()
         self.metrics["prefill_s"] += time.perf_counter() - t0
         return Prefix(length=len(prompt), first_token=int(np.argmax(logits)),
                       logits=logits, slot=slot_idx)
 
+    def detach_prefix(self, prefix: Prefix) -> Prefix:
+        """RESIDENT -> PORTABLE: spill the slot's planes and cache to host
+        memory and release every pool reference it held.  Shared blocks
+        are spilled like private ones (the spill snapshots every mapped
+        block), so the portable prefix pins nothing here."""
+        if prefix.state is not None or prefix.slot < 0:
+            raise ValueError("detach_prefix needs a resident prefix")
+        i = prefix.slot
+        prefix.state = self._spill(i, self.tables[i].cpu().numpy() >= 0, 0,
+                                   prefix.first_token)
+        self._release_slot(i)
+        prefix.slot = -1
+        return prefix
+
     def insert(self, prefix: Prefix, slot_idx: int) -> bool:
-        """Seed the next-token feed of a resident prefix."""
-        if prefix.slot != slot_idx:
-            _not_ported("inserting a prefix into another slot (portable "
-                        "prefixes)", "10")
-        self._feed[slot_idx] = prefix.first_token
+        """Materialize ``prefix`` in slot ``slot_idx``.  A resident prefix
+        only seeds the feed.  A portable one (a detached prefill or a
+        spill) claims fresh blocks for its mapping, scatters the planes
+        back, re-attaches retained shared blocks and restores the cache:
+        reads go through the table in logical order, so the result is
+        bit-identical.  False (pool untouched) when the free list cannot
+        back the mapping."""
+        i = slot_idx
+        if prefix.state is None:
+            if prefix.slot != i:
+                raise ValueError(f"resident prefix lives in slot "
+                                 f"{prefix.slot}; detach it before inserting "
+                                 f"into slot {i}")
+            self._feed[i] = prefix.first_token
+            return True
+        st, dev = prefix.state, self.device
+        table, ok = CC.restore_request(
+            self.pool, torch.as_tensor(st.mapped, device=dev),
+            CC.PoolView(*(p.to(dev) for p in st.view)))
+        if not bool(ok):
+            CC.release_blocks(self.pool, table)
+            return False
+        if st.shared_table is not None:
+            shared = torch.as_tensor(st.shared_table, device=dev)
+            table = torch.where(shared >= 0, shared, table)
+        self.tables[i].copy_(table)
+        self.caches.slot(i).copy_(st.cache)
+        self._slot_ntok[i] = int(st.cache.num_tokens)
+        self._slot_buflen[i] = int(st.cache.buf_len)
+        self._feed[i] = st.next_token
         return True
 
-    def _ensure_decode_headroom(self) -> None:
-        """The coming tick's commits must fit the free list; on this
-        unpressured pool they always do (preemption is not ported)."""
-        committing = sum(1 for s in self.scheduler.active_slots()
-                         if (self._slot_ntok[s.idx] + 1) % self.dims.G == 0)
-        if committing and int(self._free_per_layer().min()) < \
-                committing * self._cc:
-            _not_ported("preempting slots for decode headroom", "10")
-
     def generate(self) -> Optional[TickResult]:
-        """One decode tick over every occupied slot (None if none)."""
+        """Headroom, then one decode tick over every occupied slot; None
+        when headroom preempted every slot.  The result holds device
+        tensors: route it through :meth:`consume`."""
         self._ensure_decode_headroom()
         active = np.array([not s.free for s in self.scheduler.slots])
         if not active.any():
@@ -558,124 +1025,50 @@ class ThinKVEngine:
         t0 = time.perf_counter()
         with torch.profiler.record_function("thinkv.tick"):
             tokens, logits = self._tick(active)
-        fails, self._fails = self._fails, []
-        res = TickResult(
-            tick=int(self.metrics["ticks"]) + 1, tokens=tokens.cpu().numpy(),
-            valid=active, logits=logits.float().cpu().numpy(),
-            alloc_fail=bool(fails and torch.stack(fails).any()))
-        self.metrics["decode_s"] += time.perf_counter() - t0
         self.metrics["ticks"] += 1
         self.metrics["tokens"] += int(active.sum())
-        return res
+        return TickResult(int(self.metrics["ticks"]), tokens, logits,
+                          self._flags(), t0)
 
     def consume(self, res: TickResult) -> TickResult:
-        if res.alloc_fail:
+        """Fold a tick's COW faults into the metrics and assert its commits
+        did not fail (blocks on the tick's host copy)."""
+        if res.alloc_fail_host:
             raise AssertionError(
-                "decode commit allocation failed on an unpressured pool "
-                "(pool accounting bug — data would have been dropped)")
+                "decode commit allocation failed despite preemption "
+                "headroom (pool accounting bug — data would have been "
+                "dropped)")
+        self.metrics["cow_faults"] += int(res.cow_per_slot_host.sum())
+        self.metrics["decode_s"] += time.perf_counter() - res.t0
         return res
 
-    def _release_slot(self, i: int) -> None:
-        CC.release_blocks(self.pool, self.tables[i])
-        self.tables[i].fill_(CC.UNMAPPED)
-        self.caches.slot(i).copy_(self._fresh)
-        self._slot_ntok[i] = 0
-        self._slot_buflen[i] = 0
-
     def free_resource(self, slot_idx: int) -> None:
-        """Release every pool reference of ``slot_idx`` and reset it."""
+        """Release every pool reference of ``slot_idx`` and reset it
+        (retirement and cancellation)."""
         self._release_slot(slot_idx)
 
-    def audit_pool(self) -> Dict:
-        return CC.check_pool_invariants(self.pool, self.tables)
+    def drop_spill(self, arrival: int) -> bool:
+        """Drop a cancelled request's spill, releasing the shared references
+        it kept (``audit_pool`` counts them)."""
+        st = self._spilled.pop(arrival, None)
+        if st is None:
+            return False
+        if st.shared_table is not None and (st.shared_table >= 0).any():
+            CC.release_blocks(self.pool, torch.as_tensor(
+                st.shared_table, device=self.device))
+        return True
+
+    def run(self, max_ticks: int = 10_000) -> List[Request]:
+        """Serve everything submitted through the orchestrator's
+        synchronous episode (the reference's decision order); returns the
+        finished requests."""
+        from repro_torch.serving.orchestrator import Orchestrator
+        orch = Orchestrator(self)
+        self.last_orchestrator = orch
+        return orch.run_sync(max_ticks=max_ticks)
 
     def slot_stats(self, i: int) -> Dict:
         comp = TV.compression_ratio(self.tk, self.dims, self.caches.slot(i),
                                     int(self._slot_ntok[i]))
         return {k: (v.tolist() if torch.is_tensor(v) else v)
                 for k, v in comp.items()}
-
-    # ------------------------------------------------------------------
-    # synchronous host loop (the reference orchestrator's run_sync order)
-    # ------------------------------------------------------------------
-
-    def _record_logits(self, req: Request, logits: np.ndarray) -> None:
-        if self.record_logits:
-            self.request_logits.setdefault(req.arrival, []).append(logits)
-
-    def _finish_token(self, slot, tok: int) -> None:
-        req = slot.request
-        req.output.append(tok)
-        slot.tokens_out += 1
-        self._feed[slot.idx] = tok
-        if slot.tokens_out >= req.max_new_tokens or \
-                (req.eos_token is not None and tok == req.eos_token):
-            req.stats = self.slot_stats(slot.idx)
-            self.scheduler.retire(slot)
-            self.free_resource(slot.idx)
-
-    def _watermark_blocks(self, req: Request) -> np.ndarray:
-        """Per-layer block estimate for admitting ``req``: the budget bound
-        ceil((budget + g) / BS) plus one commit's claim, capped by NB."""
-        dims = self.dims
-        cap = min(len(req.prompt) + int(req.max_new_tokens),
-                  self.tk.token_budget + dims.G)
-        return np.full(dims.L, min(dims.NB, -(-cap // dims.BS) + self._cc),
-                       np.int64)
-
-    def _admission_gate(self):
-        running = sum(not s.free for s in self.scheduler.slots)
-        state = {"reserved": np.full(self.dims.L, running * self._cc,
-                                     np.int64),
-                 "free": self._free_per_layer()}
-
-        def gate(req: Request) -> bool:
-            need = self._watermark_blocks(req)
-            if np.all(state["free"] - state["reserved"] >= need):
-                state["reserved"] = state["reserved"] + need
-                return True
-            return False
-        return gate
-
-    def _admit_and_prefill(self) -> None:
-        sch = self.scheduler
-        while sch.queue and any(s.free for s in sch.slots):
-            newly = sch.admit(self._admission_gate())
-            if not newly:
-                break
-            for slot in newly:
-                req = slot.request
-                self.metrics["admissions"] += 1
-                self.metrics["queue_wait_ticks"] += \
-                    self.metrics["ticks"] - self._queued_at.pop(
-                        req.arrival, self.metrics["ticks"])
-                prefix = self.prefill(req.prompt, slot.idx)
-                self.insert(prefix, slot.idx)
-                self._record_logits(req, prefix.logits)
-                self._finish_token(slot, prefix.first_token)
-
-    def run(self, max_ticks: int = 10_000) -> List[Request]:
-        """Serve everything submitted: admit + prefill, then tick, fan the
-        tokens out, retire, admit — until the queue drains."""
-        sch = self.scheduler
-        t0 = time.perf_counter()
-        self._admit_and_prefill()
-        for _ in range(max_ticks):
-            if not sch.busy():
-                break
-            if not sch.active_slots():
-                self._admit_and_prefill()
-                if sch.queue and not sch.active_slots():
-                    raise RuntimeError(
-                        "admission livelock: the pool cannot serve even one "
-                        "queued request")
-                continue
-            res = self.consume(self.generate())
-            for slot in sch.active_slots():
-                self._record_logits(slot.request, res.logits[slot.idx])
-                self._finish_token(slot, int(res.tokens[slot.idx]))
-            self._admit_and_prefill()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.metrics["wall_s"] = time.perf_counter() - t0
-        return sch.finished

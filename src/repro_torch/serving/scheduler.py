@@ -5,9 +5,8 @@ Request lifecycle: WAITING -> RUNNING -> FINISHED, with RUNNING ->
 PREEMPTED -> RUNNING cycles and a terminal CANCELLED state.  The queue is
 ordered by (priority desc, arrival asc); ``admit`` takes a per-request
 capacity gate; ``select_victim`` picks the lowest-priority, largest,
-youngest running request.  The port's engine does not preempt yet (ROADMAP
-queue 1 item 10), but the scheduler carries the whole lifecycle so that
-the pressure slice plugs into it unchanged.
+youngest running request.  The engine pauses victims through it when its
+oversubscribed pool is short (``ThinKVEngine._preempt``).
 """
 from __future__ import annotations
 

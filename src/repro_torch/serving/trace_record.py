@@ -2,7 +2,8 @@
 it to the record.
 
 A record is a numpy archive written from the JAX package's engine
-(``tests/golden/torch_flash_trace.npz``, by
+(``tests/golden/torch_flash_trace.npz`` and
+``tests/golden/torch_pressure_trace.npz``, by
 ``tests/test_torch_trace_fixture.py``): the model's parameters, the trace's
 settings and prompts, and what the reference engine gave (tokens and
 logits per request, engine counters, the pool audit).  Reading it takes
@@ -11,7 +12,10 @@ live JAX record.  Archive keys:
 
 * ``settings``: JSON — ``model`` (a smoke config name), ``num_heads``,
   ``num_kv_heads``, ``thinkv`` (ThinKVConfig fields), ``slots``,
-  ``max_new``, ``priorities``;
+  ``max_new``, ``priorities``; optionally ``pool_blocks`` (default
+  ``slots * NB``), ``prefix_cache`` (default false) and ``prompt_recipe``
+  (how the prompts were drawn: seed, vocab, lengths, which requests share
+  a prefix of which length; the prompts themselves are stored);
 * ``record``: JSON — ``counters`` (engine metrics by name), ``audit``
   (``audit_pool()``);
 * ``prompt_<i>`` (int64), ``tokens_<arrival>`` (int64), ``logits_<arrival>``
@@ -81,8 +85,10 @@ def serve_config(rec: dict) -> ServeConfig:
 
 
 def expected_commits(rec: dict) -> int:
-    """Group commits of the trace: every G tokens a request writes (its
-    prompt and every generated token but the last)."""
+    """Group commits of a trace served without the prefix cache: every G
+    tokens a request writes (its prompt and every generated token but the
+    last; preemption recomputes nothing).  A prefix hit skips the covered
+    commits: count those from the engine's ``metrics["commits"]``."""
     g, new = serve_config(rec).thinkv.group_size, rec["settings"]["max_new"]
     return sum((len(p) + new - 1) // g for p in rec["prompts"])
 
@@ -94,8 +100,10 @@ def replay(rec: dict, backend: str, device, params=None
     cfg = serve_config(rec)
     if params is None:
         params = params_from_numpy(rec["params"], cfg.model, device)
+    s = rec["settings"]
     eng = ThinKVEngine(cfg, params=params, backend=backend, device=device,
-                       record_logits=True)
+                       record_logits=True, pool_blocks=s.get("pool_blocks"),
+                       prefix_cache=bool(s.get("prefix_cache", False)))
     before = dict(ops.LAUNCHES)
     eng.submit(rec["prompts"], max_new_tokens=rec["settings"]["max_new"],
                priorities=rec["settings"]["priorities"])

@@ -124,12 +124,13 @@ def test_request_op_sequence_matches_reference(g, bs, prec, seed):
             refreshes[r] += at_refresh
             pool_j, tables_j[r], caches_j[r], fail_j, _ = advance_j(
                 pool_j, tables_j[r], caches_j[r], jnp.float32(s), n)
-            fail_t, ntok[r], buf[r] = CT.engine_advance(
+            fail_t, cow_t, ntok[r], buf[r] = CT.engine_advance(
                 tk_t, dims_t, pool_t, tables_t[r], caches_t[r],
                 torch.tensor(s), num_tokens=ntok[r], buf_len=buf[r],
                 n_new=n)
             assert not bool(fail_j)
             assert fail_t is None or not bool(fail_t)
+            assert cow_t is None or int(cow_t) == 0
             assert int(caches_j[r].num_tokens) == ntok[r]
             assert int(caches_j[r].buf_len) == buf[r]
             assert_same_state(pool_j, tables_j, caches_j, pool_t, tables_t,

@@ -1,5 +1,7 @@
-"""The CUDA kernels against their plain versions, on the card, and the
-flash trace (head_dim 16) on the card against the JAX engine's record.
+"""The CUDA kernels against their plain versions, on the card; the flash and
+the pressure trace (head_dim 16) on the card against the JAX engine's
+records; the shared-pool operations on card tensors against their CPU
+results.
 
 Every test here needs a CUDA card and the CUDA toolkit (the kernels are
 built with nvcc at first use); without a card each test skips with the
@@ -33,6 +35,8 @@ from repro_torch.serving.engine import ThinKVEngine  # noqa: E402
 ATOL = 1e-4
 FLASH_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "golden", "torch_flash_trace.npz")
+PRESSURE_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "golden", "torch_pressure_trace.npz")
 
 
 @pytest.fixture
@@ -42,8 +46,8 @@ def card():
     return torch.device("cuda")
 
 
-def pool_case(gen, L, R_, H, GQ, D, BS, NB, G=16):
-    NP = R_ * NB + 3
+def pool_case(gen, L, R_, H, GQ, D, BS, NB, G=16, NP=None):
+    NP = R_ * NB + 3 if NP is None else NP
     codes = lambda: torch.randint(0, 256, (L, NP, BS, H, D), generator=gen,
                                   dtype=torch.uint8)
     scales = lambda: (torch.rand((L, NP, BS, H, D // 16), generator=gen)
@@ -200,6 +204,63 @@ def test_batched_pool_attention_full_width(card, GQ):
     c = pool_case(torch.Generator().manual_seed(GQ), L=1, R_=1, H=8, GQ=GQ,
                   D=128, BS=16, NB=128)
     args = batched_args(c)
+    got = launched_once("ct_paged_attention_batched",
+                        ops.paged_decode_attention_batched, *on(card, args))
+    assert_close(got[:2], R.ct_paged_attention_batched_ref(*args)[:2])
+    assert_close(got, batched_f64(*args))
+
+
+def aliased_tables(gen, L, NB, NP):
+    """Block tables [4, L, NB] over NP >= 2 NB blocks that share physical
+    blocks by construction, as prefix hits and COW sources do: slots 1 and
+    2 map slot 0's first NB/4 blocks at the same positions, slot 3 maps
+    slot 0's second half at its own first half; the rest is private or
+    -1."""
+    q, h = NB // 4, NB // 2
+    none = torch.full((h,), -1, dtype=torch.long)
+    rows = []
+    for _ in range(L):
+        perm = torch.randperm(NP, generator=gen)
+        rows.append(torch.stack([
+            perm[:NB], torch.cat([perm[:q], perm[NB:2 * NB - q]]),
+            torch.cat([perm[:q], perm[2 * NB - q:2 * NB], none]),
+            torch.cat([perm[h:NB], none])]))
+    return torch.stack(rows, 1).to(torch.int32)
+
+
+def oversubscribed_case(GQ, L=8):
+    """The full-width pressure cell's pool (H 8, D 128, BS 16, budget 512
+    so NB 64; a pool of half the 4 x NB worst case) with aliased tables and
+    each slot's own metadata."""
+    gen = torch.Generator().manual_seed(64 + GQ)
+    c = pool_case(gen, L=L, R_=4, H=8, GQ=GQ, D=128, BS=16, NB=64, NP=128)
+    c["block_table"] = aliased_tables(gen, L, 64, 128)
+    c["slot_state"].masked_fill_(
+        (c["block_table"] < 0).permute(1, 0, 2)[..., None], 0)
+    c["buf_len"] = torch.tensor([0, 5, 16, 16], dtype=torch.int32)
+    return c
+
+
+def test_fused_decode_attention_on_an_oversubscribed_aliased_pool(card):
+    """K1 where slots map the same physical blocks and the pool holds
+    fewer blocks than 4 x NB (the pressure cell's tick)."""
+    c = oversubscribed_case(GQ=4)
+    got = launched_once("ct_paged_attention_fused",
+                        ops.paged_decode_attention_fused,
+                        *on(card, c.values()))
+    assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
+
+
+@pytest.mark.parametrize("GQ", [512, 64, 4])
+def test_batched_pool_attention_on_an_oversubscribed_aliased_pool(card, GQ):
+    """K2 on a slot whose table shares blocks with other slots, at NB 64 in
+    a pool of 128 blocks, with its walk split (NS > 1) so the merge runs."""
+    c = oversubscribed_case(GQ=GQ, L=1)
+    assert ops.kv_splits(1, 8, GQ, 64, ops._sm_count(card.index or 0)) > 1
+    args = [c["qh"][0, 1:2], c["k_codes"][0], c["v_codes"][0],
+            c["k_scales"][0], c["v_scales"][0], c["slot_state"][0, 1:2],
+            c["slot_bits"][0, 1:2], c["block_table"][1:2, 0].contiguous()]
+    args = [a.contiguous() for a in args]
     got = launched_once("ct_paged_attention_batched",
                         ops.paged_decode_attention_batched, *on(card, args))
     assert_close(got[:2], R.ct_paged_attention_batched_ref(*args)[:2])
@@ -563,3 +624,54 @@ def test_flash_trace_on_the_card_gives_the_jax_record(card):
                 "ct_paged_attention_batched", "flash_prefill")), launches
         else:
             assert launches["ct_paged_attention_fused"] == 0
+
+
+def test_pressure_trace_on_the_card_gives_the_jax_record(card):
+    """The pressure trace (a 14-block pool for 3 slots, the prefix cache on:
+    preemptions, resumes, prefix hits and COW faults, block tables that
+    alias shared physical blocks) on the card with the JAX engine's
+    parameters, held to the JAX reference engine's record
+    (``tests/golden/torch_pressure_trace.npz``): identical tokens, logits
+    within 1e-3, equal counters and pool audit, on the kernel backend (K1
+    once per tick, K4 once per commit the run made) and on the reference
+    backend."""
+    rec = TR.load(PRESSURE_RECORD)
+    params = None
+    for backend in ("kernel", "reference"):
+        eng, done, launches = TR.replay(rec, backend, card, params)
+        params = eng.model
+        bad, worst = TR.mismatches(rec, eng, done)
+        assert not bad, (backend, bad)
+        assert eng.metrics["preemptions"] > 0 and eng.metrics["cow_faults"] > 0
+        assert launches["group_quant"] == eng.metrics["commits"] > 0
+        assert launches["ct_paged_attention_fused"] == (
+            eng.metrics["ticks"] if backend == "kernel" else 0)
+
+
+@pytest.mark.parametrize("name", ["cow_ok", "cow_fail", "fresh_fail",
+                                  "mixed", "no_dirty"])
+def test_sync_block_tables_on_the_card_equals_the_cpu(card, name):
+    """``sync_block_tables`` with a dirty mask on card tensors gives the CPU
+    result (which ``tests/test_torch_pool.py`` holds to the JAX package)."""
+    import test_torch_pool as TP
+    case = TP.pool_case(name, 0)
+    TP.assert_equal_trees(TP.port_sync(case, card), TP.port_sync(case), name)
+
+
+@pytest.mark.parametrize("name", ["ok", "fail"])
+def test_pool_ops_on_the_card_equal_the_cpu(card, name):
+    """incref / release, ``cow_blocks``, extract -> restore and
+    ``claim_blocks`` on card tensors give the CPU results; and
+    ``changed_slots`` on the card."""
+    import test_torch_pool as TP
+    case = TP.pool_case(name, 3)
+    TP.assert_equal_trees(TP.port_ops(case, card), TP.port_ops(case), name)
+    rng = np.random.default_rng(0)
+    old = TP.planes(rng, TP.DIMS["NB"])
+    new = [p.copy() for p in old]
+    new[2][0, 1, 2, 0, 0] ^= np.uint16(1)
+    got = CT.changed_slots(*(CT.PoolView(*(TP.torch_of(p, card) for p in v))
+                             for v in (old, new)))
+    want = np.zeros(got.shape, bool)
+    want[0, 1 * TP.DIMS["BS"] + 2] = True
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -68,10 +68,11 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefix_cache=True), "10"), (dict(ticks_per_dispatch=2), "11"),
-    (dict(allow_forks=True), "11"), (dict(mesh=object()), "13"),
-    (dict(drift_probe=True), "12"), (dict(policy="rkv"), "12"),
-    (dict(pool_blocks=1), "10")])
+    pytest.param(dict(ticks_per_dispatch=2), "11", id="kw1-11"),
+    pytest.param(dict(allow_forks=True), "11", id="kw2-11"),
+    pytest.param(dict(mesh=object()), "13", id="kw3-13"),
+    pytest.param(dict(drift_probe=True), "12", id="kw4-12"),
+    pytest.param(dict(policy="rkv"), "12", id="kw5-12")])
 def test_options_outside_the_slice_name_their_roadmap_item(kw, item):
     from repro_torch.config import ServeConfig
     from repro_torch.configs import get_smoke_config
@@ -79,6 +80,19 @@ def test_options_outside_the_slice_name_their_roadmap_item(kw, item):
     cfg = ServeConfig(model=get_smoke_config("r1-llama-8b"), max_seqs=1)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ThinKVEngine(cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(prefix_cache=True),
+                                dict(pool_blocks=1)])
+def test_the_engine_takes_the_prefix_cache_and_an_oversubscribed_pool(kw):
+    """ROADMAP item 10's options are ported: the engine builds with them."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.engine import ThinKVEngine
+    cfg = ServeConfig(model=get_smoke_config("r1-llama-8b"), max_seqs=1)
+    eng = ThinKVEngine(cfg, device="cpu", **kw)
+    assert (eng.prefix_cache is not None) == kw.get("prefix_cache", False)
+    assert eng.num_pool_blocks == kw.get("pool_blocks", eng.dims.NB)
 
 
 def test_temperature_above_zero_is_not_ported():

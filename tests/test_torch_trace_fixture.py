@@ -1,19 +1,25 @@
-"""The JAX engine's record of the flash trace, carried to the card as a numpy
-archive (``tests/golden/torch_flash_trace.npz``), and the port's replay of
-it (``repro_torch.serving.trace_record``).
+"""The JAX engine's records of the flash and the pressure trace, carried to
+the card as numpy archives (``tests/golden/torch_flash_trace.npz``,
+``tests/golden/torch_pressure_trace.npz``), and the port's replay of them
+(``repro_torch.serving.trace_record``).
 
-The record is the live JAX ``reference`` engine on the flash trace with the
-settings of ``tests/test_torch_engine.py::jax_run`` (prompts of 140 and 24
-tokens from ``np.random.default_rng(1)``, 8 new tokens, 3 slots): its
-parameters, tokens and logits per request, the engine counters and the
-pool audit.  ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the
-card's kernel and reference backends to it, where there is no JAX.  The
-golden ``serving_trace.json`` is not this record (it dates from an older
-tree and no longer matches the reference).
+A record is the live JAX ``reference`` engine's run: its parameters, tokens
+and logits per request, the engine counters and the pool audit.  The flash
+record has the settings of ``tests/test_torch_engine.py::jax_run``
+(prompts of 140 and 24 tokens from ``np.random.default_rng(1)``, 8 new
+tokens, 3 slots, an unpressured pool); the pressure record those of
+``tests/test_torch_pressure.py::jax_run`` (five prompts, three sharing a
+16-token prefix, 24 new tokens, a 14-block pool, the prefix cache on).
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the card's kernel
+and reference backends to them, where there is no JAX.  The golden
+``serving_trace.json`` is not such a record (it dates from an older tree:
+its flash tokens and its pressure tokens no longer match the reference,
+its pressure counters still do).
 
-The first test here re-runs the JAX engine and asserts that the archive
-equals the fresh record, so the file cannot go stale silently.  To write
-it anew (after a change to the reference engine or to these settings):
+A test here re-runs the JAX engine on each trace and asserts that the
+archive equals the fresh record, so a file cannot go stale silently.  To
+write both anew (after a change to the reference engine or to these
+settings):
 
     PYTHONPATH=src python tests/test_torch_trace_fixture.py
 """
@@ -33,14 +39,22 @@ from repro.config import ThinKVConfig as JTK  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.serving.engine import ThinKVEngine as JaxEngine  # noqa: E402
 from repro_torch.serving import trace_record as TR  # noqa: E402
+import test_torch_pressure as PT  # noqa: E402
 from test_torch_engine import (COUNTERS, LENS, MAX_NEW,  # noqa: E402
                                PRIORITIES, SLOTS, TK, prompts)
 
-FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
-                       "torch_flash_trace.npz")
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+FIXTURE = os.path.join(GOLDEN, "torch_flash_trace.npz")
+PRESSURE_FIXTURE = os.path.join(GOLDEN, "torch_pressure_trace.npz")
 SETTINGS = {"model": "r1-llama-8b", "num_heads": 8, "num_kv_heads": 8,
             "thinkv": TK, "slots": SLOTS, "max_new": MAX_NEW,
             "priorities": list(PRIORITIES)}
+PRESSURE_SETTINGS = {"model": "r1-llama-8b", "num_heads": 8,
+                     "num_kv_heads": 8, "thinkv": TK, "slots": PT.SLOTS,
+                     "max_new": PT.MAX_NEW,
+                     "priorities": list(PT.PRIORITIES),
+                     "pool_blocks": PT.pool_blocks(), "prefix_cache": True,
+                     "prompt_recipe": PT.RECIPE}
 
 
 def flatten(tree, prefix: str = "") -> dict:
@@ -55,20 +69,26 @@ def flatten(tree, prefix: str = "") -> dict:
     return out
 
 
-def jax_record() -> dict:
-    """The JAX reference engine's run of the flash trace, as the archive's
-    arrays (see ``repro_torch.serving.trace_record``)."""
-    mcfg = dataclasses.replace(jax_smoke(SETTINGS["model"]),
-                               num_heads=SETTINGS["num_heads"],
-                               num_kv_heads=SETTINGS["num_kv_heads"])
-    eng = JaxEngine(JSC(model=mcfg, thinkv=JTK(**TK), max_seqs=SLOTS),
-                    backend="reference", record_logits=True)
-    ps = prompts()
-    eng.submit(ps, max_new_tokens=MAX_NEW, priorities=PRIORITIES)
+def jax_record(settings: dict = SETTINGS, ps=None,
+               counters=COUNTERS) -> dict:
+    """The JAX reference engine's run of a trace (by default the flash
+    trace), as the archive's arrays (see
+    ``repro_torch.serving.trace_record``)."""
+    mcfg = dataclasses.replace(jax_smoke(settings["model"]),
+                               num_heads=settings["num_heads"],
+                               num_kv_heads=settings["num_kv_heads"])
+    eng = JaxEngine(JSC(model=mcfg, thinkv=JTK(**settings["thinkv"]),
+                        max_seqs=settings["slots"]),
+                    backend="reference", record_logits=True,
+                    pool_blocks=settings.get("pool_blocks"),
+                    prefix_cache=settings.get("prefix_cache", False))
+    ps = prompts() if ps is None else ps
+    eng.submit(ps, max_new_tokens=settings["max_new"],
+               priorities=settings["priorities"])
     done = eng.run()
-    out = {"settings": np.array(json.dumps(SETTINGS)),
+    out = {"settings": np.array(json.dumps(settings)),
            "record": np.array(json.dumps(
-               {"counters": {k: int(eng.metrics[k]) for k in COUNTERS},
+               {"counters": {k: int(eng.metrics[k]) for k in counters},
                 "audit": eng.audit_pool()}, default=int))}
     out.update({f"prompt_{i}": p for i, p in enumerate(ps)})
     for r in done:
@@ -80,20 +100,22 @@ def jax_record() -> dict:
     return out
 
 
+def jax_pressure_record() -> dict:
+    return jax_record(PRESSURE_SETTINGS, PT.prompts(), PT.COUNTERS)
+
+
 def write_fixture(path: str = FIXTURE) -> None:
     np.savez(path, **jax_record())
 
 
-@pytest.fixture(scope="module")
-def stored():
-    return TR.load(FIXTURE)
+def write_pressure_fixture(path: str = PRESSURE_FIXTURE) -> None:
+    np.savez(path, **jax_pressure_record())
 
 
-def test_fixture_equals_the_live_jax_record(stored):
+def assert_archive_equals(path: str, fresh: dict) -> None:
     """Tokens, counters, audit, prompts and parameters exactly; logits to
     1e-6."""
-    fresh = jax_record()
-    with np.load(FIXTURE, allow_pickle=False) as z:
+    with np.load(path, allow_pickle=False) as z:
         assert sorted(z.files) == sorted(fresh)
         for k in fresh:
             if k.startswith("logits_"):
@@ -102,6 +124,23 @@ def test_fixture_equals_the_live_jax_record(stored):
             else:
                 assert z[k].dtype == fresh[k].dtype, k
                 np.testing.assert_array_equal(z[k], fresh[k], err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def stored():
+    return TR.load(FIXTURE)
+
+
+@pytest.fixture(scope="module")
+def stored_pressure():
+    return TR.load(PRESSURE_FIXTURE)
+
+
+def test_fixture_equals_the_live_jax_record(stored):
+    """Tokens, counters, audit, prompts and parameters exactly; logits to
+    1e-6."""
+    fresh = jax_record()
+    assert_archive_equals(FIXTURE, fresh)
     n_params = sum(v.size for k, v in fresh.items()
                    if k.startswith(TR.PARAM))
     assert n_params == 147_776
@@ -139,6 +178,39 @@ def test_mismatches_names_what_differs(stored):
                                            "pool"]
 
 
+def test_pressure_fixture_equals_the_live_jax_record(stored_pressure):
+    """The pressure record: the live engine's run, with the counters the
+    port is held to (9 preemptions, 9 resumes, 2 prefix hits, 4 COW
+    faults ...) and the settings the replay builds its engine from."""
+    assert_archive_equals(PRESSURE_FIXTURE, jax_pressure_record())
+    rec = stored_pressure
+    assert {k: rec["counters"][k] for k in PT.WANT} == PT.WANT
+    assert rec["audit"] == {"claimed": [3, 3], "free": [11, 11],
+                            "pool_blocks": 14}
+    assert rec["settings"]["pool_blocks"] == 14
+    assert rec["settings"]["prefix_cache"] is True
+    assert [len(p) for p in rec["prompts"]] == list(PT.LENS)
+    for a, b in zip(rec["prompts"], PT.prompts()):
+        np.testing.assert_array_equal(a, b)
+    assert all(len(t) == PT.MAX_NEW for t in rec["tokens"].values())
+
+
+@pytest.mark.parametrize("backend", ["reference", "kernel"])
+def test_port_replays_the_pressure_record_on_the_cpu(stored_pressure,
+                                                     backend):
+    """The pressure record through ``trace_record.replay`` on the CPU: the
+    record's tokens, logits within 1e-3, counters and audit; commits
+    counted by the engine (prefix hits skip four)."""
+    eng, done, launches = TR.replay(stored_pressure, backend, "cpu")
+    bad, worst = TR.mismatches(stored_pressure, eng, done)
+    assert not bad, bad
+    assert worst <= 1e-3
+    assert not any(launches.values())
+    assert eng.metrics["commits"] == TR.expected_commits(stored_pressure) - 4
+
+
 if __name__ == "__main__":
     write_fixture()
-    print(f"wrote {FIXTURE}: {os.path.getsize(FIXTURE)} bytes")
+    write_pressure_fixture()
+    for path in (FIXTURE, PRESSURE_FIXTURE):
+        print(f"wrote {path}: {os.path.getsize(path)} bytes")
