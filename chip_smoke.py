@@ -31,14 +31,17 @@ failure:
    trace      — K1-K4 against their plain versions at the traces' shapes
                 (head_dim 16, BS 8, K2 split and merged, K1 and K2 also at
                 an odd kv head count; 1e-3 abs, K4 bit-exact), then the
-                flash trace and the pressure trace (the JAX engine's
-                parameters; the pressure trace oversubscribes a 14-block
-                pool with the prefix cache on) on the kernel and the
-                reference backend, each held to the JAX reference engine's
-                record (``tests/golden/torch_{flash,pressure}_trace.npz``):
-                identical tokens, logits within 1e-3, equal counters and
-                pool audit, K1 once per tick, K2 and K3 launched, K4 once
-                per commit the run made;
+                flash, the pressure and the sampled trace (the JAX
+                engine's parameters; the pressure trace oversubscribes a
+                14-block pool with the prefix cache on, the sampled trace
+                is the pressure trace at temperature 0.7, top-p 0.9 in
+                packs of up to 8 ticks) on the kernel and the reference
+                backend, each held to the JAX reference engine's record
+                (``tests/golden/torch_{flash,pressure,sampled}_trace.npz``):
+                identical tokens, logits within 1e-3, equal counters
+                (dispatches and early exits among them) and pool audit, K1
+                once per tick, K2 and K3 launched, K4 once per commit the
+                run made;
 4. serve      — the port's engine on the full r1-llama-8b config (32 layers,
                 random weights from a seed), kernel backend, 4 requests of
                 1100-token prompts and 64 new tokens; launch counts are
@@ -54,14 +57,25 @@ failure:
                 layers, random weights, kernel backend, 4 slots, ThinKVConfig
                 with a 512-token budget), the prefix cache on: 8 requests of
                 384-768 tokens (four share a 256-token prefix, priorities
-                0/1) and 64 new tokens on a pool of ``frac * 4 * NB`` blocks,
-                ``frac`` the first of 0.5, 0.45, ... whose run preempts,
-                resumes, hits the cache and COW-faults without a spill
-                storm; every request's tokens, clean audits after the run
-                and after every preemption and resume, every resume
-                bit-exact against its spill, K1 once per tick and K4 once
-                per commit; against an unpressured pool without the cache
-                and against the reference backend only reported;
+                0/1) and 64 new tokens on a pool of 0.5 * 4 * NB blocks,
+                which must preempt, resume, hit the cache and COW-fault
+                without a spill storm; every request's tokens, clean
+                audits after the run and after every preemption and
+                resume, every resume bit-exact against its spill, K1 once
+                per tick and K4 once per commit; against an unpressured
+                pool without the cache and against the reference backend
+                only reported;
+   sampled    — the serve phase's model and first two prompts, each with
+                ``samples_per_slot=2`` (2 parents and 2 forks on 4 slots),
+                at DeepSeek-R1-Distill's published sampling settings
+                (temperature 0.6, top-p 0.95), 64 new tokens, served at 1,
+                8, 8 and 1 ticks per dispatch: bit-identical tokens and
+                logits across the four runs, children other than their
+                parents; greedy at 8 the children equal their parents; in
+                every run 2 forks, COW faults on forked slots, a clean
+                audit, K1 once per tick, K4 once per commit; ms/tick,
+                dispatches per token, the sampler's device time at
+                [4, 128256] and ``fork_slot``'s time;
 6. parity     — a 4-layer full-width model through the kernel and the
                 reference backends where their results must agree (see
                 ``parity``): identical tokens, logits within the reference's
@@ -83,8 +97,9 @@ failure:
                 against ``decode_attention_ref`` (3e-4 + 3e-4 |r|).
 
 Then the kernels line (each kernel's launches on its own path: K1-K4 from
-the serve phase, and from the pressure phase as ``launches_pressure``, K2
-and K3 also by shape, K5 from the ssm phase's prefill, the wrapper from
+the serve phase, from the pressure phase as ``launches_pressure`` and from
+the sampled phase's first run at 8 ticks per dispatch as
+``launches_sampled``, K2 and K3 also by shape, K5 from the ssm phase's prefill, the wrapper from
 the controller phase), the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -963,19 +978,24 @@ def check_trace_kernels(dev, cfg) -> dict:
     return errs
 
 
-TRACE_RECORDS = ("flash", "pressure")
+TRACE_RECORDS = ("flash", "pressure", "sampled")
 
 
 def trace_phase(dev) -> dict:
-    """The flash and the pressure trace at their config (r1-llama-8b's smoke
-    form with 8 q and 8 kv heads at head_dim 16) with the JAX engine's
-    parameters, on the kernel and then the reference backend, each held to
-    the JAX reference engine's record (``tests/golden/torch_<trace>_
-    trace.npz``): identical tokens, logits within 1e-3, equal counters and
-    pool audit.  The flash trace runs a 128-token big chunk, g-chunks,
-    eviction and refresh on an unpressured pool; the pressure trace a
-    14-block pool for 3 slots with the prefix cache (preemption, resume,
-    prefix hits, COW faults; block tables alias shared blocks).  The kernel
+    """The flash, the pressure and the sampled trace at their config
+    (r1-llama-8b's smoke form with 8 q and 8 kv heads at head_dim 16) with
+    the JAX engine's parameters, on the kernel and then the reference
+    backend, each held to the JAX reference engine's record
+    (``tests/golden/torch_<trace>_trace.npz``): identical tokens, logits
+    within 1e-3, equal counters and pool audit.  The flash trace runs a
+    128-token big chunk, g-chunks, eviction and refresh on an unpressured
+    pool; the pressure trace a 14-block pool for 3 slots with the prefix
+    cache (preemption, resume, prefix hits, COW faults; block tables alias
+    shared blocks); the sampled trace the pressure trace at temperature
+    0.7, top-p 0.9 in packs of up to 8 ticks (its counters include the
+    dispatches and early pack exits; the record's smallest draw margin
+    must lie above 1e-3 / T, so no draw can flip under the card's logit
+    error).  The kernel
     backend launches K1 once per tick and K2 and K3; both launch K4 once per
     commit the run made (the engine's ``commits``, which for the flash
     trace must also equal its length arithmetic: prefix hits skip
@@ -999,6 +1019,11 @@ def trace_phase(dev) -> dict:
             params = eng.model
             bad, worst = TR.mismatches(rec, eng, done)
             m = eng.metrics
+            margin = rec["min_margin"]
+            if margin is not None and \
+                    margin < 1e-3 / rec["settings"]["temperature"]:
+                bad.append(f"the record's min_margin {margin} is below "
+                           f"1e-3 / T: a draw may flip")
             k1 = launches["ct_paged_attention_fused"]
             if backend == "reference" and k1:
                 bad.append(f"K1 launched {k1} times")
@@ -1026,6 +1051,10 @@ def trace_phase(dev) -> dict:
                      "pool_blocks": rec["settings"].get("pool_blocks"),
                      "prefix_cache": rec["settings"].get("prefix_cache",
                                                          False),
+                     **{k: rec["settings"][k] for k in (
+                         "temperature", "top_p", "ticks_per_dispatch")
+                        if k in rec["settings"]},
+                     "min_margin": rec["min_margin"],
                      "record_tokens": rec["tokens"],
                      "record_counters": rec["counters"], **runs}
     out["seconds"] = time.perf_counter() - t0
@@ -1462,6 +1491,174 @@ def pressure_phase(engine_cls, params, mc, dev, max_new=64) -> dict:
     return rec
 
 
+SAMPLED_T, SAMPLED_TOP_P = 0.6, 0.95   # DeepSeek-R1-Distill's model card
+SAMPLED_ORDER = (1, 8, 8, 1)            # ticks per dispatch, in turns
+
+
+def sampled_serve(engine_cls, cfg, params, prompts, max_new, dev, tpd,
+                  profile_forks=False):
+    """The prompts through the orchestrator with ``samples_per_slot=2``
+    (each parent and one fork), ``tpd`` ticks per dispatch, the kernel
+    backend; launch counts zeroed just before and read just after.  Each
+    ``fork_slot`` is timed: its host ms (from a synchronised start to a
+    synchronised end) or, with ``profile_forks``, its device busy ms
+    (torch.profiler; the fork reads a refcount back, so it cannot be
+    captured in a CUDA graph).  Returns (engine, streams, launches, fork
+    times)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.orchestrator import Orchestrator
+    eng = engine_cls(cfg, params=params, backend="kernel", device=dev,
+                     record_logits=True, allow_forks=True,
+                     ticks_per_dispatch=tpd)
+    fork, forks = eng.fork_slot, []
+
+    def timed_fork(*args):
+        torch.cuda.synchronize()
+        if profile_forks:
+            forks.append(profile_window(lambda: fork(*args))[
+                "device_busy_ms"])
+            return
+        t0 = time.perf_counter()
+        fork(*args)
+        torch.cuda.synchronize()
+        forks.append(1e3 * (time.perf_counter() - t0))
+    eng.fork_slot = timed_fork
+    orch = Orchestrator(eng)
+    streams = [orch.submit(p, max_new_tokens=max_new, samples_per_slot=2)
+               for p in prompts]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    orch.run_sync()
+    return eng, streams, dict(ops.LAUNCHES), forks
+
+
+def sampled_phase(engine_cls, params, mc, prompts, dev, max_new=64) -> dict:
+    """Sampling at DeepSeek-R1-Distill's published settings (temperature
+    0.6, top-p 0.95), forks and packs at r1-llama-8b's full width (32
+    layers, the serve phase's random weights, the kernel backend, default
+    ThinKVConfig, 4 slots): the serve phase's first two 1100-token prompts,
+    each submitted with ``samples_per_slot=2``, so 4 slots hold 2 parents
+    and 2 forks; 64 new tokens.  Served at 1, 8, 8 and 1 ticks per
+    dispatch (in turns, since the host's speed drifts within a call): the
+    four runs must give the same tokens and bit-identical logits per
+    request, and each child other tokens than its parent.  Then greedy at
+    8 ticks per dispatch with the same forks: each child's tokens equal
+    its parent's.  In every run: 2 forks, peak refcount > 1, at least one
+    COW fault on a forked slot, a clean audit, K1 once per tick, K4 once
+    per commit, and at 8 fewer dispatches than ticks.  Also timed: one
+    ``_sample_slots`` draw at [4, 128256] (greedy, T 0.6 top-p 1, T 0.6
+    top-p 0.95; device ms from a CUDA graph) and ``fork_slot`` (host ms in
+    the four sampled runs, device busy ms in the greedy run)."""
+    import numpy as np
+    import torch
+    from repro_torch.config import ServeConfig, ThinKVConfig
+    from repro_torch.serving import prng
+    from repro_torch.serving.engine import _sample_slots
+    t_phase = time.perf_counter()
+    counters = ("ticks", "tokens", "dispatches", "forks", "fork_cow_faults",
+                "cow_faults", "peak_refcount", "commits",
+                "early_exit_finish", "early_exit_headroom")
+    failed, runs, first = [], [], None
+
+    def check(eng, streams, launches, tpd, label):
+        m = eng.metrics
+        if m["forks"] != len(streams) or m["peak_refcount"] <= 1 or \
+                m["fork_cow_faults"] < 1:
+            failed.append(f"{label}: forks {m['forks']}, peak refcount "
+                          f"{m['peak_refcount']}, fork COW faults "
+                          f"{m['fork_cow_faults']}")
+        try:
+            eng.audit_pool()
+        except AssertionError as e:
+            failed.append(f"{label}: audit {e}")
+        if launches["ct_paged_attention_fused"] != m["ticks"]:
+            failed.append(f"{label}: K1 launched "
+                          f"{launches['ct_paged_attention_fused']} times over"
+                          f" {m['ticks']} ticks")
+        if launches["group_quant"] != m["commits"]:
+            failed.append(f"{label}: K4 launched {launches['group_quant']} "
+                          f"times for {m['commits']} commits")
+        if tpd > 1 and not m["dispatches"] < m["ticks"]:
+            failed.append(f"{label}: {m['dispatches']} dispatches for "
+                          f"{m['ticks']} ticks")
+        reqs = [r for s in streams for r in (s.request,
+                                             s.forks[0].request)]
+        if any(len(r.output) != max_new for r in reqs):
+            failed.append(f"{label}: not every request has its tokens")
+        for arr in eng.request_logits.values():
+            if not np.isfinite(np.stack(arr)).all():
+                failed.append(f"{label}: logits not finite")
+                break
+        return {"tpd": tpd, **{k: m[k] for k in counters},
+                "prefill_s": m["prefill_s"], "decode_s": m["decode_s"],
+                "ms_per_tick": 1e3 * m["decode_s"] / max(m["ticks"], 1),
+                "dispatches_per_token": m["dispatches"] / max(m["tokens"], 1),
+                "trips_per_dispatch": m["ticks"] / max(m["dispatches"], 1),
+                "launches": launches}
+
+    cfg = ServeConfig(model=mc, thinkv=ThinKVConfig(), max_seqs=4,
+                      temperature=SAMPLED_T, top_p=SAMPLED_TOP_P)
+    prompts = prompts[:2]
+    fork_times = []
+    for n, tpd in enumerate(SAMPLED_ORDER):
+        eng, streams, launches, forks = sampled_serve(
+            engine_cls, cfg, params, prompts, max_new, dev, tpd)
+        fork_times += forks
+        runs.append(check(eng, streams, launches, tpd, f"run {n} tpd {tpd}"))
+        outs = {r.arrival: (r.output, np.stack(eng.request_logits[r.arrival]))
+                for s in streams for r in (s.request, s.forks[0].request)}
+        if first is None:
+            first = outs
+            same_parent = [s.request.output == s.forks[0].request.output
+                           for s in streams]
+            if any(same_parent):
+                failed.append(f"a sampled child emitted its parent's "
+                              f"tokens: {same_parent}")
+        elif sorted(outs) != sorted(first) or any(
+                outs[a][0] != first[a][0] or
+                not np.array_equal(outs[a][1], first[a][1]) for a in first):
+            failed.append(f"run {n} (tpd {tpd}) differs from run 0 in "
+                          f"tokens or logits")
+        del eng
+    greedy_cfg = dataclasses.replace(cfg, temperature=0.0)
+    eng, streams, launches, fork_busy = sampled_serve(
+        engine_cls, greedy_cfg, params, prompts, max_new, dev, 8,
+        profile_forks=True)
+    greedy = check(eng, streams, launches, 8, "greedy tpd 8")
+    greedy["children_equal_parents"] = [
+        s.request.output == s.forks[0].request.output for s in streams]
+    if not all(greedy["children_equal_parents"]):
+        failed.append(f"a greedy child differs from its parent: "
+                      f"{greedy['children_equal_parents']}")
+    del eng
+    torch.cuda.empty_cache()
+    # the sampler at the tick's width: one draw for 4 slots
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    logits = torch.randn((4, mc.vocab_size), generator=gen, device=dev) * 3
+    keys = prng.split(prng.prng_key(SEED, dev), 4)
+    sampler_ms = {
+        f"T={t} top_p={p}": device_ms(
+            lambda t=t, p=p: _sample_slots(keys, logits, t, p))
+        for t, p in ((0.0, 1.0), (SAMPLED_T, 1.0),
+                     (SAMPLED_T, SAMPLED_TOP_P))}
+    rec = {"phase": "sampled", "layers": mc.num_layers,
+           "temperature": SAMPLED_T, "top_p": SAMPLED_TOP_P, "slots": 4,
+           "requests": len(prompts), "samples_per_slot": 2,
+           "prompt_len": len(prompts[0]), "max_new": max_new,
+           "runs": runs, "greedy": greedy,
+           "sampler_device_ms": sampler_ms,
+           "fork_host_ms": float(np.mean(fork_times)),
+           "forks_host_timed": len(fork_times),
+           "fork_device_busy_ms": float(np.mean(fork_busy)),
+           "forks_profiled": len(fork_busy),
+           "failed": failed, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if failed:
+        raise AssertionError(f"sampled phase failed: {failed}")
+    return rec
+
+
 def ab(parent: str) -> int:
     """The parent tree (``parent``/src, its kernels built there) and this
     one, each in its own process, in turns: parent, this, this, parent;
@@ -1543,6 +1740,7 @@ def main() -> int:
     emit(prof)
     if not ab_run:
         prs = pressure_phase(ThinKVEngine, params, mc, dev)
+        smp = sampled_phase(ThinKVEngine, params, mc, prompts, dev)
     del params
     torch.cuda.empty_cache()
     if ab_run:
@@ -1603,10 +1801,12 @@ def main() -> int:
     for n in ("K1", "K2", "K3", "K4"):
         recs[n]["launches"] = launches[recs[n]["name"]]
         recs[n]["launches_pressure"] = prs["launches"][recs[n]["name"]]
+        recs[n]["launches_sampled"] = smp["runs"][1]["launches"][
+            recs[n]["name"]]
     recs["K5"]["launches"] = ssm["prefill"]["launches"]["mamba_scan"]
     recs["wrapper"]["launches"] = ctl["wrapper_launches"]
-    lines = [{k: recs[n][k] for k in keys + (
-        ("launches_pressure",) if "launches_pressure" in recs[n] else ())}
+    lines = [{k: recs[n][k] for k in keys + tuple(
+        k for k in ("launches_pressure", "launches_sampled") if k in recs[n])}
         for n in ("K1", "K2", "K3", "K4", "K5", "wrapper")]
     # K2 and K3 beside each shape of the serve phase: launches and times
     for line, name, shapes in (

@@ -4,6 +4,7 @@
 Layout mirrors ``repro``: ``core`` (quantization, thoughts, k-means,
 retention policy, CT paged cache), ``kernels`` (hand-written CUDA kernels
 for Hopper with their plain PyTorch versions), ``layers``, ``models``,
-``serving`` (scheduler, engine, prefix cache, orchestrator) and
-``launch``.  The package imports ``torch`` and numpy only.
+``serving`` (scheduler, engine, sampling and its PRNG, prefix cache,
+orchestrator) and ``launch``.  The package imports ``torch`` and numpy
+only.
 """

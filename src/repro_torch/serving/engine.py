@@ -1,6 +1,6 @@
-"""ThinKV serving engine (ports ``repro/serving/engine.py`` for a dense model
-served greedily, on a shared pool that may be oversubscribed and shared
-through a copy-on-write prefix cache).
+"""ThinKV serving engine (ports ``repro/serving/engine.py`` for a dense model,
+on a shared pool that may be oversubscribed and shared through a
+copy-on-write prefix cache or forked generation).
 
 Same dataflow as the reference (see its module docstring):
 
@@ -8,7 +8,7 @@ Same dataflow as the reference (see its module docstring):
   pass over layers (qkv + RoPE, TBQ-buffer write, MLP residual), ONE fused
   attention over the stacked queries of every layer and slot, then the
   attention-output residuals, ``engine_advance`` per slot, logits and
-  greedy sampling.  It is the reference's function, kept exactly;
+  sampling.  It is the reference's function, kept exactly;
 * chunked prefill: 128-multiple big chunks (intra-chunk attention at full
   precision, one sparsity value per chunk, C/g commits in order), then
   g-sized chunks for the tail;
@@ -39,6 +39,31 @@ path (the parity oracle).  ``auto`` is ``kernel`` on CUDA and
 ``reference`` on the CPU.  On the CPU the kernel backend's wrappers run
 their plain versions.
 
+Sampling (``serving.sampling``): greedy at temperature 0; above it,
+temperature and nucleus (top-p) sampling on one key stream per request,
+seeded from (engine seed, arrival stamp) and split once per sampled token
+(``_slot_keys`` [R, 2] on the device, spilled and restored with a
+preempted request), on JAX's own threefry keys (``serving.prng``), so
+sampled tokens equal the JAX engine's and do not depend on the schedule.
+
+Multi-tick dispatch (``ticks_per_dispatch`` > 1): one ``generate`` runs a
+PACK of trips over the same tick, each trip's sampled tokens feeding the
+next trip's embedding on the device.  The reference's ``lax.while_loop``
+becomes a host loop: the trip count is known before the pack, the
+claim-safe cap (``_safe_decode_trips``) and the smallest remaining token
+allowance of an active slot (the reference's loop stops after the first
+trip on which a slot finishes), and only when some active request has an
+eos token does each trip read one device flag (did a slot sample its
+eos?) and stop after it.  COW counts and commit-failure flags are read
+once per pack.  Host syncs left inside a trip: the refresh's and the pool
+accounting's reads in ``ct_cache`` (ROADMAP queue 1 item 17).
+
+Forks (``allow_forks``, ``fork_slot``): a child maps its parent's blocks
+by reference (refcount + 1, no plane copy), copies the table and cache
+rows and takes a fresh key stream from its own arrival stamp; the first
+commit either side makes on a shared block COW-faults a private copy
+(``fork_cow_faults``).
+
 Host control flow replaces ``lax.cond``: commits and refreshes are decided
 from host mirrors of each slot's ``num_tokens`` / ``buf_len``, and the
 sparsity probe runs only on ticks where some slot refreshes.  The pool's
@@ -46,8 +71,8 @@ host accounting reads the refcounts back once per pass, and not at all
 while no block can be shared, as the reference does.
 
 Not in this slice (each raises NotImplementedError naming the ROADMAP
-item): multi-tick dispatch, forks, sampling at temperature > 0, tensor
-parallelism, the drift probe, other retention policies, MoE/VLM families.
+item): tensor parallelism, the drift probe, other retention policies,
+MoE/VLM families.
 """
 from __future__ import annotations
 
@@ -74,6 +99,8 @@ from repro_torch.layers.common import softcap
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import rmsnorm
 from repro_torch.models.lm import LM, init_params
+from repro_torch.serving import prng
+from repro_torch.serving import sampling as SMP
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import Request, Scheduler
 
@@ -85,11 +112,15 @@ def _not_ported(what: str, item: str):
                               f"item {item})")
 
 
-def _sample_slots(logits: torch.Tensor) -> torch.Tensor:
-    """Every slot's next token from ``logits [R, V]``: greedy argmax (the
-    first index on ties, as ``jnp.argmax``); sampling at temperature > 0
-    is not ported yet (ROADMAP queue 1 item 11)."""
-    return logits.argmax(-1)
+def _sample_slots(keys: torch.Tensor, logits: torch.Tensor,
+                  temperature: float, top_p: float):
+    """Every slot's next token from ``logits [R, V]`` with its stream key
+    (``keys [R, 2]``); returns (tokens [R], advanced keys).  Greedy is the
+    argmax (the first index on ties) and leaves every key as it is.  The
+    temperature scales as in the reference's compiled tick (by the f32
+    reciprocal)."""
+    return SMP.stream_sample(keys, logits, temperature, top_p,
+                             reciprocal=True)
 
 
 def _joint_attend(q, k_pool, v_pool, valid_pool, buf_k, buf_v, buf_mask):
@@ -126,15 +157,16 @@ def _probs_sparsity(p_t: torch.Tensor, valid_t: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class PreemptedState:
-    """Host copy of a paused request's device state (the reference's, less
-    the sampling key, which belongs to sampling at temperature > 0).
+    """Host copy of a paused request's device state (the reference's).
 
     ``view`` holds the pool planes gathered through the request's table
     ([L, NB, BS, ...] CPU tensors; bf16 stays torch bf16), ``mapped`` the
     PRIVATE logical blocks resume claims fresh blocks for, ``cache`` the
     request's metadata and TBQ buffer (CPU tensors), ``shared_table`` the
     physical ids of the SHARED blocks whose reference the paused request
-    keeps (re-attached verbatim on resume; -1 elsewhere)."""
+    keeps (re-attached verbatim on resume; -1 elsewhere), ``rng`` the
+    request's sampling key at the spill ([2] int64), restored verbatim so
+    a sampled request resumes its stream where it paused."""
 
     view: CC.PoolView
     mapped: np.ndarray              # [L, NB] bool
@@ -142,6 +174,7 @@ class PreemptedState:
     tokens_out: int
     next_token: int
     shared_table: Optional[np.ndarray] = None
+    rng: Optional[np.ndarray] = None
 
     @property
     def nbytes(self) -> int:
@@ -172,6 +205,8 @@ class TickResult:
     flag and the per-slot COW faults.  Holds the device tensors;
     :meth:`block` copies them to the host once (the orchestrator runs it
     off the event loop)."""
+
+    packed = False
 
     def __init__(self, tick: int, tokens: torch.Tensor, logits: torch.Tensor,
                  flags: torch.Tensor, t0: float):
@@ -204,8 +239,64 @@ class TickResult:
         return self.block()._host[3]
 
 
+class MultiTickResult:
+    """One pack of ``trips`` decode trips (the reference's
+    ``MultiResultTokens``): per-trip tokens [N, R], slot validity [N, R]
+    and logits [N, R, V] with N = ``ticks_per_dispatch`` (rows from
+    ``trips`` on are zero and invalid), the per-slot COW faults and the
+    commit-failure flag of the whole pack.  ``requested`` is the claim-safe
+    trip cap; fewer trips executed means a slot finished inside the pack.
+    Holds the device tensors; :meth:`block` copies them to the host once."""
+
+    packed = True
+
+    def __init__(self, base_tick: int, n: int, requested: int,
+                 tokens: List[torch.Tensor], valid: List[np.ndarray],
+                 logits: List[torch.Tensor], flags: torch.Tensor, t0: float):
+        self.base_tick, self.tick = base_tick, base_tick + 1
+        self.n, self.requested, self.t0 = n, requested, t0
+        self.trips_host = len(tokens)
+        self._dev = (tokens, valid, logits, flags)
+        self._host = None
+
+    def block(self) -> "MultiTickResult":
+        if self._host is None:
+            tokens, valid, logits, flags = self._dev
+            trips, R = self.trips_host, len(valid[0])
+            toks = np.zeros((self.n, R), np.int64)
+            toks[:trips] = torch.stack(tokens).cpu().numpy()
+            val = np.zeros((self.n, R), bool)
+            val[:trips] = np.stack(valid)
+            lg = torch.stack(logits).float().cpu().numpy()
+            lgs = np.zeros((self.n,) + lg.shape[1:], np.float32)
+            lgs[:trips] = lg
+            flags = flags.cpu().numpy()
+            self._host = (toks, val, lgs, bool(flags[-1]), flags[:-1])
+        return self
+
+    @property
+    def tokens_host(self) -> np.ndarray:
+        return self.block()._host[0]
+
+    @property
+    def valid_host(self) -> np.ndarray:
+        return self.block()._host[1]
+
+    @property
+    def logits_host(self) -> np.ndarray:
+        return self.block()._host[2]
+
+    @property
+    def alloc_fail_host(self) -> bool:
+        return self.block()._host[3]
+
+    @property
+    def cow_per_slot_host(self) -> np.ndarray:
+        return self.block()._host[4]
+
+
 class ThinKVEngine:
-    """Greedy dense-LM serving with ThinKV on one card (or the CPU)."""
+    """Dense-LM serving with ThinKV on one card (or the CPU)."""
 
     def __init__(self, cfg: ServeConfig, params: Optional[LM] = None,
                  lstar: Optional[Sequence[int]] = None,
@@ -222,12 +313,8 @@ class ThinKVEngine:
                 f"ThinKV to compress; serve it through serving/serve_step.py")
         if cfg.model.family != ArchFamily.DENSE:
             _not_ported(f"the {cfg.model.family.value} family", "15")
-        if ticks_per_dispatch != 1:
-            _not_ported("multi-tick dispatch", "11")
-        if allow_forks:
-            _not_ported("forked generation", "11")
-        if cfg.temperature > 0:
-            _not_ported("sampling at temperature > 0", "11")
+        if int(ticks_per_dispatch) < 1:
+            raise ValueError(f"ticks_per_dispatch {ticks_per_dispatch} < 1")
         if mesh is not None:
             _not_ported("tensor-parallel serving", "13")
         if drift_probe:
@@ -279,11 +366,14 @@ class ThinKVEngine:
             "preemptions": 0, "resumes": 0, "admissions": 0,
             "queue_wait_ticks": 0, "prefix_hits": 0,
             "prefix_tokens_skipped": 0, "cow_faults": 0, "forks": 0,
+            "fork_cow_faults": 0, "peak_refcount": 0,
+            "early_exit_finish": 0, "early_exit_headroom": 0,
             "cancellations": 0, "commits": 0, "spill_bytes": 0,
             "spill_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0}
-        # no block can be shared without the prefix cache (forks are not
-        # ported): the COW compare runs only with it
-        self._track_cow = bool(prefix_cache)
+        # no block can be shared without the prefix cache or forks: the
+        # COW compare runs only with one of them
+        self._track_cow = bool(prefix_cache) or bool(allow_forks)
+        self.ticks_per_dispatch = int(ticks_per_dispatch)
         self.prefix_cache = PrefixCache(self.dims) if prefix_cache else None
         self._spilled: Dict[int, PreemptedState] = {}   # arrival -> spill
         self._queued_at: Dict[int, int] = {}            # arrival -> tick
@@ -292,6 +382,13 @@ class ThinKVEngine:
         self._slot_ntok = np.zeros(R, np.int64)
         self._slot_buflen = np.zeros(R, np.int64)
         self._feed = np.zeros(R, np.int64)
+        # per-slot sampling keys: the reference's placeholder split until
+        # prefill and fork reseed a slot from (seed, arrival); resume
+        # restores a spilled key
+        self._slot_keys = prng.split(prng.prng_key(cfg.seed, self.device), R)
+        # slots whose blocks a fork may share (their COW faults are
+        # counted apart, as fork_cow_faults)
+        self._forked = np.zeros(R, bool)
         # commit-failure flags and (slot, COW-fault count) pairs of the
         # calls since the last read-back
         self._fails: List[torch.Tensor] = []
@@ -396,14 +493,14 @@ class ThinKVEngine:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def _tick(self, active: np.ndarray):
-        """One decode tick over every slot: returns (tokens [R], logits
-        [R, V]) on the device; active slots' caches advance."""
+    def _tick(self, active: np.ndarray, feed: torch.Tensor) -> torch.Tensor:
+        """One decode tick over every slot from the tokens ``feed`` ([R] on
+        the device): returns the logits [R, V]; active slots' caches
+        advance."""
         mc, tk, dims = self.mcfg, self.tk, self.dims
         R, L, dev = self.cfg.max_seqs, mc.num_layers, self.device
         m, caches = self.model, self.caches
-        h = E.embed(m.embed_params, torch.as_tensor(self._feed, device=dev),
-                    mc)                                          # [R, Dm]
+        h = E.embed(m.embed_params, feed, mc)                    # [R, Dm]
         pos, buf_len = caches.num_tokens, caches.buf_len.long()
         ridx = torch.arange(R, device=dev)
         refresh_due = active & ((self._slot_ntok + 1)
@@ -461,8 +558,17 @@ class ThinKVEngine:
             self._advance(int(i), sparsity[i], 1)
 
         h = rmsnorm({"scale": m.final_norm}, h, mc.norm_eps)
-        logits = softcap(E.unembed(m.embed_params, h, mc), mc.logit_softcap)
-        return _sample_slots(logits), logits
+        return softcap(E.unembed(m.embed_params, h, mc), mc.logit_softcap)
+
+    def _trip(self, active: np.ndarray, feed: torch.Tensor):
+        """One tick, then every slot's draw from its key stream: (tokens
+        [R], logits [R, V]) on the device."""
+        with torch.profiler.record_function("thinkv.tick"):
+            logits = self._tick(active, feed)
+            tokens, self._slot_keys = _sample_slots(
+                self._slot_keys, logits, self.cfg.temperature,
+                self.cfg.top_p)
+        return tokens, logits
 
     # ------------------------------------------------------------------
     # chunked prefill
@@ -623,9 +729,12 @@ class ThinKVEngine:
             else 0
 
     def _sharing_possible(self) -> bool:
-        """Can any refcount exceed 1?  False while the prefix cache holds
-        no entry, no hit ever mapped shared blocks and no spill keeps
-        shared references: the headroom paths then read no refcounts."""
+        """Can any refcount exceed 1?  False while no fork landed, the
+        prefix cache holds no entry, no hit ever mapped shared blocks and
+        no spill keeps shared references: the headroom paths then read no
+        refcounts."""
+        if self.metrics["forks"] > 0:
+            return True
         return self.prefix_cache is not None and (
             bool(self.prefix_cache.entries)
             or self.metrics["prefix_hits"] > 0
@@ -750,8 +859,8 @@ class ThinKVEngine:
 
     def _spill(self, i: int, mapped: np.ndarray, tokens_out: int,
                next_token: int, shared_table=None) -> PreemptedState:
-        """Slot ``i``'s planes (gathered through its table) and cache,
-        copied to host memory."""
+        """Slot ``i``'s planes (gathered through its table), cache and
+        sampling key, copied to host memory."""
         t0 = time.perf_counter()
         view, _ = CC.extract_request(self.pool, self.tables[i])
         cpu = torch.device("cpu")
@@ -760,7 +869,8 @@ class ThinKVEngine:
             cache=CC.CTCache(**{f: getattr(self.caches, f)[i].to(
                 cpu, copy=True) for f in CC.CTCache.FIELDS}),
             tokens_out=tokens_out, next_token=next_token,
-            shared_table=shared_table)
+            shared_table=shared_table,
+            rng=self._slot_keys[i].to(cpu, copy=True).numpy())
         self.metrics["spill_s"] += time.perf_counter() - t0
         self.metrics["spill_bytes"] += st.nbytes
         return st
@@ -825,6 +935,29 @@ class ThinKVEngine:
                 need -= demand.pop(victim.idx)
             self._preempt(victim)
 
+    def _safe_decode_trips(self, cap: int, active_idx) -> int:
+        """Largest trip count ``T <= cap`` whose worst-case commit claims
+        the free list covers: over T ticks slot ``i`` commits
+        ``(ntok_i % G + T) // G`` times, ceil(G/BS) fresh blocks per layer
+        each, plus at most one COW claim per shared block it maps.  Frees
+        only add mid-pack, so today's free count suffices.  One trip is
+        always safe (``_ensure_decode_headroom`` just ran)."""
+        if cap <= 1:
+            return 1
+        host = self._host_pool() if self._sharing_possible() else None
+        free = (host[0] == 0).sum(axis=1).astype(np.int64) \
+            if host is not None else self._free_per_layer()
+        budget = int(free.min())
+        cow_extra = sum(self._cow_demand(i, host) for i in active_idx)
+        G, trips = self.dims.G, 1
+        for T in range(2, cap + 1):
+            claims = sum((int(self._slot_ntok[i]) % G + T) // G
+                         for i in active_idx) * self._cc + cow_extra
+            if claims > budget:
+                break
+            trips = T
+        return trips
+
     def _ensure_prefill_headroom(self, idx: int, n_blocks: int) -> None:
         """Free headroom for one prefill-chunk commit of slot ``idx`` (COW
         claims included): decay cache entries, then preempt OTHER slots.
@@ -863,6 +996,7 @@ class ThinKVEngine:
         self.caches.slot(i).copy_(self._fresh)
         self._slot_ntok[i] = 0
         self._slot_buflen[i] = 0
+        self._forked[i] = False
 
     def audit_pool(self) -> Dict:
         """Assert the refcount invariants across every holder: slot tables,
@@ -954,17 +1088,25 @@ class ThinKVEngine:
             self.scheduler.submit(req)
             self._queued_at[req.arrival] = self.metrics["ticks"]
 
-    def prefill(self, prompt: np.ndarray, slot_idx: int) -> Prefix:
+    def prefill(self, prompt: np.ndarray, slot_idx: int,
+                arrival: Optional[int] = None) -> Prefix:
         """Chunked prefill of ``prompt`` into ``slot_idx`` (prefix-cache hits
-        and headroom preemption of other slots happen inside) + greedy
-        first token; returns the RESIDENT prefix."""
+        and headroom preemption of other slots happen inside), then the
+        first token: the first draw of the request's key stream, seeded
+        from ``arrival`` (the slot index when None, for callers without a
+        scheduler); returns the RESIDENT prefix."""
         t0 = time.perf_counter()
         with torch.profiler.record_function("thinkv.prefill"):
-            logits = self._prefill(slot_idx, np.asarray(prompt))
-            logits = logits.float().cpu().numpy()
+            logits = self._prefill(slot_idx, np.asarray(prompt)).float()
+            key = SMP.request_stream_key(
+                self.cfg.seed, slot_idx if arrival is None else arrival,
+                self.device)
+            tok, self._slot_keys[slot_idx] = SMP.stream_sample(
+                key, logits, self.cfg.temperature, self.cfg.top_p)
+            first, logits = int(tok), logits.cpu().numpy()
         self.metrics["prefill_s"] += time.perf_counter() - t0
-        return Prefix(length=len(prompt), first_token=int(np.argmax(logits)),
-                      logits=logits, slot=slot_idx)
+        return Prefix(length=len(prompt), first_token=first, logits=logits,
+                      slot=slot_idx)
 
     def detach_prefix(self, prefix: Prefix) -> Prefix:
         """RESIDENT -> PORTABLE: spill the slot's planes and cache to host
@@ -1011,36 +1153,105 @@ class ThinKVEngine:
         self._slot_ntok[i] = int(st.cache.num_tokens)
         self._slot_buflen[i] = int(st.cache.buf_len)
         self._feed[i] = st.next_token
+        if st.rng is not None:
+            self._slot_keys[i] = torch.as_tensor(st.rng, device=dev)
         return True
 
-    def generate(self) -> Optional[TickResult]:
-        """Headroom, then one decode tick over every occupied slot; None
-        when headroom preempted every slot.  The result holds device
-        tensors: route it through :meth:`consume`."""
+    def generate(self) -> Union[TickResult, MultiTickResult, None]:
+        """Headroom, then one dispatch over every occupied slot; None when
+        headroom preempted every slot.  With ``ticks_per_dispatch`` 1 it is
+        one tick (:class:`TickResult`); above, a pack of trips
+        (:class:`MultiTickResult`) that stops where the reference's loop
+        does: at the claim-safe cap, after the trip on which a slot reaches
+        its token allowance, or after the trip on which a slot samples its
+        eos token.  The result holds device tensors: route it through
+        :meth:`consume`, which settles a pack's ticks and tokens."""
         self._ensure_decode_headroom()
         active = np.array([not s.free for s in self.scheduler.slots])
         if not active.any():
             return None
         self.metrics["dispatches"] += 1
         t0 = time.perf_counter()
-        with torch.profiler.record_function("thinkv.tick"):
-            tokens, logits = self._tick(active)
-        self.metrics["ticks"] += 1
-        self.metrics["tokens"] += int(active.sum())
-        return TickResult(int(self.metrics["ticks"]), tokens, logits,
-                          self._flags(), t0)
+        feed = torch.as_tensor(self._feed, device=self.device)
+        if self.ticks_per_dispatch == 1:
+            tokens, logits = self._trip(active, feed)
+            self.metrics["ticks"] += 1
+            self.metrics["tokens"] += int(active.sum())
+            return TickResult(int(self.metrics["ticks"]), tokens, logits,
+                              self._flags(), t0)
+        slots = self.scheduler.active_slots()
+        requested = self._safe_decode_trips(self.ticks_per_dispatch,
+                                            [s.idx for s in slots])
+        if requested < self.ticks_per_dispatch:
+            self.metrics["early_exit_headroom"] += 1
+        trips = min([requested] + [
+            max(1, int(s.request.max_new_tokens) - int(s.tokens_out))
+            for s in slots])
+        eos = {s.idx: int(s.request.eos_token) for s in slots
+               if s.request.eos_token is not None}
+        eos_dev = torch.tensor([eos.get(i, -1) for i in range(len(active))],
+                               device=self.device) if eos else None
+        tokens, valid, logits = [], [], []
+        for _ in range(trips):
+            feed, lg = self._trip(active, feed)
+            tokens.append(feed)
+            valid.append(active)
+            logits.append(lg)
+            if eos and bool((feed == eos_dev).any()):   # one read per trip
+                break
+        return MultiTickResult(int(self.metrics["ticks"]),
+                               self.ticks_per_dispatch, requested, tokens,
+                               valid, logits, self._flags(), t0)
 
-    def consume(self, res: TickResult) -> TickResult:
-        """Fold a tick's COW faults into the metrics and assert its commits
-        did not fail (blocks on the tick's host copy)."""
+    def consume(self, res: Union[TickResult, MultiTickResult]):
+        """Fold a dispatch's COW faults into the metrics (those on forked
+        slots also into ``fork_cow_faults``) and assert its commits did not
+        fail (blocks on the result's host copy).  A pack's executed trips
+        land in ``ticks`` and its valid rows in ``tokens``; fewer trips
+        than requested count an ``early_exit_finish``."""
         if res.alloc_fail_host:
             raise AssertionError(
                 "decode commit allocation failed despite preemption "
                 "headroom (pool accounting bug — data would have been "
                 "dropped)")
-        self.metrics["cow_faults"] += int(res.cow_per_slot_host.sum())
+        cow = res.cow_per_slot_host
+        self.metrics["cow_faults"] += int(cow.sum())
+        self.metrics["fork_cow_faults"] += int(cow[self._forked].sum())
+        if res.packed:
+            if res.trips_host < res.requested:
+                self.metrics["early_exit_finish"] += 1
+            self.metrics["ticks"] += res.trips_host
+            self.metrics["tokens"] += int(res.valid_host.sum())
         self.metrics["decode_s"] += time.perf_counter() - res.t0
         return res
+
+    def fork_slot(self, src: int, dst: int, arrival: int) -> None:
+        """Fork slot ``src``'s sequence into the free slot ``dst`` by
+        reference: every block the parent maps gains a reference (no plane
+        copy), the table and cache rows, the host mirrors and the feed are
+        copied, and the child's key stream starts from its own ``arrival``
+        (so at temperature 0 it emits its parent's tokens, above it
+        diverges from its first draw).  The first commit either side makes
+        on a shared block COW-faults a private copy."""
+        if not self._track_cow:
+            raise ValueError("fork_slot needs allow_forks=True (COW write "
+                             "tracking)")
+        if self._slot_ntok[src] == 0:
+            raise ValueError(f"fork source slot {src} never started")
+        if self._slot_ntok[dst] != 0:
+            raise ValueError(f"fork target slot {dst} is in use")
+        CC.incref_blocks(self.pool, self.tables[src])
+        self.tables[dst].copy_(self.tables[src])
+        self.caches.slot(dst).copy_(self.caches.slot(src))
+        self._slot_ntok[dst] = self._slot_ntok[src]
+        self._slot_buflen[dst] = self._slot_buflen[src]
+        self._feed[dst] = self._feed[src]
+        self._slot_keys[dst] = SMP.request_stream_key(self.cfg.seed, arrival,
+                                                      self.device)
+        self._forked[src] = self._forked[dst] = True
+        self.metrics["forks"] += 1
+        self.metrics["peak_refcount"] = max(
+            self.metrics["peak_refcount"], int(self.pool.refcount.max()))
 
     def free_resource(self, slot_idx: int) -> None:
         """Release every pool reference of ``slot_idx`` and reset it

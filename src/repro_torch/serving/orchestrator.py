@@ -1,5 +1,5 @@
 """Asyncio continuous-batching orchestrator over the engine's API seam
-(ports ``repro/serving/orchestrator.py``, without forked generation).
+(ports ``repro/serving/orchestrator.py``).
 
 The :class:`ThinKVEngine` is device-facing only (prefill / insert /
 generate / consume / free_resource / drop_spill); this module owns the host
@@ -20,7 +20,18 @@ Decision order: the loop replays the reference's (admission sweeps,
 headroom checks, the livelock valve), so a streamed run gives the tokens,
 per-request logits, audits and counters of the synchronous run on the same
 arrival pattern, and per-request logits are schedule-invariant across
-arrival patterns (resume is bit-exact, shared blocks are immutable).
+arrival patterns (resume is bit-exact, shared blocks are immutable).  A
+pack of several ticks (``ticks_per_dispatch`` > 1) is drained trip by
+trip, so fan-out and retirement happen as for separate ticks.
+
+Forks (``samples_per_slot`` = n): ``n - 1`` child streams share the
+request's prompt and limits; they are stamped at submission, in order
+(the stamp seeds each child's sampling stream), and never pass through the
+queue: once the parent has started decoding and a slot is free, the
+engine forks the parent's cache into it (``fork_slot``) and the child
+inherits the tokens emitted so far.  Pending forks land before every
+admission sweep and after it; a child whose parent ended first falls back
+to a prefill of the prompt through the queue (``fork_fallback``).
 
 Cancellation: ``TokenStream.cancel()`` stops the stream at once and tears
 the request down at the loop's next boundary — a running slot is freed, a
@@ -32,9 +43,8 @@ Pacing: ``schedule_arrival(after_tick=...)`` injects requests in tick space
 (reproducible); ``submit`` may be called from any task (wall-clock
 arrivals).  An idle loop waits on an arrival event.
 
-Not ported: forks (``samples_per_slot``, ``_try_forks``, ``_attach_forks``:
-ROADMAP queue 1 item 11), and ``_drain_retrace_events``, which folds XLA
-retrace events into the log and has no PyTorch meaning (nothing retraces).
+Not ported: ``_drain_retrace_events``, which folds XLA retrace events into
+the log and has no PyTorch meaning (nothing retraces).
 """
 from __future__ import annotations
 
@@ -61,6 +71,7 @@ class TokenStream:
         self._queue: asyncio.Queue = asyncio.Queue()
         self._done = asyncio.Event()
         self.cancelled = False
+        self.forks: List["TokenStream"] = []    # samples_per_slot children
 
     def __aiter__(self):
         return self
@@ -112,6 +123,7 @@ class Orchestrator:
         self.events: List[Dict] = []                  # the metrics log
         self.request_metrics: Dict[int, Dict] = {}    # arrival -> timings
         self._cancel_pending: List[Request] = []
+        self._pending_forks: List[tuple] = []  # (parent_req, child_stream)
         self._tick_arrivals: List[tuple] = []  # (after_tick, seq, stream)
         self._arrival_event = asyncio.Event()
         self._closed = False
@@ -133,6 +145,16 @@ class Orchestrator:
         self._stream_of[id(req)] = stream
         return stream
 
+    def _attach_forks(self, stream: TokenStream,
+                      samples_per_slot: int) -> None:
+        """``samples_per_slot - 1`` child streams with the parent's prompt,
+        limits and priority (forked in by :meth:`_try_forks`)."""
+        req = stream.request
+        for _ in range(max(0, int(samples_per_slot) - 1)):
+            stream.forks.append(self._make_request(
+                req.prompt, req.max_new_tokens, req.eos_token,
+                req.priority, None))
+
     def _submit_now(self, stream: TokenStream) -> None:
         eng = self.engine
         req = stream.request
@@ -141,6 +163,16 @@ class Orchestrator:
         self.streams[req.arrival] = stream
         self.request_metrics[req.arrival] = self._fresh_metrics()
         self._log("submit", arrival=req.arrival)
+        # stamp the children now, in order: the stamp seeds a child's
+        # sampling stream, which must not depend on when a slot frees
+        for child in stream.forks:
+            creq = child.request
+            eng.scheduler.stamp(creq)
+            eng._queued_at[creq.arrival] = eng.metrics["ticks"]
+            self.streams[creq.arrival] = child
+            self.request_metrics[creq.arrival] = self._fresh_metrics()
+            self._log("submit", arrival=creq.arrival, fork_of=req.arrival)
+            self._pending_forks.append((req, child))
         self._arrival_event.set()
 
     def _fresh_metrics(self) -> Dict:
@@ -153,11 +185,15 @@ class Orchestrator:
 
     def submit(self, prompt, max_new_tokens: int = 256,
                eos_token: Optional[int] = None, priority: int = 0,
-               uid: Optional[int] = None) -> TokenStream:
+               uid: Optional[int] = None,
+               samples_per_slot: int = 1) -> TokenStream:
         """Submit one request now; returns its :class:`TokenStream`.
-        Callable before ``serve`` starts or from a task while it runs."""
+        Callable before ``serve`` starts or from a task while it runs.
+        ``samples_per_slot`` n attaches n - 1 forked children
+        (``stream.forks``)."""
         stream = self._make_request(prompt, max_new_tokens, eos_token,
                                     priority, uid)
+        self._attach_forks(stream, samples_per_slot)
         self._submit_now(stream)
         return stream
 
@@ -165,13 +201,15 @@ class Orchestrator:
                          max_new_tokens: int = 256,
                          eos_token: Optional[int] = None,
                          priority: int = 0,
-                         uid: Optional[int] = None) -> TokenStream:
+                         uid: Optional[int] = None,
+                         samples_per_slot: int = 1) -> TokenStream:
         """Deterministic open-loop arrival: the serve loop submits the
         request once ``after_tick`` engine ticks have completed.  The
         stream is live at once; it yields nothing until the request
         lands."""
         stream = self._make_request(prompt, max_new_tokens, eos_token,
                                     priority, uid)
+        self._attach_forks(stream, samples_per_slot)
         self._tick_arrivals.append((int(after_tick), len(self._tick_arrivals),
                                     stream))
         self._tick_arrivals.sort(key=lambda t: (t[0], t[1]))
@@ -219,6 +257,12 @@ class Orchestrator:
             self._inject_due_arrivals()
             self._process_cancellations()
             if not sch.busy():
+                if self._pending_forks:
+                    # idle with only fork children left: their parents
+                    # ended, so their fallback prefills land now
+                    self._try_forks()
+                    if sch.busy():
+                        continue
                 if self._tick_arrivals:
                     # ticks cannot advance: land the earliest batch now
                     self._inject_due_arrivals(force_next=True)
@@ -257,9 +301,21 @@ class Orchestrator:
             eng.consume(res)
             self._log("consume", tick=res.tick)
             toks, logits = res.tokens_host, res.logits_host
-            for slot in sch.active_slots():
-                self._record_logits(slot.request, logits[slot.idx])
-                self._finish_token(slot, int(toks[slot.idx]), res.tick)
+            if res.packed:
+                # trip by trip: finished slots leave active_slots() for
+                # the later trips, as between separate ticks
+                valid = res.valid_host
+                for t in range(res.trips_host):
+                    for slot in sch.active_slots():
+                        if valid[t][slot.idx]:
+                            self._record_logits(slot.request,
+                                                logits[t][slot.idx])
+                            self._finish_token(slot, int(toks[t][slot.idx]),
+                                               res.base_tick + t + 1)
+            else:
+                for slot in sch.active_slots():
+                    self._record_logits(slot.request, logits[slot.idx])
+                    self._finish_token(slot, int(toks[slot.idx]), res.tick)
             await self._admit_and_prefill()
         if eng.device.type == "cuda":
             torch.cuda.synchronize(eng.device)
@@ -279,9 +335,66 @@ class Orchestrator:
     # admission
     # ------------------------------------------------------------------
 
+    def _try_forks(self) -> None:
+        """Land pending fork children: a child whose parent is decoding (in
+        a slot, at least one token written) takes a free slot through
+        ``fork_slot`` and inherits the parent's tokens so far, delivered
+        through its stream at the fork's tick; a child whose parent
+        finished or was cancelled falls back to the queue (a prefill of
+        the shared prompt); the others wait."""
+        eng = self.engine
+        sch = eng.scheduler
+        if not self._pending_forks:
+            return
+        still = []
+        for parent_req, child_stream in self._pending_forks:
+            child = child_stream.request
+            if child_stream.cancelled or child.done:
+                continue
+            if parent_req.state in (RequestState.FINISHED,
+                                    RequestState.CANCELLED):
+                sch.enqueue_stamped(child)
+                self._log("fork_fallback", arrival=child.arrival)
+                continue
+            pslot = next((s for s in sch.slots
+                          if s.request is parent_req), None)
+            if pslot is None or eng._slot_ntok[pslot.idx] == 0:
+                still.append((parent_req, child_stream))
+                continue        # parent queued, preempted or not started
+            slot = next((s for s in sch.slots if s.free), None)
+            if slot is None:
+                still.append((parent_req, child_stream))
+                continue
+            eng.fork_slot(pslot.idx, slot.idx, child.arrival)
+            sch.place(child, slot, tokens_out=pslot.tokens_out)
+            child.output = list(parent_req.output)
+            now = time.perf_counter()
+            tick = eng.metrics["ticks"]
+            rm = self.request_metrics.get(child.arrival)
+            for tok in child.output:
+                if rm is not None:
+                    rm["tokens"] += 1
+                    rm["token_ticks"].append(tick)
+                    rm["last_token_wall"] = now
+                    if rm["first_token_wall"] is None:
+                        rm["first_token_wall"] = now
+                        rm["first_token_tick"] = tick
+                if not child_stream.cancelled:
+                    child_stream._queue.put_nowait((tick, tok))
+            eng.metrics["admissions"] += 1
+            eng.metrics["queue_wait_ticks"] += \
+                eng.metrics["ticks"] - eng._queued_at.pop(
+                    child.arrival, eng.metrics["ticks"])
+            self._mark_admitted(child)
+            self._log("fork", arrival=child.arrival,
+                      parent=parent_req.arrival,
+                      at_tokens=int(pslot.tokens_out))
+        self._pending_forks = still
+
     async def _admit_and_prefill(self) -> None:
         eng = self.engine
         sch = eng.scheduler
+        self._try_forks()
         while True:
             if not sch.queue or all(not s.free for s in sch.slots):
                 break       # the gate reads device state: skip it when
@@ -316,11 +429,13 @@ class Orchestrator:
                           decoding=sum(1 for s in sch.active_slots()
                                        if s is not slot
                                        and s.tokens_out > 0))
-                prefix = eng.prefill(req.prompt, slot.idx)
+                prefix = eng.prefill(req.prompt, slot.idx,
+                                     arrival=req.arrival)
                 eng.insert(prefix, slot.idx)
                 self._record_logits(req, prefix.logits)
                 self._finish_token(slot, prefix.first_token,
                                    int(eng.metrics["ticks"]))
+        self._try_forks()
 
     def _adopt_existing(self) -> None:
         """Requests submitted straight to the engine, or left mid-flight by

@@ -1,9 +1,10 @@
-"""Replay a recorded greedy serving trace through the port's engine and hold
-it to the record.
+"""Replay a recorded serving trace through the port's engine and hold it to
+the record.
 
 A record is a numpy archive written from the JAX package's engine
-(``tests/golden/torch_flash_trace.npz`` and
-``tests/golden/torch_pressure_trace.npz``, by
+(``tests/golden/torch_flash_trace.npz``,
+``tests/golden/torch_pressure_trace.npz`` and
+``tests/golden/torch_sampled_trace.npz``, by
 ``tests/test_torch_trace_fixture.py``): the model's parameters, the trace's
 settings and prompts, and what the reference engine gave (tokens and
 logits per request, engine counters, the pool audit).  Reading it takes
@@ -13,11 +14,15 @@ live JAX record.  Archive keys:
 * ``settings``: JSON — ``model`` (a smoke config name), ``num_heads``,
   ``num_kv_heads``, ``thinkv`` (ThinKVConfig fields), ``slots``,
   ``max_new``, ``priorities``; optionally ``pool_blocks`` (default
-  ``slots * NB``), ``prefix_cache`` (default false) and ``prompt_recipe``
-  (how the prompts were drawn: seed, vocab, lengths, which requests share
-  a prefix of which length; the prompts themselves are stored);
+  ``slots * NB``), ``prefix_cache`` (default false), ``temperature``
+  (default 0, greedy), ``top_p`` (default 1), ``ticks_per_dispatch``
+  (default 1) and ``prompt_recipe`` (how the prompts were drawn: seed,
+  vocab, lengths, which requests share a prefix of which length; the
+  prompts themselves are stored);
 * ``record``: JSON — ``counters`` (engine metrics by name), ``audit``
-  (``audit_pool()``);
+  (``audit_pool()``); a sampled record also ``min_margin``, the smallest
+  gap between the best and the second-best perturbed score over every
+  draw of the run (how far the logits may move before a draw flips);
 * ``prompt_<i>`` (int64), ``tokens_<arrival>`` (int64), ``logits_<arrival>``
   ([max_new, vocab] f32);
 * ``param/<path>``: the parameter tree's leaves, ``/``-joined paths.
@@ -71,7 +76,8 @@ def load(path) -> dict:
             "prompts": [arrays[f"prompt_{i}"] for i in range(n_prompts)],
             "tokens": {a: arrays[f"tokens_{a}"].tolist() for a in arrivals},
             "logits": {a: arrays[f"logits_{a}"] for a in arrivals},
-            "counters": record["counters"], "audit": record["audit"]}
+            "counters": record["counters"], "audit": record["audit"],
+            "min_margin": record.get("min_margin")}
 
 
 def serve_config(rec: dict) -> ServeConfig:
@@ -81,7 +87,9 @@ def serve_config(rec: dict) -> ServeConfig:
                                num_kv_heads=s["num_kv_heads"])
     tk = ThinKVConfig(**{k: tuple(v) if isinstance(v, list) else v
                          for k, v in s["thinkv"].items()})
-    return ServeConfig(model=mcfg, thinkv=tk, max_seqs=s["slots"])
+    return ServeConfig(model=mcfg, thinkv=tk, max_seqs=s["slots"],
+                       temperature=s.get("temperature", 0.0),
+                       top_p=s.get("top_p", 1.0))
 
 
 def expected_commits(rec: dict) -> int:
@@ -95,15 +103,17 @@ def expected_commits(rec: dict) -> int:
 
 def replay(rec: dict, backend: str, device, params=None
            ) -> Tuple[ThinKVEngine, list, Dict[str, int]]:
-    """Serve the record's prompts greedily on ``device`` with ``backend``;
-    returns (engine, finished requests, kernel launches of the run)."""
+    """Serve the record's prompts on ``device`` with ``backend``, at the
+    record's sampling settings and dispatch width; returns (engine,
+    finished requests, kernel launches of the run)."""
     cfg = serve_config(rec)
     if params is None:
         params = params_from_numpy(rec["params"], cfg.model, device)
     s = rec["settings"]
     eng = ThinKVEngine(cfg, params=params, backend=backend, device=device,
                        record_logits=True, pool_blocks=s.get("pool_blocks"),
-                       prefix_cache=bool(s.get("prefix_cache", False)))
+                       prefix_cache=bool(s.get("prefix_cache", False)),
+                       ticks_per_dispatch=s.get("ticks_per_dispatch", 1))
     before = dict(ops.LAUNCHES)
     eng.submit(rec["prompts"], max_new_tokens=rec["settings"]["max_new"],
                priorities=rec["settings"]["priorities"])

@@ -1,7 +1,8 @@
-"""The CUDA kernels against their plain versions, on the card; the flash and
-the pressure trace (head_dim 16) on the card against the JAX engine's
-records; the shared-pool operations on card tensors against their CPU
-results.
+"""The CUDA kernels against their plain versions, on the card; the flash, the
+pressure and the sampled trace (head_dim 16) on the card against the JAX
+engine's records; the shared-pool operations, the sampler and a fork on
+card tensors against their CPU results; packs of 8 ticks against single
+ticks on the kernel backend.
 
 Every test here needs a CUDA card and the CUDA toolkit (the kernels are
 built with nvcc at first use); without a card each test skips with the
@@ -37,6 +38,8 @@ FLASH_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "golden", "torch_flash_trace.npz")
 PRESSURE_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "golden", "torch_pressure_trace.npz")
+SAMPLED_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "golden", "torch_sampled_trace.npz")
 
 
 @pytest.fixture
@@ -646,6 +649,142 @@ def test_pressure_trace_on_the_card_gives_the_jax_record(card):
         assert launches["group_quant"] == eng.metrics["commits"] > 0
         assert launches["ct_paged_attention_fused"] == (
             eng.metrics["ticks"] if backend == "kernel" else 0)
+
+
+def test_sampled_trace_on_the_card_gives_the_jax_record(card):
+    """The pressure trace at temperature 0.7, top-p 0.9 and 8 ticks per
+    dispatch on the card, held to the JAX reference engine's record
+    (``tests/golden/torch_sampled_trace.npz``): identical sampled tokens,
+    logits within 1e-3, equal counters (dispatches, early exits,
+    preemptions among them) and pool audit, on the kernel backend (K1 once
+    per tick, K4 once per commit) and on the reference backend.  The
+    record's smallest draw margin lies above 1e-3 / T, so no draw can flip
+    under the card's logit error."""
+    rec = TR.load(SAMPLED_RECORD)
+    assert rec["min_margin"] >= 1e-3 / rec["settings"]["temperature"]
+    params = None
+    for backend in ("kernel", "reference"):
+        eng, done, launches = TR.replay(rec, backend, card, params)
+        params = eng.model
+        bad, worst = TR.mismatches(rec, eng, done)
+        assert not bad, (backend, bad)
+        m = eng.metrics
+        assert m["dispatches"] < m["ticks"] and m["preemptions"] > 0
+        assert launches["group_quant"] == m["commits"] > 0
+        assert launches["ct_paged_attention_fused"] == (
+            m["ticks"] if backend == "kernel" else 0)
+
+
+def test_prng_on_the_card_equals_the_cpu(card):
+    """Keys, 32-bit words and uniforms bit-exact on the card; the Gumbel
+    noise within two ulps (the card's ``log``)."""
+    from repro_torch.serving import prng
+    keys = prng.split(prng.prng_key(7), 4)
+    for f in (lambda k: prng.split(k, 3), lambda k: prng.fold_in(k, 5),
+              lambda k: prng.random_bits(k, 128256),
+              lambda k: prng.uniform(k, 128256, prng.TINY, 1.0)):
+        assert torch.equal(f(keys.to(card)).cpu(), f(keys))
+    g_cpu, g_dev = prng.gumbel(keys, 128256), \
+        prng.gumbel(keys.to(card), 128256).cpu()
+    ulp = torch.maximum(g_cpu.abs(), torch.ones(())) * 2.0 ** -23
+    assert ((g_dev - g_cpu).abs() <= 2 * ulp).all()
+
+
+@pytest.mark.parametrize("temperature,top_p", [(0.0, 1.0), (0.6, 1.0),
+                                               (0.6, 0.95)])
+def test_sample_slots_on_the_card_equals_the_cpu(card, temperature, top_p):
+    """The engine's sampler on card tensors at [4, 128256] (greedy, T 0.6,
+    T 0.6 with top-p 0.95): the CPU result's tokens and next keys for the
+    same keys and logits."""
+    from repro_torch.serving import prng
+    from repro_torch.serving.engine import _sample_slots
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn((4, 128256), generator=gen) * 3
+    keys = prng.split(prng.prng_key(0), 4)
+    want = _sample_slots(keys, logits, temperature, top_p)
+    got = _sample_slots(keys.to(card), logits.to(card), temperature, top_p)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def fork_engine(dev, params):
+    mcfg = get_smoke_config("r1-llama-8b")
+    tk = ThinKVConfig(refresh_interval=16, group_size=8, block_size=8,
+                      token_budget=48, retention_schedule=(16, 8, 4),
+                      min_retention=4, max_segments=64, kmeans_iters=4)
+    return ThinKVEngine(ServeConfig(model=mcfg, thinkv=tk, max_seqs=2,
+                                    temperature=0.7),
+                        params=params, backend="reference", device=dev,
+                        allow_forks=True)
+
+
+def test_fork_slot_on_the_card_equals_the_cpu(card):
+    """A prefill into slot 0 and its fork into slot 1 on the card: the
+    refcounts (every parent block + 1), tables, cache metadata, host
+    mirrors, keys and fork counters equal the CPU engine's."""
+    import copy
+    params = init_params(get_smoke_config("r1-llama-8b"), 0, "cpu")
+    prompt = np.random.default_rng(0).integers(0, 256, 24)
+    out = {}
+    for dev, p in (("cpu", params), (card, copy.deepcopy(params).to(card))):
+        eng = fork_engine(dev, p)
+        pre = eng.prefill(prompt, 0, arrival=0)
+        eng.insert(pre, 0)
+        before = eng.pool.refcount.cpu().clone()
+        eng.fork_slot(0, 1, arrival=1)
+        out[str(dev)] = (eng, before, pre.first_token)
+    (ec, bc, tc), (ed, bd, td) = out["cpu"], out[str(card)]
+    assert td == tc and torch.equal(bd, bc)
+    assert torch.equal(ed.pool.refcount.cpu(), ec.pool.refcount)
+    assert torch.equal(ed.tables.cpu(), ec.tables)
+    assert torch.equal(ed.tables[1].cpu(), ed.tables[0].cpu())
+    mapped = ec.tables[0] >= 0
+    ids = ec.tables[0][mapped].long()
+    layer = torch.arange(ec.dims.L)[:, None].expand_as(mapped)[mapped]
+    assert (ec.pool.refcount[layer, ids] == bc[layer, ids] + 1).all()
+    for f in ("slot_state", "slot_bits", "slot_pos", "block_type",
+              "num_tokens", "buf_len"):
+        assert torch.equal(getattr(ed.caches, f).cpu(),
+                           getattr(ec.caches, f)), f
+    assert torch.equal(ed._slot_keys.cpu(), ec._slot_keys)
+    assert (ed._slot_ntok == ec._slot_ntok).all()
+    assert (ed._feed == ec._feed).all()
+    assert ed.metrics["forks"] == ec.metrics["forks"] == 1
+    assert ed.metrics["peak_refcount"] == ec.metrics["peak_refcount"] == 2
+
+
+def test_packs_of_eight_equal_single_ticks_on_the_card(card):
+    """The kernel backend at smoke width on the card, sampled (T 0.7,
+    top-p 0.9), four requests on three slots: 8 ticks per dispatch give the
+    single-tick run's tokens and bit-identical logits in fewer dispatches;
+    K1 launches once per tick in both."""
+    mcfg = dataclasses.replace(get_smoke_config("r1-llama-8b"), num_heads=8,
+                               num_kv_heads=4, head_dim=32)
+    tk = ThinKVConfig(refresh_interval=16, group_size=16, block_size=16,
+                      token_budget=64, retention_schedule=(16, 8, 4))
+    cfg = ServeConfig(model=mcfg, thinkv=tk, max_seqs=3, temperature=0.7,
+                      top_p=0.9)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, mcfg.vocab_size, n) for n in (150, 40, 9, 30)]
+    params = init_params(mcfg, 0, card)
+    runs = {}
+    for tpd in (1, 8):
+        ops.reset_launches()
+        eng = ThinKVEngine(cfg, params=params, backend="kernel", device=card,
+                           record_logits=True, ticks_per_dispatch=tpd)
+        eng.submit(prompts, max_new_tokens=40)
+        done = eng.run()
+        runs[tpd] = (eng, {r.arrival: r.output for r in done},
+                     dict(ops.LAUNCHES))
+        assert runs[tpd][2]["ct_paged_attention_fused"] == \
+            eng.metrics["ticks"]
+        eng.audit_pool()
+    (e1, t1, _), (e8, t8, _) = runs[1], runs[8]
+    assert t1 == t8
+    for a, seq in e1.request_logits.items():
+        np.testing.assert_array_equal(np.stack(seq),
+                                      np.stack(e8.request_logits[a]))
+    assert e8.metrics["dispatches"] < e8.metrics["ticks"]
 
 
 @pytest.mark.parametrize("name", ["cow_ok", "cow_fail", "fresh_fail",

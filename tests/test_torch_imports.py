@@ -74,10 +74,18 @@ def test_entry_points_default_to_the_card():
     pytest.param(dict(drift_probe=True), "12", id="kw4-12"),
     pytest.param(dict(policy="rkv"), "12", id="kw5-12")])
 def test_options_outside_the_slice_name_their_roadmap_item(kw, item):
+    """An option of a ROADMAP item not yet ported raises, naming the item;
+    item 11's options (multi-tick dispatch, forks) are ported since, and
+    the engine takes them."""
     from repro_torch.config import ServeConfig
     from repro_torch.configs import get_smoke_config
     from repro_torch.serving.engine import ThinKVEngine
     cfg = ServeConfig(model=get_smoke_config("r1-llama-8b"), max_seqs=1)
+    if item == "11":
+        eng = ThinKVEngine(cfg, device="cpu", **kw)
+        assert eng.ticks_per_dispatch == kw.get("ticks_per_dispatch", 1)
+        assert eng._track_cow == kw.get("allow_forks", False)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ThinKVEngine(cfg, device="cpu", **kw)
 
@@ -96,10 +104,13 @@ def test_the_engine_takes_the_prefix_cache_and_an_oversubscribed_pool(kw):
 
 
 def test_temperature_above_zero_is_not_ported():
+    """Sampling at temperature > 0 was refused until ROADMAP item 11 was
+    ported; the engine now takes it and keeps one key stream per slot."""
     from repro_torch.config import ServeConfig
     from repro_torch.configs import get_smoke_config
     from repro_torch.serving.engine import ThinKVEngine
     cfg = ServeConfig(model=get_smoke_config("r1-llama-8b"), max_seqs=1,
                       temperature=0.7)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ThinKVEngine(cfg, device="cpu")
+    eng = ThinKVEngine(cfg, device="cpu")
+    assert eng.cfg.temperature == 0.7
+    assert tuple(eng._slot_keys.shape) == (1, 2)

@@ -1,7 +1,7 @@
-"""The JAX engine's records of the flash and the pressure trace, carried to
-the card as numpy archives (``tests/golden/torch_flash_trace.npz``,
-``tests/golden/torch_pressure_trace.npz``), and the port's replay of them
-(``repro_torch.serving.trace_record``).
+"""The JAX engine's records of the flash, the pressure and the sampled
+trace, carried to the card as numpy archives
+(``tests/golden/torch_{flash,pressure,sampled}_trace.npz``), and the port's
+replay of them (``repro_torch.serving.trace_record``).
 
 A record is the live JAX ``reference`` engine's run: its parameters, tokens
 and logits per request, the engine counters and the pool audit.  The flash
@@ -9,7 +9,12 @@ record has the settings of ``tests/test_torch_engine.py::jax_run``
 (prompts of 140 and 24 tokens from ``np.random.default_rng(1)``, 8 new
 tokens, 3 slots, an unpressured pool); the pressure record those of
 ``tests/test_torch_pressure.py::jax_run`` (five prompts, three sharing a
-16-token prefix, 24 new tokens, a 14-block pool, the prefix cache on).
+16-token prefix, 24 new tokens, a 14-block pool, the prefix cache on);
+the sampled record is the pressure trace at temperature 0.7, top-p 0.9 and
+8 ticks per dispatch (the JAX trace suite's ``temperature_cells``
+setting), with ``min_margin``: the smallest gap between the best and the
+second-best perturbed score over every draw, computed with the port's
+PRNG from the JAX logits (which also reproduces every recorded token).
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the card's kernel
 and reference backends to them, where there is no JAX.  The golden
 ``serving_trace.json`` is not such a record (it dates from an older tree:
@@ -18,7 +23,7 @@ its pressure counters still do).
 
 A test here re-runs the JAX engine on each trace and asserts that the
 archive equals the fresh record, so a file cannot go stale silently.  To
-write both anew (after a change to the reference engine or to these
+write all three anew (after a change to the reference engine or to these
 settings):
 
     PYTHONPATH=src python tests/test_torch_trace_fixture.py
@@ -38,14 +43,28 @@ from repro.config import ServeConfig as JSC  # noqa: E402
 from repro.config import ThinKVConfig as JTK  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.serving.engine import ThinKVEngine as JaxEngine  # noqa: E402
+from repro_torch.serving import prng  # noqa: E402
+from repro_torch.serving import sampling as SMP  # noqa: E402
 from repro_torch.serving import trace_record as TR  # noqa: E402
 import test_torch_pressure as PT  # noqa: E402
 from test_torch_engine import (COUNTERS, LENS, MAX_NEW,  # noqa: E402
                                PRIORITIES, SLOTS, TK, prompts)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Smoke-size tensors gain nothing from intra-op threads, and under
+    several pytest workers on one host the threads' wake-ups dominate:
+    run this module's torch ops on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 FIXTURE = os.path.join(GOLDEN, "torch_flash_trace.npz")
 PRESSURE_FIXTURE = os.path.join(GOLDEN, "torch_pressure_trace.npz")
+SAMPLED_FIXTURE = os.path.join(GOLDEN, "torch_sampled_trace.npz")
 SETTINGS = {"model": "r1-llama-8b", "num_heads": 8, "num_kv_heads": 8,
             "thinkv": TK, "slots": SLOTS, "max_new": MAX_NEW,
             "priorities": list(PRIORITIES)}
@@ -55,6 +74,14 @@ PRESSURE_SETTINGS = {"model": "r1-llama-8b", "num_heads": 8,
                      "priorities": list(PT.PRIORITIES),
                      "pool_blocks": PT.pool_blocks(), "prefix_cache": True,
                      "prompt_recipe": PT.RECIPE}
+SAMPLED_SETTINGS = {**PRESSURE_SETTINGS, "temperature": 0.7, "top_p": 0.9,
+                    "ticks_per_dispatch": 8}
+SAMPLED_COUNTERS = PT.COUNTERS + ("dispatches", "early_exit_finish",
+                                  "early_exit_headroom")
+# a draw whose margin is below this could flip under the card's logit
+# error (up to 2.66e-4 on the pressure trace), so the card's bar would
+# stop there
+MARGIN_BAR = 1e-3 / SAMPLED_SETTINGS["temperature"]
 
 
 def flatten(tree, prefix: str = "") -> dict:
@@ -78,18 +105,25 @@ def jax_record(settings: dict = SETTINGS, ps=None,
                                num_heads=settings["num_heads"],
                                num_kv_heads=settings["num_kv_heads"])
     eng = JaxEngine(JSC(model=mcfg, thinkv=JTK(**settings["thinkv"]),
-                        max_seqs=settings["slots"]),
+                        max_seqs=settings["slots"],
+                        temperature=settings.get("temperature", 0.0),
+                        top_p=settings.get("top_p", 1.0)),
                     backend="reference", record_logits=True,
                     pool_blocks=settings.get("pool_blocks"),
-                    prefix_cache=settings.get("prefix_cache", False))
+                    prefix_cache=settings.get("prefix_cache", False),
+                    ticks_per_dispatch=settings.get("ticks_per_dispatch", 1))
     ps = prompts() if ps is None else ps
     eng.submit(ps, max_new_tokens=settings["max_new"],
                priorities=settings["priorities"])
     done = eng.run()
+    record = {"counters": {k: int(eng.metrics[k]) for k in counters},
+              "audit": eng.audit_pool()}
+    if settings.get("temperature", 0.0) > 0:
+        record["min_margin"] = min(draw_margins(
+            settings, {r.arrival: (r.output, np.stack(
+                eng.request_logits[r.arrival])) for r in done}))
     out = {"settings": np.array(json.dumps(settings)),
-           "record": np.array(json.dumps(
-               {"counters": {k: int(eng.metrics[k]) for k in counters},
-                "audit": eng.audit_pool()}, default=int))}
+           "record": np.array(json.dumps(record, default=int))}
     out.update({f"prompt_{i}": p for i, p in enumerate(ps)})
     for r in done:
         out[f"tokens_{r.arrival}"] = np.asarray(r.output, np.int64)
@@ -100,8 +134,38 @@ def jax_record(settings: dict = SETTINGS, ps=None,
     return out
 
 
+def draw_margins(settings: dict, runs: dict, seed: int = 0) -> list:
+    """Every draw's gap between the best and the second-best perturbed
+    score, replayed with the port's PRNG and sampler from the recorded
+    logits: ``runs`` maps an arrival stamp to (tokens, logits [n, V]).  A
+    request's draw 0 is its prefill's (divided by T), the others its
+    ticks' (scaled by the f32 reciprocal, as the compiled tick does).
+    Asserts that each replayed draw gives the recorded token."""
+    T, top_p = settings["temperature"], settings["top_p"]
+    t = torch.full((), T, dtype=torch.float32)
+    margins = []
+    for arrival, (tokens, logits) in runs.items():
+        key = SMP.request_stream_key(seed, arrival)
+        for j, (tok, lg) in enumerate(zip(tokens, logits)):
+            keys = prng.split(key, 2)
+            key, sub = keys[0], keys[1]
+            x = torch.as_tensor(lg)
+            scaled = x / t if j == 0 else x * (1.0 / t)
+            if top_p < 1.0:
+                scaled = SMP._top_p_filter(scaled, top_p)
+            z = prng.gumbel(sub, x.shape[-1]) + scaled
+            top = z.topk(2)
+            assert int(top.indices[0]) == tok, (arrival, j)
+            margins.append(float(top.values[0] - top.values[1]))
+    return margins
+
+
 def jax_pressure_record() -> dict:
     return jax_record(PRESSURE_SETTINGS, PT.prompts(), PT.COUNTERS)
+
+
+def jax_sampled_record() -> dict:
+    return jax_record(SAMPLED_SETTINGS, PT.prompts(), SAMPLED_COUNTERS)
 
 
 def write_fixture(path: str = FIXTURE) -> None:
@@ -110,6 +174,10 @@ def write_fixture(path: str = FIXTURE) -> None:
 
 def write_pressure_fixture(path: str = PRESSURE_FIXTURE) -> None:
     np.savez(path, **jax_pressure_record())
+
+
+def write_sampled_fixture(path: str = SAMPLED_FIXTURE) -> None:
+    np.savez(path, **jax_sampled_record())
 
 
 def assert_archive_equals(path: str, fresh: dict) -> None:
@@ -209,8 +277,49 @@ def test_port_replays_the_pressure_record_on_the_cpu(stored_pressure,
     assert eng.metrics["commits"] == TR.expected_commits(stored_pressure) - 4
 
 
+@pytest.fixture(scope="module")
+def stored_sampled():
+    return TR.load(SAMPLED_FIXTURE)
+
+
+def test_sampled_fixture_equals_the_live_jax_record(stored_sampled):
+    """The sampled record: the live JAX engine's run of the pressure trace
+    at temperature 0.7, top-p 0.9 and 8 ticks per dispatch (the archive,
+    its ``min_margin`` included, equals a fresh run's; replaying the draws
+    with the port's PRNG gives every recorded token), packs that exited
+    early, and tokens other than the greedy record's."""
+    fresh = jax_sampled_record()
+    assert_archive_equals(SAMPLED_FIXTURE, fresh)
+    rec = stored_sampled
+    s = rec["settings"]
+    assert (s["temperature"], s["top_p"], s["ticks_per_dispatch"]) == \
+        (0.7, 0.9, 8)
+    c = rec["counters"]
+    assert c["dispatches"] < c["ticks"]
+    assert c["early_exit_finish"] + c["early_exit_headroom"] >= 1
+    assert c["preemptions"] > 0 and c["prefix_hits"] > 0
+    assert rec["tokens"] != TR.load(PRESSURE_FIXTURE)["tokens"]
+    print(f"min_margin {rec['min_margin']:.6g} (bar {MARGIN_BAR:.6g})")
+    assert rec["min_margin"] >= MARGIN_BAR
+
+
+@pytest.mark.parametrize("backend", ["reference", "kernel"])
+def test_port_replays_the_sampled_record_on_the_cpu(stored_sampled,
+                                                    backend):
+    """The sampled record through ``trace_record.replay`` on the CPU: the
+    record's tokens, logits within 1e-3, counters (dispatches and early
+    exits among them) and audit."""
+    eng, done, launches = TR.replay(stored_sampled, backend, "cpu")
+    assert eng.ticks_per_dispatch == 8 and eng.cfg.temperature == 0.7
+    bad, worst = TR.mismatches(stored_sampled, eng, done)
+    assert not bad, bad
+    assert worst <= 1e-3
+    assert not any(launches.values())
+
+
 if __name__ == "__main__":
     write_fixture()
     write_pressure_fixture()
-    for path in (FIXTURE, PRESSURE_FIXTURE):
+    write_sampled_fixture()
+    for path in (FIXTURE, PRESSURE_FIXTURE, SAMPLED_FIXTURE):
         print(f"wrote {path}: {os.path.getsize(path)} bytes")
