@@ -35,13 +35,16 @@ failure:
                 engine's parameters; the pressure trace oversubscribes a
                 14-block pool with the prefix cache on, the sampled trace
                 is the pressure trace at temperature 0.7, top-p 0.9 in
-                packs of up to 8 ticks) on the kernel and the reference
-                backend, each held to the JAX reference engine's record
-                (``tests/golden/torch_{flash,pressure,sampled}_trace.npz``):
-                identical tokens, logits within 1e-3, equal counters
-                (dispatches and early exits among them) and pool audit, K1
-                once per tick, K2 and K3 launched, K4 once per commit the
-                run made;
+                packs of up to 8 ticks, the rkv and uniform traces are the
+                pressure trace under those retention policies with the
+                drift probe on) on the kernel and the reference backend,
+                each held to the JAX reference engine's record
+                (``tests/golden/torch_{flash,pressure,sampled,rkv,uniform}
+                _trace.npz``): identical tokens, logits within 1e-3, equal
+                counters (dispatches and early exits among them) and pool
+                audit, each request's drift (steps and top-1 agreement
+                equal, magnitudes within 2e-3), K1 once per tick, K2 and
+                K3 launched, K4 once per commit the run made;
 4. serve      — the port's engine on the full r1-llama-8b config (32 layers,
                 random weights from a seed), kernel backend, 4 requests of
                 1100-token prompts and 64 new tokens; launch counts are
@@ -76,6 +79,27 @@ failure:
                 audit, K1 once per tick, K4 once per commit; ms/tick,
                 dispatches per token, the sampler's device time at
                 [4, 128256] and ``fork_slot``'s time;
+   policy     — the pressure phase's model, pool and traffic served under
+                each retention policy (``thinkv``, the control arm,
+                ``rkv`` and ``uniform``) with the drift probe on: per
+                policy preemptions, resumes, COW faults, commits, the
+                footprint as a share of bf16, mean bits, ``prefill_s``,
+                ms/tick and drift (max, mean, top-1 agreement against the
+                dense replay); held: every request's tokens, a clean
+                audit, one probe per request with finite drift, K1 once
+                per tick, K4 once per commit, uniform's mean bits 4.00;
+   serve_step — the dense serve steps at the serve phase's shapes: the 4
+                prompts prefilled by a kernel-backend engine, their pool
+                views and buffers gathered into the ThinKV step's batch,
+                one ThinKV decode step on ``backend="kernel"`` (one K1
+                launch per layer for the batch) held against the same
+                step with K1's plain version (logits <= 1e-3), the
+                reference backend's gap reported; K1 at the step's shape
+                (L 1, R 4, the batch's pool of B·L·NB blocks) against its
+                plain version (<= 1e-4) with its device time and bound;
+                the FullKV prefill of the same prompts and one FullKV
+                decode step (bf16 caches); device ms per step, KV bytes
+                per request and the two steps' top-1 agreement;
 6. parity     — a 4-layer full-width model through the kernel and the
                 reference backends where their results must agree (see
                 ``parity``): identical tokens, logits within the reference's
@@ -99,8 +123,10 @@ failure:
 Then the kernels line (each kernel's launches on its own path: K1-K4 from
 the serve phase, from the pressure phase as ``launches_pressure`` and from
 the sampled phase's first run at 8 ticks per dispatch as
-``launches_sampled``, K2 and K3 also by shape, K5 from the ssm phase's prefill, the wrapper from
-the controller phase), the card's name and power limit as nvidia-smi gives
+``launches_sampled``, from the policy phase's runs as ``launches_policy``
+(by policy) and, for K1, from the serve_step phase's ThinKV step as
+``launches_serve_step``, K2 and K3 also by shape, K5 from the ssm phase's
+prefill, the wrapper from the controller phase), the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -978,7 +1004,7 @@ def check_trace_kernels(dev, cfg) -> dict:
     return errs
 
 
-TRACE_RECORDS = ("flash", "pressure", "sampled")
+TRACE_RECORDS = ("flash", "pressure", "sampled", "rkv", "uniform")
 
 
 def trace_phase(dev) -> dict:
@@ -995,7 +1021,9 @@ def trace_phase(dev) -> dict:
     0.7, top-p 0.9 in packs of up to 8 ticks (its counters include the
     dispatches and early pack exits; the record's smallest draw margin
     must lie above 1e-3 / T, so no draw can flip under the card's logit
-    error).  The kernel
+    error); the rkv and uniform traces are the pressure trace under those
+    retention policies with the drift probe on (each request's drift is
+    held to the record's too).  The kernel
     backend launches K1 once per tick and K2 and K3; both launch K4 once per
     commit the run made (the engine's ``commits``, which for the flash
     trace must also equal its length arithmetic: prefix hits skip
@@ -1040,6 +1068,8 @@ def trace_phase(dev) -> dict:
                            f"{TR.expected_commits(rec)} expected")
             runs[backend] = {
                 "tokens": {r.arrival: r.output for r in done},
+                "drift": {r.arrival: r.stats["drift"] for r in done
+                          if "drift" in r.stats},
                 "max_abs_logit_diff": worst,
                 "counters": {k: m[k] for k in rec["counters"]},
                 "commits": m["commits"], "launches": launches,
@@ -1052,8 +1082,10 @@ def trace_phase(dev) -> dict:
                      "prefix_cache": rec["settings"].get("prefix_cache",
                                                          False),
                      **{k: rec["settings"][k] for k in (
-                         "temperature", "top_p", "ticks_per_dispatch")
+                         "temperature", "top_p", "ticks_per_dispatch",
+                         "policy", "drift_probe")
                         if k in rec["settings"]},
+                     "record_drift": rec["drift"],
                      "min_margin": rec["min_margin"],
                      "record_tokens": rec["tokens"],
                      "record_counters": rec["counters"], **runs}
@@ -1315,7 +1347,9 @@ def clock_headroom(eng):
     """Wrap the engine's two headroom steps in host clocks: the decode
     tick's clock (``decode_s``) starts after ``_ensure_decode_headroom``,
     the prefill's (``prefill_s``) takes in ``_ensure_prefill_headroom``.
-    Returns the seconds spent in each, summed over the run."""
+    With the drift probe on, ``measure_drift`` is clocked too
+    (``drift_s``).  Returns the seconds spent in each, summed over the
+    run."""
     clocks = {"decode_headroom_s": 0.0, "prefill_headroom_s": 0.0}
 
     def clocked(fn, key):
@@ -1330,18 +1364,23 @@ def clock_headroom(eng):
                                           "decode_headroom_s")
     eng._ensure_prefill_headroom = clocked(eng._ensure_prefill_headroom,
                                            "prefill_headroom_s")
+    if eng.drift_probe:
+        clocks["drift_s"] = 0.0
+        eng.measure_drift = clocked(eng.measure_drift, "drift_s")
     return clocks
 
 
 def pressure_serve(engine_cls, cfg, params, prompts, priorities, max_new,
-                   dev, backend, pool_blocks, prefix_cache, watch=True):
-    """Serve the pressure traffic; returns (engine, finished, launches, the
-    watch log or, unwatched, the headroom clocks, seconds)."""
+                   dev, backend, pool_blocks, prefix_cache, watch=True,
+                   **engine_kw):
+    """Serve the pressure traffic (``engine_kw``: e.g. the policy and the
+    drift probe); returns (engine, finished, launches, the watch log or,
+    unwatched, the clocks of ``clock_headroom``, seconds)."""
     import torch
     from repro_torch.kernels import ops
     eng = engine_cls(cfg, params=params, backend=backend, device=dev,
                      record_logits=True, pool_blocks=pool_blocks,
-                     prefix_cache=prefix_cache)
+                     prefix_cache=prefix_cache, **engine_kw)
     log = watch_pool(eng, 8 * len(prompts)) if watch else clock_headroom(eng)
     eng.submit(prompts, max_new_tokens=max_new, priorities=priorities)
     if dev.type == "cuda":
@@ -1659,6 +1698,312 @@ def sampled_phase(engine_cls, params, mc, prompts, dev, max_new=64) -> dict:
     return rec
 
 
+POLICY_NAMES = ("thinkv", "rkv", "uniform")
+
+
+def policy_phase(engine_cls, params, mc, dev, max_new=64) -> dict:
+    """The pressure phase's traffic, model, 4 slots, 512-token budget, pool
+    (PRESSURE_FRAC x 4 x NB blocks) and prefix cache, served on the kernel
+    backend under each retention policy with the drift probe on
+    (``thinkv`` is the control arm).  Per policy: preemptions, resumes, COW
+    faults, commits, the footprint as a share of bf16, the mean bits,
+    ``prefill_s``, ms/tick (``decode_s`` leaves out decode-headroom
+    preemption, as in the pressure phase's twin) and the drift against the
+    dense replay (max, mean, top-1 agreement; the probe's host seconds
+    apart).  Held: every request's tokens, a clean audit, one probe per
+    request with finite drift, K1 once per tick, K4 once per commit, K1-K4
+    launched, uniform's mean bits 4.00.  With random weights the drift
+    tests the mechanism, not quality."""
+    import numpy as np
+    import torch
+    from repro_torch.config import ServeConfig, ThinKVConfig
+    from repro_torch.core import ct_cache as CC
+    t_phase = time.perf_counter()
+    tk = ThinKVConfig(token_budget=PRESSURE_BUDGET)
+    cfg = ServeConfig(model=mc, thinkv=tk, max_seqs=4)
+    prompts, priorities = pressure_traffic(
+        mc.vocab_size, np.random.default_rng(SEED))
+    dims = CC.make_dims(tk, mc.num_layers, mc.num_kv_heads, mc.head_dim)
+    pool_blocks = int(4 * dims.NB * PRESSURE_FRAC)
+    runs, failed = {}, []
+    for name in POLICY_NAMES:
+        eng, done, launches, clocks, run_s = pressure_serve(
+            engine_cls, cfg, params, prompts, priorities, max_new, dev,
+            "kernel", pool_blocks, True, watch=False, policy=name,
+            drift_probe=True)
+        m, bad = eng.metrics, []
+        try:
+            audit = eng.audit_pool()["claimed"][:4]
+        except AssertionError as e:
+            audit = None
+            bad.append(f"pool audit: {e}")
+        if len(done) != len(prompts) or any(len(r.output) != max_new
+                                            for r in done):
+            bad.append("not every request finished with its tokens")
+        drifts = [r.stats.get("drift") for r in done]
+        if m["drift_probes"] != len(prompts) or None in drifts or not all(
+                np.isfinite(d["max_abs"]) and np.isfinite(d["mean_abs"])
+                and d["steps"] == max_new for d in drifts if d):
+            bad.append(f"{m['drift_probes']} probes for {len(prompts)} "
+                       f"requests, drift {drifts}")
+        if launches["ct_paged_attention_fused"] != m["ticks"]:
+            bad.append(f"K1 launched {launches['ct_paged_attention_fused']}"
+                       f" times over {m['ticks']} ticks")
+        if launches["group_quant"] != m["commits"]:
+            bad.append(f"K4 launched {launches['group_quant']} times for "
+                       f"{m['commits']} commits")
+        if not all(launches[k] > 0 for k in K1_K4):
+            bad.append(f"a kernel never launched: {launches}")
+        bits = float(np.mean([r.stats["avg_bits"] for r in done]))
+        if name == "uniform" and f"{bits:.2f}" != "4.00":
+            bad.append(f"uniform's mean bits {bits}")
+        ok = [d for d in drifts if d]
+        runs[name] = {
+            **{k: m[k] for k in ("preemptions", "resumes", "cow_faults",
+                                 "commits", "ticks", "tokens",
+                                 "prefix_hits", "drift_probes")},
+            "footprint_frac": float(np.mean(
+                [r.stats["footprint_frac"] for r in done])),
+            "avg_bits": bits, "prefill_s": m["prefill_s"],
+            "decode_s": m["decode_s"],
+            "ms_per_tick": 1e3 * m["decode_s"] / max(m["ticks"], 1),
+            "run_s": run_s, **clocks,
+            "drift_max_abs": max((d["max_abs"] for d in ok), default=None),
+            "drift_mean_abs": float(np.mean([d["mean_abs"] for d in ok]))
+            if ok else None,
+            "drift_top1_agree": float(np.mean([d["top1_agree"] for d in ok]))
+            if ok else None,
+            "audit_claimed": audit, "launches": launches, "mismatches": bad}
+        failed += [f"{name}: {b}" for b in bad]
+        del eng, done
+        torch.cuda.empty_cache()
+    rec = {"phase": "policy", "layers": mc.num_layers,
+           "budget": tk.token_budget, "NB": dims.NB, "slots": 4,
+           "requests": len(prompts), "max_new": max_new,
+           "frac": PRESSURE_FRAC, "pool_blocks": pool_blocks, "runs": runs,
+           "failed": failed, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if failed:
+        raise AssertionError(f"policy phase failed: {failed}")
+    return rec
+
+
+SERVE_STEP_K1_ATOL = 1e-4
+
+
+class plain_k1:
+    """Within the block, ``ops.paged_decode_attention_fused`` computes K1's
+    plain version on the card (what the step is held against)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        self.ops, self.kernel = ops, ops.paged_decode_attention_fused
+        ops.paged_decode_attention_fused = \
+            lambda *a, group=16: ref.ct_paged_attention_fused_ref(
+                *a, group=group)
+
+    def __exit__(self, *exc):
+        self.ops.paged_decode_attention_fused = self.kernel
+
+
+def thinkv_step_batch(eng) -> dict:
+    """The ThinKV decode step's batch of an engine's slots after prefill:
+    each slot's pool view gathered through its table (``[B, L, NB, BS,
+    ...]``), its slot planes, bf16 buffer and counts, the token its
+    prefill sampled and its position."""
+    import torch
+    from repro_torch.core import ct_cache as CC
+    views = [CC.gather_view(eng.pool.view, eng.tables[i])
+             for i in range(eng.cfg.max_seqs)]
+    batch = {name: torch.stack([v[j] for v in views]).contiguous()
+             for j, name in enumerate(CC.PoolView._fields)}
+    c = eng.caches
+    batch.update(
+        slot_state=c.slot_state.clone(), slot_bits=c.slot_bits.clone(),
+        buf_k=c.buf_k.clone(), buf_v=c.buf_v.clone(),
+        buf_len=c.buf_len.clone(), positions=c.num_tokens.clone(),
+        tokens=torch.as_tensor(eng._feed, device=eng.device))
+    return batch
+
+
+def check_serve_step_k1(dev, mc, batch) -> dict:
+    """K1 at the ThinKV step's shape (L 1, R B, the batch's planes as one
+    pool of B·L·NB blocks, layer 0's table and slot planes, its buffer with
+    one more row) against its plain version, <= SERVE_STEP_K1_ATOL, with
+    its device time and bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, L, nb, bs, h, d = batch["k_codes"].shape
+    gq = mc.num_heads // h
+
+    def pool(a):
+        return a.reshape(1, b * L * nb, bs, h, a.shape[-1])
+    table = (torch.arange(b, device=dev)[:, None] * L * nb
+             + torch.arange(nb, device=dev)[None]).to(torch.int32)[:, None]
+    meta = [batch[k][:, 0].reshape(1, b, nb, bs).contiguous()
+            for k in ("slot_state", "slot_bits")]
+    args = (torch.randn((1, b, h, gq, d), generator=gen, device=dev),
+            *(pool(batch[k]) for k in ("k_codes", "v_codes", "k_scales",
+                                       "v_scales")),
+            *meta, table, batch["buf_k"][:, 0][None].contiguous(),
+            batch["buf_v"][:, 0][None].contiguous(),
+            (batch["buf_len"] + 1).to(torch.int32))
+    out = ops.paged_decode_attention_fused(*args)
+    torch.cuda.synchronize()
+    err = max_err(out, ref.ct_paged_attention_fused_ref(*args))
+    per_block = bs * h * (2 * d + 2 * 2 * (d // 16))
+    pool_b, n_slots = pool_need(meta[0], table, per_block)
+    n_buf = int(args[-1].sum())
+    rec = kernel_record(
+        "ct_paged_attention_fused", "ct_paged_attention.cu",
+        "ct_paged_attention.py:204",
+        f"serve step: L=1 R={b} H={h} GQ={gq} D={d} BS={bs} NB={nb}", err,
+        lambda: ops.paged_decode_attention_fused(*args),
+        lambda: ref.ct_paged_attention_fused_ref(*args),
+        bound(pool_b + nbytes(args[0], *meta, table, args[-1], out)
+              + 2 * n_buf * h * d * 2, 4 * h * gq * d * (n_slots + n_buf)),
+        plain_iters=3)
+    if not err <= SERVE_STEP_K1_ATOL:
+        raise AssertionError(f"K1 at the serve step's shape: {err} > "
+                             f"{SERVE_STEP_K1_ATOL}")
+    return rec
+
+
+def bf16_steps_over(a, b) -> float:
+    """max |a - b| / max(ATOL, one bf16 step at max(|a|, |b|)) over the
+    elements of two bf16 tensors: <= 1 when every element is at most one
+    rounding step (or ATOL) apart."""
+    import torch
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return float(((a - b).abs() / step.clamp_min(ATOL)).max())
+
+
+def kv_bytes_per_request(batch, mapped_blocks) -> dict:
+    """A ThinKV request's KV bytes: its mapped pool blocks (codes and
+    scales of K and V), its slot planes and its bf16 buffer."""
+    b, L, nb, bs, h, d = batch["k_codes"].shape
+    per_block = bs * h * (2 * d + 2 * 2 * (d // 16))
+    meta = 2 * L * nb * bs + 2 * L * batch["buf_k"].shape[2] * h * d * 2
+    return [int(n) * per_block + meta for n in mapped_blocks]
+
+
+def serve_step_phase(params, mc, dev, prompts) -> dict:
+    """The dense serve steps at the serve phase's shapes (default
+    ThinKVConfig, 4 slots, the 4 x 1100-token prompts).  A kernel-backend
+    engine prefills the prompts; the 4 slots' pool views and buffers make
+    the ThinKV step's batch (``thinkv_step_batch``).  One ThinKV decode
+    step on ``backend="kernel"`` must launch K1 once per layer and agree
+    with the same step over K1's plain version (logits <= ATOL, the
+    buffers' new rows within one bf16 step or ATOL, buf_len exact); the
+    reference backend's gap (its pool dequantized to bf16) is reported.
+    K1 at the step's shape is held to its plain version
+    (``check_serve_step_k1``).  The FullKV prefill of the same prompts and
+    one FullKV decode step over bf16 caches of T = S + 64 rows follow.
+    Reported: device ms per step (the profiler's busy time), KV bytes per
+    request and the two steps' top-1 agreement."""
+    import numpy as np
+    import torch
+    from repro_torch.config import ServeConfig, ThinKVConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serving import serve_step as SS
+    from repro_torch.serving.engine import ThinKVEngine
+    t_phase = time.perf_counter()
+    tk = ThinKVConfig()
+    eng = ThinKVEngine(ServeConfig(model=mc, thinkv=tk, max_seqs=4),
+                       params=params, backend="kernel", device=dev)
+    eng.submit(prompts, max_new_tokens=2)
+    eng.run(max_ticks=0)                        # admission + prefill
+    batch = thinkv_step_batch(eng)
+    mapped = (eng.tables >= 0).sum((1, 2)).tolist()
+    del eng
+    torch.cuda.empty_cache()
+    failed = []
+    k1 = check_serve_step_k1(dev, mc, batch)
+    step_k = SS.make_decode_step_thinkv(mc, tk, backend="kernel")
+    ops.reset_launches()
+    out_k = step_k(params, batch)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if launches["ct_paged_attention_fused"] != mc.num_layers or any(
+            launches[k] for k in launches
+            if k != "ct_paged_attention_fused"):
+        failed.append(f"launches {launches}, one K1 per layer expected")
+    with plain_k1():
+        out_p = step_k(params, batch)
+    plain_err = max_err(out_k[0], out_p[0])
+    if not plain_err <= ATOL:
+        failed.append(f"logits {plain_err} from the plain K1's > {ATOL}")
+    if not torch.equal(out_k[3], batch["buf_len"] + 1):
+        failed.append(f"buf_len {out_k[3]} after {batch['buf_len']}")
+    # later layers' new rows depend on earlier attention outputs, so a
+    # value next to a bf16 rounding boundary may round the other way: each
+    # element within one bf16 step of the plain K1's, or within ATOL
+    buf_over = bf16_steps_over(out_k[1], out_p[1])
+    if not buf_over <= 1:
+        failed.append(f"buffers {buf_over} x (one bf16 step or {ATOL}) "
+                      f"from the plain K1's step")
+    out_r = SS.make_decode_step_thinkv(mc, tk, backend="reference")(
+        params, batch)
+    ref_gap = max_err(out_k[0], out_r[0])
+    thinkv_prof = profile_window(lambda: step_k(params, batch))
+
+    # FullKV: the same prompts, bf16 caches of S + 64 rows
+    toks = torch.as_tensor(np.stack(prompts), device=dev)
+    B, S = toks.shape
+    t0 = time.perf_counter()
+    lg0, kc, vc = lm.prefill(params, {"tokens": toks}, mc)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    caches = []
+    for c in (kc, vc):
+        full = torch.zeros((B, mc.num_layers, S + 64, mc.num_kv_heads,
+                            mc.head_dim), dtype=torch.bfloat16, device=dev)
+        full[:, :, :S] = c.transpose(0, 1)
+        caches.append(full)
+    del kc, vc
+    fb = {"tokens": batch["tokens"], "positions": batch["positions"],
+          "k_cache": caches[0], "v_cache": caches[1],
+          "cache_len": torch.full((B,), S, dtype=torch.int32, device=dev)}
+    step_f = SS.make_decode_step_fullkv(mc)
+    out_f = step_f(params, fb)
+    fullkv_prof = profile_window(lambda: step_f(params, fb))
+    agree = (out_f[0].argmax(-1) == out_k[0].argmax(-1)).float().mean()
+    finite = all(torch.isfinite(t).all() for t in (out_k[0], out_f[0], lg0))
+    if not finite:
+        failed.append("non-finite logits")
+    row_bytes = 2 * mc.num_layers * mc.num_kv_heads * mc.head_dim * 2
+    rec = {"phase": "serve_step", "layers": mc.num_layers, "requests": B,
+           "prompt_len": S, "NB": batch["k_codes"].shape[2],
+           "BS": batch["k_codes"].shape[3], "G": batch["buf_k"].shape[2],
+           "k1_launches": launches["ct_paged_attention_fused"],
+           "launches": launches, "k1_serve_step": k1,
+           "logits_vs_plain_k1": plain_err,
+           "logits_vs_reference_backend": ref_gap,
+           "thinkv_step_device_ms": thinkv_prof["device_busy_ms"],
+           "thinkv_step_window_ms": thinkv_prof["window_ms"],
+           "thinkv_step_k1_ms": thinkv_prof["kernel_groups"]["K1"]["ms"],
+           "fullkv_step_device_ms": fullkv_prof["device_busy_ms"],
+           "fullkv_step_window_ms": fullkv_prof["window_ms"],
+           "fullkv_prefill_s": prefill_s,
+           "thinkv_kv_bytes_per_request": kv_bytes_per_request(batch,
+                                                               mapped),
+           "fullkv_kv_bytes_per_request": (S + 1) * row_bytes,
+           "top1_agree_fullkv_thinkv": float(agree),
+           "buffers_vs_plain_k1": max_err(out_k[1], out_p[1]),
+           "buffers_vs_plain_k1_over_bar": buf_over,
+           "first_token_agree_fullkv_engine": float(
+               (lg0.argmax(-1) == batch["tokens"]).float().mean()),
+           "failed": failed, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if failed:
+        raise AssertionError(f"serve_step phase failed: {failed}")
+    return rec
+
+
 def ab(parent: str) -> int:
     """The parent tree (``parent``/src, its kernels built there) and this
     one, each in its own process, in turns: parent, this, this, parent;
@@ -1741,6 +2086,8 @@ def main() -> int:
     if not ab_run:
         prs = pressure_phase(ThinKVEngine, params, mc, dev)
         smp = sampled_phase(ThinKVEngine, params, mc, prompts, dev)
+        pol = policy_phase(ThinKVEngine, params, mc, dev)
+        sst = serve_step_phase(params, mc, dev, prompts)
     del params
     torch.cuda.empty_cache()
     if ab_run:
@@ -1803,11 +2150,24 @@ def main() -> int:
         recs[n]["launches_pressure"] = prs["launches"][recs[n]["name"]]
         recs[n]["launches_sampled"] = smp["runs"][1]["launches"][
             recs[n]["name"]]
+    for n, r in recs.items():
+        r["launches_policy"] = {p: run["launches"].get(r["name"], 0)
+                                for p, run in pol["runs"].items()}
+    recs["K1"]["launches_serve_step"] = sst["k1_launches"]
     recs["K5"]["launches"] = ssm["prefill"]["launches"]["mamba_scan"]
     recs["wrapper"]["launches"] = ctl["wrapper_launches"]
+    extra = ("launches_pressure", "launches_sampled", "launches_policy",
+             "launches_serve_step")
     lines = [{k: recs[n][k] for k in keys + tuple(
-        k for k in ("launches_pressure", "launches_sampled") if k in recs[n])}
+        k for k in extra if k in recs[n])}
         for n in ("K1", "K2", "K3", "K4", "K5", "wrapper")]
+    # K1 at the serve step's shape beside its tick shape
+    lines[0]["by_shape"] = {
+        "tick": {k: recs["K1"][k] for k in ("launches", "ms", "bound_ms")},
+        "serve_step": {"launches": sst["k1_launches"],
+                       **{k: sst["k1_serve_step"][k] for k in (
+                           "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                           "max_abs_err")}}}
     # K2 and K3 beside each shape of the serve phase: launches and times
     for line, name, shapes in (
             (lines[1], "ct_paged_attention_batched", ("K2", "K2_64")),

@@ -54,6 +54,13 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     return model
 
 
+def batch_from_numpy(batch: Mapping, device: Device = None) -> dict:
+    """A serve step's batch (``repro/serving/serve_step.py``'s keys, numpy
+    leaves) as the port's tensors: codes stay uint8, bf16 planes cross as
+    their bit view, integers and f32 as they are."""
+    return {k: tensor_from_numpy(v, device) for k, v in batch.items()}
+
+
 def cache_from_numpy(fields: Mapping, device: Device = None) -> CC.CTCache:
     """A CTCache (per request or batched) from numpy leaves by field name."""
     return CC.CTCache(**{f: tensor_from_numpy(fields[f], device)

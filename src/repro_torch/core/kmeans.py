@@ -1,6 +1,6 @@
-"""K-means token selection for TBE (ports ``repro/core/kmeans.py``:
-``kmeans_select``), batched over a leading axis (the reference ``vmap``s
-it over layers).
+"""Token selection for TBE (ports ``repro/core/kmeans.py``:
+``kmeans_select`` and ``redundancy_select``), batched over a leading axis
+(the reference ``vmap``s them over layers).
 
 Deterministic: position-stratified init and a fixed number of Lloyd
 iterations.  Every scatter is written so that its result cannot depend on
@@ -81,3 +81,41 @@ def kmeans_select(x: torch.Tensor, valid: torch.Tensor, keep: torch.Tensor,
     take = idx[None] < deficit[:, None]
     padded = torch.zeros_like(keep_mask).scatter_(1, pad_rank, take)
     return (keep_mask | padded) & valid
+
+
+def redundancy_select(x: torch.Tensor, valid: torch.Tensor,
+                      keep: torch.Tensor, k_max: int = 64) -> torch.Tensor:
+    """Greedy farthest-point (max-min-distance) selection, the retention
+    core of the R-KV policy (ports ``repro/core/kmeans.py::
+    redundancy_select``, batched over a leading axis): keep the ``keep``
+    most mutually diverse rows, so near-duplicates go first.
+
+    x [B, n, d]; valid [B, n] bool; keep [B] int.  The seed is the newest
+    (last) valid row; ``k_max - 1`` growth steps follow, each adding the
+    unselected valid row farthest from the selected set (ties to the
+    lowest index, as ``torch.argmax`` breaks them).  Distances are
+    ``((x - x[pick]) ** 2).sum(-1)`` in f32, the reference's form, so
+    near-ties fall the same way.  Returns the keep mask [B, n] with
+    exactly ``min(keep, n_valid, k_max)`` True rows.
+    """
+    b, n, _ = x.shape
+    dev = x.device
+    x = x.float()
+    n_valid = valid.to(torch.int64).sum(-1)
+    keep = torch.minimum(keep.to(torch.int64).clamp_min(1),
+                         n_valid.clamp_max(k_max))
+    idx = torch.arange(n, device=dev)
+    rows = torch.arange(b, device=dev)
+    seed = torch.where(valid, idx, -1).argmax(-1)                # [B]
+
+    def dist(pick):
+        return ((x - x[rows, pick][:, None]) ** 2).sum(-1)       # [B, n]
+    mask = valid & (idx == seed[:, None])
+    # invalid rows sit below every real candidate: argmax never picks them
+    dmin = torch.where(valid, dist(seed), -1.0)
+    for j in range(1, max(k_max, 1)):
+        pick = torch.where(valid & ~mask, dmin, -1.0).argmax(-1)
+        grow = (j < keep)[:, None]
+        mask = mask | (grow & (idx == pick[:, None]))
+        dmin = torch.where(grow, torch.minimum(dmin, dist(pick)), dmin)
+    return mask & valid

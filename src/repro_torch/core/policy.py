@@ -1,10 +1,17 @@
-"""Retention policy (ports ``repro/core/policy.py``: ``ThinKVPolicy`` and
-``get_policy``).
+"""Retention policies (ports ``repro/core/policy.py``): importance rho,
+precision psi, progressive retention and the TBE token selection, as a
+pluggable strategy that ``core/ct_cache.py`` and the engine call.
 
-The paper's policy: importance rho(T)=0 < rho(E)=1 < rho(R)=2, precision
-psi from ``ThinKVConfig.precision`` (T, E, R), progressive retention
-schedule with a floor, and k-means medoid selection for TBE.  The ``rkv``
-and ``uniform`` policies are not ported yet (ROADMAP queue 1 item 12).
+* ``thinkv`` (:class:`ThinKVPolicy`, the default): the paper's policy —
+  rho(T)=0 < rho(E)=1 < rho(R)=2, psi from ``ThinKVConfig.precision``
+  (T, E, R), k-means medoid selection;
+* ``rkv`` (:class:`RKVPolicy`): the same precision, but an anneal keeps
+  the most diverse keys (greedy farthest-point selection);
+* ``uniform`` (:class:`UniformPolicy`): every thought at 4 bits, rho 0
+  everywhere (eviction is oldest-first), anneals keep the newest tokens.
+
+The module-level ``rho`` / ``psi_bits`` / ``retention_at`` / ``validate``
+delegate to :data:`DEFAULT_POLICY`, as in the reference.
 """
 from __future__ import annotations
 
@@ -13,7 +20,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.config import ThinKVConfig
-from repro_torch.core.kmeans import kmeans_select
+from repro_torch.core.kmeans import kmeans_select, redundancy_select
 
 
 def _validate_common(cfg: ThinKVConfig) -> None:
@@ -33,36 +40,65 @@ def _validate_common(cfg: ThinKVConfig) -> None:
         raise ValueError("group must fit within a refresh interval")
 
 
-class ThinKVPolicy:
-    """Thought-importance precision + TBE k-means (the paper's policy)."""
+class RetentionPolicy:
+    """The strategy interface.  ``select_tokens(keys [B, n, d], valid
+    [B, n], keep [B], cfg)`` returns a keep mask [B, n] with exactly
+    ``min(keep, n_valid)`` True rows (batched over layers, where the
+    reference calls it per layer)."""
 
-    name = "thinkv"
+    name = "abstract"
 
     def rho(self, thought: torch.Tensor) -> torch.Tensor:
-        return thought
+        raise NotImplementedError
 
     def psi_bits(self, thought: torch.Tensor, cfg: ThinKVConfig
                  ) -> torch.Tensor:
-        prec = torch.tensor(cfg.precision, dtype=torch.int32,
-                            device=thought.device)
-        return prec[thought.long()]
+        raise NotImplementedError
 
     def precision_levels(self, cfg: ThinKVConfig) -> Tuple[int, ...]:
-        return tuple(sorted(set(cfg.precision)))
+        raise NotImplementedError
 
     def retention_at(self, level: torch.Tensor, cfg: ThinKVConfig
                      ) -> torch.Tensor:
+        """R_n of the n-th eviction of a segment (clamped at min retention;
+        levels past the schedule's end hold its last entry)."""
         sched = torch.tensor(cfg.retention_schedule, dtype=torch.int64,
                              device=level.device)
         idx = level.long().clamp(0, len(cfg.retention_schedule) - 1)
         return sched[idx].clamp_min(cfg.min_retention)
 
     def select_tokens(self, keys, valid, keep, cfg: ThinKVConfig):
+        raise NotImplementedError
+
+    def validate(self, cfg: ThinKVConfig) -> None:
+        _validate_common(cfg)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.name!r})"
+
+
+class ThinKVPolicy(RetentionPolicy):
+    """Thought-importance precision + TBE k-means (the paper's policy)."""
+
+    name = "thinkv"
+
+    def rho(self, thought):
+        return thought
+
+    def psi_bits(self, thought, cfg):
+        prec = torch.tensor(cfg.precision, dtype=torch.int32,
+                            device=thought.device)
+        return prec[thought.long()]
+
+    def precision_levels(self, cfg):
+        return tuple(sorted(set(cfg.precision)))
+
+    def select_tokens(self, keys, valid, keep, cfg):
         return kmeans_select(keys, valid, keep,
                              k_max=max(cfg.retention_schedule),
                              iters=cfg.kmeans_iters)
 
-    def validate(self, cfg: ThinKVConfig) -> None:
+    def validate(self, cfg):
         _validate_common(cfg)
         pt, pe, pr = cfg.precision
         if not pt <= pe <= pr:
@@ -70,15 +106,81 @@ class ThinKVPolicy:
                              f"(T,E,R)={cfg.precision}")
 
 
+class RKVPolicy(ThinKVPolicy):
+    """R-KV-style redundancy-aware retention: ThinKV's precision, but an
+    anneal keeps the most diverse keys (farthest-point selection)."""
+
+    name = "rkv"
+
+    def select_tokens(self, keys, valid, keep, cfg):
+        return redundancy_select(keys, valid, keep,
+                                 k_max=max(cfg.retention_schedule))
+
+
+class UniformPolicy(RetentionPolicy):
+    """The uniform-precision control arm: every thought at 4 bits, rho 0
+    everywhere (budget eviction is oldest-first), anneals keep the newest
+    ``keep`` valid rows."""
+
+    name = "uniform"
+    bits = 4
+
+    def rho(self, thought):
+        return torch.zeros_like(thought)
+
+    def psi_bits(self, thought, cfg):
+        return torch.full(thought.shape, self.bits, dtype=torch.int32,
+                          device=thought.device)
+
+    def precision_levels(self, cfg):
+        return (self.bits,)
+
+    def select_tokens(self, keys, valid, keep, cfg):
+        vi = valid.to(torch.int64)
+        keep = torch.minimum(keep.to(torch.int64).clamp_min(1), vi.sum(-1))
+        # rank 1 is the newest valid row (slot order is append order
+        # within a segment)
+        newest_rank = vi.flip(-1).cumsum(-1).flip(-1)
+        return valid & (newest_rank <= keep[:, None])
+
+
 DEFAULT_POLICY = ThinKVPolicy()
 
+POLICIES = {p.name: p for p in (DEFAULT_POLICY, RKVPolicy(),
+                                UniformPolicy())}
 
-def get_policy(policy=None) -> ThinKVPolicy:
-    """Resolve a policy name or instance; only ``thinkv`` is ported."""
-    if policy is None or policy == "thinkv":
+
+def get_policy(policy=None) -> RetentionPolicy:
+    """Resolve a policy name, or pass a policy instance through."""
+    if policy is None:
         return DEFAULT_POLICY
-    if isinstance(policy, ThinKVPolicy):
+    if isinstance(policy, RetentionPolicy):
         return policy
-    raise NotImplementedError(
-        f"retention policy {policy!r} is not ported yet (ROADMAP queue 1 "
-        f"item 12); the port serves 'thinkv'")
+    try:
+        return POLICIES[policy]
+    except KeyError:
+        raise ValueError(f"unknown retention policy {policy!r}; "
+                         f"registered: {sorted(POLICIES)}") from None
+
+
+def rho(thought: torch.Tensor) -> torch.Tensor:
+    """Importance score under the default policy (T=0 < E=1 < R=2)."""
+    return DEFAULT_POLICY.rho(thought)
+
+
+def psi_bits(thought: torch.Tensor, cfg: ThinKVConfig) -> torch.Tensor:
+    """Precision (bits) of a thought type under the default policy."""
+    return DEFAULT_POLICY.psi_bits(thought, cfg)
+
+
+def retention_at(level: torch.Tensor, cfg: ThinKVConfig) -> torch.Tensor:
+    """R_n of the n-th eviction of a segment (clamped at min retention)."""
+    return DEFAULT_POLICY.retention_at(level, cfg)
+
+
+def validate(cfg: ThinKVConfig) -> None:
+    DEFAULT_POLICY.validate(cfg)
+
+
+def default_thresholds() -> Tuple[float, float]:
+    return ThinKVConfig().sparsity_thresholds

@@ -1,42 +1,63 @@
 """Serving launcher of the port: ``python -m repro_torch.launch.serve``.
 
-Ports the synchronous path of ``repro/launch/serve.py``: the ThinKV engine
-serves synthetic prompts (random tokens from seed 0) and reports
-throughput and compression in the reference's line
+Ports ``repro/launch/serve.py``: the ThinKV engine serves synthetic prompts
+(random tokens from seed 0) and reports throughput and compression in the
+reference's line
 
     served N requests | T tokens in Ws (tok/s) | footprint | bits
 
-The flags and their defaults are the reference's (``--arch --full
---requests --slots --prompt-len --max-new --budget --tau --group
---backend --temperature --top-p --ticks-per-dispatch --pool-blocks
---pool-frac --prefix-cache --shared-prefix-frac --expect-multi-tick``),
-but ``--temperature`` defaults to 0 (greedy; the reference's is 0.8), plus
-``--device`` (the card unless ``cpu`` is asked for).  ``--temperature`` >
-0 samples on per-request key streams (``--top-p`` < 1 nucleus);
-``--ticks-per-dispatch`` N fuses up to N ticks into one dispatch and
-prints the reference's mega-dispatch line; ``--expect-multi-tick`` (N > 1,
-greedy) fails unless packs ran more than one tick, some pack exited
-early, the pool audit is clean and a second engine serving the same
-requests one tick per dispatch gives the same tokens.  ``--pool-frac`` (or
-``--pool-blocks``) oversubscribes the shared pool, so requests are
-preempted and resumed; ``--prefix-cache`` shares prompt prefixes
-copy-on-write (``--shared-prefix-frac`` gives every prompt a common head).
-The run then prints the preemption, COW and prefix-cache counters and
-audits the pool, as the reference does.  Streaming and the gates that
-need it (``--stream``, ``--samples-per-slot``, ``--arrival-rate``), the
-other gates (``--priorities``, ``--expect-all``, ``--expect-preemptions``,
-``--expect-prefix-hits``), tensor parallelism, the drift probe and other
-policies are not ported yet (ROADMAP queue 1 items 12-14).
+The flags and their defaults are the reference's, but ``--temperature``
+defaults to 0 (greedy; the reference's is 0.8), plus ``--device`` (the
+card unless ``cpu`` is asked for):
+
+* the model and cache: ``--arch --full --requests --slots --prompt-len
+  --max-new --budget --tau --group --backend --policy`` (``thinkv``,
+  ``rkv`` or ``uniform``);
+* sampling and dispatch: ``--temperature`` (> 0 samples on per-request
+  key streams), ``--top-p`` (< 1 nucleus), ``--ticks-per-dispatch`` (N
+  fuses up to N ticks into one dispatch; prints the mega-dispatch line),
+  ``--samples-per-slot`` (n COW-forked samples per request; needs
+  ``--stream``);
+* the pool: ``--pool-blocks`` / ``--pool-frac`` oversubscribe it, so
+  requests are preempted and resumed; ``--prefix-cache`` shares prompt
+  prefixes copy-on-write (``--shared-prefix-frac`` gives every prompt a
+  common head); ``--priorities`` (comma-separated, cycled over the
+  requests);
+* streaming: ``--stream`` serves through the asyncio orchestrator with
+  one consumer per token stream and prints the TTFT / TPOT / queue-wait
+  percentiles and the overlap line; ``--arrival-rate R`` makes arrivals
+  open-loop (Poisson in tick space, ``default_rng(1)``);
+* quality: ``--drift-probe`` (needs ``--stream``) replays each finished
+  request through the uncompressed dense forward and prints the drift
+  line;
+* gates, each exiting non-zero on failure: ``--expect-all`` (every
+  request finishes with its tokens), ``--expect-preemptions`` (some
+  preemption, every victim resumed), ``--expect-prefix-hits`` (a hit,
+  tokens skipped, a clean audit), ``--expect-stream-parity`` (greedy: a
+  second engine's synchronous run gives bit-identical per-request logits,
+  prefill overlapped decode), ``--expect-drift`` (finite drift for every
+  request, one probe and one drift event each), ``--expect-multi-tick``
+  (greedy: packs of more than one tick, an early exit, clean audits and
+  the tokens of a one-tick-per-dispatch replay, streamed when
+  ``--stream``; with forks, fork COW faults, shared refcounts and forks
+  equal to their parents).
+
+``--mesh``, ``--heads``, ``--kv-heads`` and ``--expect-mesh-parity``
+belong to tensor-parallel serving (ROADMAP queue 1 item 13) and are
+refused, naming it.
 
     python -m repro_torch.launch.serve --full --backend kernel --temperature 0
     python -m repro_torch.launch.serve --device cpu --pool-frac 0.6 \
         --prefix-cache --shared-prefix-frac 0.5
     python -m repro_torch.launch.serve --device cpu --temperature 0.7 \
         --top-p 0.9 --ticks-per-dispatch 4
+    python -m repro_torch.launch.serve --device cpu --policy rkv \
+        --drift-probe --expect-drift --stream
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 
 import numpy as np
 
@@ -44,6 +65,52 @@ from repro_torch.config import ServeConfig, ThinKVConfig
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core import ct_cache as CC
 from repro_torch.serving.engine import ThinKVEngine
+from repro_torch.serving.orchestrator import Orchestrator
+
+
+def _run_streamed(eng, args, prompts, priorities):
+    """Serve through the asyncio orchestrator: open-loop Poisson arrivals
+    in tick space (``default_rng(1)``, deterministic), one consumer task
+    per token stream; ``--samples-per-slot n`` attaches ``n - 1``
+    COW-forked sibling streams per request.  Returns (finished requests,
+    orchestrator, streamed token counts by uid, parent streams)."""
+    orch = Orchestrator(eng)
+    spr = args.samples_per_slot
+    arr_rng = np.random.default_rng(1)
+    if args.arrival_rate > 0:
+        gaps = arr_rng.exponential(1.0 / args.arrival_rate, len(prompts))
+        at_tick = np.floor(np.cumsum(gaps)).astype(int)
+    else:
+        at_tick = np.zeros(len(prompts), int)
+
+    async def go():
+        # fork children draw uids from the orchestrator's counter, so
+        # parents take explicit uids only without forks
+        streams = [
+            orch.schedule_arrival(
+                after_tick=int(at_tick[i]), prompt=p,
+                max_new_tokens=args.max_new,
+                priority=priorities[i] if priorities else 0,
+                uid=i if spr == 1 else None, samples_per_slot=spr)
+            for i, p in enumerate(prompts)]
+        counts = {}
+
+        async def consume(s):
+            n = 0
+            async for _tok in s:
+                n += 1
+            counts[s.request.uid] = n
+
+        consumers = [asyncio.ensure_future(consume(s))
+                     for parent in streams for s in (parent, *parent.forks)]
+        orch.close()
+        done = await orch.serve()
+        for c in consumers:
+            await c
+        return done, counts, streams
+
+    done, counts, streams = asyncio.run(go())
+    return done, orch, counts, streams
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,6 +134,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(sampled tokens feed the next tick on the "
                          "device; a pack exits early at scheduling "
                          "events)")
+    ap.add_argument("--samples-per-slot", type=int, default=1,
+                    help="serve n samples per request by COW-forking the "
+                         "prompt + generated-prefix cache into n logical "
+                         "sequences (best-of-n reasoning); needs --stream")
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "kernel", "reference"),
                     help="auto: kernel on the card, reference on the CPU")
@@ -77,6 +148,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="pool size as a fraction of the dense worst case "
                          "(e.g. 0.25 oversubscribes 4x; overrides "
                          "--pool-blocks)")
+    ap.add_argument("--priorities", type=str, default=None,
+                    help="comma-separated priority ints cycled over "
+                         "requests (higher = served first, preempted last)")
+    ap.add_argument("--expect-all", action="store_true",
+                    help="gate: fail unless every request finishes with "
+                         "its full --max-new tokens")
+    ap.add_argument("--expect-preemptions", action="store_true",
+                    help="gate: fail unless at least one preemption + "
+                         "resume happened and every victim resumed")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="enable copy-on-write prefix caching: requests "
                          "whose prompt extends a cached prefix share its "
@@ -85,31 +165,96 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shared-prefix-frac", type=float, default=0.0,
                     help="fraction of every prompt shared across requests "
                          "(1.0 = identical prompts)")
+    ap.add_argument("--expect-prefix-hits", action="store_true",
+                    help="gate: fail unless the run scored >= 1 prefix "
+                         "hit with > 0 prefill tokens skipped and a clean "
+                         "pool refcount audit")
+    ap.add_argument("--stream", action="store_true",
+                    help="serve via the asyncio orchestrator: streaming "
+                         "token delivery, overlapped prefill/decode, "
+                         "per-request TTFT/TPOT/queue-wait percentiles")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="open-loop Poisson arrivals at this many requests "
+                         "per engine tick (0 = everything up front); needs "
+                         "--stream")
+    ap.add_argument("--expect-stream-parity", action="store_true",
+                    help="gate (needs --stream, greedy): a second engine's "
+                         "synchronous run() must give bit-identical "
+                         "per-request logits, both pool audits clean")
+    for flag in ("--mesh", "--heads", "--kv-heads"):
+        ap.add_argument(flag, default=None,
+                        help="tensor-parallel serving: not ported (ROADMAP "
+                             "queue 1 item 13)")
+    ap.add_argument("--expect-mesh-parity", action="store_true",
+                    help="tensor-parallel gate: not ported (ROADMAP queue "
+                         "1 item 13)")
+    ap.add_argument("--policy", default="thinkv",
+                    choices=("thinkv", "rkv", "uniform"),
+                    help="retention policy: the paper's thought-adaptive "
+                         "one (thinkv), redundancy-aware farthest-point "
+                         "retention (rkv), or a uniform 4-bit recency "
+                         "baseline (uniform)")
+    ap.add_argument("--drift-probe", action="store_true",
+                    help="replay every finished request through the "
+                         "uncompressed dense forward and report logit "
+                         "drift against the serving path (needs --stream)")
+    ap.add_argument("--expect-drift", action="store_true",
+                    help="gate (needs --drift-probe): fail unless every "
+                         "finished request carries finite drift stats")
     ap.add_argument("--expect-multi-tick", action="store_true",
                     help="gate (needs --ticks-per-dispatch > 1, greedy): "
                          "fail unless mean ticks/dispatch > 1 with >= 1 "
                          "early pack exit, the pool audit is clean, and a "
                          "second engine serving the requests one tick per "
-                         "dispatch emits the same tokens")
+                         "dispatch emits the same tokens; with "
+                         "--samples-per-slot > 1 also fork COW faults, "
+                         "shared refcounts > 1 and forks equal to their "
+                         "parents")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap
 
 
-def main(argv=None) -> None:
-    ap = build_parser()
-    args = ap.parse_args(argv)
+def _check_args(ap, args) -> None:
+    """The reference's refusals, and item 13's flags."""
+    if args.mesh or args.heads or args.kv_heads or args.expect_mesh_parity:
+        ap.error("--mesh, --heads, --kv-heads and --expect-mesh-parity "
+                 "belong to tensor-parallel serving, not ported yet "
+                 "(ROADMAP queue 1 item 13)")
     if args.temperature < 0:
         ap.error("--temperature must be >= 0")
     if not 0 < args.top_p <= 1:
         ap.error("--top-p must lie in (0, 1]")
     if args.ticks_per_dispatch < 1:
         ap.error("--ticks-per-dispatch must be >= 1")
+    if (args.arrival_rate or args.expect_stream_parity) and not args.stream:
+        ap.error("--arrival-rate/--expect-stream-parity require --stream")
+    if args.expect_stream_parity and args.temperature > 0:
+        ap.error("--expect-stream-parity needs --temperature 0: only "
+                 "greedy per-request logits are schedule-invariant")
+    if args.samples_per_slot > 1 and not args.stream:
+        ap.error("--samples-per-slot > 1 requires --stream (forks land "
+                 "through the orchestrator)")
     if args.expect_multi_tick and args.ticks_per_dispatch < 2:
         ap.error("--expect-multi-tick requires --ticks-per-dispatch > 1")
     if args.expect_multi_tick and args.temperature > 0:
         ap.error("--expect-multi-tick needs --temperature 0 for the "
                  "bit-exact per-tick parity replay")
+    if args.drift_probe and not args.stream:
+        ap.error("--drift-probe requires --stream (the probe fires from "
+                 "the orchestrator's finish hook)")
+    if args.expect_drift and not args.drift_probe:
+        ap.error("--expect-drift requires --drift-probe")
+    if args.expect_prefix_hits and not args.prefix_cache:
+        ap.error("--expect-prefix-hits requires --prefix-cache")
+
+
+def main(argv=None, params=None):
+    """Run the CLI on ``argv``; ``params`` are the weights to serve (random
+    from the config's seed when None).  Returns the finished requests."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    _check_args(ap, args)
     mcfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     tk = ThinKVConfig(refresh_interval=args.tau, group_size=args.group,
                       block_size=args.group, token_budget=args.budget,
@@ -123,10 +268,13 @@ def main(argv=None) -> None:
     pool_blocks = args.pool_blocks
     if args.pool_frac is not None:
         pool_blocks = max(int(worst_case * args.pool_frac), 1)
-    eng = ThinKVEngine(cfg, backend=args.backend, device=args.device,
-                       pool_blocks=pool_blocks,
+    eng = ThinKVEngine(cfg, params=params, backend=args.backend,
+                       device=args.device, pool_blocks=pool_blocks,
                        prefix_cache=args.prefix_cache,
-                       ticks_per_dispatch=args.ticks_per_dispatch)
+                       ticks_per_dispatch=args.ticks_per_dispatch,
+                       allow_forks=args.samples_per_slot > 1,
+                       policy=args.policy, drift_probe=args.drift_probe,
+                       record_logits=args.expect_stream_parity)
     rng = np.random.default_rng(0)
     shared_len = int(round(args.prompt_len * args.shared_prefix_frac))
     shared = rng.integers(0, mcfg.vocab_size, shared_len)
@@ -134,15 +282,51 @@ def main(argv=None) -> None:
         shared, rng.integers(0, mcfg.vocab_size,
                              args.prompt_len - shared_len)]).astype(np.int64)
         for _ in range(args.requests)]
-    eng.submit(prompts, max_new_tokens=args.max_new)
-    done = eng.run()
+    priorities = None
+    if args.priorities:
+        cycle = [int(x) for x in args.priorities.split(",")]
+        priorities = [cycle[i % len(cycle)] for i in range(args.requests)]
+    orch = streams = counts = None
+    if args.stream:
+        done, orch, counts, streams = _run_streamed(eng, args, prompts,
+                                                    priorities)
+    else:
+        eng.submit(prompts, max_new_tokens=args.max_new,
+                   priorities=priorities)
+        done = eng.run()
+    report(args, eng, done, worst_case, orch, counts)
+    ctx = dict(args=args, cfg=cfg, eng=eng, done=done, prompts=prompts,
+               priorities=priorities, pool_blocks=pool_blocks, orch=orch,
+               streams=streams)
+    for flag, gate in (("expect_all", all_gate),
+                       ("expect_preemptions", preemption_gate),
+                       ("expect_prefix_hits", prefix_gate),
+                       ("expect_stream_parity", stream_parity_gate),
+                       ("expect_drift", drift_gate),
+                       ("expect_multi_tick", multi_tick_gate)):
+        if getattr(args, flag):
+            gate(**ctx)
+    return done
+
+
+def report(args, eng, done, worst_case, orch, counts) -> None:
+    """The reference's report lines."""
     toks, wall = eng.metrics["tokens"], eng.metrics["wall_s"]
     fr = np.mean([r.stats["footprint_frac"] for r in done])
     bits = np.mean([r.stats["avg_bits"] for r in done])
-    print(f"served {len(done)} requests [policy=thinkv] | {toks} tokens in "
-          f"{wall:.1f}s ({toks / wall:.1f} tok/s {eng.device.type}, "
-          f"{eng.backend}) | mean footprint {fr * 100:.2f}% of FullKV | "
-          f"avg {bits:.2f} bits")
+    print(f"served {len(done)} requests [policy={args.policy}] | {toks} "
+          f"tokens in {wall:.1f}s ({toks / wall:.1f} tok/s "
+          f"{eng.device.type}, {eng.backend}) | mean footprint "
+          f"{fr * 100:.2f}% of FullKV | avg {bits:.2f} bits")
+    if args.drift_probe:
+        drifts = [r.stats["drift"] for r in done if "drift" in r.stats]
+        if drifts:
+            mx = max(d["max_abs"] for d in drifts)
+            mean = np.mean([d["mean_abs"] for d in drifts])
+            agree = np.mean([d["top1_agree"] for d in drifts])
+            print(f"drift probe: {len(drifts)} requests vs uncompressed "
+                  f"replay | max |dlogit| {mx:.4f} | mean |dlogit| "
+                  f"{mean:.4f} | top-1 agreement {agree * 100:.1f}%")
     m = eng.metrics
     print(f"pool {eng.num_pool_blocks}/{worst_case} blocks "
           f"({100.0 * eng.num_pool_blocks / worst_case:.0f}% of worst case)"
@@ -151,7 +335,7 @@ def main(argv=None) -> None:
           f"{m['queue_wait_ticks'] / max(m['admissions'], 1):.1f} ticks | "
           f"{m['ticks']} ticks | {m['prefill_chunks']} g-chunks + "
           f"{m['prefill_big_chunks']} big chunks")
-    if args.ticks_per_dispatch > 1:
+    if args.ticks_per_dispatch > 1 or args.samples_per_slot > 1:
         print(f"mega-dispatch: {m['dispatches']} dispatches for "
               f"{m['ticks']} ticks "
               f"({m['ticks'] / max(m['dispatches'], 1):.2f} ticks/dispatch"
@@ -161,6 +345,23 @@ def main(argv=None) -> None:
               f"{m['early_exit_headroom']} headroom | {m['forks']} "
               f"fork(s), {m['fork_cow_faults']} fork COW faults, peak "
               f"refcount {m['peak_refcount']}")
+    if orch is not None:
+        pct = orch.percentiles()
+        parts = [f"{label} p50 {pct[key]['p50'] * 1e3:.0f}ms / p99 "
+                 f"{pct[key]['p99'] * 1e3:.0f}ms"
+                 for key, label in (("ttft_s", "TTFT"), ("tpot_s", "TPOT"))
+                 if key in pct]
+        if "queue_wait_ticks" in pct:
+            parts.append(f"queue wait p50 "
+                         f"{pct['queue_wait_ticks']['p50']:.1f} / p99 "
+                         f"{pct['queue_wait_ticks']['p99']:.1f} ticks")
+        rate = f"{args.arrival_rate} req/tick" if args.arrival_rate \
+            else "all-at-once"
+        print(f"streamed ({rate} open-loop): {sum(counts.values())} tokens "
+              f"delivered over {len(counts)} streams | " + " | ".join(parts))
+        print(f"overlap: prefill-inside-decode="
+              f"{orch.prefill_overlaps_decode()} "
+              f"stream-inside-next-tick={orch.stream_overlaps_dispatch()}")
     if args.prefix_cache:
         pc = eng.prefix_cache.stats()
         print(f"prefix cache: {m['prefix_hits']} hits | "
@@ -173,15 +374,119 @@ def main(argv=None) -> None:
         raise SystemExit(f"pool refcount audit FAILED: {e}")
     print(f"pool refcount audit OK: every reference accounted, claimed + "
           f"free == pool_blocks ({audit['claimed'][:4]} claimed)")
-    if args.expect_multi_tick:
-        multi_tick_gate(args, cfg, eng, done, prompts, pool_blocks)
 
 
-def multi_tick_gate(args, cfg, eng, done, prompts, pool_blocks) -> None:
-    """The reference's ``--expect-multi-tick`` gate without its streamed
-    (fork) part: packs of more than one tick, an early pack exit, a clean
-    audit, and the tokens of a second engine serving the same requests one
-    tick per dispatch."""
+def all_gate(args, done, **_) -> None:
+    want = args.requests * max(args.samples_per_slot, 1)
+    short = [r for r in done if len(r.output) < args.max_new]
+    if len(done) != want or short:
+        raise SystemExit(f"oversubscription gate FAILED: {len(done)}/{want} "
+                         f"requests finished, {len(short)} with dropped "
+                         f"tokens")
+    print(f"oversubscription gate OK: {want}/{want} requests completed "
+          f"with zero dropped tokens")
+
+
+def preemption_gate(eng, **_) -> None:
+    m = eng.metrics
+    if m["preemptions"] < 1 or m["resumes"] != m["preemptions"]:
+        raise SystemExit(f"preemption gate FAILED: {m['preemptions']} "
+                         f"preemptions / {m['resumes']} resumes — the "
+                         f"oversubscribed run never exercised spill/resume "
+                         f"(or a victim was never restored)")
+    print(f"preemption gate OK: {m['preemptions']} preemption(s), every "
+          f"victim resumed")
+
+
+def prefix_gate(eng, **_) -> None:
+    m = eng.metrics
+    if m["prefix_hits"] < 1 or m["prefix_tokens_skipped"] <= 0:
+        raise SystemExit(f"prefix gate FAILED: {m['prefix_hits']} hits, "
+                         f"{m['prefix_tokens_skipped']} tokens skipped — "
+                         f"the shared-prefix run never reused a cached "
+                         f"prefix")
+    print(f"prefix gate OK: {m['prefix_hits']} hit(s), "
+          f"{m['prefix_tokens_skipped']} prefill tokens skipped")
+
+
+def _replay_engine(args, cfg, eng, pool_blocks, **kw) -> ThinKVEngine:
+    """A second engine with the first one's weights, backend, device,
+    pool and policy."""
+    return ThinKVEngine(cfg, params=eng.model, backend=eng.backend,
+                        device=eng.device, pool_blocks=pool_blocks,
+                        prefix_cache=args.prefix_cache, policy=args.policy,
+                        **kw)
+
+
+def stream_parity_gate(args, cfg, eng, done, prompts, priorities,
+                       pool_blocks, orch, **_) -> None:
+    """Greedy per-request logits are schedule-invariant: the streamed run
+    must reproduce a synchronous run's logits bit for bit."""
+    ref = _replay_engine(args, cfg, eng, pool_blocks, record_logits=True)
+    ref.submit([p.copy() for p in prompts], max_new_tokens=args.max_new,
+               priorities=priorities)
+    ref_done = ref.run()
+    mismatch = []
+    if len(done) != len(ref_done):
+        mismatch.append(f"completed {len(done)} vs {len(ref_done)}")
+    if set(eng.request_logits) != set(ref.request_logits):
+        mismatch.append("recorded-request sets differ")
+    out_by_uid = {r.uid: r.output for r in done}
+    mismatch += [s.uid for s in ref_done if out_by_uid.get(s.uid) != s.output]
+    logit_steps = bad_steps = 0
+    for key in set(eng.request_logits) & set(ref.request_logits):
+        seq, ref_seq = eng.request_logits[key], ref.request_logits[key]
+        if len(seq) != len(ref_seq):
+            mismatch.append(f"arrival{key}:steps")
+            continue
+        for a, b in zip(seq, ref_seq):
+            logit_steps += 1
+            if a.shape != b.shape or not (a == b).all():
+                bad_steps += 1
+    try:
+        eng.audit_pool()
+        ref.audit_pool()
+    except AssertionError as e:
+        raise SystemExit(f"stream-parity gate FAILED: pool audit: {e}")
+    if mismatch or bad_steps:
+        raise SystemExit(f"stream-parity gate FAILED: mismatches {mismatch}, "
+                         f"{bad_steps}/{logit_steps} non-bit-identical logit "
+                         f"steps between the streamed orchestrator and the "
+                         f"synchronous run() path")
+    if not orch.prefill_overlaps_decode():
+        raise SystemExit("stream-parity gate FAILED: the metrics log shows "
+                         "no prefill overlapping a running request's decode")
+    print(f"stream-parity gate OK: {len(done)} requests, {logit_steps} logit "
+          f"steps bit-identical between the streamed orchestrator and the "
+          f"synchronous run() path; prefill/decode overlap observed; both "
+          f"audits clean")
+
+
+def drift_gate(eng, done, orch, **_) -> None:
+    drifts = [r.stats.get("drift") for r in done]
+    missing = sum(1 for d in drifts if d is None)
+    bad = [d for d in drifts if d is not None and
+           not (np.isfinite(d["max_abs"]) and np.isfinite(d["mean_abs"])
+                and d["steps"] > 0)]
+    events = sum(1 for e in orch.events if e["kind"] == "drift")
+    if missing or bad or eng.metrics["drift_probes"] != len(done) or \
+            events != len(done):
+        raise SystemExit(f"drift gate FAILED: {missing} request(s) without "
+                         f"drift stats, {len(bad)} with non-finite/empty "
+                         f"stats, {eng.metrics['drift_probes']} probes and "
+                         f"{events} drift events for {len(done)} requests")
+    agree = np.mean([d["top1_agree"] for d in drifts])
+    print(f"drift gate OK: {len(done)}/{len(done)} requests probed against "
+          f"the uncompressed replay, all stats finite, top-1 agreement "
+          f"{agree * 100:.1f}%")
+
+
+def multi_tick_gate(args, cfg, eng, done, prompts, priorities, pool_blocks,
+                    streams, **_) -> None:
+    """Packs of more than one tick, an early pack exit, a clean audit, and
+    the tokens of a second engine serving the same requests one tick per
+    dispatch (streamed when the run was, with its forks); with forks also
+    fork COW faults, refcounts above 1 and forks equal to their parents."""
     m = eng.metrics
     fails = []
     mean_tpd = m["ticks"] / max(m["dispatches"], 1)
@@ -192,27 +497,55 @@ def multi_tick_gate(args, cfg, eng, done, prompts, pool_blocks) -> None:
     if m["early_exit_finish"] + m["early_exit_headroom"] < 1:
         fails.append("no early pack exit observed (finish or headroom) — "
                      "the trace never hit a scheduling event mid-pack")
+    if args.samples_per_slot > 1:
+        if m["forks"] < 1:
+            fails.append("no COW fork ever landed")
+        if m["peak_refcount"] < 2:
+            fails.append("shared-prefix refcounts never exceeded 1")
+        if m["fork_cow_faults"] < 1:
+            fails.append("no COW fault on a forked slot — divergence never "
+                         "paid the copy (lengthen --max-new past --budget)")
+        diverged = sum(1 for parent in streams for child in parent.forks
+                       if child.request.output != parent.request.output)
+        if diverged:
+            fails.append(f"{diverged} greedy fork(s) diverged from their "
+                         f"parent's tokens")
     try:
         eng.audit_pool()
     except AssertionError as e:
         fails.append(f"pool audit: {e}")
-    ref = ThinKVEngine(cfg, params=eng.model, backend=eng.backend,
-                       device=eng.device, pool_blocks=pool_blocks,
-                       prefix_cache=args.prefix_cache)
-    ref.submit([p.copy() for p in prompts], max_new_tokens=args.max_new)
-    if {r.uid: r.output for r in done} != \
-            {r.uid: r.output for r in ref.run()}:
-        fails.append("outputs differ from the per-tick replay")
+    ref = _replay_engine(args, cfg, eng, pool_blocks,
+                         allow_forks=args.samples_per_slot > 1)
+    if args.stream:
+        _, _, _, ref_streams = _run_streamed(
+            ref, args, [p.copy() for p in prompts], priorities)
+        bad = sum(1 for a, b in zip(streams, ref_streams)
+                  for x, y in zip((a, *a.forks), (b, *b.forks))
+                  if x.request.output != y.request.output)
+        if bad:
+            fails.append(f"{bad} stream(s) not bit-identical to the "
+                         f"per-tick replay")
+    else:
+        ref.submit([p.copy() for p in prompts], max_new_tokens=args.max_new,
+                   priorities=priorities)
+        if {r.uid: r.output for r in done} != \
+                {r.uid: r.output for r in ref.run()}:
+            fails.append("outputs differ from the per-tick replay")
     try:
         ref.audit_pool()
     except AssertionError as e:
         fails.append(f"per-tick replay pool audit: {e}")
     if fails:
         raise SystemExit("multi-tick gate FAILED: " + "; ".join(fails))
+    forked = (f", {m['forks']} fork(s) sharing prefix blocks (peak refcount "
+              f"{m['peak_refcount']}, {m['fork_cow_faults']} fork COW "
+              f"faults, every fork token-identical to its parent)"
+              if args.samples_per_slot > 1 else "")
     print(f"multi-tick gate OK: {m['dispatches']} dispatches for "
           f"{m['ticks']} ticks ({mean_tpd:.2f} ticks/dispatch), "
           f"{m['early_exit_finish'] + m['early_exit_headroom']} early "
-          f"exit(s), bit-identical to the per-tick loop, both audits clean")
+          f"exit(s), bit-identical to the per-tick loop, both audits "
+          f"clean{forked}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
 """Decoder-only dense transformer LM (ports ``repro/models/lm.py``: the
-parameter shapes of ``init`` and the dense teacher-forced forward).
+parameter shapes of ``init``, ``assemble_inputs`` / ``backbone`` and the
+teacher-forced forward, and the FullKV serving paths ``prefill`` and
+``decode_step_fullkv``).
 
 Weights stay in the reference's layout so that converting a JAX parameter
 tree is a copy: ``x @ W`` with W of shape ``[in, out]``, and every layer
@@ -81,26 +83,47 @@ class LM(nn.Module):
             out.setdefault(group, {})[key] = getattr(self, name)[i]
         return out
 
+    def unembed(self, h: torch.Tensor) -> torch.Tensor:
+        """Logits of final hidden states h [..., D] (softcapped)."""
+        return softcap(E.unembed(self.embed_params, h, self.cfg),
+                       self.cfg.logit_softcap)
+
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Teacher-forced logits [B, S, V] of tokens [B, S] (the
         reference's ``logits_fn`` for the dense family)."""
-        cfg = self.cfg
-        h = E.embed(self.embed_params, tokens, cfg)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        for i in range(cfg.num_layers):
-            lp = self.layer(i)
-            x1 = rmsnorm(lp["norm1"], h, cfg.norm_eps)
-            q, k, v = A._project_qkv(lp["attn"], x1, cfg)
-            q, k = A.rope_qk(q, k, positions, cfg)
-            o = A.dense_attention(q, k, v, causal=True,
-                                  window=cfg.sliding_window)
-            h = h + A.out_proj(lp["attn"], o)
-            x2 = rmsnorm(lp["norm2"], h, cfg.norm_eps)
-            h = h + mlp(lp["mlp"], x2, cfg.act, cfg.mlp_gated)
-        h = rmsnorm({"scale": self.final_norm}, h, cfg.norm_eps)
-        return softcap(E.unembed(self.embed_params, h, cfg),
-                       cfg.logit_softcap)
+        h, positions = assemble_inputs(self, {"tokens": tokens}, self.cfg)
+        return self.unembed(backbone(self, h, self.cfg, positions)[0])
+
+
+def assemble_inputs(params: LM, batch: dict, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Embedded tokens h [B, S, D] and positions [1, S]."""
+    tokens = batch["tokens"]
+    h = E.embed(params.embed_params, tokens, cfg)
+    return h, torch.arange(tokens.shape[1], device=tokens.device)[None]
+
+
+def mlp_residual(lp: dict, h: torch.Tensor, cfg: ModelConfig):
+    x2 = rmsnorm(lp["norm2"], h, cfg.norm_eps)
+    return h + mlp(lp["mlp"], x2, cfg.act, cfg.mlp_gated)
+
+
+@torch.no_grad()
+def backbone(params: LM, h: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder block over hidden states h [B, S, D], then the final
+    norm; returns (h, the MoE auxiliary loss: 0 for the dense family)."""
+    for i in range(cfg.num_layers):
+        lp = params.layer(i)
+        x1 = rmsnorm(lp["norm1"], h, cfg.norm_eps)
+        q, k, v = A._project_qkv(lp["attn"], x1, cfg)
+        q, k = A.rope_qk(q, k, positions, cfg)
+        o = A.full_attention(q, k, v, causal=True,
+                             window=cfg.sliding_window)
+        h = mlp_residual(lp, h + A.out_proj(lp["attn"], o), cfg)
+    return rmsnorm({"scale": params.final_norm}, h, cfg.norm_eps), \
+        h.new_zeros(())
 
 
 def logits_fn(params: LM, batch: dict, cfg: ModelConfig
@@ -109,6 +132,52 @@ def logits_fn(params: LM, batch: dict, cfg: ModelConfig
     auxiliary loss (0: no MoE), the reference's ``logits_fn`` interface."""
     logits = params(batch["tokens"])
     return logits, logits.new_zeros(())
+
+
+@torch.no_grad()
+def prefill(params: LM, batch: dict, cfg: ModelConfig):
+    """FullKV prefill: (last-token logits [B, V], k_cache, v_cache
+    [L, B, S, Hkv, hd] post-RoPE) of ``batch["tokens"]`` [B, S]."""
+    h, positions = assemble_inputs(params, batch, cfg)
+    kc, vc = [], []
+    for i in range(cfg.num_layers):
+        lp = params.layer(i)
+        x1 = rmsnorm(lp["norm1"], h, cfg.norm_eps)
+        a, k, v = A.attn_prefill_with_cache(lp["attn"], x1, cfg, positions)
+        h = mlp_residual(lp, h + a, cfg)
+        kc.append(k)
+        vc.append(v)
+    h = rmsnorm({"scale": params.final_norm}, h[:, -1], cfg.norm_eps)
+    return params.unembed(h), torch.stack(kc), torch.stack(vc)
+
+
+@torch.no_grad()
+def decode_step_fullkv(params: LM, token: torch.Tensor, pos: torch.Tensor,
+                       k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       cache_len: torch.Tensor, cfg: ModelConfig):
+    """FullKV decode step, batched over requests where the reference
+    ``vmap``s its single-request form: token, pos, cache_len [B];
+    k_cache/v_cache [B, L, T, Hkv, hd].  The new row is written at
+    ``cache_len`` (clamped to T - 1, as ``dynamic_update_index_in_dim``
+    clamps) in the cache's dtype (the reference requires the two equal),
+    then attended with ``cache_len + 1`` rows.  Returns (logits [B, V],
+    new k_cache, new v_cache)."""
+    b = token.shape[0]
+    rows = torch.arange(b, device=token.device)
+    at = cache_len.long().clamp(0, k_cache.shape[2] - 1)
+    h = E.embed(params.embed_params, token, cfg)
+    kc, vc = k_cache.clone(), v_cache.clone()
+    for i in range(cfg.num_layers):
+        lp = params.layer(i)
+        x1 = rmsnorm(lp["norm1"], h, cfg.norm_eps)
+        q, k, v = A.qkv_decode(lp["attn"], x1, cfg, pos)
+        kc[rows, i, at] = k.to(kc.dtype)
+        vc[rows, i, at] = v.to(vc.dtype)
+        o = A.decode_attend_fullkv(q, kc[:, i], vc[:, i], cache_len + 1,
+                                   window=cfg.sliding_window)
+        h = mlp_residual(lp, h + A.out_proj(lp["attn"], o), cfg)
+    h = rmsnorm({"scale": params.final_norm}, h, cfg.norm_eps)
+    return params.unembed(h), kc, vc
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,

@@ -70,9 +70,14 @@ sparsity probe runs only on ticks where some slot refreshes.  The pool's
 host accounting reads the refcounts back once per pass, and not at all
 while no block can be shared, as the reference does.
 
+Retention policies (``core/policy.py``: ``thinkv``, ``rkv``,
+``uniform``) are strategy objects the cache calls; ``policy=`` reaches
+every commit, anneal and eviction.  The logit-drift probe
+(``drift_probe=True``, which records logits) replays each finished request
+through the uncompressed dense forward and compares (``measure_drift``).
+
 Not in this slice (each raises NotImplementedError naming the ROADMAP
-item): tensor parallelism, the drift probe, other retention policies,
-MoE/VLM families.
+item): tensor parallelism, MoE/VLM families.
 """
 from __future__ import annotations
 
@@ -98,6 +103,7 @@ from repro_torch.layers import embedding as E
 from repro_torch.layers.common import softcap
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import rmsnorm
+from repro_torch.models import lm
 from repro_torch.models.lm import LM, init_params
 from repro_torch.serving import prng
 from repro_torch.serving import sampling as SMP
@@ -105,6 +111,8 @@ from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import Request, Scheduler
 
 NEG_INF = -1e30
+# the drift probe pads prompt + output to a multiple of this length
+DRIFT_PAD = 32
 
 
 def _not_ported(what: str, item: str):
@@ -317,8 +325,6 @@ class ThinKVEngine:
             raise ValueError(f"ticks_per_dispatch {ticks_per_dispatch} < 1")
         if mesh is not None:
             _not_ported("tensor-parallel serving", "13")
-        if drift_probe:
-            _not_ported("the drift probe", "12")
         if cfg.thinkv.refresh_interval % cfg.thinkv.group_size:
             raise ValueError("chunked prefill needs tau % g == 0")
         self.device = resolve_device(device)
@@ -358,7 +364,10 @@ class ThinKVEngine:
             raise ValueError("large prefill chunks must be 128-multiples "
                              "aligned with commits")
         self.prefill_chunk = prefill_chunk
-        self.record_logits = record_logits
+        # the drift probe compares against the logits the serving path
+        # recorded, so it records them
+        self.drift_probe = bool(drift_probe)
+        self.record_logits = record_logits or self.drift_probe
         self.request_logits: Dict[int, List[np.ndarray]] = {}
         self.metrics: Dict[str, float] = {
             "ticks": 0, "tokens": 0, "dispatches": 0, "prefill_tokens": 0,
@@ -368,7 +377,8 @@ class ThinKVEngine:
             "prefix_tokens_skipped": 0, "cow_faults": 0, "forks": 0,
             "fork_cow_faults": 0, "peak_refcount": 0,
             "early_exit_finish": 0, "early_exit_headroom": 0,
-            "cancellations": 0, "commits": 0, "spill_bytes": 0,
+            "cancellations": 0, "drift_probes": 0, "drift_max_abs": 0.0,
+            "commits": 0, "spill_bytes": 0,
             "spill_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0}
         # no block can be shared without the prefix cache or forks: the
         # COW compare runs only with one of them
@@ -1277,6 +1287,64 @@ class ThinKVEngine:
         orch = Orchestrator(self)
         self.last_orchestrator = orch
         return orch.run_sync(max_ticks=max_ticks)
+
+    # ------------------------------------------------------------------
+    # logit-drift probe (quality telemetry)
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _drift_probe(self, tokens: torch.Tensor, rows: slice
+                     ) -> torch.Tensor:
+        """The uncompressed reference forward of the drift probe: the dense
+        teacher-forced pass (no ThinKV cache, no quantization, no eviction)
+        over tokens [1, S], the logits of positions ``rows`` only.  It is
+        the prefill step's dense path (``models/lm.py``: assemble_inputs,
+        backbone, unembed); causal attention makes a right-padded tail
+        harmless."""
+        h, positions = lm.assemble_inputs(self.model, {"tokens": tokens},
+                                          self.mcfg)
+        h, _ = lm.backbone(self.model, h, self.mcfg, positions)
+        return self.model.unembed(h[0, rows])
+
+    def measure_drift(self, prompt: np.ndarray, output: Sequence[int],
+                      recorded: Sequence[np.ndarray]) -> Dict[str, float]:
+        """A finished request's recorded serving logits (one [V] array per
+        emitted token) against the dense replay of the same tokens
+        (``prompt + output[:-1]``, right-padded to a multiple of
+        ``DRIFT_PAD``): ``recorded[i]`` predicted ``output[i]`` from the
+        compressed cache, the replay's position ``len(prompt) - 1 + i``
+        from the full-precision context.  Returns ``steps``, ``max_abs``,
+        ``mean_abs`` (the mean over steps of each step's mean |difference|)
+        and ``top1_agree`` (the share of steps whose argmaxes agree)."""
+        if not self.drift_probe:
+            raise RuntimeError("engine built without drift_probe=True")
+        p = int(len(prompt))
+        toks = np.concatenate([np.asarray(prompt, np.int64),
+                               np.asarray(list(output), np.int64)])
+        n = len(toks) - 1 if len(output) else len(toks)
+        pad = -(-max(n, 1) // DRIFT_PAD) * DRIFT_PAD
+        buf = np.zeros((1, pad), np.int64)
+        buf[0, :n] = toks[:n]
+        steps = min(len(output), len(recorded))
+        ref = self._drift_probe(torch.as_tensor(buf, device=self.device),
+                                slice(p - 1, p - 1 + steps))
+        ref = ref.float().cpu().numpy()
+        max_abs = mean_abs = 0.0
+        top1 = 0
+        for i in range(steps):
+            got = np.asarray(recorded[i], np.float32).reshape(-1)
+            want = ref[i]
+            d = np.abs(got - want)
+            max_abs = max(max_abs, float(d.max()))
+            mean_abs += float(d.mean())
+            top1 += int(np.argmax(got) == np.argmax(want))
+        out = {"steps": steps, "max_abs": max_abs,
+               "mean_abs": mean_abs / max(steps, 1),
+               "top1_agree": top1 / max(steps, 1)}
+        self.metrics["drift_probes"] += 1
+        self.metrics["drift_max_abs"] = max(self.metrics["drift_max_abs"],
+                                            max_abs)
+        return out
 
     def slot_stats(self, i: int) -> Dict:
         comp = TV.compression_ratio(self.tk, self.dims, self.caches.slot(i),

@@ -39,6 +39,10 @@ queued or preempted request leaves the queue and ``drop_spill`` releases
 the shared references its spill kept — and ``audit_pool`` runs after
 every teardown.
 
+Drift: with an engine built with ``drift_probe=True``, a finished
+request's stats gain ``drift`` (``engine.measure_drift``) and the log a
+``"drift"`` event.
+
 Pacing: ``schedule_arrival(after_tick=...)`` injects requests in tick space
 (reproducible); ``submit`` may be called from any task (wall-clock
 arrivals).  An idle loop waits on an arrival event.
@@ -494,6 +498,14 @@ class Orchestrator:
         if done:
             req.stats = eng.slot_stats(slot.idx)
             req.stats["preemptions"] = req.preemptions
+            if eng.drift_probe:
+                # quality telemetry: the finished request's recorded
+                # logits against the uncompressed dense replay
+                drift = eng.measure_drift(
+                    req.prompt, req.output,
+                    eng.request_logits.get(req.arrival, []))
+                req.stats["drift"] = drift
+                self._log("drift", arrival=req.arrival, tick=tick, **drift)
             eng.scheduler.retire(slot)
             eng.free_resource(slot.idx)
             self._log("finish", arrival=req.arrival, tick=tick)

@@ -1,71 +1,228 @@
-"""Serving steps (ports ``repro/serving/serve_step.py``, its SSM branches).
+"""Serving steps (ports ``repro/serving/serve_step.py``: its dense and SSM
+branches).
 
-Each maker returns a function of ``(params, batch)``, as in the reference:
+Each maker returns a function of ``(params, batch)`` with the reference's
+batch keys and shapes (``repro/models/factory.py::input_specs``):
 
-* ``make_prefill_step``: the full forward over the prompts, last-token
-  logits ``[B, V]``; every layer's selective scan is one K5 launch for the
-  whole batch (``kernels.ops.mamba_scan``);
-* ``make_decode_step_fullkv``: ONE new token per request against the
-  per-layer (conv window, SSM state), batch keys ``tokens [B]``,
-  ``conv_state [B, L, W, di]`` and ``ssm_state [B, L, di, N]``, returning
-  ``(logits, conv, h)``;
-* ``make_decode_step_thinkv``: for the attention-free SSM family it is the
-  fullkv step (ThinKV has no KV cache to compress there).
+* ``make_prefill_step``: the full forward over the prompts ``tokens
+  [B, S]``, last-token logits ``[B, V]`` (only the last row is
+  unembedded).  For the SSM family every layer's selective scan is one K5
+  launch for the whole batch (``kernels.ops.mamba_scan``);
+* ``make_decode_step_fullkv``: ONE new token per request against an
+  explicit cache.  Dense: ``tokens [B]``, ``positions [B]``,
+  ``k_cache`` / ``v_cache [B, L, T, Hkv, hd]``, ``cache_len [B]`` ->
+  ``(logits, k_cache, v_cache)``.  SSM: ``conv_state [B, L, W, di]`` and
+  ``ssm_state [B, L, di, N]`` -> ``(logits, conv, h)``;
+* ``make_decode_step_thinkv``: one token per request against each
+  request's CT pool in paged layout (``k_codes`` / ``v_codes`` uint8
+  ``[B, L, NB, BS, Hkv, hd]``, ``k_scales`` / ``v_scales`` bf16
+  ``[B, L, NB, BS, Hkv, hd / 16]``, ``slot_state`` / ``slot_bits`` uint8
+  ``[B, L, NS]``) and its bf16 TBQ buffer (``buf_k`` / ``buf_v
+  [B, L, G, Hkv, hd]``, ``buf_len [B]``).  The new token's k/v are
+  written into the buffer at ``buf_len``, the pool and the buffer are
+  attended with ``buf_len + 1`` rows, and the step returns ``(logits,
+  buf_k, buf_v, buf_len + 1)``; commit and refresh are separate steps.
+  ``backend="reference"`` dequantizes the pool densely in the reference's
+  numerics (bf16 dequantized operands, f32 accumulation, pool and buffer
+  attended apart and merged by their flash stats); ``backend="kernel"``
+  reads pool and buffer with ONE K1 launch per layer for the whole batch
+  (``ops.paged_decode_attention_fused`` at L 1, R B).  For the SSM family
+  (attention-free) it is the FullKV step.
 
-The other families' branches are not ported: the dense ThinKV and FullKV
-decode steps belong to ROADMAP queue 1 item 12, the MoE, VLM,
-encoder-decoder and hybrid families to item 15; each raises
-NotImplementedError naming its item.  The reference jits these steps; the
-port runs them eagerly.
+The MoE, VLM, encoder-decoder and hybrid families raise
+NotImplementedError (ROADMAP queue 1 item 15).  Not ported: the
+reference's ``REPRO_F32_DEQUANT`` and ``REPRO_CONCAT_BUF`` toggles of the
+reference backend, which measured a GSPMD rematerialisation of the pool
+under XLA and have no PyTorch meaning.  The reference jits these steps;
+the port runs them eagerly.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
+import torch
+
 from repro_torch.config import ArchFamily, ModelConfig, ThinKVConfig
+from repro_torch.core import quantization as Q
+from repro_torch.kernels import ops as K
+from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import ssm as S
-from repro_torch.models import ssm_lm
+from repro_torch.layers.norms import rmsnorm
+from repro_torch.models import lm, ssm_lm
+
+NEG_INF = -1e30
+_FAMILIES = (ArchFamily.DENSE, ArchFamily.SSM)
 
 
-def _not_ported(cfg: ModelConfig, step: str):
-    item = "12" if cfg.family == ArchFamily.DENSE else "15"
-    raise NotImplementedError(
-        f"serve_step's {step} for the {cfg.family.value} family is not "
-        f"ported yet (ROADMAP queue 1 item {item})")
+def _check_family(cfg: ModelConfig, step: str) -> None:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"serve_step's {step} for the {cfg.family.value} family is not "
+            f"ported yet (ROADMAP queue 1 item 15)")
 
 
 def make_prefill_step(model, cfg: ModelConfig) -> Callable:
     """(params, batch) -> last-token logits [B, V]; ``batch["tokens"]``
     [B, S].  ``model`` is the factory's ``Model`` (unused, as in the
     reference)."""
-    if cfg.family != ArchFamily.SSM:
-        _not_ported(cfg, "prefill step")
+    _check_family(cfg, "prefill step")
+    if cfg.family == ArchFamily.SSM:
+        def step(params, batch):
+            h = ssm_lm.hidden_fn(params, batch, cfg)
+            return E.unembed(params.embed_params, h[:, -1], cfg)
+        return step
 
+    @torch.no_grad()
     def step(params, batch):
-        h = ssm_lm.hidden_fn(params, batch, cfg)
-        return E.unembed(params.embed_params, h[:, -1], cfg)
+        h, positions = lm.assemble_inputs(params, batch, cfg)
+        h, _ = lm.backbone(params, h, cfg, positions)
+        return params.unembed(h[:, -1])
     return step
 
 
 def make_decode_step_fullkv(cfg: ModelConfig) -> Callable:
-    """(params, batch) -> (logits [B, V], conv_state, ssm_state) for the
-    batch keys ``tokens``, ``conv_state`` and ``ssm_state``."""
-    if cfg.family != ArchFamily.SSM:
-        _not_ported(cfg, "FullKV decode step")
+    """(params, batch) -> (logits [B, V], k_cache, v_cache) for the dense
+    family, (logits, conv_state, ssm_state) for the SSM family."""
+    _check_family(cfg, "FullKV decode step")
+    if cfg.family == ArchFamily.SSM:
+        def step(params, batch):
+            lg, new = ssm_lm.decode_step(
+                params, batch["tokens"],
+                S.Mamba1State(batch["conv_state"], batch["ssm_state"]), cfg)
+            return lg, new.conv, new.h
+        return step
 
     def step(params, batch):
-        lg, new = ssm_lm.decode_step(
-            params, batch["tokens"],
-            S.Mamba1State(batch["conv_state"], batch["ssm_state"]), cfg)
-        return lg, new.conv, new.h
+        return lm.decode_step_fullkv(
+            params, batch["tokens"], batch["positions"], batch["k_cache"],
+            batch["v_cache"], batch["cache_len"], cfg)
     return step
 
 
-def make_decode_step_thinkv(cfg: ModelConfig, tk: ThinKVConfig) -> Callable:
-    """The ThinKV decode step; the SSM family is attention-free, so it is
-    the fullkv step, as in the reference (whose ``backend`` option chooses
-    the dense family's pool read, item 12)."""
-    if cfg.family != ArchFamily.SSM:
-        _not_ported(cfg, "ThinKV decode step")
-    return make_decode_step_fullkv(cfg)
+# ---------------------------------------------------------------------------
+# ThinKV decode: the pool read of one layer, for every request
+# ---------------------------------------------------------------------------
+
+def _flash_part(q, k, v, valid):
+    """Flash-stats attention over one partition, batched over requests:
+    q [B, Hq, hd] and k/v [B, N, H, hd] hold bf16 values, valid [B, N].
+    Products of bf16 values accumulate in f32 (the reference's
+    ``preferred_element_type``); the normalised probabilities are rounded
+    to bf16 before the value product, as the reference rounds them.
+    Returns (out [B, H, GQ, hd], m, l [B, H, GQ, 1]) f32."""
+    b, hq, hd = q.shape
+    h = k.shape[2]
+    qh = q.reshape(b, h, hq // h, hd).float()
+    s = torch.einsum("bhgd,bnhd->bhgn", qh, k.float()) / math.sqrt(hd)
+    mask = valid[:, None, None]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    p = (p / l.clamp_min(1e-30)).to(torch.bfloat16).float()
+    out = torch.einsum("bhgn,bnhd->bhgd", p, v.float())
+    return out, m, l
+
+
+def _merge_parts(a, b):
+    (oa, ma, la), (ob, mb, lb) = a, b
+    m = torch.maximum(ma, mb)
+    ca, cb = torch.exp(ma - m), torch.exp(mb - m)
+    l = (la * ca + lb * cb).clamp_min(1e-30)
+    out = oa * (la * ca / l) + ob * (lb * cb / l)
+    return out.reshape(out.shape[0], -1, out.shape[-1])
+
+
+def _pool_attention(q, batch, l: int, bk, bv, n_buf):
+    """The reference backend's read of layer ``l``: every request's pool
+    dequantized densely to bf16, attended apart from its buffer (bk/bv
+    [B, G, H, hd] with ``n_buf`` [B] rows) and merged by the flash stats.
+    q [B, Hq, hd] -> [B, Hq, hd] in q's dtype."""
+    b = q.shape[0]
+
+    def flat(name):
+        a = batch[name][:, l]
+        return a.reshape(b, -1, *a.shape[3:])
+    bits = batch["slot_bits"][:, l].to(torch.int32)[..., None, None]
+    kd, vd = (Q.dequantize_by_bitcode(flat(c), flat(s).float(), bits)
+              .to(torch.bfloat16)
+              for c, s in (("k_codes", "k_scales"), ("v_codes", "v_scales")))
+    qb = q.to(torch.bfloat16)
+    g = bk.shape[1]
+    part_p = _flash_part(qb, kd, vd, batch["slot_state"][:, l] == 1)
+    part_b = _flash_part(qb, bk.to(torch.bfloat16), bv.to(torch.bfloat16),
+                         torch.arange(g, device=q.device)[None]
+                         < n_buf[:, None])
+    return _merge_parts(part_p, part_b).to(q.dtype)
+
+
+def _pool_attention_kernel(q, batch, l: int, bk, bv, n_buf):
+    """The kernel backend's read of layer ``l``: ONE K1 launch for every
+    request (the reference ``vmap``s one launch per request).  The batch's
+    code and scale planes, contiguous [B, L, NB, BS, ...], are one pool of
+    B·L·NB blocks as they lie, and request r's table row maps its logical
+    block j to (r·L + l)·NB + j, so no plane is copied; only the layer's
+    slot planes (2·B·NS bytes) are made contiguous as K1's [1, B, NB, BS]
+    metadata.  q [B, Hq, hd] -> [B, Hq, hd] in q's dtype."""
+    kc, ks = batch["k_codes"], batch["k_scales"]
+    b, n_layers, nb, bs, h, hd = kc.shape
+    hq = q.shape[1]
+    dev = q.device
+
+    def pool(a):
+        return a.reshape(1, b * n_layers * nb, bs, h, a.shape[-1])
+
+    def meta(name):
+        return batch[name][:, l].reshape(1, b, nb, bs).contiguous()
+    table = ((torch.arange(b, device=dev)[:, None] * n_layers + l) * nb
+             + torch.arange(nb, device=dev)[None]).to(torch.int32)
+    out = K.paged_decode_attention_fused(
+        q.reshape(1, b, h, hq // h, hd).float().contiguous(),
+        pool(kc), pool(batch["v_codes"]), pool(ks), pool(batch["v_scales"]),
+        meta("slot_state"), meta("slot_bits"), table[:, None],
+        bk[None], bv[None], n_buf.to(torch.int32), group=Q.GROUP)
+    return out.reshape(b, hq, hd).to(q.dtype)
+
+
+_POOL_READS = {"reference": _pool_attention,
+               "kernel": _pool_attention_kernel}
+
+
+def make_decode_step_thinkv(cfg: ModelConfig, tk: ThinKVConfig, *,
+                            backend: str = "reference") -> Callable:
+    """(params, batch) -> (logits [B, V], buf_k, buf_v, buf_len + 1) for the
+    dense family (batch keys in the module docstring); the FullKV step for
+    the attention-free SSM family."""
+    _check_family(cfg, "ThinKV decode step")
+    if backend not in _POOL_READS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if cfg.family == ArchFamily.SSM:
+        return make_decode_step_fullkv(cfg)
+    pool_read = _POOL_READS[backend]
+
+    @torch.no_grad()
+    def step(params, batch):
+        batch = {k: v.contiguous() for k, v in batch.items()}
+        token, pos, buf_len = batch["tokens"], batch["positions"], \
+            batch["buf_len"]
+        buf_k, buf_v = batch["buf_k"].clone(), batch["buf_v"].clone()
+        b, g = buf_k.shape[0], buf_k.shape[2]
+        rows = torch.arange(b, device=token.device)
+        # dynamic_update_index_in_dim clamps the row into the buffer
+        at = buf_len.long().clamp(0, g - 1)
+        n_buf = buf_len + 1
+        h = E.embed(params.embed_params, token, cfg)
+        for i in range(cfg.num_layers):
+            lp = params.layer(i)
+            x1 = rmsnorm(lp["norm1"], h, cfg.norm_eps)
+            q, k, v = A.qkv_decode(lp["attn"], x1, cfg, pos)
+            buf_k[rows, i, at] = k.to(buf_k.dtype)
+            buf_v[rows, i, at] = v.to(buf_v.dtype)
+            o = pool_read(q, batch, i, buf_k[:, i].contiguous(),
+                          buf_v[:, i].contiguous(), n_buf)
+            h = lm.mlp_residual(lp, h + A.out_proj(lp["attn"], o), cfg)
+        h = rmsnorm({"scale": params.final_norm}, h, cfg.norm_eps)
+        return params.unembed(h), buf_k, buf_v, n_buf
+    return step

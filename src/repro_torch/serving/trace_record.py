@@ -2,9 +2,7 @@
 the record.
 
 A record is a numpy archive written from the JAX package's engine
-(``tests/golden/torch_flash_trace.npz``,
-``tests/golden/torch_pressure_trace.npz`` and
-``tests/golden/torch_sampled_trace.npz``, by
+(``tests/golden/torch_{flash,pressure,sampled,rkv,uniform}_trace.npz``, by
 ``tests/test_torch_trace_fixture.py``): the model's parameters, the trace's
 settings and prompts, and what the reference engine gave (tokens and
 logits per request, engine counters, the pool audit).  Reading it takes
@@ -16,13 +14,16 @@ live JAX record.  Archive keys:
   ``max_new``, ``priorities``; optionally ``pool_blocks`` (default
   ``slots * NB``), ``prefix_cache`` (default false), ``temperature``
   (default 0, greedy), ``top_p`` (default 1), ``ticks_per_dispatch``
-  (default 1) and ``prompt_recipe`` (how the prompts were drawn: seed,
-  vocab, lengths, which requests share a prefix of which length; the
-  prompts themselves are stored);
+  (default 1), ``policy`` (default ``"thinkv"``), ``drift_probe``
+  (default false) and ``prompt_recipe`` (how the prompts were drawn:
+  seed, vocab, lengths, which requests share a prefix of which length;
+  the prompts themselves are stored);
 * ``record``: JSON — ``counters`` (engine metrics by name), ``audit``
   (``audit_pool()``); a sampled record also ``min_margin``, the smallest
   gap between the best and the second-best perturbed score over every
-  draw of the run (how far the logits may move before a draw flips);
+  draw of the run (how far the logits may move before a draw flips); a
+  record with the drift probe on also ``drift``, each request's
+  ``measure_drift`` result by arrival stamp;
 * ``prompt_<i>`` (int64), ``tokens_<arrival>`` (int64), ``logits_<arrival>``
   ([max_new, vocab] f32);
 * ``param/<path>``: the parameter tree's leaves, ``/``-joined paths.
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -77,7 +79,8 @@ def load(path) -> dict:
             "tokens": {a: arrays[f"tokens_{a}"].tolist() for a in arrivals},
             "logits": {a: arrays[f"logits_{a}"] for a in arrivals},
             "counters": record["counters"], "audit": record["audit"],
-            "min_margin": record.get("min_margin")}
+            "min_margin": record.get("min_margin"),
+            "drift": {int(a): d for a, d in record.get("drift", {}).items()}}
 
 
 def serve_config(rec: dict) -> ServeConfig:
@@ -113,7 +116,9 @@ def replay(rec: dict, backend: str, device, params=None
     eng = ThinKVEngine(cfg, params=params, backend=backend, device=device,
                        record_logits=True, pool_blocks=s.get("pool_blocks"),
                        prefix_cache=bool(s.get("prefix_cache", False)),
-                       ticks_per_dispatch=s.get("ticks_per_dispatch", 1))
+                       ticks_per_dispatch=s.get("ticks_per_dispatch", 1),
+                       policy=s.get("policy", "thinkv"),
+                       drift_probe=bool(s.get("drift_probe", False)))
     before = dict(ops.LAUNCHES)
     eng.submit(rec["prompts"], max_new_tokens=rec["settings"]["max_new"],
                priorities=rec["settings"]["priorities"])
@@ -123,11 +128,40 @@ def replay(rec: dict, backend: str, device, params=None
     return eng, done, {k: ops.LAUNCHES[k] - before[k] for k in before}
 
 
+# the bar for drift magnitudes: the probe's replay and the serving path's
+# logits each carry the port's distance from the JAX engine's (<= 1e-3)
+DRIFT_ATOL = 2e-3
+
+
+def drift_mismatches(want: Dict[int, dict], done) -> List[str]:
+    """Each request's drift against the record's: ``steps`` and
+    ``top1_agree`` equal, ``max_abs`` and ``mean_abs`` finite and within
+    :data:`DRIFT_ATOL`."""
+    bad = []
+    got = {r.arrival: r.stats.get("drift") for r in done}
+    if sorted(got) != sorted(want):
+        return [f"drift for requests {sorted(got)} != {sorted(want)}"]
+    for a, w in want.items():
+        g = got[a]
+        if g is None:
+            bad.append(f"drift of request {a} missing")
+            continue
+        if (g["steps"], g["top1_agree"]) != (w["steps"], w["top1_agree"]):
+            bad.append(f"drift of request {a}: steps / top-1 agreement "
+                       f"{g['steps']} / {g['top1_agree']} != {w['steps']} "
+                       f"/ {w['top1_agree']}")
+        for k in ("max_abs", "mean_abs"):
+            if not (math.isfinite(g[k]) and abs(g[k] - w[k]) <= DRIFT_ATOL):
+                bad.append(f"drift of request {a}: {k} {g[k]} vs {w[k]}")
+    return bad
+
+
 def mismatches(rec: dict, eng: ThinKVEngine, done, atol: float = 1e-3
                ) -> Tuple[List[str], float]:
     """What of the replay differs from the record: (descriptions, the
     largest per-request logit difference).  Tokens, counters and the pool
-    audit must be equal, logits within ``atol``."""
+    audit must be equal, logits within ``atol``, and a record's drift
+    within :func:`drift_mismatches`' bars."""
     bad = []
     got = {r.arrival: list(r.output) for r in done}
     if got != rec["tokens"]:
@@ -147,4 +181,6 @@ def mismatches(rec: dict, eng: ThinKVEngine, done, atol: float = 1e-3
     audit = eng.audit_pool()
     if audit != rec["audit"]:
         bad.append(f"pool audit {audit} != {rec['audit']}")
+    if rec["drift"]:
+        bad += drift_mismatches(rec["drift"], done)
     return bad, worst

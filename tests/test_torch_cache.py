@@ -84,6 +84,14 @@ CASES = [(8, 8, (2, 4, 4), 8), (16, 8, (2, 4, 8), 16)]
 
 @pytest.mark.parametrize("g,bs,prec,seed", CASES, ids=str)
 def test_request_op_sequence_matches_reference(g, bs, prec, seed):
+    run_op_sequence(g, bs, prec, seed)
+
+
+def run_op_sequence(g, bs, prec, seed, policies=(None, None)):
+    """The op sequence on both packages under ``policies`` (the JAX
+    package's and the port's policy object or name; None is the default
+    ThinKV policy), held bit-exact after every call."""
+    pol_j, pol_t = policies
     tk_j = JTK(group_size=g, block_size=bs, precision=prec, **TK)
     tk_t = ThinKVConfig(group_size=g, block_size=bs, precision=prec, **TK)
     dims_j = CJ.make_dims(tk_j, L, H, D)
@@ -102,7 +110,7 @@ def test_request_op_sequence_matches_reference(g, bs, prec, seed):
 
     advance_j = jax.jit(lambda pool, table, cache, s, n: CJ.engine_advance(
         tk_j, dims_j, pool, table, cache, s, jnp.bool_(True), n_new=n,
-        with_alloc_fail=True, track_cow=False))
+        with_alloc_fail=True, track_cow=False, policy=pol_j))
     ntok, buf, refreshes = [0] * R, [0] * R, [0] * R
     rng = np.random.default_rng(seed)
     # request 0 commits whole groups; request 1 arrives in pieces
@@ -127,7 +135,7 @@ def test_request_op_sequence_matches_reference(g, bs, prec, seed):
             fail_t, cow_t, ntok[r], buf[r] = CT.engine_advance(
                 tk_t, dims_t, pool_t, tables_t[r], caches_t[r],
                 torch.tensor(s), num_tokens=ntok[r], buf_len=buf[r],
-                n_new=n)
+                n_new=n, policy=pol_t)
             assert not bool(fail_j)
             assert fail_t is None or not bool(fail_t)
             assert cow_t is None or int(cow_t) == 0

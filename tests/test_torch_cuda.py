@@ -1,8 +1,11 @@
 """The CUDA kernels against their plain versions, on the card; the flash, the
-pressure and the sampled trace (head_dim 16) on the card against the JAX
-engine's records; the shared-pool operations, the sampler and a fork on
-card tensors against their CPU results; packs of 8 ticks against single
-ticks on the kernel backend.
+pressure and the sampled trace and the pressure trace under the rkv and
+uniform policies (head_dim 16) on the card against the JAX engine's
+records; the shared-pool operations, the sampler, a fork and the rkv and
+uniform selections on card tensors against their CPU results; packs of 8
+ticks against single ticks on the kernel backend; the dense ThinKV serve
+step's kernel path (one K1 launch per layer) against its plain path; a
+uniform single-level commit.
 
 Every test here needs a CUDA card and the CUDA toolkit (the kernels are
 built with nvcc at first use); without a card each test skips with the
@@ -14,6 +17,7 @@ Attention kernels agree with the plain versions to 1e-4 (f32 on both
 sides, another summation order); the quantizer is bit-exact; the selective
 scan agrees to rtol = atol = 3e-4 (the JAX package's bar between its scan
 kernel and its oracle)."""
+import copy
 import dataclasses
 import os
 
@@ -814,3 +818,138 @@ def test_pool_ops_on_the_card_equal_the_cpu(card, name):
     want = np.zeros(got.shape, bool)
     want[0, 1 * TP.DIMS["BS"] + 2] = True
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+POLICY_RECORDS = {name: os.path.join(os.path.dirname(os.path.abspath(
+    __file__)), "golden", f"torch_{name}_trace.npz")
+    for name in ("rkv", "uniform")}
+
+
+@pytest.mark.parametrize("name", sorted(POLICY_RECORDS))
+def test_policy_traces_on_the_card_give_the_jax_records(card, name):
+    """The pressure trace under the rkv and the uniform retention policy with
+    the drift probe on, held to the JAX engine's records
+    (``tests/golden/torch_{rkv,uniform}_trace.npz``): identical tokens,
+    logits within 1e-3, equal counters and pool audit, each request's
+    drift (steps and top-1 agreement equal, magnitudes within 2e-3), on
+    the kernel backend (K1 once per tick, K4 once per commit) and on the
+    reference backend."""
+    rec = TR.load(POLICY_RECORDS[name])
+    params = None
+    for backend in ("kernel", "reference"):
+        eng, done, launches = TR.replay(rec, backend, card, params)
+        params = eng.model
+        assert eng.policy.name == name
+        bad, worst = TR.mismatches(rec, eng, done)
+        assert not bad, (backend, bad)
+        m = eng.metrics
+        assert m["drift_probes"] == len(rec["prompts"])
+        assert launches["group_quant"] == m["commits"] > 0
+        assert launches["ct_paged_attention_fused"] == (
+            m["ticks"] if backend == "kernel" else 0)
+
+
+@pytest.mark.parametrize("name", ["rkv", "uniform"])
+def test_policy_selection_on_the_card_equals_the_cpu(card, name):
+    """``redundancy_select`` (rkv) and uniform's newest-first selection on
+    card tensors: the CPU's masks, for every valid count and keep value
+    (layer-batched as the anneal calls them)."""
+    from repro_torch.core.policy import get_policy
+    pol = get_policy(name)
+    tk = ThinKVConfig()
+    gen = torch.Generator().manual_seed(7)
+    L, n, d = 8, 64, 1024
+    x = torch.randn((L, n, d), generator=gen)
+    for n_valid in (0, 1, 5, 40, 64):
+        valid = torch.zeros((L, n), dtype=torch.bool)
+        for li in range(L):
+            valid[li, torch.randperm(n, generator=gen)[:n_valid]] = True
+        keep = torch.randint(1, 70, (L,), generator=gen)
+        want = pol.select_tokens(x, valid, keep, tk)
+        got = pol.select_tokens(x.to(card), valid.to(card), keep.to(card),
+                                tk)
+        assert torch.equal(got.cpu(), want), n_valid
+        assert torch.equal(want.sum(-1), torch.minimum(
+            keep.clamp_min(1), valid.sum(-1).clamp_max(
+                max(tk.retention_schedule) if name == "rkv" else n)))
+
+
+def uniform_commit_buffers():
+    return commit_buffers(torch.Generator().manual_seed(3), L=4, G=16, H=8,
+                          D=128)
+
+
+def test_uniform_single_level_commit_is_bit_exact(card):
+    """Uniform's commit: one K4 launch at the single level (4,), bit-exact
+    to ``group_quant_commit_ref`` for every thought type."""
+    from repro_torch.core.policy import UniformPolicy
+    k, v = uniform_commit_buffers()
+    for thought in (0, 1, 2):
+        t = torch.tensor(thought, dtype=torch.int32)
+        got = launched_once("group_quant", CT._quantize_group_by_thought,
+                            ThinKVConfig(), k.to(card), v.to(card),
+                            t.to(card), UniformPolicy())
+        want = R.group_quant_commit_ref(
+            k, v, torch.tensor(4, dtype=torch.int32), (4,))
+        same_quant(got[:4], want)
+        assert int(got[4]) == 4
+
+
+def thinkv_step_batch(gen, cfg, tk, B):
+    """A ThinKV step's batch of B requests: random pool planes (codes,
+    E4M3-valued scales, valid / evicted / free slots, bits 2, 4, 8), bf16
+    buffers with buf_len 0 .. G - 1."""
+    dims = CT.make_dims(tk, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim)
+    L, NB, BS, H, D, G = dims.L, dims.NB, dims.BS, dims.H, dims.D, dims.G
+    shape = (B, L, NB, BS, H)
+    u = torch.rand((B, L, dims.NS), generator=gen)
+    return {
+        "tokens": torch.randint(0, cfg.vocab_size, (B,), generator=gen),
+        "positions": torch.randint(40, 400, (B,), generator=gen),
+        "k_codes": torch.randint(0, 256, shape + (D,), generator=gen,
+                                 dtype=torch.uint8),
+        "v_codes": torch.randint(0, 256, shape + (D,), generator=gen,
+                                 dtype=torch.uint8),
+        "k_scales": Q.e4m3_round(torch.rand(shape + (D // 16,),
+                                            generator=gen) * 0.04 + 0.004)
+        .to(torch.bfloat16),
+        "v_scales": Q.e4m3_round(torch.rand(shape + (D // 16,),
+                                            generator=gen) * 0.04 + 0.004)
+        .to(torch.bfloat16),
+        "slot_state": torch.where(u < 0.6, 1, torch.where(u < 0.8, 2, 0))
+        .to(torch.uint8),
+        "slot_bits": torch.tensor([2, 4, 8], dtype=torch.uint8)[
+            torch.randint(0, 3, (B, L, dims.NS), generator=gen)],
+        "buf_k": torch.randn((B, L, G, H, D), generator=gen)
+        .to(torch.bfloat16),
+        "buf_v": torch.randn((B, L, G, H, D), generator=gen)
+        .to(torch.bfloat16),
+        "buf_len": torch.arange(B, dtype=torch.int32) * (G - 1) // max(
+            B - 1, 1)}
+
+
+@pytest.mark.parametrize("D", (16, 128))
+def test_dense_thinkv_step_kernel_path_on_the_card(card, D):
+    """The dense ThinKV decode step on ``backend="kernel"``: one K1 launch
+    per layer for the whole batch, and the step's logits within 1e-4 of
+    the same step on the CPU (K1's plain version), buffers within one bf16
+    step, buf_len exact."""
+    from repro_torch.serving import serve_step as SS
+    cfg = dataclasses.replace(get_smoke_config("r1-llama-8b"),
+                              num_heads=16, num_kv_heads=4, head_dim=D)
+    tk = ThinKVConfig(token_budget=128)
+    params = init_params(cfg, 0, "cpu")
+    batch = thinkv_step_batch(torch.Generator().manual_seed(D), cfg, tk, 4)
+    step = SS.make_decode_step_thinkv(cfg, tk, backend="kernel")
+    want = step(params, batch)
+    before = dict(ops.LAUNCHES)
+    got = step(copy.deepcopy(params).to(card),
+               {k: v.to(card) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ct_paged_attention_fused"] - \
+        before["ct_paged_attention_fused"] == cfg.num_layers
+    assert (got[0].cpu() - want[0]).abs().max() <= ATOL
+    for g, w in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(g.cpu().float(), w.float(), rtol=2 ** -7,
+                                   atol=0)
+    assert torch.equal(got[3].cpu(), want[3])

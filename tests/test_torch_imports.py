@@ -75,8 +75,9 @@ def test_entry_points_default_to_the_card():
     pytest.param(dict(policy="rkv"), "12", id="kw5-12")])
 def test_options_outside_the_slice_name_their_roadmap_item(kw, item):
     """An option of a ROADMAP item not yet ported raises, naming the item;
-    item 11's options (multi-tick dispatch, forks) are ported since, and
-    the engine takes them."""
+    item 11's options (multi-tick dispatch, forks) and item 12's (the
+    drift probe, which records logits, and the rkv policy) are ported
+    since, and the engine takes them."""
     from repro_torch.config import ServeConfig
     from repro_torch.configs import get_smoke_config
     from repro_torch.serving.engine import ThinKVEngine
@@ -85,6 +86,12 @@ def test_options_outside_the_slice_name_their_roadmap_item(kw, item):
         eng = ThinKVEngine(cfg, device="cpu", **kw)
         assert eng.ticks_per_dispatch == kw.get("ticks_per_dispatch", 1)
         assert eng._track_cow == kw.get("allow_forks", False)
+        return
+    if item == "12":
+        eng = ThinKVEngine(cfg, device="cpu", **kw)
+        assert eng.drift_probe == eng.record_logits == \
+            kw.get("drift_probe", False)
+        assert eng.policy.name == kw.get("policy", "thinkv")
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ThinKVEngine(cfg, device="cpu", **kw)

@@ -1,8 +1,15 @@
-"""The port's serving CLI (``python -m repro_torch.launch.serve``) on an
-oversubscribed pool with the prefix cache, at smoke size on the CPU: it
+"""The port's serving CLI (``python -m repro_torch.launch.serve``) at smoke
+size on the CPU: on an oversubscribed pool with the prefix cache it
 preempts and resumes, hits the cache, prints the reference's counter lines
-and passes its pool audit."""
+and passes its pool audit; sampling in packs; and the reference's streamed
+runs, policies, drift probe and gates.  Greedy runs are served with the
+JAX package's weights and finish with the tokens the JAX engine gives
+for the same flags (built as ``repro/launch/serve.py`` builds it, streamed
+through its ``_run_streamed`` where the run streams)."""
 import re
+import types
+
+import numpy as np
 
 import pytest
 
@@ -83,3 +90,130 @@ def test_serve_cli_multi_tick_gate(capsys):
 def test_serve_cli_refuses_what_the_reference_refuses(argv):
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu"] + argv)
+
+
+def jax_outputs(argv, policy="thinkv"):
+    """The JAX engine's outputs by uid for the port CLI's ``argv`` (the same
+    config, prompts, pool and streaming), and its parameters as numpy."""
+    import jax
+    from repro.config import ServeConfig as JSC
+    from repro.config import ThinKVConfig as JTK
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.launch import serve as JS
+    from repro.serving.engine import ThinKVEngine as JaxEngine
+    args = serve.build_parser().parse_args(argv)
+    mcfg = jax_smoke(args.arch)
+    tk = JTK(refresh_interval=args.tau, group_size=args.group,
+             block_size=args.group, token_budget=args.budget,
+             retention_schedule=(32, 16, 8, 4), min_retention=4,
+             max_segments=256, kmeans_iters=4)
+    worst = args.slots * (2 * args.budget // args.group)
+    pool = max(int(worst * args.pool_frac), 1) if args.pool_frac else None
+    eng = JaxEngine(JSC(model=mcfg, thinkv=tk, max_seqs=args.slots,
+                        temperature=0.0), backend="reference",
+                    pool_blocks=pool, prefix_cache=args.prefix_cache,
+                    ticks_per_dispatch=args.ticks_per_dispatch,
+                    allow_forks=args.samples_per_slot > 1, policy=policy,
+                    drift_probe=args.drift_probe)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, mcfg.vocab_size, args.prompt_len)
+               .astype(np.int64) for _ in range(args.requests)]
+    if args.stream:
+        done = JS._run_streamed(eng, types.SimpleNamespace(
+            samples_per_slot=args.samples_per_slot,
+            arrival_rate=args.arrival_rate, max_new=args.max_new), prompts,
+            None)[0]
+    else:
+        eng.submit(prompts, max_new_tokens=args.max_new)
+        done = eng.run()
+    return {r.uid: list(r.output) for r in done}, \
+        jax.tree.map(np.asarray, eng.params), done
+
+
+def serve_like_jax(argv, capsys, policy="thinkv"):
+    """The port CLI on ``argv`` with the JAX weights; its output text, its
+    finished requests and the JAX run's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_numpy
+    want, params, jdone = jax_outputs(argv, policy)
+    done = serve.main(["--device", "cpu"] + argv, params=params_from_numpy(
+        params, get_smoke_config("r1-llama-8b"), "cpu"))
+    assert {r.uid: list(r.output) for r in done} == want
+    return capsys.readouterr().out, done, jdone
+
+
+def test_serve_cli_rkv_with_the_drift_probe_streamed(capsys):
+    """``--policy rkv --drift-probe --expect-drift --stream``: the JAX
+    engine's tokens, the drift line and gate, each request's drift steps
+    and top-1 agreement equal to JAX's."""
+    argv = ["--policy", "rkv", "--drift-probe", "--expect-drift", "--stream",
+            "--requests", "4", "--max-new", "40"]
+    out, done, jdone = serve_like_jax(argv, capsys, "rkv")
+    # 40 tokens each: the first from its prefill, 39 decoded
+    assert re.search(r"served 4 requests \[policy=rkv\] .* 156 tokens",
+                     out), out
+    assert re.search(r"drift probe: 4 requests vs uncompressed replay \| "
+                     r"max \|dlogit\| [\d.]+ \| mean \|dlogit\| [\d.]+ \| "
+                     r"top-1 agreement [\d.]+%", out), out
+    assert re.search(r"streamed \(all-at-once open-loop\): 160 tokens "
+                     r"delivered over 4 streams \| TTFT", out), out
+    assert "drift gate OK: 4/4 requests probed" in out
+    want = {r.uid: r.stats["drift"] for r in jdone}
+    for r in done:
+        d, w = r.stats["drift"], want[r.uid]
+        assert (d["steps"], d["top1_agree"]) == (w["steps"], w["top1_agree"])
+        assert abs(d["max_abs"] - w["max_abs"]) <= 2e-3
+
+
+def test_serve_cli_uniform_oversubscribed_gates(capsys):
+    """``--policy uniform --pool-frac 0.6 --expect-all --expect-preemptions``
+    (48-token prompts: at the default 16 neither package preempts): the JAX
+    engine's tokens, 4.00 bits, both gates."""
+    argv = ["--policy", "uniform", "--pool-frac", "0.6", "--expect-all",
+            "--expect-preemptions", "--prompt-len", "48"]
+    out, _, _ = serve_like_jax(argv, capsys, "uniform")
+    assert re.search(r"\[policy=uniform\] .* avg 4\.00 bits", out), out
+    assert "oversubscription gate OK: 8/8 requests" in out
+    assert re.search(r"preemption gate OK: [1-9]\d* preemption", out), out
+
+
+def test_serve_cli_open_loop_stream_parity(capsys):
+    """``--stream --arrival-rate 0.5 --expect-stream-parity``: staggered
+    Poisson arrivals give the JAX engine's tokens and the synchronous
+    run's logits bit for bit."""
+    argv = ["--stream", "--arrival-rate", "0.5", "--expect-stream-parity",
+            "--max-new", "32"]
+    out, _, _ = serve_like_jax(argv, capsys)
+    assert "streamed (0.5 req/tick open-loop): 256 tokens delivered over 8 " \
+        "streams" in out, out
+    assert "overlap: prefill-inside-decode=True" in out
+    assert "stream-parity gate OK: 8 requests, 256 logit steps" in out
+
+
+def test_serve_cli_forked_multi_tick_gate(capsys):
+    """``--samples-per-slot 2 --stream --expect-multi-tick
+    --ticks-per-dispatch 4`` (2 requests of 48 tokens, 96 new: past the
+    budget, so forks pay COW faults): the JAX engine's tokens for every
+    parent and fork, and the gate's fork checks."""
+    argv = ["--samples-per-slot", "2", "--stream", "--expect-multi-tick",
+            "--ticks-per-dispatch", "4", "--requests", "2", "--prompt-len",
+            "48", "--max-new", "96"]
+    out, done, _ = serve_like_jax(argv, capsys)
+    assert len(done) == 4
+    assert re.search(r"mega-dispatch: .* \| 2 fork\(s\), [1-9]\d* fork COW "
+                     r"faults, peak refcount 2", out), out
+    assert re.search(r"multi-tick gate OK: .* 2 fork\(s\) sharing prefix "
+                     r"blocks", out), out
+
+
+@pytest.mark.parametrize("argv,what", [
+    (["--drift-probe"], "requires --stream"),
+    (["--mesh", "model=2"], "item 13"),
+    (["--kv-heads", "2"], "item 13"),
+    (["--expect-drift", "--stream"], "requires --drift-probe"),
+    (["--arrival-rate", "0.5"], "require --stream"),
+    (["--samples-per-slot", "2"], "requires --stream")])
+def test_serve_cli_refuses_the_reference_refusals(argv, what, capsys):
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu"] + argv)
+    assert what in capsys.readouterr().err

@@ -1,6 +1,7 @@
 """The JAX engine's records of the flash, the pressure and the sampled
 trace, carried to the card as numpy archives
-(``tests/golden/torch_{flash,pressure,sampled}_trace.npz``), and the port's
+(``tests/golden/torch_{flash,pressure,sampled,rkv,uniform}_trace.npz``), and
+the port's
 replay of them (``repro_torch.serving.trace_record``).
 
 A record is the live JAX ``reference`` engine's run: its parameters, tokens
@@ -15,6 +16,10 @@ the sampled record is the pressure trace at temperature 0.7, top-p 0.9 and
 setting), with ``min_margin``: the smallest gap between the best and the
 second-best perturbed score over every draw, computed with the port's
 PRNG from the JAX logits (which also reproduces every recorded token).
+The rkv and uniform records are the pressure trace under those retention
+policies with the drift probe on (the JAX trace suite's
+``policy_pressure_cells``): each request's drift against the dense replay
+is recorded too.
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the card's kernel
 and reference backends to them, where there is no JAX.  The golden
 ``serving_trace.json`` is not such a record (it dates from an older tree:
@@ -23,7 +28,7 @@ its pressure counters still do).
 
 A test here re-runs the JAX engine on each trace and asserts that the
 archive equals the fresh record, so a file cannot go stale silently.  To
-write all three anew (after a change to the reference engine or to these
+write all five anew (after a change to the reference engine or to these
 settings):
 
     PYTHONPATH=src python tests/test_torch_trace_fixture.py
@@ -78,6 +83,14 @@ SAMPLED_SETTINGS = {**PRESSURE_SETTINGS, "temperature": 0.7, "top_p": 0.9,
                     "ticks_per_dispatch": 8}
 SAMPLED_COUNTERS = PT.COUNTERS + ("dispatches", "early_exit_finish",
                                   "early_exit_headroom")
+POLICY_RECORDS = ("rkv", "uniform")
+POLICY_FIXTURES = {name: os.path.join(GOLDEN, f"torch_{name}_trace.npz")
+                   for name in POLICY_RECORDS}
+POLICY_COUNTERS = PT.COUNTERS + ("drift_probes",)
+
+
+def policy_settings(name: str) -> dict:
+    return {**PRESSURE_SETTINGS, "policy": name, "drift_probe": True}
 # a draw whose margin is below this could flip under the card's logit
 # error (up to 2.66e-4 on the pressure trace), so the card's bar would
 # stop there
@@ -111,7 +124,9 @@ def jax_record(settings: dict = SETTINGS, ps=None,
                     backend="reference", record_logits=True,
                     pool_blocks=settings.get("pool_blocks"),
                     prefix_cache=settings.get("prefix_cache", False),
-                    ticks_per_dispatch=settings.get("ticks_per_dispatch", 1))
+                    ticks_per_dispatch=settings.get("ticks_per_dispatch", 1),
+                    policy=settings.get("policy"),
+                    drift_probe=settings.get("drift_probe", False))
     ps = prompts() if ps is None else ps
     eng.submit(ps, max_new_tokens=settings["max_new"],
                priorities=settings["priorities"])
@@ -122,6 +137,8 @@ def jax_record(settings: dict = SETTINGS, ps=None,
         record["min_margin"] = min(draw_margins(
             settings, {r.arrival: (r.output, np.stack(
                 eng.request_logits[r.arrival])) for r in done}))
+    if settings.get("drift_probe"):
+        record["drift"] = {str(r.arrival): r.stats["drift"] for r in done}
     out = {"settings": np.array(json.dumps(settings)),
            "record": np.array(json.dumps(record, default=int))}
     out.update({f"prompt_{i}": p for i, p in enumerate(ps)})
@@ -166,6 +183,10 @@ def jax_pressure_record() -> dict:
 
 def jax_sampled_record() -> dict:
     return jax_record(SAMPLED_SETTINGS, PT.prompts(), SAMPLED_COUNTERS)
+
+
+def jax_policy_record(name: str) -> dict:
+    return jax_record(policy_settings(name), PT.prompts(), POLICY_COUNTERS)
 
 
 def write_fixture(path: str = FIXTURE) -> None:
@@ -317,9 +338,56 @@ def test_port_replays_the_sampled_record_on_the_cpu(stored_sampled,
     assert not any(launches.values())
 
 
+@pytest.fixture(scope="module", params=POLICY_RECORDS)
+def policy_record(request):
+    """(name, the stored record, the live JAX engine's fresh record)."""
+    name = request.param
+    return name, TR.load(POLICY_FIXTURES[name]), jax_policy_record(name)
+
+
+def test_policy_fixtures_equal_the_live_jax_records(policy_record):
+    """The rkv and uniform records: the live engine's runs of the pressure
+    trace under each policy with the drift probe on (archive equal to a
+    fresh run's, drift included), one probe per request, the policy's
+    own counters (uniform's oldest-first eviction preempts more than the
+    thought-ranked policies)."""
+    name, rec, fresh = policy_record
+    assert_archive_equals(POLICY_FIXTURES[name], fresh)
+    s = rec["settings"]
+    assert (s["policy"], s["drift_probe"]) == (name, True)
+    assert rec["counters"]["drift_probes"] == len(PT.LENS)
+    assert sorted(rec["drift"]) == list(range(len(PT.LENS)))
+    for d in rec["drift"].values():
+        assert d["steps"] == PT.MAX_NEW and np.isfinite(d["max_abs"])
+    assert rec["counters"]["preemptions"] > 0
+    assert rec["counters"]["cow_faults"] > 0
+
+
+@pytest.mark.parametrize("backend", ["reference", "kernel"])
+def test_port_replays_the_policy_records_on_the_cpu(policy_record, backend):
+    """Each policy record through ``trace_record.replay`` on the CPU: the
+    record's tokens, logits within 1e-3, counters, audit and each
+    request's drift (steps and top-1 agreement equal, magnitudes within
+    ``trace_record.DRIFT_ATOL``)."""
+    name, rec, _ = policy_record
+    eng, done, launches = TR.replay(rec, backend, "cpu")
+    assert eng.policy.name == name and eng.drift_probe
+    bad, worst = TR.mismatches(rec, eng, done)
+    assert not bad, bad
+    assert worst <= 1e-3
+    assert not any(launches.values())
+
+
+def write_policy_fixtures() -> None:
+    for name, path in POLICY_FIXTURES.items():
+        np.savez(path, **jax_policy_record(name))
+
+
 if __name__ == "__main__":
     write_fixture()
     write_pressure_fixture()
     write_sampled_fixture()
-    for path in (FIXTURE, PRESSURE_FIXTURE, SAMPLED_FIXTURE):
+    write_policy_fixtures()
+    for path in (FIXTURE, PRESSURE_FIXTURE, SAMPLED_FIXTURE,
+                 *POLICY_FIXTURES.values()):
         print(f"wrote {path}: {os.path.getsize(path)} bytes")
