@@ -37,10 +37,13 @@ failure:
                 is the pressure trace at temperature 0.7, top-p 0.9 in
                 packs of up to 8 ticks, the rkv and uniform traces are the
                 pressure trace under those retention policies with the
-                drift probe on) on the kernel and the reference backend,
+                drift probe on; the moe and qwen2 traces are the pressure
+                trace on mixtral-8x7b's and qwen2-7b's smoke configs, qkv
+                biases non-zero) on the kernel and the reference backend,
                 each held to the JAX reference engine's record
-                (``tests/golden/torch_{flash,pressure,sampled,rkv,uniform}
-                _trace.npz``): identical tokens, logits within 1e-3, equal
+                (``tests/golden/torch_{flash,pressure,sampled,rkv,uniform,
+                moe,qwen2}_trace.npz``): identical tokens, logits within
+                1e-3, equal
                 counters (dispatches and early exits among them) and pool
                 audit, each request's drift (steps and top-1 agreement
                 equal, magnitudes within 2e-3), K1 once per tick, K2 and
@@ -105,6 +108,20 @@ failure:
                 ``parity``): identical tokens, logits within the reference's
                 bar between its backends (1e-3 + 1e-3 |logit|), and for
                 decode byte-identical pools;
+   archs      — the MoE family and the dense configs of other head
+                groupings: K1-K4 against their plain versions at the
+                full-width shapes of qwen2-7b (28 q / 4 kv heads, GQ 7),
+                mixtral-8x7b (GQ 4), llama4-scout (GQ 5), yi-6b (GQ 8 over
+                4 kv heads) and mistral-large-123b (GQ 12), with device
+                time, bound and SDPA's time for K3; then qwen2-7b at full
+                width and depth (random f32 weights, 30.3 GB) and
+                mixtral-8x7b at full width and 4 of its 32 layers (24.3
+                GB), each serving the serve phase's traffic on the kernel
+                backend with its launch checks, held to the reference
+                backend from identical state (the parity phase's prefill
+                and decode checks) and, for mixtral, its routing per layer
+                (kept choices per expert, dropped choices) from a second
+                run with the same tokens;
 7. ssm        — falcon-mamba-7b at full width and depth (64 layers, random
                 f32 weights from a seed, ~28 GB) through
                 ``serving/serve_step.py``: a 4 x 1024-token prefill (K5 in
@@ -125,13 +142,16 @@ the serve phase, from the pressure phase as ``launches_pressure`` and from
 the sampled phase's first run at 8 ticks per dispatch as
 ``launches_sampled``, from the policy phase's runs as ``launches_policy``
 (by policy) and, for K1, from the serve_step phase's ThinKV step as
-``launches_serve_step``, K2 and K3 also by shape, K5 from the ssm phase's
+``launches_serve_step``, K1-K4 from the archs phase's runs as
+``launches_archs`` with their times at its shapes under ``archs``, K2 and
+K3 also by shape, K5 from the ssm phase's
 prefill, the wrapper from the controller phase), the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -372,6 +392,136 @@ def kernel_record(name, source, replaces, shape, err, fn, plain, bound_,
     return rec
 
 
+PAGED = ("ct_paged_attention.cu", "ct_paged_attention.py")
+
+
+def paged_per_block(BS, H, D) -> int:
+    """Bytes of one pool block: K and V codes and their bf16 scales."""
+    return BS * H * (2 * D + 2 * 2 * (D // 16))
+
+
+def k1_record(gen, dev, L, R, H, gq, D, BS, NB, G, label=""):
+    """K1 over a whole decode tick (every layer and slot) against its plain
+    version; returns (record, the pool case)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    c = pool_case(gen, dev, L, R, H, D, BS, NB, R * NB, G, gq)
+    args = tuple(c.values())
+    out = ops.paged_decode_attention_fused(*args)
+    torch.cuda.synchronize()
+    err = max_err(out, ref.ct_paged_attention_fused_ref(*args))
+    pool_b, n_slots = pool_need(c["slot_state"], c["block_table"],
+                                paged_per_block(BS, H, D))
+    n_buf = L * int(c["buf_len"].sum())
+    flops = 4 * H * gq * D * (n_slots + n_buf)
+    rec = kernel_record(
+        "ct_paged_attention_fused", PAGED[0], f"{PAGED[1]}:204",
+        f"{label}L={L} R={R} H={H} GQ={gq} D={D} BS={BS} NB={NB}", err,
+        lambda: ops.paged_decode_attention_fused(*args),
+        lambda: ref.ct_paged_attention_fused_ref(*args),
+        bound(pool_b + nbytes(c["qh"], c["slot_state"], c["slot_bits"],
+                              c["block_table"], c["buf_len"], out)
+              + 2 * n_buf * H * D * 2, flops), plain_iters=3)
+    return rec, c
+
+
+def k2_record(gen, dev, c, GQ, label=""):
+    """K2 over layer 0 of slot 0 of pool case ``c`` at ``GQ`` query rows
+    per kv head (a chunk's queries folded into the group) against its
+    plain version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    _, BS, H, D = c["k_codes"].shape[1:]
+    NB = c["block_table"].shape[-1]
+    qh = torch.randn((1, H, GQ, D), generator=gen, device=dev)
+    args = (qh, c["k_codes"][0], c["v_codes"][0], c["k_scales"][0],
+            c["v_scales"][0], c["slot_state"][0, :1].contiguous(),
+            c["slot_bits"][0, :1].contiguous(),
+            c["block_table"][:1, 0].contiguous())
+    outs = ops.paged_decode_attention_batched(*args)
+    torch.cuda.synchronize()
+    err = max_err(outs, ref.ct_paged_attention_batched_ref(*args))
+    pool_b, n_slots = pool_need(args[5][None], args[7][:, None],
+                                paged_per_block(BS, H, D))
+    return kernel_record(
+        "ct_paged_attention_batched", PAGED[0], f"{PAGED[1]}:285",
+        f"{label}R=1 H={H} GQ={GQ} D={D} BS={BS} NB={NB}", err,
+        lambda: ops.paged_decode_attention_batched(*args),
+        lambda: ref.ct_paged_attention_batched_ref(*args),
+        bound(pool_b + nbytes(qh, *args[5:], *outs),
+              4 * H * GQ * D * n_slots, peak="f64tc"))
+
+
+def k3_record(gen, dev, S, n_valid, Hq, H, D, label="", plain=False):
+    """K3 (intra-chunk causal attention with stats; ``n_valid`` masks a
+    g-chunk's padded keys) against its plain version, with SDPA's time on
+    the same inputs as the library yardstick; with ``plain`` also the
+    variant without stats at the same shape."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    q = torch.randn((S, Hq, D), generator=gen, device=dev)
+    k = torch.randn((S, H, D), generator=gen, device=dev)
+    v = torch.randn((S, H, D), generator=gen, device=dev)
+    outs = ops.prefill_attention_stats(q, k, v, n_valid=n_valid)
+    torch.cuda.synchronize()
+    kv_valid = None if n_valid is None else \
+        torch.arange(S, device=dev) < n_valid
+    err = max_err(outs, ref.flash_prefill_stats_ref(q, k, v,
+                                                    kv_valid=kv_valid))
+    nv = S if n_valid is None else n_valid
+    pairs = sum(min(i + 1, nv) for i in range(S))
+    flops = 4 * Hq * pairs * D
+    # SDPA yardstick on the same inputs (kv heads repeated for GQA)
+    qt = q.transpose(0, 1)[None]
+    kt, vt = (x.transpose(0, 1).repeat_interleave(Hq // H, 0)[None]
+              for x in (k, v))
+    rec = kernel_record(
+        "flash_prefill", "flash_prefill.cu", "flash_prefill.py:83",
+        f"{label}S={S} Hq={Hq} H={H} D={D} n_valid={nv}", err,
+        lambda: ops.prefill_attention_stats(q, k, v, n_valid=n_valid),
+        lambda: ref.flash_prefill_stats_ref(q, k, v, kv_valid=kv_valid),
+        bound(nbytes(q, k[:nv], v[:nv], *outs), flops, peak="f64tc"),
+        library=lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), plain_iters=10)
+    if plain:
+        out = ops.prefill_attention(q, k, v)
+        torch.cuda.synchronize()
+        kernel_record(
+            "flash_prefill", "flash_prefill.cu", "flash_prefill.py:83",
+            rec["shape"] + " (no stats: prefill_attention)",
+            max_err(out, ref.flash_prefill_ref(q, k, v)),
+            lambda: ops.prefill_attention(q, k, v),
+            lambda: ref.flash_prefill_ref(q, k, v),
+            bound(nbytes(q, k, v, out), flops, peak="f64tc"),
+            plain_iters=10)
+    return rec
+
+
+def k4_commit_record(gen, dev, L, G, H, D, tk, label=""):
+    """K4 over one commit's K and V buffers [L, G, H, D] (bf16, with
+    subnormal-scale, zero and saturating groups), bit-exact against its
+    plain version at each thought's width; returns (record at the last
+    width, the buffers)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    k, v = commit_buffers(gen, dev, L, G, H, D)
+    levels = tuple(sorted(set(tk.precision)))
+    for thought, width in enumerate(tk.precision):
+        bits = torch.tensor(width, dtype=torch.int32, device=dev)
+        fn, plain = commit_quant(ops, ref, k, v, bits, levels)
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        assert_same_quant(got, want, f"{label}commit, thought {thought}")
+    outs = fn()
+    rec = kernel_record(
+        "group_quant", "group_quant.cu", "group_quant.py:70",
+        f"{label}commit: K, V bf16 [L={L}, G={G}, H={H}, D={D}] at bits "
+        f"{width} of {levels}", 0.0, fn, plain,
+        bound(nbytes(k, v, bits, *outs), 8 * 2 * k.numel()), plain_iters=10)
+    return rec, k
+
+
 def check_kernels(dev, mc, tk):
     """K1-K4 and the wrapper vs their plain versions at full width; returns
     per-kernel records keyed K1, K2 (GQ 512), K2_64, K2_4, K3 (S 128),
@@ -383,108 +533,22 @@ def check_kernels(dev, mc, tk):
     L, H, D = mc.num_layers, mc.num_kv_heads, mc.head_dim
     gq, R, BS, G = mc.num_heads // H, 4, tk.block_size, tk.group_size
     NB = int(tk.token_budget * 2) // BS
-    NP = R * NB
-    recs = {}
-    paged = ("ct_paged_attention.cu", "ct_paged_attention.py")
+    per_block = paged_per_block(BS, H, D)
 
     # K1: a whole decode tick's attention
-    c = pool_case(gen, dev, L, R, H, D, BS, NB, NP, G, gq)
-    args = tuple(c.values())
-    out = ops.paged_decode_attention_fused(*args)
-    torch.cuda.synchronize()
-    err = max_err(out, ref.ct_paged_attention_fused_ref(*args))
-    per_block = BS * H * (2 * D + 2 * 2 * (D // 16))
-    pool_b, n_slots = pool_need(c["slot_state"], c["block_table"], per_block)
-    n_buf = L * int(c["buf_len"].sum())
-    flops = 4 * H * gq * D * (n_slots + n_buf)
-    recs["K1"] = kernel_record(
-        "ct_paged_attention_fused", paged[0], f"{paged[1]}:204",
-        f"L={L} R={R} H={H} GQ={gq} D={D} BS={BS} NB={NB}", err,
-        lambda: ops.paged_decode_attention_fused(*args),
-        lambda: ref.ct_paged_attention_fused_ref(*args),
-        bound(pool_b + nbytes(c["qh"], c["slot_state"], c["slot_bits"],
-                              c["block_table"], c["buf_len"], out)
-              + 2 * n_buf * H * D * 2, flops), plain_iters=3)
-
+    recs = {}
+    recs["K1"], c = k1_record(gen, dev, L, R, H, gq, D, BS, NB, G)
     # K2: frozen-pool partition of prefill chunks (queries folded into GQ)
-    layer = {k: c[k][0] for k in ("k_codes", "v_codes", "k_scales",
-                                  "v_scales")}
     for GQ, key in ((gq, "K2_4"), (16 * gq, "K2_64"), (128 * gq, "K2")):
-        qh = torch.randn((1, H, GQ, D), generator=gen, device=dev)
-        args = (qh, layer["k_codes"], layer["v_codes"], layer["k_scales"],
-                layer["v_scales"], c["slot_state"][0, :1].contiguous(),
-                c["slot_bits"][0, :1].contiguous(),
-                c["block_table"][:1, 0].contiguous())
-        outs = ops.paged_decode_attention_batched(*args)
-        torch.cuda.synchronize()
-        err = max_err(outs, ref.ct_paged_attention_batched_ref(*args))
-        pool_b, n_slots = pool_need(args[5][None], args[7][:, None],
-                                    per_block)
-        recs[key] = kernel_record(
-            "ct_paged_attention_batched", paged[0], f"{paged[1]}:285",
-            f"R=1 H={H} GQ={GQ} D={D} BS={BS} NB={NB}", err,
-            lambda: ops.paged_decode_attention_batched(*args),
-            lambda: ref.ct_paged_attention_batched_ref(*args),
-            bound(pool_b + nbytes(qh, *args[5:], *outs),
-                  4 * H * GQ * D * n_slots, peak="f64tc"))
-
+        recs[key] = k2_record(gen, dev, c, GQ)
     # K3: intra-chunk causal attention with stats (big chunk; g-chunk)
-    F = torch.nn.functional
-    for S, n_valid, key in ((128, None, "K3"), (G, 11, "K3_16")):
-        q = torch.randn((S, mc.num_heads, D), generator=gen, device=dev)
-        k = torch.randn((S, H, D), generator=gen, device=dev)
-        v = torch.randn((S, H, D), generator=gen, device=dev)
-        outs = ops.prefill_attention_stats(q, k, v, n_valid=n_valid)
-        torch.cuda.synchronize()
-        kv_valid = None if n_valid is None else \
-            torch.arange(S, device=dev) < n_valid
-        err = max_err(outs, ref.flash_prefill_stats_ref(
-            q, k, v, kv_valid=kv_valid))
-        nv = S if n_valid is None else n_valid
-        pairs = sum(min(i + 1, nv) for i in range(S))
-        flops = 4 * mc.num_heads * pairs * D
-        # SDPA yardstick on the same inputs (kv heads repeated for GQA)
-        qt = q.transpose(0, 1)[None]
-        kt, vt = (x.transpose(0, 1).repeat_interleave(gq, 0)[None]
-                  for x in (k, v))
-        recs[key] = kernel_record(
-            "flash_prefill", "flash_prefill.cu", "flash_prefill.py:83",
-            f"S={S} Hq={mc.num_heads} H={H} D={D} n_valid={nv}", err,
-            lambda: ops.prefill_attention_stats(q, k, v, n_valid=n_valid),
-            lambda: ref.flash_prefill_stats_ref(q, k, v, kv_valid=kv_valid),
-            bound(nbytes(q, k[:nv], v[:nv], *outs), flops, peak="f64tc"),
-            library=lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), plain_iters=10)
-        if n_valid is None:
-            # the plain variant (no stats) at the same shape
-            out = ops.prefill_attention(q, k, v)
-            torch.cuda.synchronize()
-            kernel_record(
-                "flash_prefill", "flash_prefill.cu", "flash_prefill.py:83",
-                recs[key]["shape"] + " (no stats: prefill_attention)",
-                max_err(out, ref.flash_prefill_ref(q, k, v)),
-                lambda: ops.prefill_attention(q, k, v),
-                lambda: ref.flash_prefill_ref(q, k, v),
-                bound(nbytes(q, k, v, out), flops, peak="f64tc"),
-                plain_iters=10)
-
+    recs["K3"] = k3_record(gen, dev, 128, None, mc.num_heads, H, D,
+                           plain=True)
+    recs["K3_16"] = k3_record(gen, dev, G, 11, mc.num_heads, H, D)
     # K4: one commit's quantization (L x G x H rows of D, K and V in bf16)
     # at each thought's width, with subnormal-scale, zero and saturating
     # groups; then the direct entry (f32 [N, D]) at bits 2, 4 and 8
-    k, v = commit_buffers(gen, dev, L, G, H, D)
-    levels = tuple(sorted(set(tk.precision)))
-    for thought, width in enumerate(tk.precision):
-        bits = torch.tensor(width, dtype=torch.int32, device=dev)
-        fn, plain = commit_quant(ops, ref, k, v, bits, levels)
-        got, want = fn(), plain()
-        torch.cuda.synchronize()
-        assert_same_quant(got, want, f"commit, thought {thought}")
-    outs = fn()
-    recs["K4"] = kernel_record(
-        "group_quant", "group_quant.cu", "group_quant.py:70",
-        f"commit: K, V bf16 [L={L}, G={G}, H={H}, D={D}] at bits "
-        f"{width} of {levels}", 0.0, fn, plain,
-        bound(nbytes(k, v, bits, *outs), 8 * 2 * k.numel()), plain_iters=10)
+    recs["K4"], k = k4_commit_record(gen, dev, L, G, H, D, tk)
     N = L * G * H
     x = k.float().reshape(N, D)
     for bits in (2, 4, 8):
@@ -522,7 +586,7 @@ def check_kernels(dev, mc, tk):
     pool_b, n_slots = pool_need(logical[None, None], table[None, None],
                                 per_block)
     recs["wrapper"] = kernel_record(
-        "ct_paged_attention", paged[0], f"{paged[1]}:355",
+        "ct_paged_attention", PAGED[0], f"{PAGED[1]}:355",
         f"Hq={mc.num_heads} H={H} D={D} BS={BS} NB={NB} NP={NPw}", err,
         lambda: ops.paged_decode_attention(*args),
         lambda: ref.ct_paged_attention_ref(*args),
@@ -604,7 +668,8 @@ def compare(ek, dk, er, dr):
             "audit_equal": ek.audit_pool() == er.audit_pool()}
 
 
-def parity(engine_cls, cfg, params, prompts, short, max_new, dev):
+def parity(engine_cls, cfg, params, prompts, short, max_new, dev,
+           free_running=True, hold=("prefill", "decode")):
     """The two backends on the card, where their results must agree.
 
     * prefill: prompts of one big chunk (K2 + K3) and one partial g-chunk
@@ -620,8 +685,9 @@ def parity(engine_cls, cfg, params, prompts, short, max_new, dev):
     Free-running engines drift apart further: prefill-written keys and
     values of layers past the first depend on attention outputs, and a
     value that lands on the other side of a quantization boundary changes
-    its code.  That run is reported (``free_running``), not held to the
-    bar."""
+    its code.  That run is reported (``free_running``; skipped when the
+    flag is off), not held to the bar.  ``hold`` names the comparisons
+    held; the others are reported."""
     def run(backend, reqs, n, prefill_backend=None):
         eng = engine_cls(cfg, params=params, device=dev, record_logits=True,
                          backend=prefill_backend or backend)
@@ -635,11 +701,13 @@ def parity(engine_cls, cfg, params, prompts, short, max_new, dev):
     dec = compare(*run("kernel", prompts, max_new, "reference"),
                   *run("reference", prompts, max_new))
     free = compare(*run("kernel", prompts, max_new),
-                   *run("reference", prompts, max_new))
+                   *run("reference", prompts, max_new)) \
+        if free_running else None
     failed = [name for name, r in (("prefill", pre), ("decode", dec))
-              if not (r["identical_tokens"] and r["max_diff_over_bar"] <= 1
-                      and r["audit_equal"])]
-    if dec["pool_bytes_differing"]:
+              if name in hold and not (r["identical_tokens"] and
+                                       r["max_diff_over_bar"] <= 1 and
+                                       r["audit_equal"])]
+    if "decode" in hold and dec["pool_bytes_differing"]:
         failed.append("decode pools")
     return {"prefill": pre, "decode": dec, "free_running": free,
             "failed": failed}
@@ -1004,7 +1072,8 @@ def check_trace_kernels(dev, cfg) -> dict:
     return errs
 
 
-TRACE_RECORDS = ("flash", "pressure", "sampled", "rkv", "uniform")
+TRACE_RECORDS = ("flash", "pressure", "sampled", "rkv", "uniform", "moe",
+                 "qwen2")
 
 
 def trace_phase(dev) -> dict:
@@ -1132,7 +1201,8 @@ def commit_profile(dev, mc, tk) -> dict:
     return out
 
 
-def serve_phase(engine_cls, cfg, params, prompts, max_new, init_s, dev):
+def serve_phase(engine_cls, cfg, params, prompts, max_new, init_s, dev,
+                phase="serve"):
     """The main path: the engine serves ``prompts`` with launch counts zeroed
     just before and read just after; K1-K4 must have run (K1 once per tick,
     K2 and K3 once per prefill chunk and layer, split by shape, K4 once per
@@ -1181,7 +1251,7 @@ def serve_phase(engine_cls, cfg, params, prompts, max_new, init_s, dev):
     if launches["group_quant"] != commits * per_commit:
         raise AssertionError(f"group_quant: {launches['group_quant']} "
                              f"launches for {commits} commits")
-    rec = {"phase": "serve", "layers": mc.num_layers, "requests": len(done),
+    rec = {"phase": phase, "layers": mc.num_layers, "requests": len(done),
            "prompt_len": len(prompts[0]), "max_new": max_new,
            "init_s": init_s, "wall_s": m["wall_s"],
            "prefill_s": m["prefill_s"], "decode_s": m["decode_s"],
@@ -1198,6 +1268,7 @@ def serve_phase(engine_cls, cfg, params, prompts, max_new, init_s, dev):
            "audit_claimed": audit["claimed"][:4],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(rec)
+    rec["outputs"] = {r.arrival: r.output for r in done}
     return rec
 
 
@@ -2004,6 +2075,215 @@ def serve_step_phase(params, mc, dev, prompts) -> dict:
     return rec
 
 
+# configs whose full-width kernel shapes the archs phase holds, each at the
+# depth it serves here (qwen2-7b in full, mixtral-8x7b at 4 of 32 layers)
+# or, when not served, at its full depth: the query-group sizes 7, 4, 5, 8
+# and 12 over 4 or 8 kv heads
+ARCH_KERNELS = (("qwen2-7b", 28), ("mixtral-8x7b", 4),
+                ("llama4-scout-17b-a16e", 48), ("yi-6b", 32),
+                ("mistral-large-123b", 88))
+ARCH_SERVED = (("qwen2-7b", None), ("mixtral-8x7b", 4))
+ARCH_PROMPT, ARCH_NEW = 1100, 64
+PARITY_LAYERS = 4          # the parity phase's depth
+
+
+def check_arch_kernels(dev, tk) -> dict:
+    """K1-K4 against their plain versions at each ``ARCH_KERNELS``
+    config's full-width shapes (1e-3 abs for attention, K4 bit-exact): K1
+    over a 4-slot tick, K2 at the big chunk's and the g-chunk's folded GQ
+    (128 and 16 queries per q head), K3 at S 128 and at a g-chunk with 11
+    valid keys (SDPA's time beside it), K4 over one commit.  Returns the
+    records keyed ``"<arch> K1"`` ... ``"<arch> K4"``."""
+    import torch
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    BS, G = tk.block_size, tk.group_size
+    NB = int(tk.token_budget * 2) // BS
+    recs = {}
+    for arch, L in ARCH_KERNELS:
+        mc = get_config(arch)
+        H, D, hq = mc.num_kv_heads, mc.head_dim, mc.num_heads
+        gq, label = hq // H, f"{arch}: "
+        recs[f"{arch} K1"], c = k1_record(gen, dev, L, 4, H, gq, D, BS, NB,
+                                          G, label)
+        recs[f"{arch} K2"] = k2_record(gen, dev, c, 128 * gq, label)
+        recs[f"{arch} K2_g"] = k2_record(gen, dev, c, G * gq, label)
+        del c
+        recs[f"{arch} K3"] = k3_record(gen, dev, 128, None, hq, H, D, label)
+        recs[f"{arch} K3_g"] = k3_record(gen, dev, G, 11, hq, H, D, label)
+        recs[f"{arch} K4"], _ = k4_commit_record(gen, dev, L, G, H, D, tk,
+                                                 label)
+        torch.cuda.empty_cache()
+    bad = {n: r["max_abs_err"] for n, r in recs.items()
+           if not r["max_abs_err"] <= ATOL}
+    over = [n for n, r in recs.items() if r["bound_share"] > 1]
+    if bad or over:
+        raise AssertionError(f"archs kernels: disagree with their plain "
+                             f"versions {bad} (> {ATOL}); bound above the "
+                             f"time {over}")
+    return recs
+
+
+def moe_routing(engine_cls, cfg, params, prompts, max_new, dev) -> dict:
+    """The MoE routing of a second kernel-backend run of the same traffic
+    (``layers/moe.py``'s ``moe_route`` wrapped; the counts stay on the card
+    until the run ends): per layer, the kept choices per expert and the
+    dropped choices, apart for prefill chunks and decode ticks (a tick
+    routes the ``max_seqs`` slots as one group), and the run's tokens."""
+    import torch
+    from repro_torch.layers import moe as MOE
+    mc = cfg.model
+    L, E, R = mc.num_layers, mc.moe.num_experts, cfg.max_seqs
+    layer_of = {params.router[i].data_ptr(): i for i in range(L)}
+    kept = torch.zeros((2, L, E), dtype=torch.int64, device=dev)
+    dropped = torch.zeros((2, L), dtype=torch.int64, device=dev)
+    route = MOE.moe_route
+
+    def counted(router, xt, c):
+        rt = route(router, xt, c)
+        l, tick = layer_of[router.data_ptr()], int(xt.shape[1] == R)
+        kept[tick, l] += torch.bincount(rt.expert[rt.keep], minlength=E)
+        dropped[tick, l] += (~rt.keep).sum()
+        return rt
+    MOE.moe_route = counted
+    try:
+        eng, done = serve(engine_cls, cfg, params, prompts, max_new,
+                          "kernel", dev)
+    finally:
+        MOE.moe_route = route
+    k, d = kept.tolist(), dropped.tolist()
+    return {"top_k": mc.moe.num_experts_per_token, "experts": E,
+            "prefill": {"kept_per_expert": k[0], "dropped": d[0]},
+            "decode": {"kept_per_expert": k[1], "dropped": d[1]},
+            "outputs": {r.arrival: r.output for r in done}}
+
+
+def arch_kernel_shapes(arc: dict, kernel: str) -> dict:
+    """One kernel's records at the archs phase's shapes for the kernels
+    line: shape, times, bound, error and, for a served config, the
+    launches of its serve run at that shape (by chunk shape for K2 and
+    K3)."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, _ in ARCH_KERNELS:
+        mc = get_config(arch)
+        gq = mc.num_heads // mc.num_kv_heads
+        shapes = {"K1": {"K1": None}, "K4": {"K4": None},
+                  "K2": {"K2": f"GQ={128 * gq}", "K2_g": f"GQ={16 * gq}"},
+                  "K3": {"K3": "S=128", "K3_g": "S=16"}}[kernel]
+        for key, by in shapes.items():
+            r = arc["records"][f"{arch} {key}"]
+            launches = None
+            if arch in arc:
+                served = arc[arch]
+                launches = served["launches"][r["name"]] if by is None \
+                    else served["launches_by_shape"][r["name"]][by]
+            out[f"{arch} {key}"] = {
+                "launches": launches,
+                **{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "max_abs_err")}}
+    return out
+
+
+def archs_phase(dev, tk) -> dict:
+    """This slice's configs on the card.  First ``check_arch_kernels``;
+    then qwen2-7b at full width and depth (28 layers, 28 q / 4 kv heads,
+    qkv bias; random f32 weights from a seed, 30.3 GB) and mixtral-8x7b at
+    full width and 4 of its 32 layers (8 experts, top 2; 24.3 GB), each
+    serving the serve phase's traffic (4 prompts of 1100 tokens, 64 new,
+    greedy) on the kernel backend with the serve phase's checks (K1 once
+    per tick, K2 and K3 once per chunk and layer by shape, K4 once per
+    commit); the kernel backend against the reference backend (the parity
+    phase's checks, the free-running pair left out); for mixtral the
+    routing per layer of a second run, whose tokens must equal the
+    first's.
+
+    At the served depth the decode comparison from identical state is
+    held (tokens, logits within the bar, byte-identical pools).  The
+    prefill comparison is held at the parity phase's 4 layers of the same
+    width: in prefill each layer's attention output feeds the next
+    layer, so the two backends' f32 rounding (K3's products on the fp64
+    tensor cores against the plain version's f32 sums) grows with depth,
+    and at qwen2-7b's 28 layers it is reported (``parity``'s
+    ``prefill``) beside the 4-layer check (``parity_4_layers``)."""
+    import numpy as np
+    import torch
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_params
+    from repro_torch.serving.engine import ThinKVEngine
+    t_phase = time.perf_counter()
+    recs = check_arch_kernels(dev, tk)
+    out = {"phase": "archs", "kernels": {
+        n: {k: r[k] for k in ("shape", "max_abs_err", "ms", "eager_ms",
+                              "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")} for n, r in recs.items()},
+        "kernels_s": time.perf_counter() - t_phase}
+    failed = []
+    for arch, layers in ARCH_SERVED:
+        t1 = time.perf_counter()
+        mc = get_config(arch)
+        if layers:
+            mc = dataclasses.replace(mc, num_layers=layers)
+        cfg = ServeConfig(model=mc, thinkv=tk, max_seqs=4)
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, mc.vocab_size, ARCH_PROMPT)
+                   for _ in range(4)]
+        short = [rng.integers(0, mc.vocab_size, n) for n in (128, 12)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(mc, SEED, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights_gb = sum(p.numel() * p.element_size()
+                         for p in params.parameters()) / 1e9
+        srv = serve_phase(ThinKVEngine, cfg, params, prompts, ARCH_NEW,
+                          init_s, dev, phase=f"archs {arch}")
+        rec = {k: v for k, v in srv.items() if k not in ("phase",
+                                                         "outputs")}
+        rec.update(layers_of=get_config(arch).num_layers,
+                   heads=mc.num_heads, kv_heads=mc.num_kv_heads,
+                   qkv_bias=mc.qkv_bias, weights_gb=weights_gb)
+        if mc.moe is not None:
+            routing = moe_routing(ThinKVEngine, cfg, params, prompts,
+                                  ARCH_NEW, dev)
+            if routing.pop("outputs") != srv["outputs"]:
+                failed.append(f"{arch}: the routing run's tokens differ "
+                              f"from the timed run's")
+            rec["moe"] = routing
+        deep = mc.num_layers > PARITY_LAYERS
+        par = parity(ThinKVEngine, cfg, params, prompts, short, ARCH_NEW,
+                     dev, free_running=False,
+                     hold=("decode",) if deep else ("prefill", "decode"))
+        rec["parity"] = par
+        failed += [f"{arch} parity: {f}" for f in par["failed"]]
+        del params
+        gc.collect()                 # engines keep the weights in cycles
+        torch.cuda.empty_cache()
+        if deep:
+            mc4 = dataclasses.replace(mc, num_layers=PARITY_LAYERS)
+            params = init_params(mc4, SEED, dev)
+            par4 = parity(ThinKVEngine, ServeConfig(model=mc4, thinkv=tk,
+                                                    max_seqs=4),
+                          params, prompts, short, ARCH_NEW, dev,
+                          free_running=False)
+            rec["parity_4_layers"] = par4
+            failed += [f"{arch} 4-layer parity: {f}" for f in par4["failed"]]
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t1
+        out[arch] = rec
+    out["seconds"] = time.perf_counter() - t_phase
+    out["failed"] = failed
+    emit(out)
+    if failed:
+        raise AssertionError(f"archs phase failed: {failed}")
+    out["records"] = recs
+    return out
+
+
 def ab(parent: str) -> int:
     """The parent tree (``parent``/src, its kernels built there) and this
     one, each in its own process, in turns: parent, this, this, parent;
@@ -2089,6 +2369,7 @@ def main() -> int:
         pol = policy_phase(ThinKVEngine, params, mc, dev)
         sst = serve_step_phase(params, mc, dev, prompts)
     del params
+    gc.collect()                      # engines keep the weights in cycles
     torch.cuda.empty_cache()
     if ab_run:
         _, ssm_params, _, ssm_pre = ssm_prefill(dev, rng)
@@ -2136,6 +2417,9 @@ def main() -> int:
                              f"{rec['failed']}")
 
     del params4
+    gc.collect()                      # engines keep the weights in cycles
+    torch.cuda.empty_cache()          # the archs phase needs up to ~35 GB
+    arc = archs_phase(dev, tk)
     torch.cuda.empty_cache()                 # the ssm phase needs ~28 GB
     ssm = ssm_phase(dev, rng)
     torch.cuda.empty_cache()
@@ -2154,10 +2438,14 @@ def main() -> int:
         r["launches_policy"] = {p: run["launches"].get(r["name"], 0)
                                 for p, run in pol["runs"].items()}
     recs["K1"]["launches_serve_step"] = sst["k1_launches"]
+    for n in ("K1", "K2", "K3", "K4"):
+        recs[n]["launches_archs"] = {
+            arch: arc[arch]["launches"][recs[n]["name"]]
+            for arch, _ in ARCH_SERVED}
     recs["K5"]["launches"] = ssm["prefill"]["launches"]["mamba_scan"]
     recs["wrapper"]["launches"] = ctl["wrapper_launches"]
     extra = ("launches_pressure", "launches_sampled", "launches_policy",
-             "launches_serve_step")
+             "launches_serve_step", "launches_archs")
     lines = [{k: recs[n][k] for k in keys + tuple(
         k for k in extra if k in recs[n])}
         for n in ("K1", "K2", "K3", "K4", "K5", "wrapper")]
@@ -2178,6 +2466,9 @@ def main() -> int:
                     "library_ms": recs[key]["library_ms"]}
             for (shape, n), key in zip(
                 srv["launches_by_shape"][name].items(), shapes)}
+    # K1-K4 at the archs phase's shapes: times, bounds and launches
+    for line, kernel in zip(lines[:4], ("K1", "K2", "K3", "K4")):
+        line["archs"] = arch_kernel_shapes(arc, kernel)
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     emit({"kernels": lines})
     print(smi, flush=True)

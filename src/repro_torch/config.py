@@ -3,7 +3,8 @@
 The port keeps its own copy of the dataclasses it needs, field for field,
 so that a configuration built here describes exactly the model and cache
 the JAX package builds from the same values: :class:`ModelConfig` (with
-its ``ssm`` field), :class:`SSMConfig`, :class:`ThinKVConfig`,
+its ``moe`` and ``ssm`` fields), :class:`MoEConfig`, :class:`SSMConfig`,
+:class:`ThinKVConfig`,
 :class:`ServeConfig`, the enums, and :func:`reduced` (the CPU smoke-size
 variant).
 """
@@ -15,8 +16,9 @@ from typing import Any, Dict, Optional, Tuple
 
 
 class ArchFamily(str, enum.Enum):
-    """Model family; the port serves ``DENSE`` (the ThinKV engine) and
-    ``SSM`` (``serving/serve_step.py``) so far (see ``ROADMAP.md``)."""
+    """Model family; the port serves ``DENSE`` and ``MOE`` (the ThinKV
+    engine) and ``SSM`` (``serving/serve_step.py``) so far (see
+    ``ROADMAP.md``)."""
 
     DENSE = "dense"
     MOE = "moe"
@@ -31,6 +33,22 @@ class PositionEmbedding(str, enum.Enum):
     SINUSOIDAL = "sinusoidal"
     LEARNED = "learned"
     NONE = "none"
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN (``repro/config/base.py:40-48``): top-k
+    routing over ``num_experts``, capacity ``capacity_factor`` per group
+    of ``dispatch_group`` tokens.  ``router_jitter`` and
+    ``aux_loss_weight`` are training settings the port keeps for field
+    equality."""
+
+    num_experts: int = 8
+    num_experts_per_token: int = 2
+    capacity_factor: float = 1.25
+    dispatch_group: int = 256
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
 
 
 @dataclass(frozen=True)
@@ -68,6 +86,7 @@ class ModelConfig:
     sliding_window: int = 0
     act: str = "silu"
     mlp_gated: bool = True
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     logit_softcap: float = 0.0
 
@@ -127,7 +146,7 @@ class ServeConfig:
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests (the JAX package's
-    ``reduced`` for the dense and SSM families)."""
+    ``reduced`` for the dense, MoE and SSM families)."""
     kw: Dict[str, Any] = dict(
         num_layers=2,
         d_model=64,
@@ -138,6 +157,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab_size=256,
         name=cfg.name + "-smoke",
     )
+    if cfg.moe is not None:
+        kw["moe"] = replace(cfg.moe, num_experts=4, dispatch_group=64)
     if cfg.ssm is not None:
         kw["ssm"] = replace(cfg.ssm, state_size=min(cfg.ssm.state_size, 16),
                             head_dim=16, chunk_size=16)

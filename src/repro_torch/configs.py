@@ -1,10 +1,23 @@
-"""Architecture registry of the port (ports ``repro/configs/__init__.py``,
-``repro/configs/r1_llama_8b.py`` and ``repro/configs/falcon_mamba_7b.py``).
+"""Architecture registry of the port (ports ``repro/configs/__init__.py``
+and, field for field, the modules under ``repro/configs/`` of the archs
+below).
 
 * ``r1-llama-8b``: the paper's own evaluation model,
   DeepSeek-R1-Distill-Llama-8B (the llama3.1-8B architecture), 32 layers,
   d_model 4096, 32 q heads, 8 kv heads, d_ff 14336, vocab 128256; served
   by the ThinKV engine.
+* dense, served by the ThinKV engine: ``qwen2-7b`` (28 layers, d_model
+  3584, 28 q / 4 kv heads, d_ff 18944, vocab 152064, qkv bias; the Qwen
+  builds of the paper's reasoning models), ``yi-6b`` and ``yi-9b`` (32
+  and 48 layers, d_model 4096, 32 q / 4 kv heads, d_ff 11008, vocab
+  64000), ``mistral-large-123b`` (88 layers, d_model 12288, 96 q / 8 kv
+  heads, d_ff 28672, vocab 32768);
+* mixture of experts, served by the ThinKV engine: ``mixtral-8x7b`` (32
+  layers, d_model 4096, 32 q / 8 kv heads, 8 experts of d_ff 14336, top
+  2, vocab 32000, a 4096-token sliding window, which the ThinKV engine
+  does not read, as the reference's does not) and
+  ``llama4-scout-17b-a16e`` (48 layers, d_model 5120, 40 q / 8 kv heads,
+  16 experts of d_ff 8192, top 1, vocab 202048; text backbone only).
 * ``falcon-mamba-7b``: attention-free Mamba-1, 64 layers, d_model 4096,
   vocab 65024, state 16, conv width 4, expand 2 (d_inner 8192), dt rank
   256, tied embeddings.  It has no KV cache, so ThinKV does not apply;
@@ -14,8 +27,8 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.config import (ArchFamily, ModelConfig, PositionEmbedding,
-                                SSMConfig, reduced)
+from repro_torch.config import (ArchFamily, ModelConfig, MoEConfig,
+                                PositionEmbedding, SSMConfig, reduced)
 
 R1_LLAMA_8B = ModelConfig(
     name="r1-llama-8b",
@@ -45,8 +58,98 @@ FALCON_MAMBA_7B = ModelConfig(
     tie_embeddings=True,
 )
 
-_CONFIGS: Dict[str, ModelConfig] = {"r1-llama-8b": R1_LLAMA_8B,
-                                    "falcon-mamba-7b": FALCON_MAMBA_7B}
+QWEN2_7B = ModelConfig(
+    name="qwen2-7b",
+    family=ArchFamily.DENSE,
+    num_layers=28,
+    d_model=3584,
+    num_heads=28,
+    num_kv_heads=4,
+    d_ff=18944,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1e6,
+    act="silu",
+    mlp_gated=True,
+)
+
+YI_6B = ModelConfig(
+    name="yi-6b",
+    family=ArchFamily.DENSE,
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=4,
+    d_ff=11008,
+    vocab_size=64000,
+    rope_theta=5e6,
+    act="silu",
+    mlp_gated=True,
+)
+
+YI_9B = ModelConfig(
+    name="yi-9b",
+    family=ArchFamily.DENSE,
+    num_layers=48,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=4,
+    d_ff=11008,
+    vocab_size=64000,
+    rope_theta=5e6,
+    act="silu",
+    mlp_gated=True,
+)
+
+MISTRAL_LARGE_123B = ModelConfig(
+    name="mistral-large-123b",
+    family=ArchFamily.DENSE,
+    num_layers=88,
+    d_model=12288,
+    num_heads=96,
+    num_kv_heads=8,
+    d_ff=28672,
+    vocab_size=32768,
+    rope_theta=1e6,
+    act="silu",
+    mlp_gated=True,
+)
+
+MIXTRAL_8X7B = ModelConfig(
+    name="mixtral-8x7b",
+    family=ArchFamily.MOE,
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=14336,
+    vocab_size=32000,
+    sliding_window=4096,
+    rope_theta=1e6,
+    act="silu",
+    mlp_gated=True,
+    moe=MoEConfig(num_experts=8, num_experts_per_token=2),
+)
+
+LLAMA4_SCOUT_17B_A16E = ModelConfig(
+    name="llama4-scout-17b-a16e",
+    family=ArchFamily.MOE,
+    num_layers=48,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    d_ff=8192,
+    vocab_size=202048,
+    rope_theta=5e5,
+    act="silu",
+    mlp_gated=True,
+    moe=MoEConfig(num_experts=16, num_experts_per_token=1),
+)
+
+_CONFIGS: Dict[str, ModelConfig] = {
+    c.name: c for c in (R1_LLAMA_8B, FALCON_MAMBA_7B, QWEN2_7B, YI_6B, YI_9B,
+                        MISTRAL_LARGE_123B, MIXTRAL_8X7B,
+                        LLAMA4_SCOUT_17B_A16E)}
 ARCHS: List[str] = sorted(_CONFIGS)
 
 

@@ -36,15 +36,18 @@ def tensor_from_numpy(a, device: Device = None) -> torch.Tensor:
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                       device: Device = None) -> Union[lm.LM, ssm_lm.SSMLM]:
     """The reference's parameter tree (numpy leaves) -> the port's model:
-    ``LM`` for the dense family, ``SSMLM`` (tied embedding, no lm_head;
-    ``mixer`` and ``norm`` per layer) for the SSM family."""
+    ``LM`` for the dense and MoE families (``attn``'s ``bq`` / ``bk`` /
+    ``bv`` under qkv bias; ``moe``'s router and stacked experts or
+    ``mlp``'s weights), ``SSMLM`` (tied embedding, no lm_head; ``mixer``
+    and ``norm`` per layer) for the SSM family."""
     dev = resolve_device(device)
     src = {"embedding": tree["embed"]["embedding"],
            "final_norm": tree["final_norm"]["scale"]}
     if cfg.family == ArchFamily.SSM:
         model, layer_params = ssm_lm.SSMLM(cfg, dev), ssm_lm.LAYER_PARAMS
     else:
-        model, layer_params = lm.LM(cfg, dev), lm.LAYER_PARAMS
+        model = lm.LM(cfg, dev)
+        layer_params = model.layer_params
         src["lm_head"] = tree["embed"]["lm_head"]
     for name, (group, key) in layer_params.items():
         src[name] = tree["layers"][group][key]

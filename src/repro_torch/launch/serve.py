@@ -12,7 +12,10 @@ card unless ``cpu`` is asked for):
 
 * the model and cache: ``--arch --full --requests --slots --prompt-len
   --max-new --budget --tau --group --backend --policy`` (``thinkv``,
-  ``rkv`` or ``uniform``);
+  ``rkv`` or ``uniform``); ``--arch`` takes every registered config the
+  engine serves: r1-llama-8b, qwen2-7b (qkv bias), yi-6b, yi-9b,
+  mistral-large-123b, and the MoE configs mixtral-8x7b and
+  llama4-scout-17b-a16e (falcon-mamba-7b has no KV cache and is refused);
 * sampling and dispatch: ``--temperature`` (> 0 samples on per-request
   key streams), ``--top-p`` (< 1 nucleus), ``--ticks-per-dispatch`` (N
   fuses up to N ticks into one dispatch; prints the mega-dispatch line),
@@ -53,6 +56,7 @@ refused, naming it.
         --top-p 0.9 --ticks-per-dispatch 4
     python -m repro_torch.launch.serve --device cpu --policy rkv \
         --drift-probe --expect-drift --stream
+    python -m repro_torch.launch.serve --device cpu --arch mixtral-8x7b
 """
 from __future__ import annotations
 

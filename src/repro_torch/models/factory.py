@@ -1,7 +1,8 @@
 """Model factory (ports ``repro/models/factory.py``: ``Model`` and
-``build_model``) for the families the port has: DENSE (``models/lm.py``)
-and SSM (``models/ssm_lm.py``).  MoE, VLM, encoder-decoder and hybrid
-raise NotImplementedError (ROADMAP queue 1 item 15).
+``build_model``) for the families the port has: DENSE and MOE
+(``models/lm.py``, as the reference maps both) and SSM
+(``models/ssm_lm.py``).  VLM, encoder-decoder and hybrid raise
+NotImplementedError (ROADMAP queue 1 item 15).
 
 ``input_specs`` is not ported: it builds ``jax.ShapeDtypeStruct`` stand-ins
 for the XLA dry-run's lowering, which has no PyTorch meaning.
@@ -22,7 +23,8 @@ def loss_fn(params, batch, cfg: ModelConfig):
                               "queue 1 item 16)")
 
 
-_FAMILY_MODULES = {ArchFamily.DENSE: lm, ArchFamily.SSM: ssm_lm}
+_FAMILY_MODULES = {ArchFamily.DENSE: lm, ArchFamily.MOE: lm,
+                   ArchFamily.SSM: ssm_lm}
 
 
 @dataclasses.dataclass(frozen=True)

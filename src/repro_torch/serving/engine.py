@@ -1,6 +1,6 @@
-"""ThinKV serving engine (ports ``repro/serving/engine.py`` for a dense model,
-on a shared pool that may be oversubscribed and shared through a
-copy-on-write prefix cache or forked generation).
+"""ThinKV serving engine (ports ``repro/serving/engine.py`` for a dense or a
+mixture-of-experts decoder, on a shared pool that may be oversubscribed
+and shared through a copy-on-write prefix cache or forked generation).
 
 Same dataflow as the reference (see its module docstring):
 
@@ -76,8 +76,18 @@ every commit, anneal and eviction.  The logit-drift probe
 (``drift_probe=True``, which records logits) replays each finished request
 through the uncompressed dense forward and compares (``measure_drift``).
 
+MoE layers route as the reference's trunk loops do (``models/lm.py``'s
+``mlp_residual``): a decode tick routes the R slots as one call, inactive
+slots included, in slot order; a prefill chunk routes its C rows as one
+call, a g-chunk's padded rows included.  Which choices a capacity drops
+therefore matches the reference's.  The drift probe's dense replay goes
+through ``lm.backbone`` (the B·S padded tokens together, as the
+reference's replay).  The serving path does not read mixtral's sliding
+window, as the reference engine's does not; the dense replay does, as
+the reference's does.
+
 Not in this slice (each raises NotImplementedError naming the ROADMAP
-item): tensor parallelism, MoE/VLM families.
+item): tensor parallelism, the VLM family.
 """
 from __future__ import annotations
 
@@ -101,7 +111,6 @@ from repro_torch.kernels import ref as KR
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers.common import softcap
-from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import rmsnorm
 from repro_torch.models import lm
 from repro_torch.models.lm import LM, init_params
@@ -304,7 +313,7 @@ class MultiTickResult:
 
 
 class ThinKVEngine:
-    """Dense-LM serving with ThinKV on one card (or the CPU)."""
+    """Dense- and MoE-LM serving with ThinKV on one card (or the CPU)."""
 
     def __init__(self, cfg: ServeConfig, params: Optional[LM] = None,
                  lstar: Optional[Sequence[int]] = None,
@@ -319,7 +328,7 @@ class ThinKVEngine:
             raise ValueError(
                 f"{cfg.model.name} is attention-free: it has no KV cache for "
                 f"ThinKV to compress; serve it through serving/serve_step.py")
-        if cfg.model.family != ArchFamily.DENSE:
+        if cfg.model.family not in (ArchFamily.DENSE, ArchFamily.MOE):
             _not_ported(f"the {cfg.model.family.value} family", "15")
         if int(ticks_per_dispatch) < 1:
             raise ValueError(f"ticks_per_dispatch {ticks_per_dispatch} < 1")
@@ -516,7 +525,8 @@ class ThinKVEngine:
         refresh_due = active & ((self._slot_ntok + 1)
                                 % tk.refresh_interval == 0)
 
-        # pass 1: qkv + buffer write + MLP trunk
+        # pass 1: qkv + buffer write + FFN trunk (MoE: the R slots route
+        # together)
         qs = []
         for l in range(L):
             lp = m.layer(l)
@@ -524,8 +534,7 @@ class ThinKVEngine:
             q, k, v = A.qkv_decode(lp["attn"], x1, mc, pos)
             caches.buf_k[ridx, l, buf_len] = k.to(torch.bfloat16)
             caches.buf_v[ridx, l, buf_len] = v.to(torch.bfloat16)
-            h = h + mlp(lp["mlp"], rmsnorm(lp["norm2"], h, mc.norm_eps),
-                        mc.act, mc.mlp_gated)
+            h = lm.mlp_residual(lp, h, mc)
             qs.append(q)
         qs = torch.stack(qs)                                     # [L,R,Hq,D]
         n_buf = caches.buf_len + 1
@@ -592,10 +601,9 @@ class ThinKVEngine:
         return q, k, v
 
     def _layer_out(self, lp, h, o):
-        mc = self.mcfg
-        h = h + A.out_proj(lp["attn"], o)
-        return h + mlp(lp["mlp"], rmsnorm(lp["norm2"], h, mc.norm_eps),
-                       mc.act, mc.mlp_gated)
+        """A chunk's attention-output and FFN residuals (MoE: the chunk's C
+        rows, padded ones included, route together)."""
+        return lm.mlp_residual(lp, h + A.out_proj(lp["attn"], o), self.mcfg)
 
     def _logits(self, h):
         mc, m = self.mcfg, self.model

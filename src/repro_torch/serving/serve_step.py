@@ -1,5 +1,5 @@
-"""Serving steps (ports ``repro/serving/serve_step.py``: its dense and SSM
-branches).
+"""Serving steps (ports ``repro/serving/serve_step.py``: its dense, MoE and
+SSM branches).
 
 Each maker returns a function of ``(params, batch)`` with the reference's
 batch keys and shapes (``repro/models/factory.py::input_specs``):
@@ -29,7 +29,11 @@ batch keys and shapes (``repro/models/factory.py::input_specs``):
   (``ops.paged_decode_attention_fused`` at L 1, R B).  For the SSM family
   (attention-free) it is the FullKV step.
 
-The MoE, VLM, encoder-decoder and hybrid families raise
+The MoE family takes the dense paths, with the reference's routing groups:
+the prefill step routes the B·S prompt tokens together (``lm.backbone``),
+the FullKV and ThinKV decode steps route each request's token alone (the
+reference ``vmap``s one request), while K1 stays one launch per layer for
+the batch.  The VLM, encoder-decoder and hybrid families raise
 NotImplementedError (ROADMAP queue 1 item 15).  Not ported: the
 reference's ``REPRO_F32_DEQUANT`` and ``REPRO_CONCAT_BUF`` toggles of the
 reference backend, which measured a GSPMD rematerialisation of the pool
@@ -53,7 +57,7 @@ from repro_torch.layers.norms import rmsnorm
 from repro_torch.models import lm, ssm_lm
 
 NEG_INF = -1e30
-_FAMILIES = (ArchFamily.DENSE, ArchFamily.SSM)
+_FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.SSM)
 
 
 def _check_family(cfg: ModelConfig, step: str) -> None:
@@ -84,7 +88,8 @@ def make_prefill_step(model, cfg: ModelConfig) -> Callable:
 
 def make_decode_step_fullkv(cfg: ModelConfig) -> Callable:
     """(params, batch) -> (logits [B, V], k_cache, v_cache) for the dense
-    family, (logits, conv_state, ssm_state) for the SSM family."""
+    and MoE families, (logits, conv_state, ssm_state) for the SSM
+    family."""
     _check_family(cfg, "FullKV decode step")
     if cfg.family == ArchFamily.SSM:
         def step(params, batch):
@@ -193,8 +198,9 @@ _POOL_READS = {"reference": _pool_attention,
 def make_decode_step_thinkv(cfg: ModelConfig, tk: ThinKVConfig, *,
                             backend: str = "reference") -> Callable:
     """(params, batch) -> (logits [B, V], buf_k, buf_v, buf_len + 1) for the
-    dense family (batch keys in the module docstring); the FullKV step for
-    the attention-free SSM family."""
+    dense and MoE families (batch keys in the module docstring; a MoE
+    layer routes each request's token alone); the FullKV step for the
+    attention-free SSM family."""
     _check_family(cfg, "ThinKV decode step")
     if backend not in _POOL_READS:
         raise ValueError(f"unknown backend {backend!r}")
@@ -222,7 +228,8 @@ def make_decode_step_thinkv(cfg: ModelConfig, tk: ThinKVConfig, *,
             buf_v[rows, i, at] = v.to(buf_v.dtype)
             o = pool_read(q, batch, i, buf_k[:, i].contiguous(),
                           buf_v[:, i].contiguous(), n_buf)
-            h = lm.mlp_residual(lp, h + A.out_proj(lp["attn"], o), cfg)
+            h = lm.mlp_residual(lp, h + A.out_proj(lp["attn"], o), cfg,
+                                tokens_alone=True)
         h = rmsnorm({"scale": params.final_norm}, h, cfg.norm_eps)
         return params.unembed(h), buf_k, buf_v, n_buf
     return step

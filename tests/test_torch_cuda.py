@@ -5,7 +5,9 @@ records; the shared-pool operations, the sampler, a fork and the rkv and
 uniform selections on card tensors against their CPU results; packs of 8
 ticks against single ticks on the kernel backend; the dense ThinKV serve
 step's kernel path (one K1 launch per layer) against its plain path; a
-uniform single-level commit.
+uniform single-level commit; the pressure trace on mixtral-8x7b's (MoE)
+and qwen2-7b's (qkv bias) smoke configs against their JAX records, and
+K1-K3 at those configs' query-group sizes.
 
 Every test here needs a CUDA card and the CUDA toolkit (the kernels are
 built with nvcc at first use); without a card each test skips with the
@@ -953,3 +955,69 @@ def test_dense_thinkv_step_kernel_path_on_the_card(card, D):
         torch.testing.assert_close(g.cpu().float(), w.float(), rtol=2 ** -7,
                                    atol=0)
     assert torch.equal(got[3].cpu(), want[3])
+
+
+ARCH_RECORDS = {name: os.path.join(os.path.dirname(os.path.abspath(
+    __file__)), "golden", f"torch_{name}_trace.npz")
+    for name in ("moe", "qwen2")}
+
+
+@pytest.mark.parametrize("name", sorted(ARCH_RECORDS))
+def test_arch_traces_on_the_card_give_the_jax_records(card, name):
+    """The pressure trace on mixtral-8x7b's smoke config (MoE) and on
+    qwen2-7b's (non-zero qkv biases), held to the JAX engine's records
+    (``tests/golden/torch_{moe,qwen2}_trace.npz``): identical tokens,
+    logits within 1e-3, equal counters and pool audit, on the kernel
+    backend (K1 once per tick, K2 and K3 launched, K4 once per commit)
+    and on the reference backend."""
+    rec = TR.load(ARCH_RECORDS[name])
+    params = None
+    for backend in ("kernel", "reference"):
+        eng, done, launches = TR.replay(rec, backend, card, params)
+        params = eng.model
+        bad, worst = TR.mismatches(rec, eng, done)
+        assert not bad, (backend, bad)
+        m = eng.metrics
+        assert launches["group_quant"] == m["commits"] > 0
+        assert launches["ct_paged_attention_fused"] == (
+            m["ticks"] if backend == "kernel" else 0)
+        assert (launches["flash_prefill"] > 0) == (backend == "kernel")
+
+
+@pytest.mark.parametrize("H", [4, 8])
+@pytest.mark.parametrize("GQ", [5, 7, 8, 12])
+def test_paged_attention_at_the_new_query_groups(card, GQ, H):
+    """K1 and K2 at D 128 with the query-group sizes of this slice's
+    configs (llama4-scout 5, qwen2-7b 7, yi 8, mistral-large 12): K1 tiles
+    query rows 8 at a time, so 5, 7 and 12 take partial tiles; K2 at the
+    g-chunk's and the big chunk's folded GQ (16 and 128 queries)."""
+    c = pool_case(torch.Generator().manual_seed(100 * GQ + H), L=3, R_=3,
+                  H=H, GQ=GQ, D=128, BS=16, NB=12)
+    got = launched_once("ct_paged_attention_fused",
+                        ops.paged_decode_attention_fused,
+                        *on(card, c.values()))
+    assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
+    for rows in (16, 128):
+        c = pool_case(torch.Generator().manual_seed(rows * GQ + H), L=1,
+                      R_=1, H=H, GQ=rows * GQ, D=128, BS=16, NB=12)
+        args = batched_args(c)
+        got = launched_once("ct_paged_attention_batched",
+                            ops.paged_decode_attention_batched,
+                            *on(card, args))
+        assert_close(got[:2], R.ct_paged_attention_batched_ref(*args)[:2])
+        assert_close(got, batched_f64(*args))
+
+
+@pytest.mark.parametrize("S,n_valid", [(128, None), (16, 11)])
+def test_prefill_attention_stats_at_qwen2_grouping(card, S, n_valid):
+    """K3 at qwen2-7b's heads (Hq 28, H 4: 7 q heads per kv head), D 128,
+    the big chunk and a ragged g-chunk."""
+    gen = torch.Generator().manual_seed(700 + S)
+    q = torch.randn((S, 28, 128), generator=gen)
+    k = torch.randn((S, 4, 128), generator=gen)
+    v = torch.randn((S, 4, 128), generator=gen)
+    got = launched_once(
+        "flash_prefill", lambda *a: ops.prefill_attention_stats(
+            *a, n_valid=n_valid), *on(card, (q, k, v)))
+    kv_valid = None if n_valid is None else torch.arange(S) < n_valid
+    assert_close(got, R.flash_prefill_stats_ref(q, k, v, kv_valid=kv_valid))

@@ -136,8 +136,9 @@ def serve_like_jax(argv, capsys, policy="thinkv"):
     from repro_torch.configs import get_smoke_config
     from repro_torch.convert import params_from_numpy
     want, params, jdone = jax_outputs(argv, policy)
+    arch = serve.build_parser().parse_args(argv).arch
     done = serve.main(["--device", "cpu"] + argv, params=params_from_numpy(
-        params, get_smoke_config("r1-llama-8b"), "cpu"))
+        params, get_smoke_config(arch), "cpu"))
     assert {r.uid: list(r.output) for r in done} == want
     return capsys.readouterr().out, done, jdone
 
@@ -204,6 +205,23 @@ def test_serve_cli_forked_multi_tick_gate(capsys):
                      r"faults, peak refcount 2", out), out
     assert re.search(r"multi-tick gate OK: .* 2 fork\(s\) sharing prefix "
                      r"blocks", out), out
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen2-7b"])
+def test_serve_cli_serves_the_moe_and_qkv_bias_archs(arch, capsys):
+    """``--arch mixtral-8x7b`` and ``--arch qwen2-7b`` at smoke size on an
+    oversubscribed pool, kernel backend (plain versions on the CPU): the
+    JAX engine's tokens for the same flags and weights, every request's
+    tokens, a clean audit."""
+    argv = ["--arch", arch, "--backend", "kernel", "--pool-frac", "0.6",
+            "--prompt-len", "40", "--max-new", "24", "--requests", "6",
+            "--expect-all"]
+    out, done, _ = serve_like_jax(argv, capsys)
+    # every request's 24 tokens: the first from its prefill, 23 decoded
+    assert re.search(r"served 6 requests .* 138 tokens .*cpu, kernel", out), \
+        out
+    assert "pool refcount audit OK" in out
+    assert all(len(r.output) == 24 for r in done)
 
 
 @pytest.mark.parametrize("argv,what", [

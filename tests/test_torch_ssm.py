@@ -241,18 +241,19 @@ def test_backends_agree_on_the_cpu(models):
 
 
 def test_other_families_name_their_roadmap_item():
-    """The dense serve-step makers build since item 12 was ported; the
-    MoE, VLM, encoder-decoder and hybrid families still raise, naming
-    item 15."""
+    """The dense serve-step makers build since item 12 was ported, the
+    MoE family's since its part of item 15 was; the VLM, encoder-decoder
+    and hybrid families still raise, naming item 15."""
     cfg = get_smoke_config("r1-llama-8b")
-    assert FT.build_model(cfg).module.__name__.endswith(".lm")
-    for make in (lambda: SST.make_prefill_step(None, cfg),
-                 lambda: SST.make_decode_step_fullkv(cfg),
-                 lambda: SST.make_decode_step_thinkv(cfg, None),
-                 lambda: SST.make_decode_step_thinkv(cfg, None,
-                                                     backend="kernel")):
-        assert callable(make())
-    for fam in ("moe", "vlm", "encdec", "hybrid"):
+    for c in (cfg, get_smoke_config("mixtral-8x7b")):
+        assert FT.build_model(c).module.__name__.endswith(".lm")
+        for make in (lambda: SST.make_prefill_step(None, c),
+                     lambda: SST.make_decode_step_fullkv(c),
+                     lambda: SST.make_decode_step_thinkv(c, None),
+                     lambda: SST.make_decode_step_thinkv(c, None,
+                                                         backend="kernel")):
+            assert callable(make())
+    for fam in ("vlm", "encdec", "hybrid"):
         other = dataclasses.replace(cfg, family=type(cfg.family)(fam))
         with pytest.raises(NotImplementedError, match="item 15"):
             FT.build_model(other)

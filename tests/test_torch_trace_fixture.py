@@ -1,8 +1,8 @@
 """The JAX engine's records of the flash, the pressure and the sampled
 trace, carried to the card as numpy archives
-(``tests/golden/torch_{flash,pressure,sampled,rkv,uniform}_trace.npz``), and
-the port's
-replay of them (``repro_torch.serving.trace_record``).
+(``tests/golden/torch_{flash,pressure,sampled,rkv,uniform,moe,qwen2}_trace
+.npz``), and the port's replay of them
+(``repro_torch.serving.trace_record``).
 
 A record is the live JAX ``reference`` engine's run: its parameters, tokens
 and logits per request, the engine counters and the pool audit.  The flash
@@ -19,7 +19,10 @@ PRNG from the JAX logits (which also reproduces every recorded token).
 The rkv and uniform records are the pressure trace under those retention
 policies with the drift probe on (the JAX trace suite's
 ``policy_pressure_cells``): each request's drift against the dense replay
-is recorded too.
+is recorded too.  The moe and qwen2 records are the pressure trace on
+mixtral-8x7b's and qwen2-7b's smoke configs at their own 4 q / 2 kv heads
+(``test_torch_archs.jax_params``: qwen2's qkv biases non-zero, drawn from
+a numpy seed).
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the card's kernel
 and reference backends to them, where there is no JAX.  The golden
 ``serving_trace.json`` is not such a record (it dates from an older tree:
@@ -28,7 +31,7 @@ its pressure counters still do).
 
 A test here re-runs the JAX engine on each trace and asserts that the
 archive equals the fresh record, so a file cannot go stale silently.  To
-write all five anew (after a change to the reference engine or to these
+write all seven anew (after a change to the reference engine or to these
 settings):
 
     PYTHONPATH=src python tests/test_torch_trace_fixture.py
@@ -52,6 +55,7 @@ from repro_torch.serving import prng  # noqa: E402
 from repro_torch.serving import sampling as SMP  # noqa: E402
 from repro_torch.serving import trace_record as TR  # noqa: E402
 import test_torch_pressure as PT  # noqa: E402
+from test_torch_archs import BIAS_SCALE, jax_params  # noqa: E402
 from test_torch_engine import (COUNTERS, LENS, MAX_NEW,  # noqa: E402
                                PRIORITIES, SLOTS, TK, prompts)
 
@@ -91,6 +95,24 @@ POLICY_COUNTERS = PT.COUNTERS + ("drift_probes",)
 
 def policy_settings(name: str) -> dict:
     return {**PRESSURE_SETTINGS, "policy": name, "drift_probe": True}
+
+
+# record -> the smoke config its pressure trace runs on
+ARCH_RECORDS = {"moe": "mixtral-8x7b", "qwen2": "qwen2-7b"}
+ARCH_FIXTURES = {name: os.path.join(GOLDEN, f"torch_{name}_trace.npz")
+                 for name in ARCH_RECORDS}
+
+
+def arch_settings(name: str) -> dict:
+    """The pressure trace on the record's smoke config at its own heads;
+    the parameters are ``test_torch_archs.jax_params(cfg, 0)``."""
+    arch = ARCH_RECORDS[name]
+    cfg = jax_smoke(arch)
+    out = {**PRESSURE_SETTINGS, "model": arch, "num_heads": cfg.num_heads,
+           "num_kv_heads": cfg.num_kv_heads}
+    if cfg.qkv_bias:
+        out["qkv_bias_recipe"] = {"seed": 100, "scale": BIAS_SCALE}
+    return out
 # a draw whose margin is below this could flip under the card's logit
 # error (up to 2.66e-4 on the pressure trace), so the card's bar would
 # stop there
@@ -110,10 +132,11 @@ def flatten(tree, prefix: str = "") -> dict:
 
 
 def jax_record(settings: dict = SETTINGS, ps=None,
-               counters=COUNTERS) -> dict:
+               counters=COUNTERS, params=None) -> dict:
     """The JAX reference engine's run of a trace (by default the flash
     trace), as the archive's arrays (see
-    ``repro_torch.serving.trace_record``)."""
+    ``repro_torch.serving.trace_record``); ``params`` are the engine's
+    (its own seeded ones when None)."""
     mcfg = dataclasses.replace(jax_smoke(settings["model"]),
                                num_heads=settings["num_heads"],
                                num_kv_heads=settings["num_kv_heads"])
@@ -121,7 +144,7 @@ def jax_record(settings: dict = SETTINGS, ps=None,
                         max_seqs=settings["slots"],
                         temperature=settings.get("temperature", 0.0),
                         top_p=settings.get("top_p", 1.0)),
-                    backend="reference", record_logits=True,
+                    params=params, backend="reference", record_logits=True,
                     pool_blocks=settings.get("pool_blocks"),
                     prefix_cache=settings.get("prefix_cache", False),
                     ticks_per_dispatch=settings.get("ticks_per_dispatch", 1),
@@ -187,6 +210,13 @@ def jax_sampled_record() -> dict:
 
 def jax_policy_record(name: str) -> dict:
     return jax_record(policy_settings(name), PT.prompts(), POLICY_COUNTERS)
+
+
+def jax_arch_record(name: str) -> dict:
+    settings = arch_settings(name)
+    params = jax.tree.map(jax.numpy.asarray,
+                          jax_params(jax_smoke(settings["model"])))
+    return jax_record(settings, PT.prompts(), PT.COUNTERS, params)
 
 
 def write_fixture(path: str = FIXTURE) -> None:
@@ -383,11 +413,62 @@ def write_policy_fixtures() -> None:
         np.savez(path, **jax_policy_record(name))
 
 
+@pytest.fixture(scope="module", params=sorted(ARCH_RECORDS))
+def arch_record(request):
+    """(name, the stored record, the live JAX engine's fresh record)."""
+    name = request.param
+    return name, TR.load(ARCH_FIXTURES[name]), jax_arch_record(name)
+
+
+def test_arch_fixtures_equal_the_live_jax_records(arch_record):
+    """The moe and qwen2 records: the live engine's runs of the pressure
+    trace on mixtral-8x7b's and qwen2-7b's smoke configs (archive equal
+    to a fresh run's), the config's family and heads, qwen2's non-zero
+    biases in the stored parameters, and a run that preempts and hits the
+    prefix cache."""
+    name, rec, fresh = arch_record
+    assert_archive_equals(ARCH_FIXTURES[name], fresh)
+    s = rec["settings"]
+    assert s["model"] == ARCH_RECORDS[name]
+    assert (s["num_heads"], s["num_kv_heads"]) == (4, 2)
+    attn = rec["params"]["layers"]["attn"]
+    if name == "qwen2":
+        assert min(float(np.abs(attn[b]).max()) for b in
+                   ("bq", "bk", "bv")) > BIAS_SCALE
+    else:
+        assert "bq" not in attn
+        assert rec["params"]["layers"]["moe"]["w_up"].shape == \
+            (2, 4, 64, 128)
+    assert rec["counters"]["preemptions"] > 0
+    assert rec["counters"]["prefix_hits"] > 0
+    assert [len(p) for p in rec["prompts"]] == list(PT.LENS)
+    assert all(len(t) == PT.MAX_NEW for t in rec["tokens"].values())
+
+
+@pytest.mark.parametrize("backend", ["reference", "kernel"])
+def test_port_replays_the_arch_records_on_the_cpu(arch_record, backend):
+    """Each arch record through ``trace_record.replay`` on the CPU: the
+    record's tokens, logits within 1e-3, counters and audit."""
+    name, rec, _ = arch_record
+    eng, done, launches = TR.replay(rec, backend, "cpu")
+    assert eng.mcfg.name == ARCH_RECORDS[name] + "-smoke"
+    bad, worst = TR.mismatches(rec, eng, done)
+    assert not bad, bad
+    assert worst <= 1e-3
+    assert not any(launches.values())
+
+
+def write_arch_fixtures() -> None:
+    for name, path in ARCH_FIXTURES.items():
+        np.savez(path, **jax_arch_record(name))
+
+
 if __name__ == "__main__":
     write_fixture()
     write_pressure_fixture()
     write_sampled_fixture()
     write_policy_fixtures()
+    write_arch_fixtures()
     for path in (FIXTURE, PRESSURE_FIXTURE, SAMPLED_FIXTURE,
-                 *POLICY_FIXTURES.values()):
+                 *POLICY_FIXTURES.values(), *ARCH_FIXTURES.values()):
         print(f"wrote {path}: {os.path.getsize(path)} bytes")
