@@ -30,19 +30,21 @@ failure:
                 torch.profiler: the device kernels and copies it runs;
    trace      — K1-K4 against their plain versions at the traces' shapes
                 (head_dim 16, BS 8, K2 split and merged, K1 and K2 also at
-                an odd kv head count; 1e-3 abs, K4 bit-exact), then the
+                an odd kv head count; 1e-3 abs, K4 bit-exact), each timed
+                against its bound, then the
                 flash, the pressure and the sampled trace (the JAX
                 engine's parameters; the pressure trace oversubscribes a
                 14-block pool with the prefix cache on, the sampled trace
                 is the pressure trace at temperature 0.7, top-p 0.9 in
                 packs of up to 8 ticks, the rkv and uniform traces are the
                 pressure trace under those retention policies with the
-                drift probe on; the moe and qwen2 traces are the pressure
-                trace on mixtral-8x7b's and qwen2-7b's smoke configs, qkv
-                biases non-zero) on the kernel and the reference backend,
-                each held to the JAX reference engine's record
-                (``tests/golden/torch_{flash,pressure,sampled,rkv,uniform,
-                moe,qwen2}_trace.npz``): identical tokens, logits within
+                drift probe on; the moe, qwen2 and vlm traces are the
+                pressure trace on mixtral-8x7b's, qwen2-7b's and
+                paligemma-3b's smoke configs, qkv biases non-zero) on the
+                kernel and the reference backend, each held to the JAX
+                reference engine's record (``tests/golden/torch_{flash,
+                pressure,sampled,rkv,uniform,moe,qwen2,vlm}_trace.npz``):
+                identical tokens, logits within
                 1e-3, equal
                 counters (dispatches and early exits among them) and pool
                 audit, each request's drift (steps and top-1 agreement
@@ -55,7 +57,8 @@ failure:
                 run (K1 once per tick, K2 and K3 once per prefill chunk and
                 layer: big chunks at GQ 512 / S 128, g-chunks at GQ 64 /
                 S 16; K4 once per group commit, 288);
-5. prefill_profile — one prompt's prefill under torch.profiler: K2's and
+5. prefill_profile — the first 332 tokens of a serve prompt (2 big
+                chunks, 5 g-chunks) prefilled under torch.profiler: K2's and
                 K3's device time, the device's busy share, host spans;
    profile    — 12 decode ticks of the same traffic under torch.profiler:
                 device time by kernel, the device's busy share, host spans;
@@ -71,26 +74,6 @@ failure:
                 per tick and K4 once per commit; against an unpressured
                 pool without the cache and against the reference backend
                 only reported;
-   sampled    — the serve phase's model and first two prompts, each with
-                ``samples_per_slot=2`` (2 parents and 2 forks on 4 slots),
-                at DeepSeek-R1-Distill's published sampling settings
-                (temperature 0.6, top-p 0.95), 64 new tokens, served at 1,
-                8, 8 and 1 ticks per dispatch: bit-identical tokens and
-                logits across the four runs, children other than their
-                parents; greedy at 8 the children equal their parents; in
-                every run 2 forks, COW faults on forked slots, a clean
-                audit, K1 once per tick, K4 once per commit; ms/tick,
-                dispatches per token, the sampler's device time at
-                [4, 128256] and ``fork_slot``'s time;
-   policy     — the pressure phase's model, pool and traffic served under
-                each retention policy (``thinkv``, the control arm,
-                ``rkv`` and ``uniform``) with the drift probe on: per
-                policy preemptions, resumes, COW faults, commits, the
-                footprint as a share of bf16, mean bits, ``prefill_s``,
-                ms/tick and drift (max, mean, top-1 agreement against the
-                dense replay); held: every request's tokens, a clean
-                audit, one probe per request with finite drift, K1 once
-                per tick, K4 once per commit, uniform's mean bits 4.00;
    serve_step — the dense serve steps at the serve phase's shapes: the 4
                 prompts prefilled by a kernel-backend engine, their pool
                 views and buffers gathered into the ThinKV step's batch,
@@ -103,6 +86,28 @@ failure:
                 the FullKV prefill of the same prompts and one FullKV
                 decode step (bf16 caches); device ms per step, KV bytes
                 per request and the two steps' top-1 agreement;
+   sampled    — the serve phase's model at 8 of its 32 layers
+                (``CUT_LAYERS``) and its first two prompts, each with
+                ``samples_per_slot=2`` (2 parents and 2 forks on 4 slots),
+                at DeepSeek-R1-Distill's published sampling settings
+                (temperature 0.6, top-p 0.95), 64 new tokens, served at 1,
+                8, 8 and 1 ticks per dispatch: bit-identical tokens and
+                logits across the four runs, children other than their
+                parents; greedy at 8 the children equal their parents; in
+                every run 2 forks, COW faults on forked slots, a clean
+                audit, K1 once per tick, K4 once per commit; ms/tick,
+                dispatches per token, the sampler's device time at
+                [4, 128256] and ``fork_slot``'s time;
+   policy     — the pressure phase's model at 8 of its 32 layers, pool
+                and traffic served under each retention policy
+                (``thinkv``, the control arm,
+                ``rkv`` and ``uniform``) with the drift probe on: per
+                policy preemptions, resumes, COW faults, commits, the
+                footprint as a share of bf16, mean bits, ``prefill_s``,
+                ms/tick and drift (max, mean, top-1 agreement against the
+                dense replay); held: every request's tokens, a clean
+                audit, one probe per request with finite drift, K1 once
+                per tick, K4 once per commit, uniform's mean bits 4.00;
 6. parity     — a 4-layer full-width model through the kernel and the
                 reference backends where their results must agree (see
                 ``parity``): identical tokens, logits within the reference's
@@ -121,7 +126,26 @@ failure:
                 backend from identical state (the parity phase's prefill
                 and decode checks) and, for mixtral, its routing per layer
                 (kept choices per expert, dropped choices) from a second
-                run with the same tokens;
+                run with the same tokens; qwen2-7b's 28-layer prefill
+                (two big chunks, a g-chunk from an empty pool and one
+                after a big chunk), each backend held within the parity
+                bar of the f64 run of the plain path that follows its
+                stored codes and bf16 keys and values
+                (``f64_prefill_check``: one layer's weights cast to f64
+                at a time), and the backends' prefill held to each other
+                at 4 layers;
+   vlm        — paligemma-3b (head_dim 256, one kv head, GQ 8, tied and
+                scaled embeddings, GeGLU): K1-K4 at its full-width shapes
+                against their plain versions with times, bounds and
+                SDPA's time at D 256; the full model (18 layers, ~10 GB)
+                serving the serve phase's traffic on the kernel backend
+                with its launch checks, held to the reference backend
+                (decode from identical state; prefill at 4 layers), both
+                backends' prefill held within the bar of the f64 run, and
+                the serve steps with an image prefix
+                (patches [4, 256, 1152]: a 1356-row prefill, one FullKV
+                step, one ThinKV step on K1 at D 256 against the plain
+                K1's);
 7. ssm        — falcon-mamba-7b at full width and depth (64 layers, random
                 f32 weights from a seed, ~28 GB) through
                 ``serving/serve_step.py``: a 4 x 1024-token prefill (K5 in
@@ -143,8 +167,11 @@ the sampled phase's first run at 8 ticks per dispatch as
 ``launches_sampled``, from the policy phase's runs as ``launches_policy``
 (by policy) and, for K1, from the serve_step phase's ThinKV step as
 ``launches_serve_step``, K1-K4 from the archs phase's runs as
-``launches_archs`` with their times at its shapes under ``archs``, K2 and
-K3 also by shape, K5 from the ssm phase's
+``launches_archs`` with their times at its shapes under ``archs``, from
+the vlm phase's run as ``launches_vlm`` (K1 also from its serve step) with
+their times at its shapes under ``vlm``, from the traces' kernel-backend
+replays as ``launches_trace`` with their times at head_dim 16 under
+``trace``, K2 and K3 also by shape, K5 from the ssm phase's
 prefill, the wrapper from the controller phase), the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -713,6 +740,208 @@ def parity(engine_cls, cfg, params, prompts, short, max_new, dev,
             "failed": failed}
 
 
+def f64_failures(chk: dict) -> list:
+    """What of an ``f64_prefill_check`` is not held: non-finite f64
+    logits, a backend whose greedy tokens differ from the f64 run's, a
+    backend beyond the parity bar from the f64 run."""
+    bad = [] if chk["finite"] else ["the f64 logits are not finite"]
+    bad += [f"{b} backend's greedy tokens differ from the f64 run's"
+            for b in ("kernel", "reference") if not chk[f"{b}_top1_equal"]]
+    return bad + [f"{b} backend {chk[f'{b}_vs_f64']['over_bar']:.3f} x the "
+                  f"bar from the f64 run" for b in ("kernel", "reference")
+                  if b not in chk["within_bar"]]
+
+
+def prefill_logits_f64(params, mc, dev, chunks):
+    """The last token's logits of each of ``chunks``: the plain dense
+    forward evaluated in f64 over what the engine's prefill computes for a
+    prompt's last chunk.  A chunk is (tokens, start, state):
+
+    * a big chunk from an empty pool is (tokens, 0, None): causal
+      attention over its own keys and values, unrounded (the engine's
+      are f32);
+    * a g-chunk after ``start`` prompt tokens carries ``state``
+      (``slot_state_f64``): per layer the valid rows of the pool it
+      attended, dequantized, and its keys and values as the engine stored
+      them (the TBQ buffer, bf16), or None to round its own f64 ones to
+      bf16.  It attends the pool (one partition) merged with its own keys
+      and values (the causal one), as K2, K3 and their merge do.
+
+    One layer's weights are cast to f64 at a time; the hidden state, RoPE
+    and attention (``kernels/ref.py``'s plain K3 and merge on f64 inputs)
+    stay in f64.  Returns (f64 logits per chunk, and per chunk the number
+    of stored bf16 values that differ from the f64 run's own rounding at
+    the state it follows: 0 where nothing is stored).  Dense families
+    only."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.layers import attention as A
+    from repro_torch.layers.mlp import mlp
+    f64, bf16 = torch.float64, torch.bfloat16
+    if mc.moe is not None:
+        raise ValueError("the f64 prefill covers the dense families")
+    half = mc.head_dim // 2
+    inv = mc.rope_theta ** (-torch.arange(half, dtype=f64, device=dev)
+                            / half)
+
+    def rope(x, start):
+        ang = (start + torch.arange(x.shape[0], dtype=f64, device=dev)
+               )[:, None] * inv
+        cos, sin = ang.cos()[:, None], ang.sin()[:, None]
+        x1, x2 = x[..., :half], x[..., half:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+    def norm(x, w):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True)
+                               + mc.norm_eps) * w.to(f64)
+    hs, flips = [], [0] * len(chunks)
+    for tokens, _, _ in chunks:
+        h = params.embedding[torch.as_tensor(tokens, device=dev)].to(f64)
+        hs.append(h * mc.d_model ** 0.5 if mc.tie_embeddings else h)
+    for i in range(mc.num_layers):
+        lp = {g: {k: w.to(f64) for k, w in d.items()}
+              for g, d in params.layer(i).items()}
+        for j, (_, start, st) in enumerate(chunks):
+            h = hs[j]
+            q, k, v = A._project_qkv(lp["attn"], norm(h, lp["norm1"]["scale"]),
+                                     mc)
+            q, k = rope(q, start), rope(k, start)
+            if st is not None:
+                own = k.to(bf16), v.to(bf16)
+                if st["buf"] is not None:
+                    kb, vb = st["buf"][0][i], st["buf"][1][i]
+                    flips[j] += int((kb != own[0]).sum() +
+                                    (vb != own[1]).sum())
+                    own = kb, vb
+                k, v = own[0].to(f64), own[1].to(f64)
+            o, m, l = ref.flash_prefill_stats_ref(q, k, v)
+            if st is not None and len(st["pool"][i][0]):
+                o = ref.merge_flash_ref(*ref.flash_prefill_stats_ref(
+                    q, *st["pool"][i], causal=False), o, m, l)
+            h = h + A.out_proj(lp["attn"], o)
+            hs[j] = h + mlp(lp["mlp"], norm(h, lp["norm2"]["scale"]), mc.act,
+                            mc.mlp_gated)
+        del lp
+    w = params.embedding if mc.tie_embeddings else params.lm_head.T
+    out = []
+    for h in hs:
+        last = norm(h[-1], params.final_norm)
+        out.append(torch.cat([w[r:r + 32768].to(f64) @ last
+                              for r in range(0, w.shape[0], 32768)]))
+    return out, flips
+
+
+def slot_state_f64(eng, i: int, n: int) -> dict:
+    """What the last g-chunk (``n`` tokens, fewer than g, so not yet
+    committed) of the prompt prefilled into slot ``i`` attended: per layer
+    the valid rows of the slot's pool view, dequantized (what K2 and the
+    engine's dense path read) and cast to f64; and the chunk's keys and
+    values as the engine stored them (``buf``: the TBQ buffer, bf16
+    [L, n, H, D])."""
+    import torch
+    from repro_torch.core import ct_cache as CC
+    from repro_torch.core import quantization as Q
+    dims, pv = eng.dims, eng.pool.view
+    pool = []
+    for l in range(dims.L):
+        table = eng.tables[i, l].clamp_min(0).long()
+        bits = eng.caches.slot_bits[i, l].to(torch.int32).reshape(-1, 1, 1)
+        valid = (eng.caches.slot_state[i, l] == CC.VALID).reshape(-1)
+
+        def deq(codes, scales):
+            c = codes[l][table].reshape(dims.NS, *codes.shape[3:])
+            sc = scales[l][table].reshape(dims.NS, *scales.shape[3:])
+            return Q.dequantize_by_bitcode(c, sc.float(), bits)[valid] \
+                .double()
+        pool.append((deq(pv.k_codes, pv.k_scales),
+                     deq(pv.v_codes, pv.v_scales)))
+    cache = eng.caches.slot(i)
+    return {"pool": pool, "buf": (cache.buf_k[:, :n].clone(),
+                                  cache.buf_v[:, :n].clone())}
+
+
+def f64_prefill_check(engine_cls, cfg, params, prompts, dev) -> dict:
+    """Each backend's prefill logits of ``prompts`` against the f64 run of
+    the plain path (``prefill_logits_f64``) that follows that backend's
+    prefill.  A prompt is one big chunk (K3, and K2 over an empty pool), or
+    a g-chunk of fewer than g tokens after none or one big chunk (K2 over
+    the slot's pool, empty or holding the big chunk's codes, K3 over the
+    chunk's keys and values with n_valid, and the merge).  For a g-chunk
+    the f64 run reads the pool codes and the bf16 keys and values the
+    backend stored, so it holds the arithmetic after them; a second f64
+    run rounds its own keys and values to bf16 instead (``own_rounding``,
+    reported), and ``bf16_flips`` counts the stored values that differ
+    from the f64 run's own rounding.  Per backend the largest
+    |logit - f64| and its ratio to the parity bar (1e-3 + 1e-3 |f64|),
+    whether its greedy tokens equal the f64 run's, and the two backends'
+    distance from each other on the same scale.  ``within_bar`` lists the
+    backends at or under the bar (``f64_failures`` says what is held)."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    mc, got, chunks, idx = cfg.model, {}, [], {}
+    if len(prompts) > cfg.max_seqs:
+        raise ValueError(f"{len(prompts)} prompts for {cfg.max_seqs} slots")
+    for backend in ("kernel", "reference"):
+        eng = engine_cls(cfg, params=params, backend=backend, device=dev)
+        BC, G = eng.prefill_chunk, eng.dims.G
+        got[backend] = []
+        for j, p in enumerate(prompts):
+            tail = len(p) % BC
+            if len(p) > 2 * BC - 1 or (len(p) != BC and not 0 < tail < G):
+                raise ValueError(f"a prompt of {len(p)} tokens is neither "
+                                 f"one big chunk ({BC}) nor a g-chunk "
+                                 f"(< {G}) after at most one")
+            got[backend].append(eng.prefill(p, j, arrival=j).logits)
+            if tail:
+                st = slot_state_f64(eng, j, tail)
+                for how in ("follow", "own_rounding"):
+                    idx[backend, how, j] = len(chunks)
+                    chunks.append((p[len(p) - tail:], len(p) - tail,
+                                   st if how == "follow" else
+                                   {"pool": st["pool"], "buf": None}))
+            elif backend == "kernel":
+                idx["big", j] = len(chunks)
+                chunks.append((p, 0, None))
+        del eng
+        gc.collect()                 # engines keep the weights in cycles
+        torch.cuda.empty_cache()
+    logits, nflip = prefill_logits_f64(params, mc, dev, chunks)
+    logits = [x.cpu().numpy() for x in logits]
+
+    def ref64(backend, how):
+        return [logits[idx.get((backend, how, j), idx.get(("big", j)))]
+                for j in range(len(prompts))]
+
+    def dist(a, b):
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+        over = max(float((np.abs(x - y) / (ATOL + ATOL * np.abs(y))).max())
+                   for x, y in zip(a, b))
+        return {"max_abs": diff, "over_bar": over}
+    out = {"prompt_lens": [len(p) for p in prompts],
+           "layers": mc.num_layers,
+           "bf16_values_stored": sum(2 * mc.num_layers * (len(p) % BC) *
+                                     mc.num_kv_heads * mc.head_dim
+                                     for p in prompts)}
+    for b in got:
+        f64 = ref64(b, "follow")
+        out[f"{b}_vs_f64"] = dist(got[b], f64)
+        out[f"{b}_top1_equal"] = all(int(x.argmax()) == int(y.argmax())
+                                     for x, y in zip(got[b], f64))
+        gch = [j for j in range(len(prompts)) if (b, "follow", j) in idx]
+        out[f"{b}_vs_f64_own_rounding"] = dist(
+            [got[b][j] for j in gch],
+            [logits[idx[b, "own_rounding", j]] for j in gch]) if gch else None
+        out[f"{b}_bf16_flips"] = sum(nflip[idx[b, "follow", j]] for j in gch)
+    out.update(kernel_vs_reference=dist(got["kernel"], got["reference"]),
+               f64_logit_absmax=max(float(np.abs(x).max()) for x in logits),
+               finite=all(np.isfinite(x).all() for x in logits))
+    out["within_bar"] = [b for b in got if out[f"{b}_vs_f64"]["over_bar"]
+                         <= 1]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # device kernel names of K1-K5 (this tree's and the parent designs')
 KERNEL_GROUPS = {"K1": ("fused_attn_kernel",),
                  "K2": ("paged_split_kernel", "merge_splits_kernel",
@@ -762,10 +991,15 @@ def profile_window(fn, top: int = 12) -> dict:
                             for n, (t, c) in ranked]}
 
 
+# the profiled prefill: 2 big chunks and 5 g-chunks (a serve prompt has 8
+# and 5); the profiler's cost grows with the ops it records
+PROFILED_PREFILL = 2 * 128 + 76
+
+
 def profile_prefill(engine_cls, cfg, params, prompt, dev) -> dict:
-    """One prompt's chunked prefill (1100 tokens: 8 big chunks and 5
-    g-chunks, every layer) under torch.profiler: whether K2's and K3's
-    device time reaches ``prefill_s``."""
+    """One prompt's chunked prefill (big chunks and g-chunks, every
+    layer) under torch.profiler: whether K2's and K3's device time reaches
+    ``prefill_s``."""
     t0 = time.perf_counter()
     eng = engine_cls(cfg, params=params, backend="kernel", device=dev)
     eng.submit([prompt], max_new_tokens=1)
@@ -1008,10 +1242,12 @@ def check_trace_kernels(dev, cfg) -> dict:
     """K1-K4 at the flash trace's shapes (``cfg``: head_dim 16, BS 8, the
     128-token big chunk and the g-chunk, the commit [L, G, H, D]) against
     their plain versions on the same card tensors: <= 1e-3 abs for
-    attention, bit-exact for the quantizer.  K2 runs its split walk
-    (NS > 1), so the merge is held too; K1 and K2 also run at an odd kv
-    head count, where the half of a row's scale word alternates from row
-    to row.  Raises on a mismatch."""
+    attention, bit-exact for the quantizer, each timed against its bound
+    (``k1_record`` ... ``k4_commit_record``: records keyed K1, K2, K2_g,
+    K3, K3_g, K4).  K2 runs its split walk (NS > 1), so the merge is held
+    too; K1 and K2 also run at an odd kv head count, where the half of a
+    row's scale word alternates from row to row.  Returns (max errors by
+    case, records); raises on a mismatch."""
     import torch
     from repro_torch.core.ct_cache import make_dims
     from repro_torch.kernels import ops, ref
@@ -1021,59 +1257,55 @@ def check_trace_kernels(dev, cfg) -> dict:
     L, H, D, BS, NB, G = dims.L, dims.H, dims.D, dims.BS, dims.NB, dims.G
     gq, R, C = mc.num_heads // H, cfg.max_seqs, 128
     sms = ops._sm_count(dev.index or 0)
-    errs = {}
-    # K1: a tick at the trace's shape; GQ 8 over 3 kv heads is two 4-row
-    # tiles per (layer, slot, kv head) and an odd row-to-row parity
-    for h, g in ((H, gq), (3, 8)):
-        c = pool_case(gen, dev, L, R, h, D, BS, NB, R * NB, G, g)
-        args = tuple(c.values())
-        errs[f"K1 H={h} GQ={g}"] = max_err(
-            ops.paged_decode_attention_fused(*args),
-            ref.ct_paged_attention_fused_ref(*args))
-    # K2: the big chunk's and the g-chunk's queries folded into GQ
-    for h, g in ((H, C * gq), (H, G * gq), (3, 64)):
-        c = pool_case(gen, dev, 1, 1, h, D, BS, NB, NB, G, g)
-        args = (c["qh"][0], c["k_codes"][0], c["v_codes"][0],
-                c["k_scales"][0], c["v_scales"][0], c["slot_state"][0],
-                c["slot_bits"][0], c["block_table"][:, 0].contiguous())
-        ns = ops.kv_splits(1, h, g, NB, sms)
+    label = "trace: "
+    recs = {}
+    # K1: a tick at the trace's shape, timed; GQ 8 over 3 kv heads is two
+    # 4-row tiles per (layer, slot, kv head) and an odd row-to-row parity
+    recs["K1"], c = k1_record(gen, dev, L, R, H, gq, D, BS, NB, G, label)
+    errs = {f"K1 H={H} GQ={gq}": recs["K1"]["max_abs_err"]}
+    c3 = pool_case(gen, dev, L, R, 3, D, BS, NB, R * NB, G, 8)
+    args = tuple(c3.values())
+    errs["K1 H=3 GQ=8"] = max_err(ops.paged_decode_attention_fused(*args),
+                                  ref.ct_paged_attention_fused_ref(*args))
+    # K2: the big chunk's and the g-chunk's queries folded into GQ (timed,
+    # over layer 0 of slot 0 of K1's pool), and 64 rows over 3 kv heads
+    for key, h, g in (("K2", H, C * gq), ("K2_g", H, G * gq),
+                      (None, 3, 64)):
+        ns = ops.kv_splits(1, h, g, NB, sms, D)
         if ns < 2:
             raise AssertionError(f"K2 at H={h} GQ={g} NB={NB}: {ns} share, "
                                  f"the merge is not run")
+        if key:
+            recs[key] = k2_record(gen, dev, c, g, label)
+            errs[f"K2 H={h} GQ={g} NS={ns}"] = recs[key]["max_abs_err"]
+            continue
+        c3 = pool_case(gen, dev, 1, 1, h, D, BS, NB, NB, G, g)
+        args = (c3["qh"][0], c3["k_codes"][0], c3["v_codes"][0],
+                c3["k_scales"][0], c3["v_scales"][0], c3["slot_state"][0],
+                c3["slot_bits"][0], c3["block_table"][:, 0].contiguous())
         errs[f"K2 H={h} GQ={g} NS={ns}"] = max_err(
             ops.paged_decode_attention_batched(*args),
             ref.ct_paged_attention_batched_ref(*args))
     # K3: the big chunk, and a g-chunk with a ragged tail
-    for S, n_valid in ((C, None), (G, 5)):
-        q = torch.randn((S, mc.num_heads, D), generator=gen, device=dev)
-        k = torch.randn((S, H, D), generator=gen, device=dev)
-        v = torch.randn((S, H, D), generator=gen, device=dev)
-        kv_valid = None if n_valid is None else \
-            torch.arange(S, device=dev) < n_valid
-        errs[f"K3 S={S} n_valid={n_valid}"] = max_err(
-            ops.prefill_attention_stats(q, k, v, n_valid=n_valid),
-            ref.flash_prefill_stats_ref(q, k, v, kv_valid=kv_valid))
+    for key, S, n_valid in (("K3", C, None), ("K3_g", G, 5)):
+        recs[key] = k3_record(gen, dev, S, n_valid, mc.num_heads, H, D,
+                              label)
+        errs[f"K3 S={S} n_valid={n_valid}"] = recs[key]["max_abs_err"]
     torch.cuda.synchronize()
     bad = {n: e for n, e in errs.items() if not e <= ATOL}
     # K4: a commit of the trace, bit-exact at each thought's width
-    k, v = commit_buffers(gen, dev, L, G, H, D)
-    levels = tuple(sorted(set(tk.precision)))
-    for thought, width in enumerate(tk.precision):
-        bits = torch.tensor(width, dtype=torch.int32, device=dev)
-        fn, plain = commit_quant(ops, ref, k, v, bits, levels)
-        assert_same_quant(fn(), plain(), f"trace commit [{L}, {G}, {H}, "
-                          f"{D}], thought {thought}")
+    recs["K4"], _ = k4_commit_record(gen, dev, L, G, H, D, tk, label)
     errs["K4 commit"] = 0.0
     emit({"phase": "trace_kernels", "head_dim": D, "block_size": BS,
           "blocks": NB, "max_abs_err": errs})
     if bad:
         raise AssertionError(f"a kernel at the trace's shapes disagrees "
                              f"with its plain version: {bad} > {ATOL}")
-    return errs
+    return errs, recs
 
 
 TRACE_RECORDS = ("flash", "pressure", "sampled", "rkv", "uniform", "moe",
-                 "qwen2")
+                 "qwen2", "vlm")
 
 
 def trace_phase(dev) -> dict:
@@ -1092,7 +1324,9 @@ def trace_phase(dev) -> dict:
     must lie above 1e-3 / T, so no draw can flip under the card's logit
     error); the rkv and uniform traces are the pressure trace under those
     retention policies with the drift probe on (each request's drift is
-    held to the record's too).  The kernel
+    held to the record's too); the moe, qwen2 and vlm traces are the
+    pressure trace on mixtral-8x7b's, qwen2-7b's and paligemma-3b's smoke
+    configs.  The kernel
     backend launches K1 once per tick and K2 and K3; both launch K4 once per
     commit the run made (the engine's ``commits``, which for the flash
     trace must also equal its length arithmetic: prefix hits skip
@@ -1105,8 +1339,10 @@ def trace_phase(dev) -> dict:
     recs = {name: TR.load(os.path.join(HERE, "tests", "golden",
                                        f"torch_{name}_trace.npz"))
             for name in TRACE_RECORDS}
-    kernel_errs = check_trace_kernels(dev, TR.serve_config(recs["flash"]))
+    kernel_errs, kernel_recs = check_trace_kernels(
+        dev, TR.serve_config(recs["flash"]))
     out, failed = {"phase": "trace", "kernels_max_abs_err": kernel_errs}, []
+    kernel_launches = dict.fromkeys(K1_K4, 0)
     for name, rec in recs.items():
         runs, params = {}, None
         for backend in ("kernel", "reference"):
@@ -1135,6 +1371,9 @@ def trace_phase(dev) -> dict:
             if name == "flash" and m["commits"] != TR.expected_commits(rec):
                 bad.append(f"{m['commits']} commits, "
                            f"{TR.expected_commits(rec)} expected")
+            if backend == "kernel":
+                for k in K1_K4:
+                    kernel_launches[k] += launches[k]
             runs[backend] = {
                 "tokens": {r.arrival: r.output for r in done},
                 "drift": {r.arrival: r.stats["drift"] for r in done
@@ -1158,11 +1397,13 @@ def trace_phase(dev) -> dict:
                      "min_margin": rec["min_margin"],
                      "record_tokens": rec["tokens"],
                      "record_counters": rec["counters"], **runs}
+    out["launches_kernel_backend"] = kernel_launches
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     if failed:
         raise AssertionError(f"a trace differs from the JAX record: "
                              f"{failed}")
+    out["records"] = kernel_recs
     return out
 
 
@@ -1341,7 +1582,7 @@ def check_pressure_kernels(dev, mc, dims, pool_blocks) -> dict:
                 c["v_scales"][0], c["slot_state"][0, 1:2].contiguous(),
                 c["slot_bits"][0, 1:2].contiguous(),
                 c["block_table"][1:2, 0].contiguous())
-        ns = ops.kv_splits(1, H, GQ, NB, sms)
+        ns = ops.kv_splits(1, H, GQ, NB, sms, D)
         if ns < 2:
             raise AssertionError(f"K2 at GQ={GQ} NB={NB}: {ns} share, the "
                                  f"merge is not run")
@@ -1645,9 +1886,9 @@ def sampled_serve(engine_cls, cfg, params, prompts, max_new, dev, tpd,
 
 def sampled_phase(engine_cls, params, mc, prompts, dev, max_new=64) -> dict:
     """Sampling at DeepSeek-R1-Distill's published settings (temperature
-    0.6, top-p 0.95), forks and packs at r1-llama-8b's full width (32
-    layers, the serve phase's random weights, the kernel backend, default
-    ThinKVConfig, 4 slots): the serve phase's first two 1100-token prompts,
+    0.6, top-p 0.95), forks and packs at r1-llama-8b's full width and
+    ``mc``'s depth (``CUT_LAYERS`` from ``main``; random weights, the
+    kernel backend, default ThinKVConfig, 4 slots): the serve phase's first two 1100-token prompts,
     each submitted with ``samples_per_slot=2``, so 4 slots hold 2 parents
     and 2 forks; 64 new tokens.  Served at 1, 8, 8 and 1 ticks per
     dispatch (in turns, since the host's speed drifts within a call): the
@@ -1773,7 +2014,8 @@ POLICY_NAMES = ("thinkv", "rkv", "uniform")
 
 
 def policy_phase(engine_cls, params, mc, dev, max_new=64) -> dict:
-    """The pressure phase's traffic, model, 4 slots, 512-token budget, pool
+    """The pressure phase's traffic, model width (at ``mc``'s depth:
+    ``CUT_LAYERS`` from ``main``), 4 slots, 512-token budget, pool
     (PRESSURE_FRAC x 4 x NB blocks) and prefix cache, served on the kernel
     backend under each retention policy with the drift probe on
     (``thinkv`` is the control arm).  Per policy: preemptions, resumes, COW
@@ -1961,7 +2203,8 @@ def kv_bytes_per_request(batch, mapped_blocks) -> dict:
     return [int(n) * per_block + meta for n in mapped_blocks]
 
 
-def serve_step_phase(params, mc, dev, prompts) -> dict:
+def serve_step_phase(params, mc, dev, prompts, patches=None,
+                     phase="serve_step") -> dict:
     """The dense serve steps at the serve phase's shapes (default
     ThinKVConfig, 4 slots, the 4 x 1100-token prompts).  A kernel-backend
     engine prefills the prompts; the 4 slots' pool views and buffers make
@@ -1974,7 +2217,12 @@ def serve_step_phase(params, mc, dev, prompts) -> dict:
     (``check_serve_step_k1``).  The FullKV prefill of the same prompts and
     one FullKV decode step over bf16 caches of T = S + 64 rows follow.
     Reported: device ms per step (the profiler's busy time), KV bytes per
-    request and the two steps' top-1 agreement."""
+    request and the two steps' top-1 agreement.
+
+    With ``patches`` [B, P, frontend_dim] (the VLM family) the FullKV
+    prefill runs over the image prefix and the text (P + S rows), as does
+    ``make_prefill_step`` (its logits held to the prefill's, its time
+    reported), and both decode steps run at positions past the prefix."""
     import numpy as np
     import torch
     from repro_torch.config import ServeConfig, ThinKVConfig
@@ -1989,6 +2237,8 @@ def serve_step_phase(params, mc, dev, prompts) -> dict:
     eng.submit(prompts, max_new_tokens=2)
     eng.run(max_ticks=0)                        # admission + prefill
     batch = thinkv_step_batch(eng)
+    P = 0 if patches is None else patches.shape[1]
+    batch["positions"] = batch["positions"] + P
     mapped = (eng.tables >= 0).sum((1, 2)).tolist()
     del eng
     torch.cuda.empty_cache()
@@ -2022,23 +2272,40 @@ def serve_step_phase(params, mc, dev, prompts) -> dict:
     ref_gap = max_err(out_k[0], out_r[0])
     thinkv_prof = profile_window(lambda: step_k(params, batch))
 
-    # FullKV: the same prompts, bf16 caches of S + 64 rows
+    # FullKV: the same prompts (after the image prefix), bf16 caches of
+    # P + S + 64 rows
     toks = torch.as_tensor(np.stack(prompts), device=dev)
     B, S = toks.shape
+    pre = {"tokens": toks} if patches is None else \
+        {"tokens": toks, "patches": patches}
     t0 = time.perf_counter()
-    lg0, kc, vc = lm.prefill(params, {"tokens": toks}, mc)
+    lg0, kc, vc = lm.prefill(params, pre, mc)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    step_rec = {}
+    if patches is not None:
+        prefill_step = SS.make_prefill_step(None, mc)
+        t0 = time.perf_counter()
+        lg_step = prefill_step(params, pre)
+        torch.cuda.synchronize()
+        step_rec = {"prefill_step_s": time.perf_counter() - t0,
+                    "prefill_step_rows": P + S,
+                    "prefill_step_vs_prefill": max_err(lg_step, lg0)}
+        if not step_rec["prefill_step_vs_prefill"] <= ATOL:
+            failed.append(f"the prefill step's logits "
+                          f"{step_rec['prefill_step_vs_prefill']} from "
+                          f"lm.prefill's")
+    T = P + S
     caches = []
     for c in (kc, vc):
-        full = torch.zeros((B, mc.num_layers, S + 64, mc.num_kv_heads,
+        full = torch.zeros((B, mc.num_layers, T + 64, mc.num_kv_heads,
                             mc.head_dim), dtype=torch.bfloat16, device=dev)
-        full[:, :, :S] = c.transpose(0, 1)
+        full[:, :, :T] = c.transpose(0, 1)
         caches.append(full)
     del kc, vc
     fb = {"tokens": batch["tokens"], "positions": batch["positions"],
           "k_cache": caches[0], "v_cache": caches[1],
-          "cache_len": torch.full((B,), S, dtype=torch.int32, device=dev)}
+          "cache_len": torch.full((B,), T, dtype=torch.int32, device=dev)}
     step_f = SS.make_decode_step_fullkv(mc)
     out_f = step_f(params, fb)
     fullkv_prof = profile_window(lambda: step_f(params, fb))
@@ -2047,8 +2314,9 @@ def serve_step_phase(params, mc, dev, prompts) -> dict:
     if not finite:
         failed.append("non-finite logits")
     row_bytes = 2 * mc.num_layers * mc.num_kv_heads * mc.head_dim * 2
-    rec = {"phase": "serve_step", "layers": mc.num_layers, "requests": B,
-           "prompt_len": S, "NB": batch["k_codes"].shape[2],
+    rec = {"phase": phase, "layers": mc.num_layers, "requests": B,
+           "prompt_len": S, "image_tokens": P, **step_rec,
+           "NB": batch["k_codes"].shape[2],
            "BS": batch["k_codes"].shape[3], "G": batch["buf_k"].shape[2],
            "k1_launches": launches["ct_paged_attention_fused"],
            "launches": launches, "k1_serve_step": k1,
@@ -2062,7 +2330,7 @@ def serve_step_phase(params, mc, dev, prompts) -> dict:
            "fullkv_prefill_s": prefill_s,
            "thinkv_kv_bytes_per_request": kv_bytes_per_request(batch,
                                                                mapped),
-           "fullkv_kv_bytes_per_request": (S + 1) * row_bytes,
+           "fullkv_kv_bytes_per_request": (T + 1) * row_bytes,
            "top1_agree_fullkv_thinkv": float(agree),
            "buffers_vs_plain_k1": max_err(out_k[1], out_p[1]),
            "buffers_vs_plain_k1_over_bar": buf_over,
@@ -2071,7 +2339,7 @@ def serve_step_phase(params, mc, dev, prompts) -> dict:
            "failed": failed, "seconds": time.perf_counter() - t_phase}
     emit(rec)
     if failed:
-        raise AssertionError(f"serve_step phase failed: {failed}")
+        raise AssertionError(f"{phase} phase failed: {failed}")
     return rec
 
 
@@ -2085,11 +2353,14 @@ ARCH_KERNELS = (("qwen2-7b", 28), ("mixtral-8x7b", 4),
 ARCH_SERVED = (("qwen2-7b", None), ("mixtral-8x7b", 4))
 ARCH_PROMPT, ARCH_NEW = 1100, 64
 PARITY_LAYERS = 4          # the parity phase's depth
+# the sampled and policy phases' depth (of r1-llama-8b's 32), cut so that
+# the whole script stays well inside its time limit on a slow host
+CUT_LAYERS = 8
 
 
-def check_arch_kernels(dev, tk) -> dict:
-    """K1-K4 against their plain versions at each ``ARCH_KERNELS``
-    config's full-width shapes (1e-3 abs for attention, K4 bit-exact): K1
+def check_arch_kernels(dev, tk, archs=ARCH_KERNELS) -> dict:
+    """K1-K4 against their plain versions at each ``archs`` (config,
+    depth)'s full-width shapes (1e-3 abs for attention, K4 bit-exact): K1
     over a 4-slot tick, K2 at the big chunk's and the g-chunk's folded GQ
     (128 and 16 queries per q head), K3 at S 128 and at a g-chunk with 11
     valid keys (SDPA's time beside it), K4 over one commit.  Returns the
@@ -2100,7 +2371,7 @@ def check_arch_kernels(dev, tk) -> dict:
     BS, G = tk.block_size, tk.group_size
     NB = int(tk.token_budget * 2) // BS
     recs = {}
-    for arch, L in ARCH_KERNELS:
+    for arch, L in archs:
         mc = get_config(arch)
         H, D, hq = mc.num_kv_heads, mc.head_dim, mc.num_heads
         gq, label = hq // H, f"{arch}: "
@@ -2158,14 +2429,14 @@ def moe_routing(engine_cls, cfg, params, prompts, max_new, dev) -> dict:
             "outputs": {r.arrival: r.output for r in done}}
 
 
-def arch_kernel_shapes(arc: dict, kernel: str) -> dict:
-    """One kernel's records at the archs phase's shapes for the kernels
-    line: shape, times, bound, error and, for a served config, the
+def arch_kernel_shapes(arc: dict, kernel: str, archs=ARCH_KERNELS) -> dict:
+    """One kernel's records at the archs (or vlm) phase's shapes for the
+    kernels line: shape, times, bound, error and, for a served config, the
     launches of its serve run at that shape (by chunk shape for K2 and
     K3)."""
     from repro_torch.configs import get_config
     out = {}
-    for arch, _ in ARCH_KERNELS:
+    for arch, _ in archs:
         mc = get_config(arch)
         gq = mc.num_heads // mc.num_kv_heads
         shapes = {"K1": {"K1": None}, "K4": {"K4": None},
@@ -2180,10 +2451,37 @@ def arch_kernel_shapes(arc: dict, kernel: str) -> dict:
                     else served["launches_by_shape"][r["name"]][by]
             out[f"{arch} {key}"] = {
                 "launches": launches,
-                **{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms",
+                **{k: r[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
                                      "max_abs_err")}}
     return out
+
+
+def f64_check_prompts(short, other):
+    """The prompts of ``f64_prefill_check``: the parity prompts ``short``
+    (a big chunk of 128 tokens and a 12-token g-chunk), ``other`` (a
+    second big chunk), and ``other`` followed by the g-chunk's tokens."""
+    import numpy as np
+    return [short[0], other, short[1], np.concatenate([other, short[1]])]
+
+
+def parity_at_depth(mc, tk, prompts, short, dev):
+    """``parity`` (prefill and decode held, the free-running pair left out)
+    on ``mc`` cut to ``PARITY_LAYERS`` of its layers, with random weights
+    from ``SEED``: the depth at which the backend-to-backend prefill
+    comparison is held."""
+    import torch
+    from repro_torch.config import ServeConfig
+    from repro_torch.models.lm import init_params
+    from repro_torch.serving.engine import ThinKVEngine
+    mcl = dataclasses.replace(mc, num_layers=PARITY_LAYERS)
+    params = init_params(mcl, SEED, dev)
+    par = parity(ThinKVEngine, ServeConfig(model=mcl, thinkv=tk, max_seqs=4),
+                 params, prompts, short, ARCH_NEW, dev, free_running=False)
+    del params
+    gc.collect()                     # engines keep the weights in cycles
+    torch.cuda.empty_cache()
+    return par
 
 
 def archs_phase(dev, tk) -> dict:
@@ -2200,13 +2498,19 @@ def archs_phase(dev, tk) -> dict:
     first's.
 
     At the served depth the decode comparison from identical state is
-    held (tokens, logits within the bar, byte-identical pools).  The
-    prefill comparison is held at the parity phase's 4 layers of the same
-    width: in prefill each layer's attention output feeds the next
-    layer, so the two backends' f32 rounding (K3's products on the fp64
-    tensor cores against the plain version's f32 sums) grows with depth,
-    and at qwen2-7b's 28 layers it is reported (``parity``'s
-    ``prefill``) beside the 4-layer check (``parity_4_layers``)."""
+    held (tokens, logits within the bar, byte-identical pools), and so is
+    each backend's prefill against the f64 run of the plain path that
+    follows it (``prefill_vs_f64``, ``f64_check_prompts``: two big
+    chunks, the 12-token g-chunk from an empty pool, and one after a big
+    chunk, which reads the big chunk's codes through K2 and the merge).  The
+    backend-to-backend prefill comparison of the parity phase's prompts (a
+    big chunk and a 12-token g-chunk) is held at the parity phase's 4
+    layers of the same width (``parity_at_depth``) and reported at 28:
+    each backend rounds a g-chunk's keys and values to bf16 (the TBQ
+    buffer, as the reference does) from its own f32 values
+    (``prefill_vs_f64`` counts the stored values that differ from the f64
+    run's own rounding and reports the distance of an f64 run that rounds
+    its own)."""
     import numpy as np
     import torch
     from repro_torch.config import ServeConfig
@@ -2231,6 +2535,8 @@ def archs_phase(dev, tk) -> dict:
         prompts = [rng.integers(0, mc.vocab_size, ARCH_PROMPT)
                    for _ in range(4)]
         short = [rng.integers(0, mc.vocab_size, n) for n in (128, 12)]
+        f64_prompts = f64_check_prompts(short, rng.integers(
+            0, mc.vocab_size, 128))
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = init_params(mc, SEED, dev)
@@ -2258,21 +2564,18 @@ def archs_phase(dev, tk) -> dict:
                      hold=("decode",) if deep else ("prefill", "decode"))
         rec["parity"] = par
         failed += [f"{arch} parity: {f}" for f in par["failed"]]
+        if deep and mc.moe is None:
+            rec["prefill_vs_f64"] = f64_prefill_check(
+                ThinKVEngine, cfg, params, f64_prompts, dev)
+            failed += [f"{arch} prefill vs f64: {f}" for f in
+                       f64_failures(rec["prefill_vs_f64"])]
         del params
         gc.collect()                 # engines keep the weights in cycles
         torch.cuda.empty_cache()
         if deep:
-            mc4 = dataclasses.replace(mc, num_layers=PARITY_LAYERS)
-            params = init_params(mc4, SEED, dev)
-            par4 = parity(ThinKVEngine, ServeConfig(model=mc4, thinkv=tk,
-                                                    max_seqs=4),
-                          params, prompts, short, ARCH_NEW, dev,
-                          free_running=False)
-            rec["parity_4_layers"] = par4
+            rec["parity_4_layers"] = par4 = parity_at_depth(
+                mc, tk, prompts, short, dev)
             failed += [f"{arch} 4-layer parity: {f}" for f in par4["failed"]]
-            del params
-            gc.collect()
-            torch.cuda.empty_cache()
         rec["seconds"] = time.perf_counter() - t1
         out[arch] = rec
     out["seconds"] = time.perf_counter() - t_phase
@@ -2281,6 +2584,95 @@ def archs_phase(dev, tk) -> dict:
     if failed:
         raise AssertionError(f"archs phase failed: {failed}")
     out["records"] = recs
+    return out
+
+
+VLM_ARCH = "paligemma-3b"
+VLM_KERNELS = ((VLM_ARCH, 18),)
+
+
+def vlm_phase(dev, tk) -> dict:
+    """The VLM family (paligemma-3b: head_dim 256, one kv head, GQ 8, tied
+    embeddings scaled by sqrt(d_model), GeGLU) on the card.  First K1-K4
+    at its full-width shapes (``check_arch_kernels``: K1 over a 4-slot
+    tick at L 18, K2 at the big chunk's and the g-chunk's folded GQ 1024
+    and 128, K3 at S 128 and a g-chunk of 11 valid keys with SDPA's time
+    at D 256, K4 over one commit [18, 16, 1, 256]).  Then the full model
+    (18 layers, random f32 weights from a seed, ~10 GB) serves the serve
+    phase's traffic (4 x 1100 random tokens, 64 new, greedy; text only,
+    as the engine serves the VLM) on the kernel backend with the serve
+    phase's launch checks; the kernel backend against the reference
+    backend from identical state (the parity phase's decode check held:
+    tokens, logits within the bar, byte-identical pools; its prefill
+    check reported, and held at 4 layers, ``parity_at_depth``, as for
+    qwen2-7b in ``archs_phase``); both backends' prefill held within the
+    bar of the f64 run of the plain path that follows it
+    (``f64_prefill_check`` on ``f64_check_prompts``: big chunks, g-chunks
+    over an empty pool and over a big chunk's codes); and the serve steps
+    with an image prefix
+    (``serve_step_phase`` with patches [4, 256, 1152] from numpy seed
+    ``SEED``: 1356 rows of prefill, the ThinKV step's K1 at L 1, R 4,
+    D 256)."""
+    import numpy as np
+    import torch
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_params
+    from repro_torch.serving.engine import ThinKVEngine
+    t_phase = time.perf_counter()
+    recs = check_arch_kernels(dev, tk, VLM_KERNELS)
+    out = {"phase": "vlm", "kernels": {
+        n: {k: r[k] for k in ("shape", "max_abs_err", "ms", "eager_ms",
+                              "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")} for n, r in recs.items()},
+        "kernels_s": time.perf_counter() - t_phase}
+    mc = get_config(VLM_ARCH)
+    cfg = ServeConfig(model=mc, thinkv=tk, max_seqs=4)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, mc.vocab_size, ARCH_PROMPT) for _ in range(4)]
+    short = [rng.integers(0, mc.vocab_size, n) for n in (128, 12)]
+    f64_prompts = f64_check_prompts(short, rng.integers(0, mc.vocab_size,
+                                                         128))
+    patches = torch.as_tensor(np.random.default_rng(SEED).standard_normal(
+        (4, mc.num_image_tokens, mc.frontend_dim)).astype(np.float32),
+        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(mc, SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    srv = serve_phase(ThinKVEngine, cfg, params, prompts, ARCH_NEW, init_s,
+                      dev, phase=f"vlm {VLM_ARCH}")
+    rec = {k: v for k, v in srv.items() if k not in ("phase", "outputs")}
+    rec.update(heads=mc.num_heads, kv_heads=mc.num_kv_heads,
+               head_dim=mc.head_dim, weights_gb=sum(
+                   p.numel() * p.element_size()
+                   for p in params.parameters()) / 1e9)
+    par = parity(ThinKVEngine, cfg, params, prompts, short, ARCH_NEW, dev,
+                 free_running=False, hold=("decode",))
+    rec["parity"] = par
+    failed = [f"parity: {f}" for f in par["failed"]]
+    rec["prefill_vs_f64"] = f64_prefill_check(ThinKVEngine, cfg, params,
+                                              f64_prompts, dev)
+    failed += [f"prefill vs f64: {f}"
+               for f in f64_failures(rec["prefill_vs_f64"])]
+    out[VLM_ARCH] = rec
+    out["records"] = recs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve_step"] = serve_step_phase(params, mc, dev, prompts, patches,
+                                         phase="vlm serve_step")
+    del params
+    gc.collect()                     # engines keep the weights in cycles
+    torch.cuda.empty_cache()
+    rec["parity_4_layers"] = par4 = parity_at_depth(mc, tk, prompts, short,
+                                                    dev)
+    failed += [f"4-layer parity: {f}" for f in par4["failed"]]
+    out["seconds"] = time.perf_counter() - t_phase
+    out["failed"] = failed
+    emit({k: v for k, v in out.items() if k != "records"})
+    if failed:
+        raise AssertionError(f"vlm phase failed: {failed}")
     return out
 
 
@@ -2347,7 +2739,7 @@ def main() -> int:
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     com = commit_profile(dev, mc, tk)
     if not ab_run:
-        trace_phase(dev)
+        trc = trace_phase(dev)
 
     # ---- serve: the main path at full width and depth ----
     cfg = ServeConfig(model=mc, thinkv=tk, max_seqs=4)
@@ -2359,18 +2751,25 @@ def main() -> int:
     init_s = time.perf_counter() - t0
     srv = serve_phase(ThinKVEngine, cfg, params, prompts, max_new, init_s,
                       dev)
-    pre = profile_prefill(ThinKVEngine, cfg, params, prompts[0], dev)
+    pre = profile_prefill(ThinKVEngine, cfg, params,
+                          prompts[0][:PROFILED_PREFILL], dev)
     emit(pre)
     prof = profile_decode(ThinKVEngine, cfg, params, prompts, dev)
     emit(prof)
     if not ab_run:
         prs = pressure_phase(ThinKVEngine, params, mc, dev)
-        smp = sampled_phase(ThinKVEngine, params, mc, prompts, dev)
-        pol = policy_phase(ThinKVEngine, params, mc, dev)
         sst = serve_step_phase(params, mc, dev, prompts)
     del params
     gc.collect()                      # engines keep the weights in cycles
     torch.cuda.empty_cache()
+    if not ab_run:
+        mcc = dataclasses.replace(mc, num_layers=CUT_LAYERS)
+        params = init_params(mcc, SEED, dev)
+        smp = sampled_phase(ThinKVEngine, params, mcc, prompts, dev)
+        pol = policy_phase(ThinKVEngine, params, mcc, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     if ab_run:
         _, ssm_params, _, ssm_pre = ssm_prefill(dev, rng)
         del ssm_params
@@ -2420,6 +2819,8 @@ def main() -> int:
     gc.collect()                      # engines keep the weights in cycles
     torch.cuda.empty_cache()          # the archs phase needs up to ~35 GB
     arc = archs_phase(dev, tk)
+    torch.cuda.empty_cache()
+    vlm = vlm_phase(dev, tk)
     torch.cuda.empty_cache()                 # the ssm phase needs ~28 GB
     ssm = ssm_phase(dev, rng)
     torch.cuda.empty_cache()
@@ -2442,20 +2843,28 @@ def main() -> int:
         recs[n]["launches_archs"] = {
             arch: arc[arch]["launches"][recs[n]["name"]]
             for arch, _ in ARCH_SERVED}
+        recs[n]["launches_vlm"] = vlm[VLM_ARCH]["launches"][recs[n]["name"]]
+        recs[n]["launches_trace"] = trc["launches_kernel_backend"][
+            recs[n]["name"]]
     recs["K5"]["launches"] = ssm["prefill"]["launches"]["mamba_scan"]
     recs["wrapper"]["launches"] = ctl["wrapper_launches"]
+    recs["K1"]["launches_vlm_serve_step"] = \
+        vlm["serve_step"]["k1_launches"]
     extra = ("launches_pressure", "launches_sampled", "launches_policy",
-             "launches_serve_step", "launches_archs")
+             "launches_serve_step", "launches_archs", "launches_vlm",
+             "launches_vlm_serve_step", "launches_trace")
     lines = [{k: recs[n][k] for k in keys + tuple(
         k for k in extra if k in recs[n])}
         for n in ("K1", "K2", "K3", "K4", "K5", "wrapper")]
     # K1 at the serve step's shape beside its tick shape
     lines[0]["by_shape"] = {
         "tick": {k: recs["K1"][k] for k in ("launches", "ms", "bound_ms")},
-        "serve_step": {"launches": sst["k1_launches"],
-                       **{k: sst["k1_serve_step"][k] for k in (
-                           "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                           "max_abs_err")}}}
+        **{name: {"launches": st["k1_launches"],
+                  **{k: st["k1_serve_step"][k] for k in (
+                      "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+                      "bound_by", "max_abs_err")}}
+           for name, st in (("serve_step", sst),
+                            ("vlm serve_step", vlm["serve_step"]))}}
     # K2 and K3 beside each shape of the serve phase: launches and times
     for line, name, shapes in (
             (lines[1], "ct_paged_attention_batched", ("K2", "K2_64")),
@@ -2466,9 +2875,17 @@ def main() -> int:
                     "library_ms": recs[key]["library_ms"]}
             for (shape, n), key in zip(
                 srv["launches_by_shape"][name].items(), shapes)}
-    # K1-K4 at the archs phase's shapes: times, bounds and launches
+    # K1-K4 at the archs, vlm (head_dim 256) and trace (head_dim 16)
+    # phases' shapes: times, bounds and launches
     for line, kernel in zip(lines[:4], ("K1", "K2", "K3", "K4")):
         line["archs"] = arch_kernel_shapes(arc, kernel)
+        line["vlm"] = arch_kernel_shapes(vlm, kernel, VLM_KERNELS)
+        line["trace"] = {
+            key: {k: r[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "max_abs_err")}
+            for key, r in trc["records"].items()
+            if key.split("_")[0] == kernel}
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     emit({"kernels": lines})
     print(smi, flush=True)

@@ -3,7 +3,8 @@
 The port keeps its own copy of the dataclasses it needs, field for field,
 so that a configuration built here describes exactly the model and cache
 the JAX package builds from the same values: :class:`ModelConfig` (with
-its ``moe`` and ``ssm`` fields), :class:`MoEConfig`, :class:`SSMConfig`,
+its ``moe`` and ``ssm`` fields and the VLM's ``num_image_tokens`` and
+``frontend_dim``), :class:`MoEConfig`, :class:`SSMConfig`,
 :class:`ThinKVConfig`,
 :class:`ServeConfig`, the enums, and :func:`reduced` (the CPU smoke-size
 variant).
@@ -16,9 +17,9 @@ from typing import Any, Dict, Optional, Tuple
 
 
 class ArchFamily(str, enum.Enum):
-    """Model family; the port serves ``DENSE`` and ``MOE`` (the ThinKV
-    engine) and ``SSM`` (``serving/serve_step.py``) so far (see
-    ``ROADMAP.md``)."""
+    """Model family; the port serves ``DENSE``, ``MOE`` and ``VLM`` (the
+    ThinKV engine, text only for the VLM, as the reference's) and ``SSM``
+    (``serving/serve_step.py``) so far (see ``ROADMAP.md``)."""
 
     DENSE = "dense"
     MOE = "moe"
@@ -88,6 +89,10 @@ class ModelConfig:
     mlp_gated: bool = True
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # vlm (paligemma): stub image-patch tokens prepended, and the width of
+    # the precomputed patch embeddings the stub frontend projects
+    num_image_tokens: int = 0
+    frontend_dim: int = 0
     logit_softcap: float = 0.0
 
     def __post_init__(self):
@@ -146,7 +151,7 @@ class ServeConfig:
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests (the JAX package's
-    ``reduced`` for the dense, MoE and SSM families)."""
+    ``reduced`` for the dense, MoE, VLM and SSM families)."""
     kw: Dict[str, Any] = dict(
         num_layers=2,
         d_model=64,
@@ -162,6 +167,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     if cfg.ssm is not None:
         kw["ssm"] = replace(cfg.ssm, state_size=min(cfg.ssm.state_size, 16),
                             head_dim=16, chunk_size=16)
+    if cfg.family == ArchFamily.VLM:
+        kw.update(num_image_tokens=4, frontend_dim=32)
     if cfg.family == ArchFamily.SSM:
         kw.update(num_heads=0, num_kv_heads=0, d_ff=0)
     kw.update(overrides)

@@ -18,6 +18,11 @@ below).
   does not read, as the reference's does not) and
   ``llama4-scout-17b-a16e`` (48 layers, d_model 5120, 40 q / 8 kv heads,
   16 experts of d_ff 8192, top 1, vocab 202048; text backbone only).
+* vision-language, served by the ThinKV engine (text only, as the
+  reference's engine) and by the serve steps with the image prefix:
+  ``paligemma-3b`` (18 layers, d_model 2048, 8 q / 1 kv head, head_dim
+  256, GeGLU d_ff 16384, vocab 257216, tied embeddings scaled by
+  sqrt(d_model), 256 stub image tokens of width 1152).
 * ``falcon-mamba-7b``: attention-free Mamba-1, 64 layers, d_model 4096,
   vocab 65024, state 16, conv width 4, expand 2 (d_inner 8192), dt rank
   256, tied embeddings.  It has no KV cache, so ThinKV does not apply;
@@ -146,10 +151,31 @@ LLAMA4_SCOUT_17B_A16E = ModelConfig(
     moe=MoEConfig(num_experts=16, num_experts_per_token=1),
 )
 
+# repro/configs/paligemma_3b.py: SigLIP + Gemma with the frontend a stub
+# (precomputed patch embeddings, 224 px / 14 px -> 256 image tokens,
+# linearly projected and prepended); head_dim 256, GeGLU, one kv head,
+# embeddings tied and scaled by sqrt(d_model)
+PALIGEMMA_3B = ModelConfig(
+    name="paligemma-3b",
+    family=ArchFamily.VLM,
+    num_layers=18,
+    d_model=2048,
+    num_heads=8,
+    num_kv_heads=1,
+    head_dim=256,
+    d_ff=16384,
+    vocab_size=257216,
+    tie_embeddings=True,
+    act="gelu",
+    mlp_gated=True,
+    num_image_tokens=256,
+    frontend_dim=1152,
+)
+
 _CONFIGS: Dict[str, ModelConfig] = {
     c.name: c for c in (R1_LLAMA_8B, FALCON_MAMBA_7B, QWEN2_7B, YI_6B, YI_9B,
                         MISTRAL_LARGE_123B, MIXTRAL_8X7B,
-                        LLAMA4_SCOUT_17B_A16E)}
+                        LLAMA4_SCOUT_17B_A16E, PALIGEMMA_3B)}
 ARCHS: List[str] = sorted(_CONFIGS)
 
 

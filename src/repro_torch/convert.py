@@ -36,9 +36,10 @@ def tensor_from_numpy(a, device: Device = None) -> torch.Tensor:
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                       device: Device = None) -> Union[lm.LM, ssm_lm.SSMLM]:
     """The reference's parameter tree (numpy leaves) -> the port's model:
-    ``LM`` for the dense and MoE families (``attn``'s ``bq`` / ``bk`` /
-    ``bv`` under qkv bias; ``moe``'s router and stacked experts or
-    ``mlp``'s weights), ``SSMLM`` (tied embedding, no lm_head; ``mixer``
+    ``LM`` for the dense, MoE and VLM families (``attn``'s ``bq`` / ``bk``
+    / ``bv`` under qkv bias; ``moe``'s router and stacked experts or
+    ``mlp``'s weights; ``lm_head`` unless the embedding is tied; the VLM's
+    ``frontend.proj``), ``SSMLM`` (tied embedding, no lm_head; ``mixer``
     and ``norm`` per layer) for the SSM family."""
     dev = resolve_device(device)
     src = {"embedding": tree["embed"]["embedding"],
@@ -48,7 +49,10 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     else:
         model = lm.LM(cfg, dev)
         layer_params = model.layer_params
-        src["lm_head"] = tree["embed"]["lm_head"]
+        if not cfg.tie_embeddings:
+            src["lm_head"] = tree["embed"]["lm_head"]
+        if cfg.family == ArchFamily.VLM:
+            src["frontend_proj"] = tree["frontend"]["proj"]
     for name, (group, key) in layer_params.items():
         src[name] = tree["layers"][group][key]
     with torch.no_grad():

@@ -92,13 +92,27 @@
 // the element's parity picks its half; K1 tiles at most 4 query rows (its
 // key row is 4 lanes wide); merge_splits_kernel takes half a warp per row.
 //
+// Head_dim 256 (paligemma-3b; both kernels): K1 covers a key row with one
+// warp (DPT = 8 dimensions a lane, LG = 32, one key per warp and step,
+// the lane shape of D 128 with a warp in place of half a warp), so q and
+// the accumulator stay 2 x RB x 8 floats a lane; its ring of two 9 KB
+// stages per warp and 256 registers a thread allow two blocks per SM.
+// K2 would need o[32][4] a thread for D 256, so a block owns DV = 128 of
+// the output's columns: the grid's first axis gains D / DV column slices,
+// each block computes the scores over all D (q, K and V decoded at D into
+// shared memory, ~152 KB: one block per SM) and accumulates its slice of
+// P.V; the slices of a row write equal m and l, the first stores them.
+// merge_splits_kernel needs no change (8 values a lane).
+//
 // ptxas (sm_90a, -O3; chip_smoke.py's build phase on an H100):
-// paged_split_kernel D 128 / 64 / 32 / 16: 186 / 141 / 95 / 80 registers;
-// merge_splits_kernel: 32 registers; no spills.  fused_attn_kernel (K1,
-// capped at 170 registers for 3 blocks per SM) D 128 at RB 4 (the serve
-// tick): 151 registers, no spills; D 128 at RB 8: 168 registers and 136
-// bytes of spill stores; D 64 and 32: 96-159 registers, D 16: 88-102, no
-// spills.
+// paged_split_kernel D 256 / 128 / 64 / 32 / 16: 184 / 186 / 141 / 95 / 80
+// registers; merge_splits_kernel: 32 registers at every D; no spills.
+// fused_attn_kernel at D 256 (capped at 255 registers for 2 blocks per
+// SM) RB 8 / 4 / 2 / 1: 240 / 167 / 179 / 255 registers, no spills;
+// fused_attn_kernel (capped at 170 registers for 3 blocks per SM) D 128 at
+// RB 4 (the serve tick): 151 registers, no spills; D 128 at RB 8: 168
+// registers and 136 bytes of spill stores; D 64 and 32: 96-159 registers,
+// D 16: 88-102, no spills.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -137,7 +151,7 @@ __device__ __forceinline__ float decode_reg(uint32_t c, int bits) {
 // one code word each (launch_fused_rows keeps RB <= LG there).
 template <int D>
 struct K1Shape {
-  static constexpr int DPT = D == 128 ? 8 : 4;
+  static constexpr int DPT = D >= 128 ? 8 : 4;
   static constexpr int LG = D / DPT;
   static constexpr int KG = 32 / LG;
 };
@@ -365,9 +379,10 @@ struct K1Layout {
 };
 
 // K1: one block per (l, r, h, tile of RB query rows); the scale group is 16
-// lanes and BS a multiple of 4
+// lanes and BS a multiple of 4.  Three blocks per SM up to D 128; two at
+// D 256, whose shared memory (~77 KB) holds no third
 template <int D, int RB>
-__global__ void __launch_bounds__(K1_THREADS, 3)
+__global__ void __launch_bounds__(K1_THREADS, D > 128 ? 2 : 3)
 fused_attn_kernel(const float* __restrict__ qh,
                   const uint8_t* __restrict__ kc, const uint8_t* __restrict__ vc,
                   const __nv_bfloat16* __restrict__ ksc,
@@ -670,6 +685,7 @@ extern "C" int ct_paged_attention_fused(
     case 32: return f(launch_fused_rows<32>);
     case 64: return f(launch_fused_rows<64>);
     case 128: return f(launch_fused_rows<128>);
+    case 256: return f(launch_fused_rows<256>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -713,7 +729,7 @@ paged_split_kernel(const float* __restrict__ qh,
                    float* __restrict__ lo, float* __restrict__ part,
                    float* __restrict__ pml, int R, int H, int GQ, int NP,
                    int BS, int NB, int NS, float scale) {
-  constexpr int LD = D + 4, NT = D / 8;
+  constexpr int LD = D + 4, DV = out_cols(D), NC = D / DV, NT = DV / 8;
   constexpr int SG = D / 16, SRB = scale_row_bytes(SG);   // a scale per 16
   const int KT = BS / 8;
   const K2Layout ly(D, BS, NB, SG);
@@ -728,7 +744,9 @@ paged_split_kernel(const float* __restrict__ qh,
   int* phys = reinterpret_cast<int*>(sm + ly.phys);
   int* count = reinterpret_cast<int*>(sm + ly.count);
 
-  const int split = blockIdx.x % NS, tile = blockIdx.x / NS;
+  const int col = blockIdx.x % NC, split = blockIdx.x / NC % NS;
+  const int tile = blockIdx.x / NC / NS;
+  const int col0 = col * DV;                 // this block's output columns
   const int h = blockIdx.y, r = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -940,7 +958,7 @@ paged_split_kernel(const float* __restrict__ qh,
       const double a[8] = {s[n][0], s[n][2], s[n][1], s[n][3],
                            two ? s[n + 1][0] : 0.f, two ? s[n + 1][2] : 0.f,
                            two ? s[n + 1][1] : 0.f, two ? s[n + 1][3] : 0.f};
-      const float* vb = vd + (n * 8 + 2 * t) * LD + g;
+      const float* vb = vd + (n * 8 + 2 * t) * LD + col0 + g;
 #pragma unroll
       for (int dn = 0; dn < NT; ++dn) {
         const double b4[4] = {vb[dn * 8], vb[dn * 8 + LD],
@@ -968,12 +986,12 @@ paged_split_kernel(const float* __restrict__ qh,
     const size_t ridx = rh * GQ + row;
     const size_t idx = NS == 1 ? ridx : (size_t)split * R * H * GQ + ridx;
     const float inv = NS == 1 ? 1.f / fmaxf(l, 1e-30f) : 1.f;
-    float* dst = (NS == 1 ? out : part) + idx * D + 2 * t;
+    float* dst = (NS == 1 ? out : part) + idx * D + col0 + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<float2*>(dst + n * 8) =
           make_float2(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
-    if (t == 0) {
+    if (t == 0 && col == 0) {
       if (NS == 1) {
         mo[idx] = m;
         lo[idx] = l;
@@ -1060,7 +1078,7 @@ static int launch_batched(const float* qh, const uint8_t* kc,
   const K2Layout ly(D, BS, NB, D / 16);
   cudaError_t err = allow_smem(paged_split_kernel<D>, ly.bytes, granted);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(NS * ((GQ + K2_ROWS - 1) / K2_ROWS), H, R);
+  dim3 grid(D / out_cols(D) * NS * ((GQ + K2_ROWS - 1) / K2_ROWS), H, R);
   paged_split_kernel<D><<<grid, K2_THREADS, ly.bytes, stream>>>(
       qh, kc, vc, ks, vs, st, bits, table, out, mo, lo, part, pml, R, H, GQ,
       NP, BS, NB, NS, scale);
@@ -1096,6 +1114,7 @@ extern "C" int ct_paged_attention_batched(
     case 32: return f(launch_batched<32>);
     case 64: return f(launch_batched<64>);
     case 128: return f(launch_batched<128>);
+    case 256: return f(launch_batched<256>);
     default: return (int)cudaErrorInvalidValue;
   }
 }

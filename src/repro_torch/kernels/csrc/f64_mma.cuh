@@ -1,6 +1,7 @@
 // f64 tensor-core products and cp.async copies, sm_90a: the products for
 // K2 (ct_paged_attention.cu) and K3 (flash_prefill.cu), the copies for
-// them, K1 and K5 (mamba_scan.cu).
+// them, K1 and K5 (mamba_scan.cu); and the output columns a K2 or K3 block
+// owns (out_cols).
 //
 // Why f64: the kernels are held to 1e-4 against their f32 plain versions
 // on out and on the flash stats (m, l).  One TF32 product (10 mantissa
@@ -25,6 +26,11 @@
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The output columns a K2 or K3 block owns: all of D up to 128, else 128
+// (a thread's f32 accumulator of P.V, o[out_cols / 8][4], stays within
+// the register budget; ops.OUT_COLS on the host side).
+__host__ __device__ constexpr int out_cols(int D) { return D > 128 ? 128 : D; }
 
 // d += a b, one m16n8k16 f64 product on the tensor cores (sm_90)
 __device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[8],

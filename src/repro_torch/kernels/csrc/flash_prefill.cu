@@ -38,7 +38,17 @@
 // capped for two blocks per SM.  The dynamic shared memory attribute is
 // set once per instantiation.
 //
-// ptxas (sm_90a, -O3; chip_smoke.py's build phase on an H100): D 128: 128
+// Head_dim 256 (paligemma-3b): the output accumulator of 16 rows x D
+// columns (o[D / 8][4] a thread) would take 128 registers at D 256 on top
+// of the D 128 instance's 128, so a block owns DV = 128 of the output's
+// columns: the grid gains a third axis of D / DV column slices, each block
+// computes the scores over all D (the product Q.K^T is repeated once per
+// slice) and loads and accumulates only its slice of V.  Its shared memory
+// holds q and K at D and V at DV (117 KB: one block per SM).  The blocks
+// of a row write equal m and l; the first slice stores them.
+//
+// ptxas (sm_90a, -O3; chip_smoke.py's build phase on an H100): D 256: 229
+// registers (one block per SM, no cap below 255), no spills; D 128: 128
 // registers, 20 bytes of spill stores and loads; D 64: 128 registers,
 // 8 / 4 bytes; D 32: 96, D 16: 72 registers, no spills.
 #include <cuda_runtime.h>
@@ -55,31 +65,34 @@
 
 template <int D>
 struct Layout {
+  static constexpr int DV = out_cols(D);
   static constexpr int LD = D + 4;          // row stride (floats): no bank
-  static constexpr int Q = ROWS * LD;       // conflicts on fragment loads
-  static constexpr int KV = BK * LD;
-  static constexpr int MLD = D + 8;         // row stride of the merge
+  static constexpr int LDV = DV + 4;        // conflicts on fragment loads
+  static constexpr int Q = ROWS * LD;
+  static constexpr int KV = BK * LD + BK * LDV;   // a tile's k, then v
+  static constexpr int MLD = DV + 8;        // row stride of the merge
   static constexpr int PART = ROWS * MLD + 2 * ROWS;   // one warp's o, m, l
-  static constexpr int KVM = 2 * KV > WARPS * PART ? 2 * KV : WARPS * PART;
+  static constexpr int KVM = KV > WARPS * PART ? KV : WARPS * PART;
   static constexpr int BYTES = (Q + KVM) * 4;   // q, then k, v or the merge
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
 flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ mo, float* __restrict__ lo, int S,
                      int Hq, int H, int causal, int window, int n_valid,
                      float scale) {
   using LY = Layout<D>;
-  constexpr int LD = LY::LD, NT = D / 8;
+  constexpr int LD = LY::LD, LDV = LY::LDV, DV = LY::DV, NT = DV / 8;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
   float* ks = qs + LY::Q;
-  float* vs = ks + LY::KV;
+  float* vs = ks + BK * LD;
 
   const int GQ = Hq / H;
   const int hk = blockIdx.x;
+  const int col0 = blockIdx.z * DV;          // this block's output columns
   // the longest rows (last queries: most keys under causality) first
   const int row0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
   const int nrows = S * GQ;
@@ -105,13 +118,19 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto load_tile = [&](int it) {
     const int k0 = t_lo + it * BK;
     const int rows = min(BK, (b_hi - k0 + KPW - 1) / KPW * KPW);
-    constexpr int CPR = D / 4;                 // 16-byte chunks per row
-    for (int c = tid; c < rows * CPR; c += THREADS) {
+    constexpr int CPR = D / 4, CPV = DV / 4;   // 16-byte chunks per row
+    for (int c = tid; c < rows * CPR; c += THREADS) {   // k: all of D
       const int j = c / CPR, d = (c % CPR) * 4;
       const bool in = k0 + j < S;
-      const size_t off = ((size_t)(in ? k0 + j : 0) * H + hk) * D + d;
-      cp_async16(ks + j * LD + d, k + off, in);
-      cp_async16(vs + j * LD + d, v + off, in);
+      cp_async16(ks + j * LD + d,
+                 k + ((size_t)(in ? k0 + j : 0) * H + hk) * D + d, in);
+    }
+    for (int c = tid; c < rows * CPV; c += THREADS) {   // v: this block's
+      const int j = c / CPV, d = (c % CPV) * 4;         // columns
+      const bool in = k0 + j < S;
+      cp_async16(vs + j * LDV + d,
+                 v + ((size_t)(in ? k0 + j : 0) * H + hk) * D + col0 + d,
+                 in);
     }
     cp_async_commit();
   };
@@ -148,7 +167,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int kw = t_lo + it * BK + KPW * warp;   // this warp's 8 keys
     if (kw < b_hi && kw + KPW > b_lo) {
       const float* kb = ks + (KPW * warp + g) * LD + t;
-      const float* vb = vs + (KPW * warp + 2 * t) * LD + g;
+      const float* vb = vs + (KPW * warp + 2 * t) * LDV + g;
       // scores in f64 (exact products, 53-bit sums)
       double sd[4] = {0.0, 0.0, 0.0, 0.0};
       const float* qa = qs + g * LD + t;
@@ -193,7 +212,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const double pa[4] = {s[0], s[2], s[1], s[3]};
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        const double b[2] = {vb[n * 8], vb[n * 8 + LD]};
+        const double b[2] = {vb[n * 8], vb[n * 8 + LDV]};
         double od[4] = {0.0, 0.0, 0.0, 0.0};
         mma_f64_k8(od, pa, b);
         o[n][0] = o[n][0] * c_a + (float)od[0];
@@ -230,7 +249,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
   constexpr int TPR = THREADS / ROWS;          // threads per row
-  constexpr int CPT = D / TPR;                 // columns per thread
+  constexpr int CPT = DV / TPR;                // columns per thread
   const int row = tid / TPR, c0 = tid % TPR;   // columns c0 + TPR i
   const int r = row0 + row;
   if (r >= nrows) return;
@@ -252,9 +271,9 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int w = 0; w < WARPS; ++w)
       acc = fmaf(wt[w], ks[w * LY::PART + row * MLD + c0 + TPR * c], acc);
-    out[orow * D + c0 + TPR * c] = acc * inv;
+    out[orow * D + col0 + c0 + TPR * c] = acc * inv;
   }
-  if (tid % TPR == 0) {
+  if (tid % TPR == 0 && blockIdx.z == 0) {
     mo[orow] = M;
     lo[orow] = L;
   }
@@ -268,7 +287,7 @@ static int launch(const float* q, const float* k, const float* v, float* out,
   cudaError_t err =
       allow_smem(flash_prefill_kernel<D>, Layout<D>::BYTES, granted);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(H, (S * (Hq / H) + ROWS - 1) / ROWS);
+  dim3 grid(H, (S * (Hq / H) + ROWS - 1) / ROWS, D / out_cols(D));
   flash_prefill_kernel<D><<<grid, THREADS, Layout<D>::BYTES, stream>>>(
       q, k, v, out, mo, lo, S, Hq, H, causal, window, n_valid, scale);
   return (int)cudaGetLastError();
@@ -290,6 +309,7 @@ extern "C" int flash_prefill_stats(const void* q, const void* k,
     case 32: return f(launch<32>);
     case 64: return f(launch<64>);
     case 128: return f(launch<128>);
+    case 256: return f(launch<256>);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -63,17 +63,17 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
                          f"{tuple(t.shape)}")
 
 
-PAGED_HEAD_DIMS = (16, 32, 64, 128)     # K1's and K2's instances
+HEAD_DIMS = (16, 32, 64, 128, 256)      # K1's, K2's and K3's instances
 
 
 def _check_paged(d: int, group: int, *planes: torch.Tensor) -> None:
     """What the paged kernels take: a head_dim they have an instance for
-    (:data:`PAGED_HEAD_DIMS`) in whole scale groups, code planes readable 4
+    (:data:`HEAD_DIMS`) in whole scale groups, code planes readable 4
     bytes at a time."""
-    if d not in PAGED_HEAD_DIMS or d % group or group % 4:
-        raise ValueError(f"paged attention kernels take head_dim 16, 32, 64 "
-                         f"or 128 in groups of a multiple of 4 (got D={d}, "
-                         f"group={group})")
+    if d not in HEAD_DIMS or d % group or group % 4:
+        raise ValueError(f"paged attention kernels take head_dim "
+                         f"{', '.join(map(str, HEAD_DIMS))} in groups "
+                         f"of a multiple of 4 (got D={d}, group={group})")
     if any(p.data_ptr() % 4 for p in planes):
         raise ValueError("code planes must be 4-byte aligned")
 
@@ -84,6 +84,8 @@ def _aligned(what: str, n: int, *ts: torch.Tensor) -> None:
 
 
 K2_ROWS = 64            # query rows per K2 block (csrc/ct_paged_attention.cu)
+OUT_COLS = 128          # output columns per K2 or K3 block at most
+                        # (out_cols in csrc/f64_mma.cuh)
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,11 +93,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def kv_splits(r: int, h: int, gq: int, nb: int, sms: int) -> int:
-    """How many shares K2 cuts each (slot, kv head, 64-row tile) walk of
-    the live pool blocks into: enough that about two blocks run on each of
-    the card's ``sms`` SMs, at most one share per table entry and 32."""
-    tiles = r * h * -(-gq // K2_ROWS)
+def kv_splits(r: int, h: int, gq: int, nb: int, sms: int, d: int) -> int:
+    """How many shares K2 cuts each (slot, kv head, 64-row tile, column
+    slice) walk of the live pool blocks into: enough that about two blocks
+    run on each of the card's ``sms`` SMs, at most one share per table
+    entry and 32.  Head_dim ``d`` above :data:`OUT_COLS` is cut into column
+    slices of that width, each its own block."""
+    tiles = r * h * -(-gq // K2_ROWS) * max(1, d // OUT_COLS)
     return max(1, min(2 * sms // tiles, nb, 32))
 
 
@@ -233,7 +237,7 @@ def _batched(name, qh, k_codes, v_codes, k_scales, v_scales, slot_state,
     out = torch.empty_like(qh)
     m = torch.empty((r, h, gq, 1), dtype=torch.float32, device=qh.device)
     l = torch.empty_like(m)
-    ns = kv_splits(r, h, gq, nb, _sm_count(qh.device.index or 0))
+    ns = kv_splits(r, h, gq, nb, _sm_count(qh.device.index or 0), d)
     part = torch.empty((ns, r, h, gq, d) if ns > 1 else (0,),
                        dtype=torch.float32, device=qh.device)
     pml = torch.empty((ns, r, h, gq, 2) if ns > 1 else (0,),
@@ -301,8 +305,9 @@ def prefill_attention_stats(q, k, v, *, causal: bool = True, window: int = 0,
             torch.arange(s_len) < n_valid
         return R.flash_prefill_stats_ref(q, k, v, causal=causal,
                                          window=window, kv_valid=kv_valid)
-    if d not in (16, 32, 64, 128):
-        raise ValueError(f"K3 takes head_dim 16, 32, 64 or 128 (got {d})")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"K3 takes head_dim "
+                         f"{', '.join(map(str, HEAD_DIMS))} (got {d})")
     _aligned("q, k and v", 16, q, k, v)
     out = torch.empty_like(q)
     m = torch.empty((s_len, hq, 1), dtype=torch.float32, device=q.device)

@@ -25,6 +25,11 @@ NEG_INF = -1e30
 VALID = 1
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in f32, or kept in f64 (a plain version evaluated in f64)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _masked_softmax_stats(s: torch.Tensor, valid: torch.Tensor):
     """Flash stats of masked scores: (p / l, m, l) over the last axis."""
     s = torch.where(valid, s, NEG_INF)
@@ -263,13 +268,14 @@ def flash_prefill_stats_ref(q, k, v, *, causal: bool = True, window: int = 0,
     """Causal GQA attention with per-query flash stats.
 
     q [S, Hq, D], k/v [T, H, D]; ``kv_valid`` [T] bool masks padded keys.
-    Returns (out [S, Hq, D] f32, m [S, Hq, 1], l [S, Hq, 1]).
+    Returns (out [S, Hq, D] f32, m [S, Hq, 1], l [S, Hq, 1]); all three in
+    f64 when q, k and v are f64.
     """
     s_len, hq, d = q.shape
     t_len, h, _ = k.shape
     gq = hq // h
-    qh = q.reshape(s_len, h, gq, d).float()
-    scores = torch.einsum("shgd,thd->hgst", qh, k.float()) / math.sqrt(d)
+    qh = _wide(q.reshape(s_len, h, gq, d))
+    scores = torch.einsum("shgd,thd->hgst", qh, _wide(k)) / math.sqrt(d)
     i = torch.arange(s_len, device=q.device)[:, None]
     j = torch.arange(t_len, device=q.device)[None, :]
     mask = torch.ones((s_len, t_len), dtype=torch.bool, device=q.device)
@@ -280,7 +286,7 @@ def flash_prefill_stats_ref(q, k, v, *, causal: bool = True, window: int = 0,
     if kv_valid is not None:
         mask &= kv_valid[None, :]
     p, m, l = _masked_softmax_stats(scores, mask[None, None])
-    out = torch.einsum("hgst,thd->shgd", p, v.float())
+    out = torch.einsum("hgst,thd->shgd", p, _wide(v))
 
     def to_q(a):                                  # [h, g, s, 1] -> [s, hq, 1]
         return a[..., 0].permute(2, 0, 1).reshape(s_len, hq, 1)

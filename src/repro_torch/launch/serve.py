@@ -14,8 +14,10 @@ card unless ``cpu`` is asked for):
   --max-new --budget --tau --group --backend --policy`` (``thinkv``,
   ``rkv`` or ``uniform``); ``--arch`` takes every registered config the
   engine serves: r1-llama-8b, qwen2-7b (qkv bias), yi-6b, yi-9b,
-  mistral-large-123b, and the MoE configs mixtral-8x7b and
-  llama4-scout-17b-a16e (falcon-mamba-7b has no KV cache and is refused);
+  mistral-large-123b, the MoE configs mixtral-8x7b and
+  llama4-scout-17b-a16e, and the VLM paligemma-3b (text prompts, as the
+  reference's engine serves it; head_dim 256 on the card's kernels)
+  (falcon-mamba-7b has no KV cache and is refused);
 * sampling and dispatch: ``--temperature`` (> 0 samples on per-request
   key streams), ``--top-p`` (< 1 nucleus), ``--ticks-per-dispatch`` (N
   fuses up to N ticks into one dispatch; prints the mega-dispatch line),
@@ -57,6 +59,8 @@ refused, naming it.
     python -m repro_torch.launch.serve --device cpu --policy rkv \
         --drift-probe --expect-drift --stream
     python -m repro_torch.launch.serve --device cpu --arch mixtral-8x7b
+    python -m repro_torch.launch.serve --arch paligemma-3b --full \
+        --backend kernel --temperature 0
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Model factory (ports ``repro/models/factory.py``: ``Model`` and
-``build_model``) for the families the port has: DENSE and MOE
-(``models/lm.py``, as the reference maps both) and SSM
-(``models/ssm_lm.py``).  VLM, encoder-decoder and hybrid raise
+``build_model``) for the families the port has: DENSE, MOE and VLM
+(``models/lm.py``, as the reference maps all three) and SSM
+(``models/ssm_lm.py``).  Encoder-decoder and hybrid raise
 NotImplementedError (ROADMAP queue 1 item 15).
 
 ``input_specs`` is not ported: it builds ``jax.ShapeDtypeStruct`` stand-ins
@@ -24,7 +24,7 @@ def loss_fn(params, batch, cfg: ModelConfig):
 
 
 _FAMILY_MODULES = {ArchFamily.DENSE: lm, ArchFamily.MOE: lm,
-                   ArchFamily.SSM: ssm_lm}
+                   ArchFamily.VLM: lm, ArchFamily.SSM: ssm_lm}
 
 
 @dataclasses.dataclass(frozen=True)

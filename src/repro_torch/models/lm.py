@@ -1,7 +1,14 @@
-"""Decoder-only transformer LM, dense or mixture-of-experts (ports
-``repro/models/lm.py``: the parameter shapes of ``init``,
+"""Decoder-only transformer LM, dense, mixture-of-experts or the VLM
+backbone (ports ``repro/models/lm.py``: the parameter shapes of ``init``,
 ``assemble_inputs`` / ``backbone`` and the teacher-forced forward, and the
 FullKV serving paths ``prefill`` and ``decode_step_fullkv``).
+
+The VLM family (paligemma) ties the output head to the embedding (no
+``lm_head``; embeddings scaled by sqrt(d_model), ``layers/embedding.py``)
+and has a stub frontend, ``frontend_proj`` ``[frontend_dim, d_model]``:
+``assemble_inputs`` prepends the projected patch embeddings of
+``batch["patches"]`` ``[B, num_image_tokens, frontend_dim]`` to the
+embedded text and numbers the positions over the whole sequence.
 
 Weights stay in the reference's layout so that converting a JAX parameter
 tree is a copy: ``x @ W`` with W of shape ``[in, out]``, and every layer
@@ -32,7 +39,7 @@ from repro_torch.layers.common import dense_init_, embed_init_, softcap
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import rmsnorm
 
-_FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE)
+_FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.VLM)
 
 
 def layer_params(cfg: ModelConfig) -> Dict[str, Tuple[str, str]]:
@@ -58,24 +65,26 @@ class LM(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.family not in _FAMILIES or not cfg.mlp_gated or \
-                cfg.tie_embeddings or \
                 (cfg.family == ArchFamily.MOE) != (cfg.moe is not None):
             raise NotImplementedError(
-                f"{cfg.name}: the port serves gated dense and MoE decoders "
-                f"without tied embeddings (other families: ROADMAP queue 1 "
-                f"item 15)")
+                f"{cfg.name}: the port serves gated dense, MoE and VLM "
+                f"decoders (other families: ROADMAP queue 1 item 15)")
         self.cfg = cfg
         self.layer_params = layer_params(cfg)
         L, d, ff, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
         shapes = {
-            "embedding": (V, d), "lm_head": (d, V), "final_norm": (d,),
+            "embedding": (V, d), "final_norm": (d,),
             "wq": (L, d, cfg.q_dim), "wk": (L, d, cfg.kv_dim),
             "wv": (L, d, cfg.kv_dim), "wo": (L, cfg.q_dim, d),
             "norm1": (L, d), "norm2": (L, d),
         }
+        if not cfg.tie_embeddings:
+            shapes["lm_head"] = (d, V)
         if cfg.qkv_bias:
             shapes.update(bq=(L, cfg.q_dim), bk=(L, cfg.kv_dim),
                           bv=(L, cfg.kv_dim))
+        if cfg.family == ArchFamily.VLM:
+            shapes["frontend_proj"] = E.frontend_stub_shapes(cfg)["proj"]
         # init scale per weight: None is the fan-in default
         self._scales: Dict[str, Optional[float]] = {}
         if cfg.moe is not None:
@@ -97,12 +106,12 @@ class LM(nn.Module):
     def reset_parameters(self, seed: int = 0) -> "LM":
         """Seeded init with the reference's shapes and scales: truncated
         normal fan-in for dense weights (the router at 0.02, experts at
-        their own fan-in), N(0, 0.02) embeddings, unit norms, zero qkv
-        biases."""
+        their own fan-in, the frontend projector), N(0, 0.02) embeddings,
+        unit norms, zero qkv biases."""
         gen = torch.Generator(device=self.embedding.device).manual_seed(seed)
         embed_init_(self.embedding, gen)
         for name in ("lm_head", "wq", "wk", "wv", "wo", "router", "w_up",
-                     "w_gate", "w_down"):
+                     "w_gate", "w_down", "frontend_proj"):
             if hasattr(self, name):
                 dense_init_(getattr(self, name), gen,
                             self._scales.get(name))
@@ -115,7 +124,13 @@ class LM(nn.Module):
 
     @property
     def embed_params(self) -> dict:
+        if self.cfg.tie_embeddings:
+            return {"embedding": self.embedding}
         return {"embedding": self.embedding, "lm_head": self.lm_head}
+
+    @property
+    def frontend_params(self) -> dict:
+        return {"proj": self.frontend_proj}
 
     def layer(self, i: int) -> dict:
         """Layer ``i``'s parameters as the reference's nested dict."""
@@ -139,10 +154,16 @@ class LM(nn.Module):
 
 def assemble_inputs(params: LM, batch: dict, cfg: ModelConfig
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Embedded tokens h [B, S, D] and positions [1, S]."""
+    """Embedded tokens h [B, S, D] and positions [1, S]; for the VLM
+    family with ``batch["patches"]`` [B, P, frontend_dim] the projected
+    patches come first (h [B, P + S, D], positions over P + S)."""
     tokens = batch["tokens"]
     h = E.embed(params.embed_params, tokens, cfg)
-    return h, torch.arange(tokens.shape[1], device=tokens.device)[None]
+    if cfg.family == ArchFamily.VLM and "patches" in batch:
+        img = E.frontend_stub(params.frontend_params,
+                              batch["patches"].to(h.dtype))
+        h = torch.cat([img, h], 1)
+    return h, torch.arange(h.shape[1], device=tokens.device)[None]
 
 
 def ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig,

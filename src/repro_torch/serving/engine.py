@@ -86,8 +86,12 @@ reference's replay).  The serving path does not read mixtral's sliding
 window, as the reference engine's does not; the dense replay does, as
 the reference's does.
 
+The VLM family (paligemma) is served as the reference engine serves it:
+text only, through the dense paths (tied, scaled embeddings; no image
+prefix reaches the engine).
+
 Not in this slice (each raises NotImplementedError naming the ROADMAP
-item): tensor parallelism, the VLM family.
+item): tensor parallelism, the encoder-decoder and hybrid families.
 """
 from __future__ import annotations
 
@@ -313,7 +317,8 @@ class MultiTickResult:
 
 
 class ThinKVEngine:
-    """Dense- and MoE-LM serving with ThinKV on one card (or the CPU)."""
+    """Dense-, MoE- and VLM-backbone LM serving with ThinKV on one card (or
+    the CPU)."""
 
     def __init__(self, cfg: ServeConfig, params: Optional[LM] = None,
                  lstar: Optional[Sequence[int]] = None,
@@ -328,7 +333,8 @@ class ThinKVEngine:
             raise ValueError(
                 f"{cfg.model.name} is attention-free: it has no KV cache for "
                 f"ThinKV to compress; serve it through serving/serve_step.py")
-        if cfg.model.family not in (ArchFamily.DENSE, ArchFamily.MOE):
+        if cfg.model.family not in (ArchFamily.DENSE, ArchFamily.MOE,
+                                    ArchFamily.VLM):
             _not_ported(f"the {cfg.model.family.value} family", "15")
         if int(ticks_per_dispatch) < 1:
             raise ValueError(f"ticks_per_dispatch {ticks_per_dispatch} < 1")

@@ -1,13 +1,16 @@
-"""Serving steps (ports ``repro/serving/serve_step.py``: its dense, MoE and
-SSM branches).
+"""Serving steps (ports ``repro/serving/serve_step.py``: its dense, MoE,
+VLM and SSM branches).
 
 Each maker returns a function of ``(params, batch)`` with the reference's
 batch keys and shapes (``repro/models/factory.py::input_specs``):
 
 * ``make_prefill_step``: the full forward over the prompts ``tokens
   [B, S]``, last-token logits ``[B, V]`` (only the last row is
-  unembedded).  For the SSM family every layer's selective scan is one K5
-  launch for the whole batch (``kernels.ops.mamba_scan``);
+  unembedded).  For the VLM family ``patches [B, P, frontend_dim]`` in
+  the batch are projected and prepended (``lm.assemble_inputs``: the
+  forward runs over P + S rows).  For the SSM family every layer's
+  selective scan is one K5 launch for the whole batch
+  (``kernels.ops.mamba_scan``);
 * ``make_decode_step_fullkv``: ONE new token per request against an
   explicit cache.  Dense: ``tokens [B]``, ``positions [B]``,
   ``k_cache`` / ``v_cache [B, L, T, Hkv, hd]``, ``cache_len [B]`` ->
@@ -33,7 +36,9 @@ The MoE family takes the dense paths, with the reference's routing groups:
 the prefill step routes the B·S prompt tokens together (``lm.backbone``),
 the FullKV and ThinKV decode steps route each request's token alone (the
 reference ``vmap``s one request), while K1 stays one launch per layer for
-the batch.  The VLM, encoder-decoder and hybrid families raise
+the batch.  The VLM family takes the dense paths too: its decode steps
+are the dense ones, at the ``positions`` the batch gives (after an image
+prefix, past its P rows).  The encoder-decoder and hybrid families raise
 NotImplementedError (ROADMAP queue 1 item 15).  Not ported: the
 reference's ``REPRO_F32_DEQUANT`` and ``REPRO_CONCAT_BUF`` toggles of the
 reference backend, which measured a GSPMD rematerialisation of the pool
@@ -57,7 +62,8 @@ from repro_torch.layers.norms import rmsnorm
 from repro_torch.models import lm, ssm_lm
 
 NEG_INF = -1e30
-_FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.SSM)
+_FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.VLM,
+             ArchFamily.SSM)
 
 
 def _check_family(cfg: ModelConfig, step: str) -> None:
@@ -69,8 +75,8 @@ def _check_family(cfg: ModelConfig, step: str) -> None:
 
 def make_prefill_step(model, cfg: ModelConfig) -> Callable:
     """(params, batch) -> last-token logits [B, V]; ``batch["tokens"]``
-    [B, S].  ``model`` is the factory's ``Model`` (unused, as in the
-    reference)."""
+    [B, S] (and for the VLM family optionally ``batch["patches"]``).
+    ``model`` is the factory's ``Model`` (unused, as in the reference)."""
     _check_family(cfg, "prefill step")
     if cfg.family == ArchFamily.SSM:
         def step(params, batch):
@@ -87,8 +93,8 @@ def make_prefill_step(model, cfg: ModelConfig) -> Callable:
 
 
 def make_decode_step_fullkv(cfg: ModelConfig) -> Callable:
-    """(params, batch) -> (logits [B, V], k_cache, v_cache) for the dense
-    and MoE families, (logits, conv_state, ssm_state) for the SSM
+    """(params, batch) -> (logits [B, V], k_cache, v_cache) for the dense,
+    MoE and VLM families, (logits, conv_state, ssm_state) for the SSM
     family."""
     _check_family(cfg, "FullKV decode step")
     if cfg.family == ArchFamily.SSM:
@@ -198,7 +204,7 @@ _POOL_READS = {"reference": _pool_attention,
 def make_decode_step_thinkv(cfg: ModelConfig, tk: ThinKVConfig, *,
                             backend: str = "reference") -> Callable:
     """(params, batch) -> (logits [B, V], buf_k, buf_v, buf_len + 1) for the
-    dense and MoE families (batch keys in the module docstring; a MoE
+    dense, MoE and VLM families (batch keys in the module docstring; a MoE
     layer routes each request's token alone); the FullKV step for the
     attention-free SSM family."""
     _check_family(cfg, "ThinKV decode step")

@@ -304,12 +304,14 @@ def test_eight_slot_moe_engine_drops_choices_at_decode(monkeypatch):
 
 def test_entry_points_take_the_slice_and_refuse_the_rest():
     """The factory, the serve-step makers, the engine and the CLI's
-    ``--arch`` take every config this slice covers; the VLM,
-    encoder-decoder and hybrid families still raise, naming ROADMAP queue
-    1 item 15, and tied embeddings stay refused."""
+    ``--arch`` take every config this slice covers and the VLM family
+    (paligemma-3b, ported since); the encoder-decoder and hybrid families
+    still raise, naming ROADMAP queue 1 item 15.  Tied embeddings are
+    taken (no ``lm_head``; embeddings scaled by sqrt(d_model)) and give
+    the JAX forward's logits."""
     from repro_torch.config import ArchFamily
     from repro_torch.launch import serve
-    for arch in NEW_ARCHS:
+    for arch in NEW_ARCHS + ("paligemma-3b",):
         cfg = get_smoke_config(arch)
         assert FT.build_model(cfg).module is LT
         for make in (lambda: SST.make_prefill_step(None, cfg),
@@ -323,7 +325,7 @@ def test_entry_points_take_the_slice_and_refuse_the_rest():
         assert eng.mcfg is cfg
         assert serve.build_parser().parse_args(["--arch", arch]).arch == arch
     base = get_smoke_config("r1-llama-8b")
-    for fam in (ArchFamily.VLM, ArchFamily.ENCDEC, ArchFamily.HYBRID):
+    for fam in (ArchFamily.ENCDEC, ArchFamily.HYBRID):
         other = dataclasses.replace(base, family=fam)
         for make in (lambda: FT.build_model(other),
                      lambda: LT.init_params(other, device="cpu"),
@@ -333,6 +335,13 @@ def test_entry_points_take_the_slice_and_refuse_the_rest():
                                           device="cpu")):
             with pytest.raises(NotImplementedError, match="item 15"):
                 make()
-    with pytest.raises(NotImplementedError, match="tied embeddings"):
-        LT.init_params(dataclasses.replace(base, tie_embeddings=True),
-                       device="cpu")
+    jcfg = dataclasses.replace(jax_smoke("r1-llama-8b"), tie_embeddings=True)
+    tied = dataclasses.replace(base, tie_embeddings=True)
+    assert not hasattr(LT.init_params(tied, device="cpu"), "lm_head")
+    jp = jax_params(jcfg)
+    assert "lm_head" not in jp["embed"]
+    toks = tokens(16, (B, S), tied.vocab_size)
+    want, _ = LJ.logits_fn(jax.tree.map(jnp.asarray, jp),
+                           {"tokens": jnp.asarray(toks)}, jcfg)
+    got = params_from_numpy(jp, tied, "cpu")(torch.from_numpy(toks).long())
+    close(got, want, 1e-4)

@@ -1,9 +1,11 @@
 """The port's ThinKVEngine against the JAX package's on the flash and the
 pressure trace (``tests/test_serving_traces.py``'s shapes, as
 ``test_torch_engine.py`` and ``test_torch_pressure.py`` run them on
-r1-llama-8b), with each served smoke config of this slice in its place:
-qwen2-7b (non-zero qkv biases), mixtral-8x7b (top 2 of 4 experts) and
-llama4-scout-17b-a16e (top 1 of 4), each at its own 4 q / 2 kv heads.
+r1-llama-8b), with each served smoke config of the dense, MoE and VLM slices in its
+place: qwen2-7b (non-zero qkv biases), mixtral-8x7b (top 2 of 4 experts)
+and llama4-scout-17b-a16e (top 1 of 4), each at its own 4 q / 2 kv heads,
+and paligemma-3b (4 q / 1 kv head, tied embeddings scaled by
+sqrt(d_model), GeGLU; text prompts, as both engines serve the VLM).
 
 Per case the live JAX ``reference`` engine runs once and the port runs on
 both of its backends on the CPU.  Bars: identical tokens, equal counters
@@ -31,6 +33,8 @@ import test_torch_engine as FL  # noqa: E402
 import test_torch_pressure as PT  # noqa: E402
 from test_torch_archs import SERVED, TK, jax_params  # noqa: E402
 
+ENGINE_ARCHS = SERVED + ("paligemma-3b",)
+
 # trace -> (prompts, priorities, max_new, slots, pool blocks, prefix cache,
 # counters held)
 TRACES = {
@@ -53,7 +57,7 @@ def one_torch_thread():
 
 
 @pytest.mark.parametrize("trace", sorted(TRACES))
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", ENGINE_ARCHS)
 def test_engine_matches_the_jax_engine(arch, trace):
     prompts, prio, max_new, slots, pool, prefix, counters = TRACES[trace]
     jcfg, tcfg = jax_smoke(arch), get_smoke_config(arch)

@@ -265,7 +265,8 @@ def test_batched_pool_attention_on_an_oversubscribed_aliased_pool(card, GQ):
     """K2 on a slot whose table shares blocks with other slots, at NB 64 in
     a pool of 128 blocks, with its walk split (NS > 1) so the merge runs."""
     c = oversubscribed_case(GQ=GQ, L=1)
-    assert ops.kv_splits(1, 8, GQ, 64, ops._sm_count(card.index or 0)) > 1
+    assert ops.kv_splits(1, 8, GQ, 64, ops._sm_count(card.index or 0),
+                         128) > 1
     args = [c["qh"][0, 1:2], c["k_codes"][0], c["v_codes"][0],
             c["k_scales"][0], c["v_scales"][0], c["slot_state"][0, 1:2],
             c["slot_bits"][0, 1:2], c["block_table"][1:2, 0].contiguous()]
@@ -437,7 +438,7 @@ def test_mamba_scan_full_prefill_shape(card):
 
 
 @pytest.mark.parametrize("GQ,D", [(1, 32), (4, 128), (4, 64), (1, 16),
-                                  (4, 16)])
+                                  (4, 16), (8, 256)])
 def test_single_request_wrapper(card, GQ, D):
     """The ``ct_paged_attention`` wrapper: physical metadata gathered
     through a shuffled raw table with -1 entries, one K2 launch."""
@@ -511,7 +512,7 @@ def test_batched_pool_attention_head_dim_16(card, GQ, NB, H):
     c = pool_case(torch.Generator().manual_seed(GQ + NB + H), L=1, R_=2,
                   H=H, GQ=GQ, D=16, BS=8, NB=NB)
     args = batched_args(c)
-    ns = ops.kv_splits(2, H, GQ, NB, ops._sm_count(0))
+    ns = ops.kv_splits(2, H, GQ, NB, ops._sm_count(0), 16)
     assert ns == 1 if NB == 1 else ns > 1
     got = launched_once("ct_paged_attention_batched",
                         ops.paged_decode_attention_batched, *on(card, args))
@@ -519,12 +520,12 @@ def test_batched_pool_attention_head_dim_16(card, GQ, NB, H):
 
 
 def test_paged_wrappers_refuse_head_dims_without_an_instance(card):
-    for d in (48, 256):
+    for d in (48, 512):
         c = pool_case(torch.Generator().manual_seed(d), L=1, R_=1, H=2, GQ=2,
                       D=d, BS=8, NB=2)
-        with pytest.raises(ValueError, match="head_dim 16, 32, 64 or 128"):
+        with pytest.raises(ValueError, match="head_dim 16, 32, 64, 128, 256"):
             ops.paged_decode_attention_fused(*on(card, c.values()))
-        with pytest.raises(ValueError, match="head_dim 16, 32, 64 or 128"):
+        with pytest.raises(ValueError, match="head_dim 16, 32, 64, 128, 256"):
             ops.paged_decode_attention_batched(*on(card, batched_args(c)))
 
 
@@ -550,7 +551,7 @@ def same_quant(got, want):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("D", (16, 128))
+@pytest.mark.parametrize("D", (16, 128, 256))
 @pytest.mark.parametrize("thought", (0, 1, 2))
 @pytest.mark.parametrize("precision", [(2, 4, 4), (2, 4, 8), (8, 8, 8)])
 def test_commit_quant_bit_exact(card, precision, thought, D):
@@ -959,14 +960,15 @@ def test_dense_thinkv_step_kernel_path_on_the_card(card, D):
 
 ARCH_RECORDS = {name: os.path.join(os.path.dirname(os.path.abspath(
     __file__)), "golden", f"torch_{name}_trace.npz")
-    for name in ("moe", "qwen2")}
+    for name in ("moe", "qwen2", "vlm")}
 
 
 @pytest.mark.parametrize("name", sorted(ARCH_RECORDS))
 def test_arch_traces_on_the_card_give_the_jax_records(card, name):
-    """The pressure trace on mixtral-8x7b's smoke config (MoE) and on
-    qwen2-7b's (non-zero qkv biases), held to the JAX engine's records
-    (``tests/golden/torch_{moe,qwen2}_trace.npz``): identical tokens,
+    """The pressure trace on mixtral-8x7b's smoke config (MoE), on
+    qwen2-7b's (non-zero qkv biases) and on paligemma-3b's (tied, scaled
+    embeddings, GeGLU, one kv head), held to the JAX engine's records
+    (``tests/golden/torch_{moe,qwen2,vlm}_trace.npz``): identical tokens,
     logits within 1e-3, equal counters and pool audit, on the kernel
     backend (K1 once per tick, K2 and K3 launched, K4 once per commit)
     and on the reference backend."""
@@ -1021,3 +1023,120 @@ def test_prefill_attention_stats_at_qwen2_grouping(card, S, n_valid):
             *a, n_valid=n_valid), *on(card, (q, k, v)))
     kv_valid = None if n_valid is None else torch.arange(S) < n_valid
     assert_close(got, R.flash_prefill_stats_ref(q, k, v, kv_valid=kv_valid))
+
+
+@pytest.mark.parametrize("GQ,H", [(1, 1), (2, 2), (4, 1), (8, 1), (5, 2)])
+def test_fused_decode_attention_head_dim_256(card, GQ, H):
+    """K1 at head_dim 256 (a key row over a whole warp) with 1, 2, 4 and 8
+    query rows per tile and a partial tile (GQ 5), one launch."""
+    c = pool_case(torch.Generator().manual_seed(256 + 10 * GQ + H), L=3,
+                  R_=3, H=H, GQ=GQ, D=256, BS=16, NB=12)
+    got = launched_once("ct_paged_attention_fused",
+                        ops.paged_decode_attention_fused,
+                        *on(card, c.values()))
+    assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
+
+
+def test_fused_decode_attention_paligemma_tick(card):
+    """K1 at paligemma-3b's tick (L 18, 4 slots, one kv head, GQ 8, D 256;
+    BS 16, NB 128, G 16), one launch for the whole tick."""
+    c = pool_case(torch.Generator().manual_seed(18), L=18, R_=4, H=1, GQ=8,
+                  D=256, BS=16, NB=128)
+    c["buf_len"] = torch.tensor([0, 5, 16, 16], dtype=torch.int32)
+    got = launched_once("ct_paged_attention_fused",
+                        ops.paged_decode_attention_fused,
+                        *on(card, c.values()))
+    assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
+
+
+@pytest.mark.parametrize("GQ,NB", [(1024, 128), (128, 128), (8, 128),
+                                   (8, 1), (100, 6)])
+def test_batched_pool_attention_head_dim_256(card, GQ, NB):
+    """K2 at head_dim 256 (two column slices of 128 per row tile) at
+    paligemma-3b's big chunk (GQ 1024), g-chunk (128) and single request
+    (8) over its full pool (NB 128; l also against the f64 evaluation),
+    with one share and no merge (NB 1), and a ragged row tile."""
+    c = pool_case(torch.Generator().manual_seed(GQ + NB), L=1, R_=1, H=1,
+                  GQ=GQ, D=256, BS=16, NB=NB)
+    args = batched_args(c)
+    ns = ops.kv_splits(1, 1, GQ, NB, ops._sm_count(0), 256)
+    assert ns == 1 if NB == 1 else ns > 1
+    got = launched_once("ct_paged_attention_batched",
+                        ops.paged_decode_attention_batched, *on(card, args))
+    assert_close(got[:2], R.ct_paged_attention_batched_ref(*args)[:2])
+    assert_close(got, batched_f64(*args))
+
+
+@pytest.mark.parametrize("S,n_valid,window,Hq,H", [
+    (128, None, 0, 8, 1), (16, 11, 0, 8, 1), (16, 1, 0, 8, 1),
+    (200, None, 0, 8, 1), (128, None, 40, 8, 1), (64, None, 0, 16, 2)])
+def test_prefill_attention_stats_head_dim_256(card, S, n_valid, window, Hq,
+                                              H):
+    """K3 at head_dim 256 (two column slices of 128): paligemma-3b's heads
+    (Hq 8, H 1) at the big chunk, the g-chunk with 11 and 1 valid keys, a
+    ragged S and a window, and two kv heads."""
+    gen = torch.Generator().manual_seed(256 + S + (n_valid or 0) + window)
+    q = torch.randn((S, Hq, 256), generator=gen)
+    k = torch.randn((S, H, 256), generator=gen)
+    v = torch.randn((S, H, 256), generator=gen)
+    got = launched_once(
+        "flash_prefill", lambda *a: ops.prefill_attention_stats(
+            *a, window=window, n_valid=n_valid), *on(card, (q, k, v)))
+    kv_valid = None if n_valid is None else torch.arange(S) < n_valid
+    assert_close(got, R.flash_prefill_stats_ref(q, k, v, window=window,
+                                                kv_valid=kv_valid))
+
+
+def test_vlm_serve_steps_on_the_card(card):
+    """paligemma-3b's smoke config widened to head_dim 256 (4 q / 1 kv
+    head) through the three serve steps on the card against the same
+    steps on the CPU: the prefill step over a 4-patch image prefix and
+    the text, one FullKV step and one ThinKV step on ``backend="kernel"``
+    (one K1 launch per layer, at D 256) past the prefix; logits within
+    1e-4, buf_len exact.  The new buffer rows of layer 0 are within one
+    bf16 step; deeper layers' rows take their inputs from K1's output,
+    which is held to its plain version at 1e-4, so they are held within
+    one bf16 step plus that bar."""
+    from repro_torch.models import lm
+    from repro_torch.serving import serve_step as SS
+    cfg = dataclasses.replace(get_smoke_config("paligemma-3b"), head_dim=256)
+    tk = ThinKVConfig(token_budget=128)
+    params = init_params(cfg, 0, "cpu")
+    dev_params = copy.deepcopy(params).to(card)
+    gen = torch.Generator().manual_seed(256)
+    P, B = cfg.num_image_tokens, 4
+    pre = {"tokens": torch.randint(0, cfg.vocab_size, (B, 40), generator=gen),
+           "patches": torch.randn((B, P, cfg.frontend_dim), generator=gen)}
+    step = SS.make_prefill_step(None, cfg)
+    want = step(params, pre)
+    got = step(dev_params, {k: v.to(card) for k, v in pre.items()})
+    assert (got.cpu() - want).abs().max() <= ATOL
+    _, kc, vc = lm.prefill(params, pre, cfg)
+    clen = torch.tensor([P + 40, P + 31, P + 9, P + 40], dtype=torch.int32)
+    full = {"tokens": torch.randint(0, cfg.vocab_size, (B,), generator=gen),
+            "positions": clen.clone(),
+            "k_cache": torch.cat([kc.transpose(0, 1), torch.zeros(
+                (B, cfg.num_layers, 8, 1, 256))], 2),
+            "v_cache": torch.cat([vc.transpose(0, 1), torch.zeros(
+                (B, cfg.num_layers, 8, 1, 256))], 2), "cache_len": clen}
+    step = SS.make_decode_step_fullkv(cfg)
+    want = step(params, full)
+    got = step(dev_params, {k: v.to(card) for k, v in full.items()})
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max() <= ATOL
+    batch = thinkv_step_batch(gen, cfg, tk, B)
+    batch["positions"] += P
+    step = SS.make_decode_step_thinkv(cfg, tk, backend="kernel")
+    want = step(params, batch)
+    before = dict(ops.LAUNCHES)
+    got = step(dev_params, {k: v.to(card) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ct_paged_attention_fused"] - \
+        before["ct_paged_attention_fused"] == cfg.num_layers
+    assert (got[0].cpu() - want[0]).abs().max() <= ATOL
+    for g, w in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(g[:, 0].cpu().float(), w[:, 0].float(),
+                                   rtol=2 ** -7, atol=0)
+        torch.testing.assert_close(g.cpu().float(), w.float(), rtol=2 ** -7,
+                                   atol=ATOL)
+    assert torch.equal(got[3].cpu(), want[3])

@@ -59,7 +59,8 @@ def close(t, j):
 
 
 SHAPES = [dict(GQ=2, D=16, BS=8), dict(GQ=8, D=32, BS=16),
-          dict(GQ=2, D=32, BS=16), dict(GQ=8, D=16, BS=8)]
+          dict(GQ=2, D=32, BS=16), dict(GQ=8, D=16, BS=8),
+          dict(GQ=8, D=256, BS=16)]           # the last paligemma-3b's
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
@@ -124,7 +125,8 @@ def test_merge_and_buffer_attention_match_oracles():
     close(mt_, mj_)
 
 
-@pytest.mark.parametrize("hq,h,d", [(4, 2, 32), (8, 8, 16), (8, 1, 32)])
+@pytest.mark.parametrize("hq,h,d", [(4, 2, 32), (8, 8, 16), (8, 1, 32),
+                                    (8, 1, 256)])
 def test_flash_prefill_stats_plain_matches_pallas(hq, h, d):
     """K3 with stats, window 0, S = 128 (the big-chunk shape)."""
     rng = np.random.default_rng(16)
@@ -228,9 +230,9 @@ def test_split_kv_decomposition_matches_pallas(case, splits):
 def test_kv_splits_fill_the_card(gq, want):
     """K2's share count at r1-llama-8b's shapes (R 1, H 8, NB 128) on 132
     SMs: about two blocks per SM, at most 32 shares and one per entry."""
-    assert ops.kv_splits(1, 8, gq, 128, 132) == want
-    assert ops.kv_splits(1, 8, gq, 3, 132) == 3
-    assert ops.kv_splits(4, 8, 512, 128, 132) == 1
+    assert ops.kv_splits(1, 8, gq, 128, 132, 128) == want
+    assert ops.kv_splits(1, 8, gq, 3, 132, 128) == 3
+    assert ops.kv_splits(4, 8, 512, 128, 132, 128) == 1
 
 
 def _fused_edge(case):
@@ -283,13 +285,26 @@ def test_fused_warp_decomposition_matches_pallas(case, warps):
 
 @pytest.mark.parametrize("d,ok", [(16, True), (32, True), (64, True),
                                   (128, True), (8, False), (48, False),
-                                  (256, False)])
+                                  (256, True), (512, False)])
 def test_paged_kernels_take_the_head_dims_they_have_instances_for(d, ok):
     """K1 and K2 have CUDA instances for head_dim 16 (the trace config's),
-    32, 64 and 128; the wrappers' check refuses any other on the card."""
+    32, 64, 128 and 256 (paligemma-3b's); the wrappers' check refuses any
+    other on the card."""
     plane = torch.zeros(64, dtype=torch.uint8)
     if ok:
         ops._check_paged(d, 16, plane)
     else:
-        with pytest.raises(ValueError, match="head_dim 16, 32, 64 or 128"):
+        with pytest.raises(ValueError, match="head_dim 16, 32, 64, 128, 256"):
             ops._check_paged(d, 16, plane)
+
+
+@pytest.mark.parametrize("gq,want", [(1024, 8), (128, 32), (8, 32)])
+def test_kv_splits_count_the_column_slices_at_head_dim_256(gq, want):
+    """At head_dim 256 a K2 row tile is two blocks (column slices of 128),
+    so paligemma-3b's big chunk (R 1, H 1, GQ 1024, NB 128) takes half the
+    shares its 16 row tiles alone would give (about two blocks per SM);
+    head_dims up to 128 are one slice."""
+    assert ops.kv_splits(1, 1, gq, 128, 132, 256) == want
+    assert ops.kv_splits(1, 1, gq, 128, 132, 128) == \
+        ops.kv_splits(1, 1, gq, 128, 132, 16) == min(2 * 132 // -(-gq // 64),
+                                                     32)

@@ -207,9 +207,11 @@ def test_serve_cli_forked_multi_tick_gate(capsys):
                      r"blocks", out), out
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen2-7b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen2-7b",
+                                  "paligemma-3b"])
 def test_serve_cli_serves_the_moe_and_qkv_bias_archs(arch, capsys):
-    """``--arch mixtral-8x7b`` and ``--arch qwen2-7b`` at smoke size on an
+    """``--arch mixtral-8x7b``, ``--arch qwen2-7b`` and (the VLM, text
+    prompts) ``--arch paligemma-3b`` at smoke size on an
     oversubscribed pool, kernel backend (plain versions on the CPU): the
     JAX engine's tokens for the same flags and weights, every request's
     tokens, a clean audit."""

@@ -242,10 +242,11 @@ def test_backends_agree_on_the_cpu(models):
 
 def test_other_families_name_their_roadmap_item():
     """The dense serve-step makers build since item 12 was ported, the
-    MoE family's since its part of item 15 was; the VLM, encoder-decoder
-    and hybrid families still raise, naming item 15."""
+    MoE and VLM families' since their parts of item 15 were; the
+    encoder-decoder and hybrid families still raise, naming item 15."""
     cfg = get_smoke_config("r1-llama-8b")
-    for c in (cfg, get_smoke_config("mixtral-8x7b")):
+    for c in (cfg, get_smoke_config("mixtral-8x7b"),
+              get_smoke_config("paligemma-3b")):
         assert FT.build_model(c).module.__name__.endswith(".lm")
         for make in (lambda: SST.make_prefill_step(None, c),
                      lambda: SST.make_decode_step_fullkv(c),
@@ -253,7 +254,7 @@ def test_other_families_name_their_roadmap_item():
                      lambda: SST.make_decode_step_thinkv(c, None,
                                                          backend="kernel")):
             assert callable(make())
-    for fam in ("vlm", "encdec", "hybrid"):
+    for fam in ("encdec", "hybrid"):
         other = dataclasses.replace(cfg, family=type(cfg.family)(fam))
         with pytest.raises(NotImplementedError, match="item 15"):
             FT.build_model(other)

@@ -1,7 +1,7 @@
 """The JAX engine's records of the flash, the pressure and the sampled
 trace, carried to the card as numpy archives
-(``tests/golden/torch_{flash,pressure,sampled,rkv,uniform,moe,qwen2}_trace
-.npz``), and the port's replay of them
+(``tests/golden/torch_{flash,pressure,sampled,rkv,uniform,moe,qwen2,vlm}
+_trace.npz``), and the port's replay of them
 (``repro_torch.serving.trace_record``).
 
 A record is the live JAX ``reference`` engine's run: its parameters, tokens
@@ -22,7 +22,9 @@ policies with the drift probe on (the JAX trace suite's
 is recorded too.  The moe and qwen2 records are the pressure trace on
 mixtral-8x7b's and qwen2-7b's smoke configs at their own 4 q / 2 kv heads
 (``test_torch_archs.jax_params``: qwen2's qkv biases non-zero, drawn from
-a numpy seed).
+a numpy seed); the vlm record is the pressure trace on paligemma-3b's
+smoke config (4 q / 1 kv head, head_dim 16, tied embeddings scaled by
+sqrt(d_model), GeGLU; text prompts, as the engine serves the VLM).
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the card's kernel
 and reference backends to them, where there is no JAX.  The golden
 ``serving_trace.json`` is not such a record (it dates from an older tree:
@@ -31,7 +33,7 @@ its pressure counters still do).
 
 A test here re-runs the JAX engine on each trace and asserts that the
 archive equals the fresh record, so a file cannot go stale silently.  To
-write all seven anew (after a change to the reference engine or to these
+write all eight anew (after a change to the reference engine or to these
 settings):
 
     PYTHONPATH=src python tests/test_torch_trace_fixture.py
@@ -98,7 +100,8 @@ def policy_settings(name: str) -> dict:
 
 
 # record -> the smoke config its pressure trace runs on
-ARCH_RECORDS = {"moe": "mixtral-8x7b", "qwen2": "qwen2-7b"}
+ARCH_RECORDS = {"moe": "mixtral-8x7b", "qwen2": "qwen2-7b",
+                "vlm": "paligemma-3b"}
 ARCH_FIXTURES = {name: os.path.join(GOLDEN, f"torch_{name}_trace.npz")
                  for name in ARCH_RECORDS}
 
@@ -421,20 +424,26 @@ def arch_record(request):
 
 
 def test_arch_fixtures_equal_the_live_jax_records(arch_record):
-    """The moe and qwen2 records: the live engine's runs of the pressure
-    trace on mixtral-8x7b's and qwen2-7b's smoke configs (archive equal
-    to a fresh run's), the config's family and heads, qwen2's non-zero
-    biases in the stored parameters, and a run that preempts and hits the
-    prefix cache."""
+    """The moe, qwen2 and vlm records: the live engine's runs of the
+    pressure trace on mixtral-8x7b's, qwen2-7b's and paligemma-3b's smoke
+    configs (archive equal to a fresh run's), the config's family and
+    heads, qwen2's non-zero biases in the stored parameters, paligemma's
+    tied embedding (no lm_head) and frontend, and a run that preempts and
+    hits the prefix cache."""
     name, rec, fresh = arch_record
     assert_archive_equals(ARCH_FIXTURES[name], fresh)
     s = rec["settings"]
     assert s["model"] == ARCH_RECORDS[name]
-    assert (s["num_heads"], s["num_kv_heads"]) == (4, 2)
+    assert (s["num_heads"], s["num_kv_heads"]) == \
+        ((4, 1) if name == "vlm" else (4, 2))
     attn = rec["params"]["layers"]["attn"]
     if name == "qwen2":
         assert min(float(np.abs(attn[b]).max()) for b in
                    ("bq", "bk", "bv")) > BIAS_SCALE
+    elif name == "vlm":
+        assert "lm_head" not in rec["params"]["embed"]
+        assert rec["params"]["frontend"]["proj"].shape == (32, 64)
+        assert attn["wk"].shape == (2, 64, 16)
     else:
         assert "bq" not in attn
         assert rec["params"]["layers"]["moe"]["w_up"].shape == \
