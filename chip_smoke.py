@@ -62,8 +62,10 @@ failure:
                 K3's device time, the device's busy share, host spans;
    profile    — 12 decode ticks of the same traffic under torch.profiler:
                 device time by kernel, the device's busy share, host spans;
-   pressure   — the oversubscribed pool at r1-llama-8b's full width (32
-                layers, random weights, kernel backend, 4 slots, ThinKVConfig
+   pressure   — the oversubscribed pool at r1-llama-8b's full width (8 of
+                its 32 layers, ``CUT_LAYERS``, to keep the script within
+                its time limit; random weights, kernel backend, 4 slots,
+                ThinKVConfig
                 with a 512-token budget), the prefix cache on: 8 requests of
                 384-768 tokens (four share a 256-token prefix, priorities
                 0/1) and 64 new tokens on a pool of 0.5 * 4 * NB blocks,
@@ -146,6 +148,30 @@ failure:
                 (patches [4, 256, 1152]: a 1356-row prefill, one FullKV
                 step, one ThinKV step on K1 at D 256 against the plain
                 K1's);
+   hybrid     — zamba2-7b at full width and depth (81 Mamba-2 layers and
+                ONE shared attention block after every 6th: 13
+                invocations of 32 x 112 heads; random f32 weights, ~27
+                GB) through ``serving/serve_step.py``: a 4 x 512 prefill,
+                64 FullKV steps from an empty state over the prompts'
+                first tokens (the last 16 held to the teacher-forced
+                forward, rtol = atol = 5e-3), the ThinKV step on a seeded
+                pool with the FullKV run's Mamba-2 states on the kernel
+                backend (K1 at head_dim 112, once per invocation: 13
+                launches, counts zeroed just before and read just after)
+                held to the same step over the plain K1 (logits <= 1e-3,
+                greedy tokens, buffers within one bf16 step) and beside
+                the reference backend (greedy tokens where its margin
+                allows), K1 at the step's shape against its plain version
+                with its time and bound, and the hybrid record
+                (``tests/golden/torch_hybrid_steps.npz``) on the kernel
+                backend;
+   encdec     — whisper-medium at full width and depth (24 + 24 layers,
+                1500 stub frames, 16 x 64 heads; ~3 GB): the same, the
+                prefill step running the encoder, the cross KV from
+                ``cross_caches`` TBQ'd at 4 bits through K4's direct entry
+                (bit-exact to its plain version, timed against its
+                bound), K1 at D 64 once per decoder layer, and the encdec
+                record;
 7. ssm        — falcon-mamba-7b at full width and depth (64 layers, random
                 f32 weights from a seed, ~28 GB) through
                 ``serving/serve_step.py``: a 4 x 1024-token prefill (K5 in
@@ -169,7 +195,10 @@ the sampled phase's first run at 8 ticks per dispatch as
 ``launches_serve_step``, K1-K4 from the archs phase's runs as
 ``launches_archs`` with their times at its shapes under ``archs``, from
 the vlm phase's run as ``launches_vlm`` (K1 also from its serve step) with
-their times at its shapes under ``vlm``, from the traces' kernel-backend
+their times at its shapes under ``vlm``, K1 from the hybrid and encdec
+phases' ThinKV steps as ``launches_hybrid`` / ``launches_encdec`` (its
+times at those steps' shapes under ``by_shape``, head_dim 112 and 64) and
+K4 from the encdec phase's cross KV, from the traces' kernel-backend
 replays as ``launches_trace`` with their times at head_dim 16 under
 ``trace``, K2 and K3 also by shape, K5 from the ssm phase's
 prefill, the wrapper from the controller phase), the card's name and power limit as nvidia-smi gives
@@ -190,6 +219,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.abspath(sys.argv[sys.argv.index("--src") + 1]) \
     if "--src" in sys.argv else os.path.join(HERE, "src")
 sys.path.insert(0, SRC)
+# tests/ holds the JAX records' reader (test_torch_steps_record, numpy only)
+sys.path.insert(1, os.path.join(HERE, "tests"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_FLOPS = 67e12               # H100 SXM fp32, CUDA cores (no tensor cores)
@@ -2194,13 +2225,23 @@ def bf16_steps_over(a, b) -> float:
     return float(((a - b).abs() / step.clamp_min(ATOL)).max())
 
 
-def kv_bytes_per_request(batch, mapped_blocks) -> dict:
+def kv_bytes_per_request(batch, mapped_blocks=None) -> list:
     """A ThinKV request's KV bytes: its mapped pool blocks (codes and
-    scales of K and V), its slot planes and its bf16 buffer."""
+    scales of K and V; every block of the batch's planes where
+    ``mapped_blocks`` is None), its slot planes and its bf16 buffer."""
     b, L, nb, bs, h, d = batch["k_codes"].shape
+    if mapped_blocks is None:
+        mapped_blocks = [L * nb] * b
     per_block = bs * h * (2 * d + 2 * 2 * (d // 16))
     meta = 2 * L * nb * bs + 2 * L * batch["buf_k"].shape[2] * h * d * 2
     return [int(n) * per_block + meta for n in mapped_blocks]
+
+
+def fullkv_bytes(mc, tokens: int) -> int:
+    """A FullKV request's bf16 K and V over ``tokens`` rows of every
+    attention layer (the reference's cache dtype)."""
+    return tokens * 2 * mc.num_attention_layers() * mc.num_kv_heads * \
+        mc.head_dim * 2
 
 
 def serve_step_phase(params, mc, dev, prompts, patches=None,
@@ -2208,13 +2249,10 @@ def serve_step_phase(params, mc, dev, prompts, patches=None,
     """The dense serve steps at the serve phase's shapes (default
     ThinKVConfig, 4 slots, the 4 x 1100-token prompts).  A kernel-backend
     engine prefills the prompts; the 4 slots' pool views and buffers make
-    the ThinKV step's batch (``thinkv_step_batch``).  One ThinKV decode
-    step on ``backend="kernel"`` must launch K1 once per layer and agree
-    with the same step over K1's plain version (logits <= ATOL, the
-    buffers' new rows within one bf16 step or ATOL, buf_len exact); the
-    reference backend's gap (its pool dequantized to bf16) is reported.
-    K1 at the step's shape is held to its plain version
-    (``check_serve_step_k1``).  The FullKV prefill of the same prompts and
+    the ThinKV step's batch (``thinkv_step_batch``), which
+    ``thinkv_step_check`` holds on the kernel backend (K1 once per layer,
+    the plain K1's step, the reference backend's, K1 at the step's shape
+    against its plain version).  The FullKV prefill of the same prompts and
     one FullKV decode step over bf16 caches of T = S + 64 rows follow.
     Reported: device ms per step (the profiler's busy time), KV bytes per
     request and the two steps' top-1 agreement.
@@ -2226,7 +2264,6 @@ def serve_step_phase(params, mc, dev, prompts, patches=None,
     import numpy as np
     import torch
     from repro_torch.config import ServeConfig, ThinKVConfig
-    from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.serving import serve_step as SS
     from repro_torch.serving.engine import ThinKVEngine
@@ -2242,35 +2279,8 @@ def serve_step_phase(params, mc, dev, prompts, patches=None,
     mapped = (eng.tables >= 0).sum((1, 2)).tolist()
     del eng
     torch.cuda.empty_cache()
-    failed = []
-    k1 = check_serve_step_k1(dev, mc, batch)
-    step_k = SS.make_decode_step_thinkv(mc, tk, backend="kernel")
-    ops.reset_launches()
-    out_k = step_k(params, batch)
-    torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
-    if launches["ct_paged_attention_fused"] != mc.num_layers or any(
-            launches[k] for k in launches
-            if k != "ct_paged_attention_fused"):
-        failed.append(f"launches {launches}, one K1 per layer expected")
-    with plain_k1():
-        out_p = step_k(params, batch)
-    plain_err = max_err(out_k[0], out_p[0])
-    if not plain_err <= ATOL:
-        failed.append(f"logits {plain_err} from the plain K1's > {ATOL}")
-    if not torch.equal(out_k[3], batch["buf_len"] + 1):
-        failed.append(f"buf_len {out_k[3]} after {batch['buf_len']}")
-    # later layers' new rows depend on earlier attention outputs, so a
-    # value next to a bf16 rounding boundary may round the other way: each
-    # element within one bf16 step of the plain K1's, or within ATOL
-    buf_over = bf16_steps_over(out_k[1], out_p[1])
-    if not buf_over <= 1:
-        failed.append(f"buffers {buf_over} x (one bf16 step or {ATOL}) "
-                      f"from the plain K1's step")
-    out_r = SS.make_decode_step_thinkv(mc, tk, backend="reference")(
-        params, batch)
-    ref_gap = max_err(out_k[0], out_r[0])
-    thinkv_prof = profile_window(lambda: step_k(params, batch))
+    chk = thinkv_step_check(mc, tk, params, batch, dev)
+    failed = chk.pop("failed")
 
     # FullKV: the same prompts (after the image prefix), bf16 caches of
     # P + S + 64 rows
@@ -2309,31 +2319,22 @@ def serve_step_phase(params, mc, dev, prompts, patches=None,
     step_f = SS.make_decode_step_fullkv(mc)
     out_f = step_f(params, fb)
     fullkv_prof = profile_window(lambda: step_f(params, fb))
-    agree = (out_f[0].argmax(-1) == out_k[0].argmax(-1)).float().mean()
-    finite = all(torch.isfinite(t).all() for t in (out_k[0], out_f[0], lg0))
-    if not finite:
+    agree = (out_f[0].argmax(-1).cpu() ==
+             torch.as_tensor(chk["greedy_tokens"])).float().mean()
+    if not all(torch.isfinite(t).all() for t in (out_f[0], lg0)):
         failed.append("non-finite logits")
-    row_bytes = 2 * mc.num_layers * mc.num_kv_heads * mc.head_dim * 2
     rec = {"phase": phase, "layers": mc.num_layers, "requests": B,
            "prompt_len": S, "image_tokens": P, **step_rec,
            "NB": batch["k_codes"].shape[2],
            "BS": batch["k_codes"].shape[3], "G": batch["buf_k"].shape[2],
-           "k1_launches": launches["ct_paged_attention_fused"],
-           "launches": launches, "k1_serve_step": k1,
-           "logits_vs_plain_k1": plain_err,
-           "logits_vs_reference_backend": ref_gap,
-           "thinkv_step_device_ms": thinkv_prof["device_busy_ms"],
-           "thinkv_step_window_ms": thinkv_prof["window_ms"],
-           "thinkv_step_k1_ms": thinkv_prof["kernel_groups"]["K1"]["ms"],
+           **chk,
            "fullkv_step_device_ms": fullkv_prof["device_busy_ms"],
            "fullkv_step_window_ms": fullkv_prof["window_ms"],
            "fullkv_prefill_s": prefill_s,
            "thinkv_kv_bytes_per_request": kv_bytes_per_request(batch,
                                                                mapped),
-           "fullkv_kv_bytes_per_request": (T + 1) * row_bytes,
+           "fullkv_kv_bytes_per_request": fullkv_bytes(mc, T + 1),
            "top1_agree_fullkv_thinkv": float(agree),
-           "buffers_vs_plain_k1": max_err(out_k[1], out_p[1]),
-           "buffers_vs_plain_k1_over_bar": buf_over,
            "first_token_agree_fullkv_engine": float(
                (lg0.argmax(-1) == batch["tokens"]).float().mean()),
            "failed": failed, "seconds": time.perf_counter() - t_phase}
@@ -2353,8 +2354,9 @@ ARCH_KERNELS = (("qwen2-7b", 28), ("mixtral-8x7b", 4),
 ARCH_SERVED = (("qwen2-7b", None), ("mixtral-8x7b", 4))
 ARCH_PROMPT, ARCH_NEW = 1100, 64
 PARITY_LAYERS = 4          # the parity phase's depth
-# the sampled and policy phases' depth (of r1-llama-8b's 32), cut so that
-# the whole script stays well inside its time limit on a slow host
+# the pressure, sampled and policy phases' depth (of r1-llama-8b's 32),
+# cut so that the whole script stays well inside its time limit on a slow
+# host
 CUT_LAYERS = 8
 
 
@@ -2676,6 +2678,386 @@ def vlm_phase(dev, tk) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the hybrid (zamba2-7b) and encoder-decoder (whisper-medium) serve steps
+# ---------------------------------------------------------------------------
+
+STEPS_DECODE = 64        # FullKV decode steps from an empty state
+STEPS_HELD = 16          # of them, the last held to the teacher-forced forward
+HYBRID_ARCH, HYBRID_PROMPT = "zamba2-7b", 512
+ENCDEC_ARCH, ENCDEC_PROMPT = "whisper-medium", 256
+
+
+def steps_pool(mc, tk, tokens) -> dict:
+    """The ThinKV step's batch for 4 requests at position
+    ``STEPS_DECODE`` on ``mc``'s attention layers: the records' pool
+    (``test_torch_steps_record.thinkv_batch`` from ``SEED``: bits 2/4/8
+    mixed, slots VALID, evicted or free, bf16 buffers) moved to
+    ``tokens``' device, fed ``tokens``."""
+    import test_torch_steps_record as SR
+    batch = {k: SR.to_torch(v, k, tokens.device) for k, v in
+             SR.thinkv_batch(mc, tk, SEED, 4, STEPS_DECODE).items()}
+    batch["tokens"] = tokens
+    return batch
+
+
+def fullkv_decode_run(mc, params, prompts, extra: dict):
+    """``STEPS_DECODE`` FullKV decode steps from an empty state over the
+    prompts' first tokens (``test_torch_steps_record.fullkv_steps``): the
+    steps' logits [B, n, V], the final batch, the seconds and the step."""
+    import torch
+    import test_torch_steps_record as SR
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, fb, step = SR.fullkv_steps(mc, params,
+                                       prompts[:, :STEPS_DECODE], extra)
+    torch.cuda.synchronize()
+    return logits, fb, time.perf_counter() - t0, step
+
+
+def greedy_check(got, want):
+    """Greedy tokens of two logits [B, V], request by request: a request
+    is held (its tokens equal) where ``want``'s top-2 margin exceeds twice
+    the request's own largest logit gap, and exempt otherwise.  Returns
+    the held requests whose tokens differ and the exempt count."""
+    gap = (got - want).abs().amax(-1)
+    top2 = want.topk(2, -1).values
+    held = (top2[:, 0] - top2[:, 1]) > 2 * gap
+    differ = held & (got.argmax(-1) != want.argmax(-1))
+    return differ.nonzero().flatten().tolist(), int((~held).sum())
+
+
+def thinkv_step_check(mc, tk, params, batch, dev) -> dict:
+    """The ThinKV step of a config on the card: launch counts zeroed just
+    before the kernel backend's step and read just after (K1 once per
+    attention layer, nothing else); held against the same step over K1's
+    plain version (logits <= ATOL, greedy tokens equal, buffers within one
+    bf16 step or ATOL, buf_len exact) and beside the reference backend
+    from the same state (its pool dequantized to bf16 as the reference's:
+    the logits gap and buffers reported, greedy tokens equal for every
+    request whose top-2 margin there exceeds twice its own gap,
+    ``greedy_check``); K1 at the step's shape against its plain version
+    with its times and bound (``check_serve_step_k1``); the step's device
+    time."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import serve_step as SS
+    n_attn = mc.num_attention_layers()
+    step_k = SS.make_decode_step_thinkv(mc, tk, backend="kernel")
+    ops.reset_launches()
+    out_k = step_k(params, batch)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    failed = []
+    if launches["ct_paged_attention_fused"] != n_attn or any(
+            launches[k] for k in launches if k != "ct_paged_attention_fused"):
+        failed.append(f"launches {launches}, one K1 per attention layer "
+                      f"({n_attn}) expected")
+    with plain_k1():
+        out_p = step_k(params, batch)
+    out_r = SS.make_decode_step_thinkv(mc, tk, backend="reference")(
+        params, batch)
+    ref_differ, ref_exempt = greedy_check(out_k[0], out_r[0])
+    rec = {"k1_launches": launches["ct_paged_attention_fused"],
+           "launches": launches,
+           "greedy_tokens": out_k[0].argmax(-1).tolist(),
+           "logits_vs_plain_k1": max_err(out_k[0], out_p[0]),
+           "tokens_equal_plain_k1": bool(torch.equal(
+               out_k[0].argmax(-1), out_p[0].argmax(-1))),
+           "buffers_vs_plain_k1": max(max_err(out_k[i], out_p[i])
+                                      for i in (-3, -2)),
+           "buffers_vs_plain_k1_over_bar": max(
+               bf16_steps_over(out_k[i], out_p[i]) for i in (-3, -2)),
+           "logits_vs_reference_backend": max_err(out_k[0], out_r[0]),
+           "tokens_equal_reference_backend": bool(torch.equal(
+               out_k[0].argmax(-1), out_r[0].argmax(-1))),
+           "reference_tokens_differ_where_held": ref_differ,
+           "reference_tokens_exempt": ref_exempt,
+           "buffers_vs_reference_backend_over_bar": max(
+               bf16_steps_over(out_k[i], out_r[i]) for i in (-3, -2))}
+    if len(out_k) == 6:                 # the hybrid's states
+        rec["states_vs_plain_k1"] = max(max_err(out_k[i], out_p[i])
+                                        for i in (1, 2))
+    if not all(torch.isfinite(t).all() for t in (out_k[0], out_r[0])):
+        failed.append("non-finite ThinKV logits")
+    if not rec["logits_vs_plain_k1"] <= ATOL:
+        failed.append(f"logits {rec['logits_vs_plain_k1']} from the plain "
+                      f"K1's > {ATOL}")
+    if not rec["tokens_equal_plain_k1"]:
+        failed.append("greedy tokens differ from the plain K1's")
+    # the backends' logits differ by the reference's bf16 dequantization
+    # (reported, not held to ATOL)
+    if ref_differ:
+        failed.append(f"greedy tokens of requests {ref_differ} differ from "
+                      f"the reference backend's")
+    if not rec["buffers_vs_plain_k1_over_bar"] <= 1:
+        failed.append(f"buffers {rec['buffers_vs_plain_k1_over_bar']} x "
+                      f"(one bf16 step or {ATOL}) from the plain K1's")
+    if not torch.equal(out_k[-1], batch["buf_len"] + 1):
+        failed.append(f"buf_len {out_k[-1]} after {batch['buf_len']}")
+    prof = profile_window(lambda: step_k(params, batch))
+    rec.update(thinkv_step_device_ms=prof["device_busy_ms"],
+               thinkv_step_window_ms=prof["window_ms"],
+               thinkv_step_k1_ms=prof["kernel_groups"]["K1"]["ms"],
+               k1_serve_step=check_serve_step_k1(dev, mc, batch),
+               failed=failed)
+    return rec
+
+
+def record_replay(name: str, dev) -> dict:
+    """The JAX record of a family's serve steps
+    (``tests/golden/torch_{name}_steps.npz``) on the kernel backend."""
+    import test_torch_steps_record as SR
+    res = SR.replay(SR.load(os.path.join(
+        HERE, "tests", "golden", f"torch_{name}_steps.npz")), "kernel", dev)
+    if res["failed"]:
+        raise AssertionError(f"{name} record: {res['failed']}")
+    return res
+
+
+def hybrid_phase(dev, tk) -> dict:
+    """zamba2-7b (a Mamba-2 backbone of 81 layers, ONE shared attention
+    block after every 6th: 13 invocations of 32 x 112 heads) at full width
+    and depth, random f32 weights from ``SEED`` (~6.8 B parameters),
+    through ``serving/serve_step.py``: the prefill step over 4 prompts of
+    ``HYBRID_PROMPT`` tokens; ``STEPS_DECODE`` FullKV decode steps from an
+    empty state over the prompts' first tokens, the last ``STEPS_HELD``
+    held to the teacher-forced forward (rtol = atol = ``SSM_TOL``); the
+    ThinKV step on a seeded pool with the FullKV run's Mamba-2 states
+    (``thinkv_step_check``: K1 at D 112 once per invocation, 13 a step);
+    the hybrid record on the kernel backend."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import factory, hybrid
+    from repro_torch.serving import serve_step as SS
+    t_phase = time.perf_counter()
+    mc = get_config(HYBRID_ARCH)
+    model = factory.build_model(mc)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = torch.from_numpy(rng.integers(
+        0, mc.vocab_size, (4, HYBRID_PROMPT))).to(dev)
+    prefill = SS.make_prefill_step(model, mc)
+    prefill(params, {"tokens": prompts[:, :16]})            # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    lg = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    failed = []
+    if lg.shape != (4, mc.vocab_size) or not torch.isfinite(lg).all():
+        failed.append(f"bad prefill logits {tuple(lg.shape)}")
+    if any(ops.LAUNCHES.values()):
+        failed.append(f"the prefill launched {ops.LAUNCHES}: no kernel "
+                      f"expected (Mamba-2 and the prefill attention are "
+                      f"plain torch, as in the reference)")
+    st = hybrid.init_decode_state(mc, 4, dev)
+    dec, fb, fullkv_s, step_f = fullkv_decode_run(
+        mc, params, prompts, {"conv_state": st.conv, "ssm_state": st.h})
+    tf, _ = hybrid.logits_fn(params, {"tokens": prompts[:, :STEPS_DECODE]},
+                             mc)
+    held = {"max_abs_diff": max_err(dec[:, -STEPS_HELD:],
+                                    tf[:, -STEPS_HELD:]),
+            "over_bar": over_bar(dec[:, -STEPS_HELD:], tf[:, -STEPS_HELD:],
+                                 SSM_TOL),
+            "tokens_equal": bool(torch.equal(dec.argmax(-1),
+                                             tf.argmax(-1)))}
+    if not held["over_bar"] <= 1:
+        failed.append(f"FullKV decode vs the forward {held}")
+    del tf
+    last = {**fb, "tokens": dec[:, -1].argmax(-1),
+            "positions": torch.full((4,), STEPS_DECODE - 1,
+                                    dtype=torch.int32, device=dev),
+            "cache_len": torch.full((4,), STEPS_DECODE - 1,
+                                    dtype=torch.int32, device=dev)}
+    fullkv_prof = profile_window(lambda: step_f(params, last))
+    batch = steps_pool(mc, tk, dec[:, -1].argmax(-1))
+    batch.update(conv_state=fb["conv_state"], ssm_state=fb["ssm_state"])
+    del fb, last, dec
+    chk = thinkv_step_check(mc, tk, params, batch, dev)
+    failed += chk.pop("failed")
+    state_mb = sum(t[0].numel() * t[0].element_size()
+                   for t in (batch["conv_state"], batch["ssm_state"])) / 1e6
+    kv = {"thinkv_pool": kv_bytes_per_request(batch)[0],
+          "fullkv_bf16": fullkv_bytes(mc, HYBRID_PROMPT + STEPS_DECODE)}
+    del batch
+    out = {"phase": "hybrid", "model": mc.name, "layers": mc.num_layers,
+           "attention_invocations": mc.num_attention_layers(),
+           "heads": mc.num_heads, "head_dim": mc.head_dim,
+           "init_s": init_s, "weights_gb": sum(
+               p.numel() * p.element_size()
+               for p in params.parameters()) / 1e9,
+           "prefill": {"prompts": 4, "prompt_len": HYBRID_PROMPT,
+                       "seconds": prefill_s,
+                       "tok_s": 4 * HYBRID_PROMPT / prefill_s},
+           "fullkv": {"steps": STEPS_DECODE, "seconds": fullkv_s,
+                      "ms_per_step": 1e3 * fullkv_s / STEPS_DECODE,
+                      "step_device_ms": fullkv_prof["device_busy_ms"],
+                      "step_window_ms": fullkv_prof["window_ms"],
+                      "held_last_16": held},
+           "thinkv": chk, "mamba_state_mb_per_request": state_mb,
+           "kv_bytes_per_request": kv,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["record"] = record_replay("hybrid", dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["failed"] = failed
+    emit(out)
+    if failed:
+        raise AssertionError(f"hybrid phase failed: {failed}")
+    return out
+
+
+def encdec_phase(dev, tk) -> dict:
+    """whisper-medium (24 encoder and 24 decoder layers, 16 x 64 heads,
+    1500 stub frames) at full width and depth, random f32 weights from
+    ``SEED``, through ``serving/serve_step.py``: the prefill step (the
+    encoder over frames [4, 1500, 1024] from numpy seed ``SEED``, the
+    decoder over 4 prompts of ``ENCDEC_PROMPT`` tokens); the cross KV from
+    ``cross_caches`` TBQ'd at 4 bits through K4's direct entry
+    (``ops.tbq_group_quant``, one launch) bit-exact to its plain version,
+    timed against its bound; ``STEPS_DECODE`` FullKV decode steps from an
+    empty self-cache with the f32 cross KV, the last ``STEPS_HELD`` held
+    to the teacher-forced decoder (rtol = atol = ``SSM_TOL``); the ThinKV
+    step on a seeded pool with the TBQ'd cross KV (``thinkv_step_check``:
+    K1 at D 64 once per decoder layer); the encdec record on the kernel
+    backend."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import encdec, factory
+    from repro_torch.serving import serve_step as SS
+    t_phase = time.perf_counter()
+    mc = get_config(ENCDEC_ARCH)
+    model = factory.build_model(mc)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    frames = torch.from_numpy(rng.standard_normal(
+        (4, mc.encoder_seq, mc.d_model)).astype(np.float32)).to(dev)
+    prompts = torch.from_numpy(rng.integers(
+        0, mc.vocab_size, (4, ENCDEC_PROMPT))).to(dev)
+    prefill = SS.make_prefill_step(model, mc)
+    prefill(params, {"tokens": prompts[:, :16], "frames": frames})
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    lg = prefill(params, {"tokens": prompts, "frames": frames})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    failed = []
+    if lg.shape != (4, mc.vocab_size) or not torch.isfinite(lg).all():
+        failed.append(f"bad prefill logits {tuple(lg.shape)}")
+    if any(ops.LAUNCHES.values()):
+        failed.append(f"the prefill launched {ops.LAUNCHES}: no kernel "
+                      f"expected")
+    t0 = time.perf_counter()
+    enc = encdec.encode(params, frames, mc)
+    ck, cv = (c.transpose(0, 1).contiguous()
+              for c in encdec.cross_caches(params, enc, mc))
+    torch.cuda.synchronize()
+    cross_s = time.perf_counter() - t0
+
+    # K4's direct entry over the cross KV: [B·L·T·H, 64] f32 at 4 bits
+    cross = {}
+    ops.reset_launches()
+    for n, c in (("k", ck), ("v", cv)):
+        x = c.reshape(-1, mc.head_dim)
+        codes, scales = ops.tbq_group_quant(x, 4)
+        cross[f"cross_{n}_codes"] = codes.view(c.shape)
+        cross[f"cross_{n}_scales"] = scales.view(*c.shape[:-1], -1)
+    torch.cuda.synchronize()
+    k4_launches = ops.LAUNCHES["group_quant"]
+    if k4_launches != 2:
+        failed.append(f"K4 launched {k4_launches} times for the cross KV, "
+                      f"2 expected")
+    x = ck.reshape(-1, mc.head_dim)
+    assert_same_quant((cross["cross_k_codes"].reshape(x.shape),
+                       cross["cross_k_scales"].reshape(x.shape[0], -1)),
+                      ref.group_quant_ref(x, 4, 16), "cross KV")
+    k4 = kernel_record(
+        "group_quant", "group_quant.cu", "group_quant.py:70",
+        f"whisper cross K: f32 [{x.shape[0]}, {x.shape[1]}] bits 4", 0.0,
+        lambda: ops.tbq_group_quant(x, 4),
+        lambda: ref.group_quant_ref(x, 4, 16),
+        bound(nbytes(x) + x.numel() + x.numel() // 16 * 2, 0.0),
+        plain_iters=1, launches=k4_launches)
+    del x
+
+    dec, fb, fullkv_s, step_f = fullkv_decode_run(
+        mc, params, prompts, {"cross_k": ck, "cross_v": cv})
+    tf = encdec.decode_train(params, prompts[:, :STEPS_DECODE], enc, mc)
+    held = {"max_abs_diff": max_err(dec[:, -STEPS_HELD:],
+                                    tf[:, -STEPS_HELD:]),
+            "over_bar": over_bar(dec[:, -STEPS_HELD:], tf[:, -STEPS_HELD:],
+                                 SSM_TOL),
+            "tokens_equal": bool(torch.equal(dec.argmax(-1),
+                                             tf.argmax(-1)))}
+    if not held["over_bar"] <= 1:
+        failed.append(f"FullKV decode vs the forward {held}")
+    del tf, enc
+    last = {**fb, "tokens": dec[:, -1].argmax(-1),
+            "positions": torch.full((4,), STEPS_DECODE - 1,
+                                    dtype=torch.int32, device=dev),
+            "cache_len": torch.full((4,), STEPS_DECODE - 1,
+                                    dtype=torch.int32, device=dev)}
+    fullkv_prof = profile_window(lambda: step_f(params, last))
+    del fb, last, ck, cv
+    batch = steps_pool(mc, tk, dec[:, -1].argmax(-1))
+    batch.update(cross)
+    del dec, cross
+    chk = thinkv_step_check(mc, tk, params, batch, dev)
+    failed += chk.pop("failed")
+    kv = {"thinkv_pool": kv_bytes_per_request(batch)[0],
+          "fullkv_bf16": fullkv_bytes(mc, ENCDEC_PROMPT + STEPS_DECODE)}
+    kv["cross_tbq"] = sum(batch[k][0].numel() * batch[k].element_size()
+                          for k in ("cross_k_codes", "cross_v_codes",
+                                    "cross_k_scales", "cross_v_scales"))
+    kv["cross_f32"] = 2 * mc.num_layers * mc.encoder_seq * \
+        mc.num_kv_heads * mc.head_dim * 4
+    del batch
+    out = {"phase": "encdec", "model": mc.name,
+           "layers": [mc.encoder_layers, mc.num_layers],
+           "heads": mc.num_heads, "head_dim": mc.head_dim,
+           "frames": mc.encoder_seq, "init_s": init_s,
+           "weights_gb": sum(p.numel() * p.element_size()
+                             for p in params.parameters()) / 1e9,
+           "prefill": {"prompts": 4, "prompt_len": ENCDEC_PROMPT,
+                       "seconds": prefill_s,
+                       "tok_s": 4 * ENCDEC_PROMPT / prefill_s},
+           "cross_kv_s": cross_s, "k4_cross": k4,
+           "fullkv": {"steps": STEPS_DECODE, "seconds": fullkv_s,
+                      "ms_per_step": 1e3 * fullkv_s / STEPS_DECODE,
+                      "step_device_ms": fullkv_prof["device_busy_ms"],
+                      "step_window_ms": fullkv_prof["window_ms"],
+                      "held_last_16": held},
+           "thinkv": chk, "kv_bytes_per_request": kv,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["record"] = record_replay("encdec", dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["failed"] = failed
+    emit(out)
+    if failed:
+        raise AssertionError(f"encdec phase failed: {failed}")
+    return out
+
+
 def ab(parent: str) -> int:
     """The parent tree (``parent``/src, its kernels built there) and this
     one, each in its own process, in turns: parent, this, this, parent;
@@ -2757,7 +3139,6 @@ def main() -> int:
     prof = profile_decode(ThinKVEngine, cfg, params, prompts, dev)
     emit(prof)
     if not ab_run:
-        prs = pressure_phase(ThinKVEngine, params, mc, dev)
         sst = serve_step_phase(params, mc, dev, prompts)
     del params
     gc.collect()                      # engines keep the weights in cycles
@@ -2765,6 +3146,7 @@ def main() -> int:
     if not ab_run:
         mcc = dataclasses.replace(mc, num_layers=CUT_LAYERS)
         params = init_params(mcc, SEED, dev)
+        prs = pressure_phase(ThinKVEngine, params, mcc, dev)
         smp = sampled_phase(ThinKVEngine, params, mcc, prompts, dev)
         pol = policy_phase(ThinKVEngine, params, mcc, dev)
         del params
@@ -2821,6 +3203,9 @@ def main() -> int:
     arc = archs_phase(dev, tk)
     torch.cuda.empty_cache()
     vlm = vlm_phase(dev, tk)
+    torch.cuda.empty_cache()                 # the hybrid phase needs ~30 GB
+    hyb = hybrid_phase(dev, tk)
+    enc = encdec_phase(dev, tk)
     torch.cuda.empty_cache()                 # the ssm phase needs ~28 GB
     ssm = ssm_phase(dev, rng)
     torch.cuda.empty_cache()
@@ -2850,9 +3235,13 @@ def main() -> int:
     recs["wrapper"]["launches"] = ctl["wrapper_launches"]
     recs["K1"]["launches_vlm_serve_step"] = \
         vlm["serve_step"]["k1_launches"]
+    recs["K1"]["launches_hybrid"] = hyb["thinkv"]["k1_launches"]
+    recs["K1"]["launches_encdec"] = enc["thinkv"]["k1_launches"]
+    recs["K4"]["launches_encdec"] = enc["k4_cross"]["launches"]
     extra = ("launches_pressure", "launches_sampled", "launches_policy",
              "launches_serve_step", "launches_archs", "launches_vlm",
-             "launches_vlm_serve_step", "launches_trace")
+             "launches_vlm_serve_step", "launches_hybrid", "launches_encdec",
+             "launches_trace")
     lines = [{k: recs[n][k] for k in keys + tuple(
         k for k in extra if k in recs[n])}
         for n in ("K1", "K2", "K3", "K4", "K5", "wrapper")]
@@ -2864,7 +3253,14 @@ def main() -> int:
                       "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
                       "bound_by", "max_abs_err")}}
            for name, st in (("serve_step", sst),
-                            ("vlm serve_step", vlm["serve_step"]))}}
+                            ("vlm serve_step", vlm["serve_step"]),
+                            ("hybrid serve_step, D 112", hyb["thinkv"]),
+                            ("encdec serve_step", enc["thinkv"]))}}
+    # K4 through its direct entry over whisper's cross KV
+    lines[3]["by_shape"] = {"encdec cross KV": {
+        k: enc["k4_cross"][k] for k in (
+            "launches", "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+            "bound_by", "max_abs_err")}}
     # K2 and K3 beside each shape of the serve phase: launches and times
     for line, name, shapes in (
             (lines[1], "ct_paged_attention_batched", ("K2", "K2_64")),

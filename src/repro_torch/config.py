@@ -3,11 +3,12 @@
 The port keeps its own copy of the dataclasses it needs, field for field,
 so that a configuration built here describes exactly the model and cache
 the JAX package builds from the same values: :class:`ModelConfig` (with
-its ``moe`` and ``ssm`` fields and the VLM's ``num_image_tokens`` and
-``frontend_dim``), :class:`MoEConfig`, :class:`SSMConfig`,
-:class:`ThinKVConfig`,
-:class:`ServeConfig`, the enums, and :func:`reduced` (the CPU smoke-size
-variant).
+its ``moe`` and ``ssm`` fields, the hybrid's ``hybrid_attn_every``, the
+encoder-decoder's ``encoder_layers``, ``encoder_seq`` and
+``cross_attention``, the VLM's ``num_image_tokens`` and ``frontend_dim``,
+and ``num_attention_layers``), :class:`MoEConfig`, :class:`SSMConfig`,
+:class:`ThinKVConfig`, :class:`ServeConfig`, the enums, and
+:func:`reduced` (the CPU smoke-size variant).
 """
 from __future__ import annotations
 
@@ -17,9 +18,10 @@ from typing import Any, Dict, Optional, Tuple
 
 
 class ArchFamily(str, enum.Enum):
-    """Model family; the port serves ``DENSE``, ``MOE`` and ``VLM`` (the
-    ThinKV engine, text only for the VLM, as the reference's) and ``SSM``
-    (``serving/serve_step.py``) so far (see ``ROADMAP.md``)."""
+    """Model family: ``DENSE``, ``MOE`` and ``VLM`` are served by the ThinKV
+    engine (text only for the VLM, as the reference's) and the serve steps;
+    ``SSM``, ``HYBRID`` and ``ENCDEC`` by ``serving/serve_step.py`` only,
+    as in the reference."""
 
     DENSE = "dense"
     MOE = "moe"
@@ -89,6 +91,13 @@ class ModelConfig:
     mlp_gated: bool = True
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # hybrid (zamba2): ONE shared attention block runs after every
+    # ``hybrid_attn_every`` backbone layers; 0 disables
+    hybrid_attn_every: int = 0
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
+    cross_attention: bool = False
     # vlm (paligemma): stub image-patch tokens prepended, and the width of
     # the precomputed patch embeddings the stub frontend projects
     num_image_tokens: int = 0
@@ -106,6 +115,16 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    def num_attention_layers(self) -> int:
+        """Layer invocations that own a KV cache: none for the SSM, the
+        shared block's invocations for the hybrid, the decoder's
+        self-attention layers for the encoder-decoder."""
+        if self.family == ArchFamily.SSM:
+            return 0
+        if self.family == ArchFamily.HYBRID:
+            return self.num_layers // max(self.hybrid_attn_every, 1)
+        return self.num_layers
 
 
 class ThoughtType(enum.IntEnum):
@@ -151,7 +170,7 @@ class ServeConfig:
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests (the JAX package's
-    ``reduced`` for the dense, MoE, VLM and SSM families)."""
+    ``reduced``)."""
     kw: Dict[str, Any] = dict(
         num_layers=2,
         d_model=64,
@@ -167,6 +186,10 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     if cfg.ssm is not None:
         kw["ssm"] = replace(cfg.ssm, state_size=min(cfg.ssm.state_size, 16),
                             head_dim=16, chunk_size=16)
+    if cfg.family == ArchFamily.ENCDEC:
+        kw.update(encoder_layers=2, encoder_seq=16)
+    if cfg.family == ArchFamily.HYBRID:
+        kw["hybrid_attn_every"] = 2
     if cfg.family == ArchFamily.VLM:
         kw.update(num_image_tokens=4, frontend_dim=32)
     if cfg.family == ArchFamily.SSM:

@@ -27,6 +27,17 @@ below).
   vocab 65024, state 16, conv width 4, expand 2 (d_inner 8192), dt rank
   256, tied embeddings.  It has no KV cache, so ThinKV does not apply;
   it is served through ``serving/serve_step.py``.
+* ``zamba2-7b``: hybrid, 81 Mamba-2 layers (d_model 3584, state 64,
+  head_dim 64, 2 groups, expand 2, chunk 128) and ONE shared attention
+  block (32 q / 32 kv heads of head_dim 112, SwiGLU d_ff 14336) after
+  every 6th, 13 invocations; vocab 32000.  Served through
+  ``serving/serve_step.py`` (ThinKV on the shared block's invocations).
+* ``whisper-medium``: encoder-decoder, 24 encoder and 24 decoder layers,
+  d_model 1024, 16 heads (MHA), plain GELU d_ff 4096, vocab 51865, 1500
+  stub encoder frames, learned positions, tied embeddings (scaled by
+  sqrt(d_model), as the reference scales every tied embedding).  Served
+  through ``serving/serve_step.py`` (ThinKV on the decoder's
+  self-attention, the cross KV TBQ'd at 4 bits).
 """
 from __future__ import annotations
 
@@ -172,17 +183,54 @@ PALIGEMMA_3B = ModelConfig(
     frontend_dim=1152,
 )
 
+# repro/configs/zamba2_7b.py: a Mamba-2 backbone and one shared attention
+# block (attention + MLP, one weight copy) after every 6th layer
+ZAMBA2_7B = ModelConfig(
+    name="zamba2-7b",
+    family=ArchFamily.HYBRID,
+    num_layers=81,
+    d_model=3584,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=112,
+    d_ff=14336,
+    vocab_size=32000,
+    hybrid_attn_every=6,
+    ssm=SSMConfig(state_size=64, conv_width=4, expand=2, head_dim=64,
+                  ngroups=2, chunk_size=128),
+)
+
+# repro/configs/whisper_medium.py: the conv/mel frontend is a stub (the
+# encoder takes precomputed frame embeddings, 1500 x d_model)
+WHISPER_MEDIUM = ModelConfig(
+    name="whisper-medium",
+    family=ArchFamily.ENCDEC,
+    num_layers=24,
+    encoder_layers=24,
+    encoder_seq=1500,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=16,
+    d_ff=4096,
+    vocab_size=51865,
+    cross_attention=True,
+    position_embedding=PositionEmbedding.LEARNED,
+    act="gelu",
+    mlp_gated=False,
+    tie_embeddings=True,
+)
+
 _CONFIGS: Dict[str, ModelConfig] = {
     c.name: c for c in (R1_LLAMA_8B, FALCON_MAMBA_7B, QWEN2_7B, YI_6B, YI_9B,
                         MISTRAL_LARGE_123B, MIXTRAL_8X7B,
-                        LLAMA4_SCOUT_17B_A16E, PALIGEMMA_3B)}
+                        LLAMA4_SCOUT_17B_A16E, PALIGEMMA_3B, ZAMBA2_7B,
+                        WHISPER_MEDIUM)}
 ARCHS: List[str] = sorted(_CONFIGS)
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _CONFIGS:
-        raise KeyError(f"unknown arch {arch!r}; the port serves {ARCHS} "
-                       f"(other families: ROADMAP queue 1 item 15)")
+        raise KeyError(f"unknown arch {arch!r}; the port has {ARCHS}")
     return _CONFIGS[arch]
 
 

@@ -15,12 +15,16 @@ import torch
 from repro_torch.config import ArchFamily, ModelConfig
 from repro_torch.core import ct_cache as CC
 from repro_torch.device import resolve_device
-from repro_torch.models import lm, ssm_lm
+from repro_torch.models import encdec, hybrid, lm, ssm_lm
 
 _BIT_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
               "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
 
 Device = Optional[Union[str, torch.device]]
+
+# models whose weights name their key paths in the reference's tree
+_BY_PATH = {ArchFamily.HYBRID: hybrid.HybridLM,
+            ArchFamily.ENCDEC: encdec.EncDecLM}
 
 
 def tensor_from_numpy(a, device: Device = None) -> torch.Tensor:
@@ -33,15 +37,29 @@ def tensor_from_numpy(a, device: Device = None) -> torch.Tensor:
     return t.to(resolve_device(device))
 
 
-def params_from_numpy(tree: Mapping, cfg: ModelConfig,
-                      device: Device = None) -> Union[lm.LM, ssm_lm.SSMLM]:
+def params_from_numpy(tree: Mapping, cfg: ModelConfig, device: Device = None
+                      ) -> Union[lm.LM, ssm_lm.SSMLM, hybrid.HybridLM,
+                                 encdec.EncDecLM]:
     """The reference's parameter tree (numpy leaves) -> the port's model:
     ``LM`` for the dense, MoE and VLM families (``attn``'s ``bq`` / ``bk``
     / ``bv`` under qkv bias; ``moe``'s router and stacked experts or
     ``mlp``'s weights; ``lm_head`` unless the embedding is tied; the VLM's
     ``frontend.proj``), ``SSMLM`` (tied embedding, no lm_head; ``mixer``
-    and ``norm`` per layer) for the SSM family."""
+    and ``norm`` per layer) for the SSM family, ``HybridLM`` (``embed``,
+    stacked ``layers.{mixer,norm}``, ``shared.{attn,mlp,norm1,norm2}``,
+    ``final_norm``) and ``EncDecLM`` (``embed``, ``enc_pos``, ``dec_pos``,
+    stacked ``encoder`` and ``decoder``, ``enc_norm``, ``final_norm``),
+    each weight at its key path (``model.sources``)."""
     dev = resolve_device(device)
+    if cfg.family in _BY_PATH:
+        model = _BY_PATH[cfg.family](cfg, dev)
+        with torch.no_grad():
+            for name, path in model.sources.items():
+                leaf = tree
+                for k in path:
+                    leaf = leaf[k]
+                getattr(model, name).copy_(tensor_from_numpy(leaf, dev))
+        return model
     src = {"embedding": tree["embed"]["embedding"],
            "final_norm": tree["final_norm"]["scale"]}
     if cfg.family == ArchFamily.SSM:

@@ -104,6 +104,19 @@
 // P.V; the slices of a row write equal m and l, the first stores them.
 // merge_splits_kernel needs no change (8 values a lane).
 //
+// Head_dim 112 (zamba2-7b's shared attention; K1 only, K2 and K3 have no
+// instance): 112 = 7 x 16 breaks three of the shapes above.  A key row
+// takes a warp as at D 256, but at DPT 4 only LA = 28 lanes hold
+// dimensions (K1Shape): lanes 28-31 hold zero q, read lane 27's bytes (so
+// every value they decode is finite and their partial scores are 0) and
+// write no output; the fold stays 32 lanes wide.  A code row is 7 chunks
+// of 16 bytes, so 4 rows a pass and lanes 28-31 copy none.  A (row, head)
+// has 7 bf16 scales, 14 bytes, starting 2-byte aligned at every other
+// (row, head): the 4 aligned words that cover them are staged (16 bytes a
+// row; the last word stays inside the plane, whose rows come in blocks of
+// a multiple of 4) and the element's parity offsets the index, as D 16
+// does with its one word.
+//
 // ptxas (sm_90a, -O3; chip_smoke.py's build phase on an H100):
 // paged_split_kernel D 256 / 128 / 64 / 32 / 16: 184 / 186 / 141 / 95 / 80
 // registers; merge_splits_kernel: 32 registers at every D; no spills.
@@ -111,8 +124,9 @@
 // SM) RB 8 / 4 / 2 / 1: 240 / 167 / 179 / 255 registers, no spills;
 // fused_attn_kernel (capped at 170 registers for 3 blocks per SM) D 128 at
 // RB 4 (the serve tick): 151 registers, no spills; D 128 at RB 8: 168
-// registers and 136 bytes of spill stores; D 64 and 32: 96-159 registers,
-// D 16: 88-102, no spills.
+// registers and 124-136 bytes of spill stores; D 112 RB 8 / 4 / 2 / 1:
+// 167 / 168 / 141 / 168 registers, no spills; D 64 and 32: 96-159
+// registers, D 16: 88-102, no spills.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -146,14 +160,19 @@ __device__ __forceinline__ float decode_reg(uint32_t c, int bits) {
 #define K1_STAGES 2             // ring of raw pool blocks per warp
 #define K1_PB 40                // floats per warp: p [32], corrections [<= 8]
 
-// How a warp covers a key row of D dimensions: DPT dimensions per lane, LG
-// lanes per key, KG keys side by side.  At D 16 a key row is LG = 4 lanes of
-// one code word each (launch_fused_rows keeps RB <= LG there).
+// How a warp covers a key row of D dimensions: DPT dimensions per lane on
+// LA lanes, LG lanes per key (the fold's width, a power of two), KG keys
+// side by side.  At D 16 a key row is LG = 4 lanes of one code word each
+// (launch_fused_rows keeps RB <= LG there).  At D 112 (7 x 16) a key row
+// takes a warp as at D 256: LA = 28 lanes of 4 dimensions, and lanes 28-31
+// hold zero q, read lane 27's bytes (in bounds, finite) and write no output.
 template <int D>
 struct K1Shape {
   static constexpr int DPT = D >= 128 ? 8 : 4;
-  static constexpr int LG = D / DPT;
+  static constexpr int LA = D / DPT;
+  static constexpr int LG = (LA & (LA - 1)) == 0 ? LA : 32;
   static constexpr int KG = 32 / LG;
+  static_assert(LA <= LG && D % DPT == 0, "K1: no lane shape for this D");
 };
 
 // PTX prmt in its default mode (a selector nibble with bit 3 set copies the
@@ -344,11 +363,13 @@ __device__ __forceinline__ void attend_keys(
   }
 }
 
-// bytes a pool row's scales take in shared memory: SG bf16, or at SG 1
-// (D 16) the aligned 4-byte word that holds the row's one scale, since
-// cp.async copies no fewer than 4 bytes (scale_half picks its half)
+// bytes a pool row's scales take in shared memory: SG bf16, or at an odd
+// SG (D 16: 1, D 112: 7) the aligned 4-byte words that cover the row's 2 SG
+// bytes, since cp.async copies no fewer than 4 aligned bytes and a row's
+// scales start 2-byte aligned at every other (row, head) (scale_half
+// gives the offset, in bf16, of the first within the first word)
 __host__ __device__ constexpr int scale_row_bytes(int SG) {
-  return SG == 1 ? 4 : 2 * SG;
+  return SG % 2 ? 2 * SG + 2 : 2 * SG;
 }
 
 // the half of its aligned word that the bf16 at element e of a 4-byte
@@ -416,6 +437,7 @@ fused_attn_kernel(const float* __restrict__ qh,
   const int l = bid / R;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int lg = lane % LG;                  // this lane's place in its key
+  const int lgc = min(lg, SH::LA - 1);       // the dimensions it reads
   const size_t lr = (size_t)l * R + r;       // (layer, slot)
   const int row0 = tile * RB;
 
@@ -447,7 +469,7 @@ fused_attn_kernel(const float* __restrict__ qh,
 #pragma unroll
   for (int rr = 0; rr < RB; ++rr) {
     const int row = row0 + (rr ^ (lg / KS));
-    const bool in = row < GQ;
+    const bool in = row < GQ && lg < SH::LA;
     const float* qr = qh + ((lr * H + h) * GQ + (in ? row : 0)) * D;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
@@ -485,10 +507,12 @@ fused_attn_kernel(const float* __restrict__ qh,
   float* pb = reinterpret_cast<float*>(sm + ly.pbuf) + warp * K1_PB;
   // a stage holds 2 BS rows of codes (K rows, then V rows) and then 2 BS
   // rows of scales; a lane copies one 16-byte chunk of every RPP-th code
-  // row and one 4-byte chunk of every SRP-th scale row
+  // row (at D 112, 7 chunks a row: lanes 28-31 copy none) and one 4-byte
+  // word of every SRP-th scale row (at an odd SG, the aligned words that
+  // cover the row's scales)
   constexpr int CPR = D / 16, RPP = 32 / CPR;   // chunks per code row
   constexpr int SRB = scale_row_bytes(SG);
-  constexpr int SPR = SRB / 4, SRP = 32 / SPR;  // 4-byte chunks per scale row
+  constexpr int SPR = SRB / 4, SRP = 32 / SPR;  // 4-byte words per scale row
   const size_t HD = (size_t)H * D, HS = (size_t)H * SG;
   auto load = [&](int k) {
     const int i = warp + k * K1_WARPS;
@@ -498,20 +522,23 @@ fused_attn_kernel(const float* __restrict__ qh,
       const int dc = (lane % CPR) * 16;
       const uint8_t* gk = kc + rw0 * HD + (size_t)h * D + dc;
       const uint8_t* gv = vc + rw0 * HD + (size_t)h * D + dc;
-      for (int row = lane / CPR; row < 2 * BS; row += RPP) {
+      for (int row = lane < RPP * CPR ? lane / CPR : 2 * BS; row < 2 * BS;
+           row += RPP) {
         const bool v = row >= BS;
         cp_async16(rs + row * D + dc,
                    (v ? gv : gk) + (size_t)(v ? row - BS : row) * HD);
       }
-      const int sc = (lane % SPR) * 2;
-      const __nv_bfloat16* sk = ksc + rw0 * HS + (size_t)h * SG + sc;
-      const __nv_bfloat16* sv_ = vsc + rw0 * HS + (size_t)h * SG + sc;
-      uint8_t* rsc = rs + 2 * BS * D + sc * 2;
+      const int sw = (lane % SPR) * 4;          // this lane's word, in bytes
+      const __nv_bfloat16* sk = ksc + rw0 * HS + (size_t)h * SG;
+      const __nv_bfloat16* sv_ = vsc + rw0 * HS + (size_t)h * SG;
+      uint8_t* rsc = rs + 2 * BS * D + sw;
       for (int row = lane / SPR; row < 2 * BS; row += SRP) {
         const bool v = row >= BS;
         const __nv_bfloat16* src =
             (v ? sv_ : sk) + (size_t)(v ? row - BS : row) * HS;
-        cp_async4(rsc + row * SRB, SG == 1 ? scale_word(src) : src);
+        cp_async4(rsc + row * SRB,
+                  reinterpret_cast<const uint8_t*>(
+                      SG % 2 ? scale_word(src) : src) + sw);
       }
     }
     cp_async_commit();
@@ -520,7 +547,7 @@ fused_attn_kernel(const float* __restrict__ qh,
   float m_own = NEG_INF, l_own = 0.f;
   const int mine = n_live + 1 > warp
                        ? (n_live + 1 - warp + K1_WARPS - 1) / K1_WARPS : 0;
-  const int grp = lg * DPT / 16;                // this lane's scale group
+  const int grp = lgc * DPT / 16;               // this lane's scale group
 #pragma unroll
   for (int k = 0; k < K1_STAGES - 1; ++k) load(k);
   for (int k = 0; k < mine; ++k) {
@@ -540,9 +567,10 @@ fused_attn_kernel(const float* __restrict__ qh,
       auto code_row = [&](int plane, int j, float (&cv)[DPT]) {
         const int bits = bb[j];
         uint32_t w[DPT / 4];
-        load_codes<DPT>(rs + (plane * BS + j) * D + lg * DPT, w);
+        load_codes<DPT>(rs + (plane * BS + j) * D + lgc * DPT, w);
         decode_row<DPT / 4>(w, bits, cv);
-        const int si = SG == 1 ? scale_half(e0 + (size_t)j * HS) : grp;
+        const int si =
+            SG % 2 ? scale_half(e0 + (size_t)j * HS) + grp : grp;
         const float sc =
             __bfloat162float(rsc[(plane * BS + j) * (SRB / 2) + si]);
         return bits == 4 ? 0.5f * sc : sc;
@@ -556,7 +584,7 @@ fused_attn_kernel(const float* __restrict__ qh,
       const int n = min(blen[r], G);
       const size_t brow = lr * G;
       auto row = [&](const __nv_bfloat16* p, int j, float (&cv)[DPT]) {
-        load_bf16<DPT>(p + ((brow + j) * H + h) * D + lg * DPT, cv);
+        load_bf16<DPT>(p + ((brow + j) * H + h) * D + lgc * DPT, cv);
       };
       attend_keys<D, RB>(
           n, [&](int j, float (&cv)[DPT]) { row(bk, j, cv); return scale; },
@@ -587,11 +615,13 @@ fused_attn_kernel(const float* __restrict__ qh,
   constexpr int PART = RB * D + 2 * RB;
   float* mg = reinterpret_cast<float*>(sm);
   if (lane < LG) {
+    if (lane < SH::LA) {
 #pragma unroll
-    for (int rr = 0; rr < RB; ++rr)
+      for (int rr = 0; rr < RB; ++rr)
 #pragma unroll
-      for (int i = 0; i < DPT; ++i)
-        mg[warp * PART + rr * D + lane * DPT + i] = acc[rr][i];
+        for (int i = 0; i < DPT; ++i)
+          mg[warp * PART + rr * D + lane * DPT + i] = acc[rr][i];
+    }
     if (lane % KS == 0) {
       mg[warp * PART + RB * D + lane / KS] = m_own;
       mg[warp * PART + RB * D + RB + lane / KS] = l_own;
@@ -684,6 +714,7 @@ extern "C" int ct_paged_attention_fused(
     case 16: return f(launch_fused_rows<16>);
     case 32: return f(launch_fused_rows<32>);
     case 64: return f(launch_fused_rows<64>);
+    case 112: return f(launch_fused_rows<112>);
     case 128: return f(launch_fused_rows<128>);
     case 256: return f(launch_fused_rows<256>);
     default: return (int)cudaErrorInvalidValue;

@@ -10,6 +10,7 @@ entry of :data:`LAUNCHES` where it launches the kernel and nowhere else.
 Kernels (TPU kernel each replaces in brackets):
 
 * ``paged_decode_attention_fused``   K1 [ct_paged_attention_fused]
+                                     (also at head_dim 112, zamba2's)
 * ``paged_decode_attention_batched`` K2 [ct_paged_attention_batched]
 * ``paged_decode_attention``         K2 through the single-request wrapper
                                      [ct_paged_attention]
@@ -63,16 +64,23 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
                          f"{tuple(t.shape)}")
 
 
-HEAD_DIMS = (16, 32, 64, 128, 256)      # K1's, K2's and K3's instances
+HEAD_DIMS = (16, 32, 64, 128, 256)      # K2's and K3's instances
+K1_HEAD_DIMS = (16, 32, 64, 112, 128, 256)    # K1's (112: zamba2-7b's)
+
+
+def _check_head_dim(kernel: str, d: int, dims=HEAD_DIMS) -> None:
+    """A head_dim ``kernel`` has an instance for (:data:`HEAD_DIMS` for K2
+    and K3, :data:`K1_HEAD_DIMS` for K1)."""
+    if d not in dims:
+        raise ValueError(f"{kernel} takes head_dim "
+                         f"{', '.join(map(str, dims))} (got {d})")
 
 
 def _check_paged(d: int, group: int, *planes: torch.Tensor) -> None:
-    """What the paged kernels take: a head_dim they have an instance for
-    (:data:`HEAD_DIMS`) in whole scale groups, code planes readable 4
-    bytes at a time."""
-    if d not in HEAD_DIMS or d % group or group % 4:
-        raise ValueError(f"paged attention kernels take head_dim "
-                         f"{', '.join(map(str, HEAD_DIMS))} in groups "
+    """What the paged kernels take besides their head_dim: whole scale
+    groups, code planes readable 4 bytes at a time."""
+    if d % group or group % 4:
+        raise ValueError(f"paged attention kernels take head_dim in groups "
                          f"of a multiple of 4 (got D={d}, group={group})")
     if any(p.data_ptr() % 4 for p in planes):
         raise ValueError("code planes must be 4-byte aligned")
@@ -145,6 +153,7 @@ def paged_decode_attention_fused(qh, k_codes, v_codes, k_scales, v_scales,
     _check("buf_len", buf_len, torch.int32, (r,))
     if on_cpu:
         return R.ct_paged_attention_fused_ref(*args, group=group)
+    _check_head_dim("K1", d, K1_HEAD_DIMS)
     _check_paged(d, group, k_codes, v_codes)
     if group != 16 or bs % 4:
         raise ValueError(f"K1 takes a scale per 16 lanes and a block size "
@@ -226,6 +235,7 @@ def _batched(name, qh, k_codes, v_codes, k_scales, v_scales, slot_state,
     for n, t in (("slot_state", slot_state), ("slot_bits", slot_bits)):
         _check(n, t, torch.uint8, (r, nb, bs))
     _check("block_table", block_table, torch.int32, (r, nb))
+    _check_head_dim("K2", d)
     if on_cpu:
         return R.ct_paged_attention_batched_ref(*args, group=group)
     _check_paged(d, group, k_codes, v_codes)
@@ -300,14 +310,12 @@ def prefill_attention_stats(q, k, v, *, causal: bool = True, window: int = 0,
     _check("q", q, torch.float32)
     _check("k", k, torch.float32, (s_len, h, d))
     _check("v", v, torch.float32, (s_len, h, d))
+    _check_head_dim("K3", d)
     if on_cpu:
         kv_valid = None if n_valid is None else \
             torch.arange(s_len) < n_valid
         return R.flash_prefill_stats_ref(q, k, v, causal=causal,
                                          window=window, kv_valid=kv_valid)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"K3 takes head_dim "
-                         f"{', '.join(map(str, HEAD_DIMS))} (got {d})")
     _aligned("q, k and v", 16, q, k, v)
     out = torch.empty_like(q)
     m = torch.empty((s_len, hq, 1), dtype=torch.float32, device=q.device)

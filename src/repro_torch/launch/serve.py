@@ -16,8 +16,10 @@ card unless ``cpu`` is asked for):
   engine serves: r1-llama-8b, qwen2-7b (qkv bias), yi-6b, yi-9b,
   mistral-large-123b, the MoE configs mixtral-8x7b and
   llama4-scout-17b-a16e, and the VLM paligemma-3b (text prompts, as the
-  reference's engine serves it; head_dim 256 on the card's kernels)
-  (falcon-mamba-7b has no KV cache and is refused);
+  reference's engine serves it; head_dim 256 on the card's kernels);
+  falcon-mamba-7b, zamba2-7b and whisper-medium are refused with a
+  ValueError that names ``serving/serve_step.py``, which serves them (the
+  reference's engine does not serve them either);
 * sampling and dispatch: ``--temperature`` (> 0 samples on per-request
   key streams), ``--top-p`` (< 1 nucleus), ``--ticks-per-dispatch`` (N
   fuses up to N ticks into one dispatch; prints the mega-dispatch line),

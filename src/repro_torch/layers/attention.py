@@ -1,8 +1,11 @@
 """GQA attention (ports ``repro/layers/attention.py``: ``_project_qkv``,
 ``qkv_decode``, ``out_proj``, ``_full_attention`` with its small-sequence
 dense path and its q-chunked exact path above 2048 query rows,
-``attn_prefill_with_cache`` and ``decode_attend_fullkv``).  Keys are
-cached post-RoPE.
+``attn_forward`` (causal, non-causal for an encoder, or over external
+keys and values for cross attention), ``attn_prefill_with_cache``,
+``cross_kv`` and ``decode_attend_fullkv``).  Keys are cached post-RoPE;
+with learned positions (whisper) ``rope_qk`` leaves q and k as they
+are.
 
 Not ported: the reference's ``REPRO_BF16_SCORES`` toggle (a measurement
 switch for bf16 score tiles on XLA's CPU backend) and its ring-attention
@@ -119,6 +122,22 @@ def full_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return dense_attention(q, k, v, causal=causal, window=window)
 
 
+def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, *, causal: bool = True,
+                 kv_override=None) -> torch.Tensor:
+    """Full-sequence attention over x [B, S, D] -> [B, S, D]: causal, or
+    not (an encoder); ``kv_override`` (k, v) [B, T, Hkv, hd] supplies
+    external keys and values (cross attention, already encoder-side) and
+    makes the attention non-causal, as the reference's does."""
+    q, k, v = _project_qkv(p, x, cfg)
+    q, k = rope_qk(q, k, positions, cfg)
+    if kv_override is not None:
+        k, v = kv_override
+        causal = False
+    out = full_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    return out_proj(p, out)
+
+
 def attn_prefill_with_cache(p: dict, x: torch.Tensor, cfg: ModelConfig,
                             positions: torch.Tensor):
     """Causal attention over x [B, S, D]: (y [B, S, D], k, v [B, S, Hkv,
@@ -127,6 +146,15 @@ def attn_prefill_with_cache(p: dict, x: torch.Tensor, cfg: ModelConfig,
     q, k = rope_qk(q, k, positions, cfg)
     out = full_attention(q, k, v, causal=True, window=cfg.sliding_window)
     return out_proj(p, out), k, v
+
+
+def cross_kv(p: dict, enc: torch.Tensor, cfg: ModelConfig):
+    """Encoder-side keys and values for cross attention: enc [..., T, D]
+    -> k, v [..., T, Hkv, hd] (no bias, no rotation)."""
+    hd = cfg.head_dim
+    k = (enc @ p["wk"]).reshape(*enc.shape[:-1], cfg.num_kv_heads, hd)
+    v = (enc @ p["wv"]).reshape(*enc.shape[:-1], cfg.num_kv_heads, hd)
+    return k, v
 
 
 def decode_attend_fullkv(q: torch.Tensor, k_cache: torch.Tensor,

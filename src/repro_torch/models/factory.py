@@ -1,8 +1,7 @@
 """Model factory (ports ``repro/models/factory.py``: ``Model`` and
-``build_model``) for the families the port has: DENSE, MOE and VLM
-(``models/lm.py``, as the reference maps all three) and SSM
-(``models/ssm_lm.py``).  Encoder-decoder and hybrid raise
-NotImplementedError (ROADMAP queue 1 item 15).
+``build_model``) for every family: DENSE, MOE and VLM (``models/lm.py``,
+as the reference maps all three), ENCDEC (``models/encdec.py``), SSM
+(``models/ssm_lm.py``) and HYBRID (``models/hybrid.py``).
 
 ``input_specs`` is not ported: it builds ``jax.ShapeDtypeStruct`` stand-ins
 for the XLA dry-run's lowering, which has no PyTorch meaning.
@@ -15,7 +14,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from repro_torch.config import ArchFamily, ModelConfig
-from repro_torch.models import lm, ssm_lm
+from repro_torch.models import encdec, hybrid, lm, ssm_lm
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
@@ -24,7 +23,8 @@ def loss_fn(params, batch, cfg: ModelConfig):
 
 
 _FAMILY_MODULES = {ArchFamily.DENSE: lm, ArchFamily.MOE: lm,
-                   ArchFamily.VLM: lm, ArchFamily.SSM: ssm_lm}
+                   ArchFamily.VLM: lm, ArchFamily.ENCDEC: encdec,
+                   ArchFamily.SSM: ssm_lm, ArchFamily.HYBRID: hybrid}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,10 +44,6 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in _FAMILY_MODULES:
-        raise NotImplementedError(
-            f"the {cfg.family.value} family is not ported yet (ROADMAP queue "
-            f"1 item 15)")
     mod = _FAMILY_MODULES[cfg.family]
     return Model(cfg=cfg, init=mod.init_params, logits=mod.logits_fn,
                  loss=loss_fn, module=mod)

@@ -66,9 +66,10 @@ class LM(nn.Module):
         super().__init__()
         if cfg.family not in _FAMILIES or not cfg.mlp_gated or \
                 (cfg.family == ArchFamily.MOE) != (cfg.moe is not None):
-            raise NotImplementedError(
-                f"{cfg.name}: the port serves gated dense, MoE and VLM "
-                f"decoders (other families: ROADMAP queue 1 item 15)")
+            raise ValueError(
+                f"{cfg.name}: models/lm.py holds gated dense, MoE and VLM "
+                f"decoders; build the {cfg.family.value} family through "
+                f"models/factory.py")
         self.cfg = cfg
         self.layer_params = layer_params(cfg)
         L, d, ff, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size

@@ -90,8 +90,10 @@ The VLM family (paligemma) is served as the reference engine serves it:
 text only, through the dense paths (tied, scaled embeddings; no image
 prefix reaches the engine).
 
-Not in this slice (each raises NotImplementedError naming the ROADMAP
-item): tensor parallelism, the encoder-decoder and hybrid families.
+The SSM, hybrid and encoder-decoder families are refused with a
+ValueError, as the reference engine refuses them: they are served through
+``serving/serve_step.py``.  Not in this slice (raises NotImplementedError
+naming the ROADMAP item): tensor parallelism (item 13).
 """
 from __future__ import annotations
 
@@ -335,7 +337,11 @@ class ThinKVEngine:
                 f"ThinKV to compress; serve it through serving/serve_step.py")
         if cfg.model.family not in (ArchFamily.DENSE, ArchFamily.MOE,
                                     ArchFamily.VLM):
-            _not_ported(f"the {cfg.model.family.value} family", "15")
+            raise ValueError(
+                f"{cfg.model.name}: the engine serves dense, MoE and VLM "
+                f"decoders, as the reference's does; serve the "
+                f"{cfg.model.family.value} family through "
+                f"serving/serve_step.py")
         if int(ticks_per_dispatch) < 1:
             raise ValueError(f"ticks_per_dispatch {ticks_per_dispatch} < 1")
         if mesh is not None:

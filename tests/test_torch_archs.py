@@ -102,8 +102,9 @@ def plain(v):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_equal_the_reference_ones(arch):
-    """Field for field, full and smoke; every JAX field the port leaves
-    out (hybrid, encoder-decoder, VLM, dtype) at its default."""
+    """Field for field, full and smoke (zamba2-7b's and whisper-medium's
+    hybrid and encoder-decoder fields among them); every JAX field the
+    port leaves out (dtype) at its default."""
     import repro.config as RC
     defaults = {f.name: f.default for f in dataclasses.fields(RC.ModelConfig)}
     for jcfg, tcfg in ((jax_config(arch), get_config(arch)),
@@ -305,12 +306,18 @@ def test_eight_slot_moe_engine_drops_choices_at_decode(monkeypatch):
 def test_entry_points_take_the_slice_and_refuse_the_rest():
     """The factory, the serve-step makers, the engine and the CLI's
     ``--arch`` take every config this slice covers and the VLM family
-    (paligemma-3b, ported since); the encoder-decoder and hybrid families
-    still raise, naming ROADMAP queue 1 item 15.  Tied embeddings are
-    taken (no ``lm_head``; embeddings scaled by sqrt(d_model)) and give
-    the JAX forward's logits."""
-    from repro_torch.config import ArchFamily
+    (paligemma-3b, ported since).  zamba2-7b and whisper-medium (the hybrid
+    and encoder-decoder families, ROADMAP queue 1 items 15b and 15c) are
+    built by the factory and taken by the three serve-step makers on both
+    backends; the engine and the CLI refuse them with a ValueError naming
+    the serve steps, as the reference's engine serves neither, and
+    ``models/lm.py`` refuses their configs, naming the factory.  Tensor
+    parallelism (item 13) and training (item 16) still raise, naming their
+    items.  Tied embeddings are taken (no ``lm_head``; embeddings scaled
+    by sqrt(d_model)) and give the JAX forward's logits."""
     from repro_torch.launch import serve
+    from repro_torch.models import encdec as ET
+    from repro_torch.models import hybrid as HT
     for arch in NEW_ARCHS + ("paligemma-3b",):
         cfg = get_smoke_config(arch)
         assert FT.build_model(cfg).module is LT
@@ -324,17 +331,30 @@ def test_entry_points_take_the_slice_and_refuse_the_rest():
                                        max_seqs=1), device="cpu")
         assert eng.mcfg is cfg
         assert serve.build_parser().parse_args(["--arch", arch]).arch == arch
+    for arch, mod, cls in (("zamba2-7b", HT, HT.HybridLM),
+                           ("whisper-medium", ET, ET.EncDecLM)):
+        cfg = get_smoke_config(arch)
+        model = FT.build_model(cfg)
+        assert model.module is mod
+        assert isinstance(model.init_params(0, "cpu"), cls)
+        for make in (lambda: SST.make_prefill_step(model, cfg),
+                     lambda: SST.make_decode_step_fullkv(cfg),
+                     lambda: SST.make_decode_step_thinkv(cfg, None),
+                     lambda: SST.make_decode_step_thinkv(cfg, None,
+                                                         backend="kernel")):
+            assert callable(make())
+        with pytest.raises(ValueError, match="serving/serve_step.py"):
+            ThinKVEngine(ServeConfig(model=cfg, max_seqs=1), device="cpu")
+        with pytest.raises(ValueError, match="serving/serve_step.py"):
+            serve.main(["--arch", arch, "--device", "cpu"])
+        with pytest.raises(ValueError, match="models/factory.py"):
+            LT.init_params(cfg, device="cpu")
     base = get_smoke_config("r1-llama-8b")
-    for fam in (ArchFamily.ENCDEC, ArchFamily.HYBRID):
-        other = dataclasses.replace(base, family=fam)
-        for make in (lambda: FT.build_model(other),
-                     lambda: LT.init_params(other, device="cpu"),
-                     lambda: SST.make_prefill_step(None, other),
-                     lambda: ThinKVEngine(ServeConfig(model=other,
-                                                      max_seqs=1),
-                                          device="cpu")):
-            with pytest.raises(NotImplementedError, match="item 15"):
-                make()
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ThinKVEngine(ServeConfig(model=base, max_seqs=1), device="cpu",
+                     mesh=object())
+    with pytest.raises(NotImplementedError, match="item 16"):
+        FT.build_model(base).loss(None, None, base)
     jcfg = dataclasses.replace(jax_smoke("r1-llama-8b"), tie_embeddings=True)
     tied = dataclasses.replace(base, tie_embeddings=True)
     assert not hasattr(LT.init_params(tied, device="cpu"), "lm_head")

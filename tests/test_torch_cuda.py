@@ -7,7 +7,8 @@ ticks against single ticks on the kernel backend; the dense ThinKV serve
 step's kernel path (one K1 launch per layer) against its plain path; a
 uniform single-level commit; the pressure trace on mixtral-8x7b's (MoE)
 and qwen2-7b's (qkv bias) smoke configs against their JAX records, and
-K1-K3 at those configs' query-group sizes.
+K1-K3 at those configs' query-group sizes; K1 at head_dim 112 and the JAX
+records of the hybrid and encoder-decoder serve steps.
 
 Every test here needs a CUDA card and the CUDA toolkit (the kernels are
 built with nvcc at first use); without a card each test skips with the
@@ -520,11 +521,15 @@ def test_batched_pool_attention_head_dim_16(card, GQ, NB, H):
 
 
 def test_paged_wrappers_refuse_head_dims_without_an_instance(card):
-    for d in (48, 512):
+    """K1 has instances for head_dim 16, 32, 64, 112, 128 and 256, K2 for
+    all but 112."""
+    for d in (48, 512, 112):
         c = pool_case(torch.Generator().manual_seed(d), L=1, R_=1, H=2, GQ=2,
                       D=d, BS=8, NB=2)
-        with pytest.raises(ValueError, match="head_dim 16, 32, 64, 128, 256"):
-            ops.paged_decode_attention_fused(*on(card, c.values()))
+        if d != 112:
+            with pytest.raises(ValueError,
+                               match="head_dim 16, 32, 64, 112, 128, 256"):
+                ops.paged_decode_attention_fused(*on(card, c.values()))
         with pytest.raises(ValueError, match="head_dim 16, 32, 64, 128, 256"):
             ops.paged_decode_attention_batched(*on(card, batched_args(c)))
 
@@ -1140,3 +1145,52 @@ def test_vlm_serve_steps_on_the_card(card):
         torch.testing.assert_close(g.cpu().float(), w.float(), rtol=2 ** -7,
                                    atol=ATOL)
     assert torch.equal(got[3].cpu(), want[3])
+
+
+@pytest.mark.parametrize("GQ,H,BS", [(1, 3, 16), (1, 4, 16), (1, 1, 4),
+                                     (2, 5, 16), (4, 7, 8), (8, 2, 16)])
+def test_fused_decode_attention_head_dim_112(card, GQ, H, BS):
+    """K1 at head_dim 112 (zamba2-7b's: a key row over a warp of which 28
+    lanes hold dimensions; 7 scale groups a row, so a head's scales start
+    2-byte aligned at odd heads, and at H 1 every other row) over odd and
+    even kv head counts, bits 2/4/8, 1-8 query rows per tile; slot 0 of
+    layer 0 a fully masked row (pool masked, buffer empty: output 0)."""
+    c = pool_case(torch.Generator().manual_seed(112 + 10 * GQ + H), L=3,
+                  R_=3, H=H, GQ=GQ, D=112, BS=BS, NB=6)
+    c["slot_state"][0, 0] = 0
+    got = launched_once("ct_paged_attention_fused",
+                        ops.paged_decode_attention_fused,
+                        *on(card, c.values()))
+    assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
+    assert float(got[0, 0].abs().max()) == 0.0
+
+
+def test_fused_decode_attention_zamba2_serve_step(card):
+    """K1 at zamba2-7b's ThinKV serve step (one launch per shared-block
+    invocation: L 1, 4 requests, 32 kv heads, GQ 1, D 112; BS 16, NB
+    128)."""
+    c = pool_case(torch.Generator().manual_seed(7112), L=1, R_=4, H=32,
+                  GQ=1, D=112, BS=16, NB=128)
+    c["buf_len"] = torch.tensor([1, 6, 16, 16], dtype=torch.int32)
+    got = launched_once("ct_paged_attention_fused",
+                        ops.paged_decode_attention_fused,
+                        *on(card, c.values()))
+    assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
+
+
+@pytest.mark.parametrize("name", ["hybrid", "encdec"])
+def test_steps_records_on_the_card_give_the_jax_records(card, name):
+    """The hybrid (zamba2 smoke form with a tail, head_dim 112) and encdec
+    (whisper smoke form) records of the JAX serve steps replayed on the
+    card's kernel backend: prefill and FullKV logits within 1e-4, the 8
+    chained ThinKV steps within 1e-3 of JAX's Pallas-kernel backend with
+    one K1 launch per attention layer and step, the final buffers within
+    one bf16 step, buf_len exact (``test_torch_steps_record.replay``)."""
+    import test_torch_steps_record as SR
+    rec = SR.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "golden", f"torch_{name}_steps.npz"))
+    res = SR.replay(rec, "kernel", card)
+    assert not res["failed"], res
+    cfg = SR.config(rec["settings"])
+    assert res["k1_launches"] == \
+        cfg.num_attention_layers() * rec["thinkv_tokens"].shape[0]

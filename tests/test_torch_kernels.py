@@ -90,6 +90,43 @@ def test_fused_fully_masked_pool_gives_the_buffer_result():
     close(out_t[0, 1], ob[1].numpy())
 
 
+@pytest.mark.parametrize("h", [3, 4])
+def test_fused_plain_matches_pallas_at_head_dim_112(h):
+    """K1 at head_dim 112 (zamba2-7b's: 7 scale groups a row, so a head's
+    scales start 2-byte aligned at odd heads) with GQ 1 as in zamba2, bits
+    2/4/8, BS 16, over odd and even kv head counts; slot 0 of layer 0 is a
+    fully masked row (its pool all masked, its buffer empty: output 0) and
+    slot 1 of layer 1 has its pool masked (the buffer's attention)."""
+    a = pool_inputs(30 + h, L=2, R=2, H=h, GQ=1, D=112, BS=16, NB=4, G=16)
+    a["slot_state"][0, 0] = 0
+    a["slot_state"][1, 1] = 0
+    out_j = ct_paged_attention_fused(*map(jnp.asarray, a.values()),
+                                     interpret=True)
+    out_t = ops.paged_decode_attention_fused(*to_torch(a).values())
+    close(out_t, out_j)
+    assert float(out_t[0, 0].abs().max()) == 0.0
+    np.testing.assert_allclose(
+        RT.ct_paged_attention_fused_warps_ref(*to_torch(a).values()).numpy(),
+        np.asarray(out_j), rtol=0, atol=1e-4)
+
+
+def test_only_k1_takes_head_dim_112():
+    """K1 has a D 112 instance; K2 and K3 do not, and refuse it on either
+    device."""
+    ops._check_head_dim("K1", 112, ops.K1_HEAD_DIMS)
+    with pytest.raises(ValueError, match="head_dim 16, 32, 64, 128, 256"):
+        ops._check_head_dim("K2", 112)
+    a = to_torch(pool_inputs(33, L=1, R=1, H=2, GQ=2, D=112, BS=16, NB=2))
+    with pytest.raises(ValueError, match="K2 takes head_dim"):
+        ops.paged_decode_attention_batched(
+            a["qh"][0], a["k_codes"][0], a["v_codes"][0], a["k_scales"][0],
+            a["v_scales"][0], a["slot_state"][0], a["slot_bits"][0],
+            a["block_table"][:, 0].contiguous())
+    q = torch.zeros((16, 2, 112))
+    with pytest.raises(ValueError, match="K3 takes head_dim"):
+        ops.prefill_attention_stats(q, q, q)
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_batched_plain_matches_pallas(shape):
     """K2: one layer's pool walk with (out, m, l) stats."""
@@ -290,12 +327,14 @@ def test_paged_kernels_take_the_head_dims_they_have_instances_for(d, ok):
     """K1 and K2 have CUDA instances for head_dim 16 (the trace config's),
     32, 64, 128 and 256 (paligemma-3b's); the wrappers' check refuses any
     other on the card."""
-    plane = torch.zeros(64, dtype=torch.uint8)
     if ok:
-        ops._check_paged(d, 16, plane)
+        ops._check_head_dim("K1", d, ops.K1_HEAD_DIMS)
+        ops._check_head_dim("K2", d)
     else:
-        with pytest.raises(ValueError, match="head_dim 16, 32, 64, 128, 256"):
-            ops._check_paged(d, 16, plane)
+        for kernel, dims in (("K1", ops.K1_HEAD_DIMS), ("K2", ops.HEAD_DIMS)):
+            with pytest.raises(ValueError, match=f"{kernel} takes head_dim "
+                               f"{', '.join(map(str, dims))}"):
+                ops._check_head_dim(kernel, d, dims)
 
 
 @pytest.mark.parametrize("gq,want", [(1024, 8), (128, 32), (8, 32)])

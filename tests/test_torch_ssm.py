@@ -242,8 +242,10 @@ def test_backends_agree_on_the_cpu(models):
 
 def test_other_families_name_their_roadmap_item():
     """The dense serve-step makers build since item 12 was ported, the
-    MoE and VLM families' since their parts of item 15 were; the
-    encoder-decoder and hybrid families still raise, naming item 15."""
+    MoE and VLM families' since their parts of item 15 were, the
+    encoder-decoder and hybrid families' since items 15c and 15b were: the
+    factory maps each family to its module; only training (item 16) still
+    raises, naming its item."""
     cfg = get_smoke_config("r1-llama-8b")
     for c in (cfg, get_smoke_config("mixtral-8x7b"),
               get_smoke_config("paligemma-3b")):
@@ -254,15 +256,16 @@ def test_other_families_name_their_roadmap_item():
                      lambda: SST.make_decode_step_thinkv(c, None,
                                                          backend="kernel")):
             assert callable(make())
-    for fam in ("encdec", "hybrid"):
-        other = dataclasses.replace(cfg, family=type(cfg.family)(fam))
-        with pytest.raises(NotImplementedError, match="item 15"):
-            FT.build_model(other)
+    for fam, arch in (("encdec", "whisper-medium"), ("hybrid", "zamba2-7b")):
+        other = get_smoke_config(arch)
+        assert other.family.value == fam
+        assert FT.build_model(other).module.__name__.endswith(f".{fam}")
         for make in (lambda: SST.make_prefill_step(None, other),
                      lambda: SST.make_decode_step_fullkv(other),
-                     lambda: SST.make_decode_step_thinkv(other, None)):
-            with pytest.raises(NotImplementedError, match="item 15"):
-                make()
+                     lambda: SST.make_decode_step_thinkv(other, None),
+                     lambda: SST.make_decode_step_thinkv(other, None,
+                                                         backend="kernel")):
+            assert callable(make())
     with pytest.raises(NotImplementedError, match="item 16"):
         FT.build_model(cfg).loss(None, None, cfg)
 

@@ -26,7 +26,16 @@ a numpy seed); the vlm record is the pressure trace on paligemma-3b's
 smoke config (4 q / 1 kv head, head_dim 16, tied embeddings scaled by
 sqrt(d_model), GeGLU; text prompts, as the engine serves the VLM).
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the card's kernel
-and reference backends to them, where there is no JAX.  The golden
+and reference backends to them, where there is no JAX.
+
+The hybrid and encdec records (``tests/golden/torch_{hybrid,encdec}
+_steps.npz``, read by ``test_torch_steps_record``) are the JAX
+package's serve steps on zamba2-7b's smoke form with a tail at head_dim
+112 (5 layers, a shared block after every 2nd, 4 q / 4 kv heads) and on
+whisper-medium's: weights from
+``test_torch_steps_record.numpy_params`` (a numpy seed), the prefill step, 8 FullKV steps over the prompts from an empty
+state, and 8 ThinKV steps on a numpy-seeded pool on both JAX backends
+(the kernel backend through the Pallas kernel in interpret mode).  The golden
 ``serving_trace.json`` is not such a record (it dates from an older tree:
 its flash tokens and its pressure tokens no longer match the reference,
 its pressure counters still do).
@@ -37,6 +46,11 @@ write all eight anew (after a change to the reference engine or to these
 settings):
 
     PYTHONPATH=src python tests/test_torch_trace_fixture.py
+
+and to write only the two steps records:
+
+    PYTHONPATH=src:tests python -c "import test_torch_trace_fixture as T;
+        T.write_steps_fixtures()"
 """
 import dataclasses
 import json
@@ -48,15 +62,24 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro.config import ServeConfig as JSC  # noqa: E402
 from repro.config import ThinKVConfig as JTK  # noqa: E402
+from repro.config import reduced as jax_reduced  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.core import quantization as QJ  # noqa: E402
+from repro.layers import ssm as SJ  # noqa: E402
+from repro.models import encdec as EJ  # noqa: E402
+from repro.serving import serve_step as SSJ  # noqa: E402
 from repro.serving.engine import ThinKVEngine as JaxEngine  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.serving import prng  # noqa: E402
 from repro_torch.serving import sampling as SMP  # noqa: E402
 from repro_torch.serving import trace_record as TR  # noqa: E402
 import test_torch_pressure as PT  # noqa: E402
+import test_torch_steps_record as SR  # noqa: E402
 from test_torch_archs import BIAS_SCALE, jax_params  # noqa: E402
 from test_torch_engine import (COUNTERS, LENS, MAX_NEW,  # noqa: E402
                                PRIORITIES, SLOTS, TK, prompts)
@@ -472,12 +495,193 @@ def write_arch_fixtures() -> None:
         np.savez(path, **jax_arch_record(name))
 
 
+# record -> (arch, the overrides of ``reduced`` for its smoke form)
+STEPS_RECORDS = {
+    "hybrid": ("zamba2-7b", dict(num_layers=5, hybrid_attn_every=2,
+                                 num_heads=4, num_kv_heads=4, head_dim=112)),
+    "encdec": ("whisper-medium", {})}
+STEPS_FIXTURES = {name: os.path.join(GOLDEN, f"torch_{name}_steps.npz")
+                  for name in STEPS_RECORDS}
+STEPS_TK = dict(refresh_interval=16, group_size=16, block_size=8,
+                token_budget=32, retention_schedule=(16, 8, 4),
+                min_retention=4, max_segments=64, kmeans_iters=2)
+STEPS_B, STEPS_S, STEPS_N = 2, 8, 8      # requests, prompt, ThinKV steps
+
+
+def steps_settings(name: str) -> dict:
+    arch, over = STEPS_RECORDS[name]
+    return {"family": name, "arch": arch, "overrides": over,
+            "thinkv": STEPS_TK, "params_seed": 0, "batch_seed": 1,
+            "steps": STEPS_N}
+
+
+def jax_steps_record(name: str) -> dict:
+    """The JAX serve steps' run of a steps record, as the archive's arrays
+    (see ``test_torch_steps_record``)."""
+    st = steps_settings(name)
+    arch, over = STEPS_RECORDS[name]
+    jcfg = jax_reduced(jax_config(arch), **over)
+    tcfg, tk = SR.config(st), SR.thinkv_config(st)
+    jp = jax.tree.map(jnp.asarray, SR.numpy_params(tcfg, st["params_seed"]))
+    hybrid = name == "hybrid"
+    b, s = STEPS_B, STEPS_S
+    rng = np.random.default_rng(2)
+    out = {"settings": np.asarray(json.dumps(st)),
+           "prompts": rng.integers(0, jcfg.vocab_size, (b, s))
+           .astype(np.int32)}
+    pre = {"tokens": jnp.asarray(out["prompts"])}
+    if not hybrid:
+        out["frames"] = rng.standard_normal(
+            (b, jcfg.encoder_seq, jcfg.d_model)).astype(np.float32)
+        pre["frames"] = jnp.asarray(out["frames"])
+    out["prefill_logits"] = np.asarray(
+        SSJ.make_prefill_step(None, jcfg)(jp, pre))
+
+    shape = (b, jcfg.num_attention_layers(), s, jcfg.num_kv_heads,
+             jcfg.head_dim)
+    fb = {"k_cache": jnp.zeros(shape), "v_cache": jnp.zeros(shape)}
+    if hybrid:
+        di, nh, hp, g, n, cw = SJ.mamba2_dims(jcfg)
+        fb["conv_state"] = jnp.zeros((b, jcfg.num_layers, cw, di + 2 * g * n))
+        fb["ssm_state"] = jnp.zeros((b, jcfg.num_layers, nh, hp, n))
+    else:
+        ck, cv = EJ.cross_caches(jp, EJ.encode(jp, pre["frames"], jcfg), jcfg)
+        fb["cross_k"], fb["cross_v"] = (jnp.moveaxis(c, 0, 1)
+                                        for c in (ck, cv))
+    step_f = SSJ.make_decode_step_fullkv(jcfg)
+    logits = []
+    for i in range(s):
+        pos = jnp.full((b,), i, jnp.int32)
+        res = step_f(jp, {**fb, "tokens": pre["tokens"][:, i],
+                          "positions": pos, "cache_len": pos})
+        if hybrid:
+            lg, fb["conv_state"], fb["ssm_state"], fb["k_cache"], \
+                fb["v_cache"] = res
+        else:
+            lg, fb["k_cache"], fb["v_cache"] = res
+        logits.append(np.asarray(lg))
+    out["fullkv_logits"] = np.stack(logits)
+    if hybrid:
+        out["fullkv_conv"] = np.asarray(fb["conv_state"])
+        out["fullkv_ssm"] = np.asarray(fb["ssm_state"])
+
+    batch = SR.thinkv_batch(tcfg, tk, st["batch_seed"], b, s)
+    out.update(batch)
+    jb0 = {k: jnp.asarray(v.view(jnp.bfloat16) if k in SR.BF16_KEYS else v)
+           for k, v in batch.items()}
+    if hybrid:
+        jb0["conv_state"], jb0["ssm_state"] = fb["conv_state"], \
+            fb["ssm_state"]
+    else:
+        for n, c in (("k", fb["cross_k"]), ("v", fb["cross_v"])):
+            codes, scales = QJ.quantize_group(c, 4)
+            jb0[f"cross_{n}_codes"] = codes
+            jb0[f"cross_{n}_scales"] = scales.astype(jnp.bfloat16)
+            out[f"cross_{n}_codes"] = np.asarray(codes)
+            out[f"cross_{n}_scales"] = np.asarray(
+                jb0[f"cross_{n}_scales"]).view(np.uint16)
+    toks = [np.argmax(out["prefill_logits"], -1).astype(np.int32)]
+    for backend in ("reference", "kernel"):
+        step = SSJ.make_decode_step_thinkv(
+            jcfg, JTK(**STEPS_TK), backend=backend,
+            force="pallas" if backend == "kernel" else None)
+        jb, lgs = dict(jb0), []
+        for i in range(STEPS_N):
+            jb["tokens"] = jnp.asarray(toks[i])
+            res = step(jp, jb)
+            if hybrid:
+                jb["conv_state"], jb["ssm_state"] = res[1:3]
+            jb["buf_k"], jb["buf_v"], jb["buf_len"] = res[-3:]
+            jb["positions"] = jb["positions"] + 1
+            lgs.append(np.asarray(res[0]))
+            if backend == "reference" and i + 1 < STEPS_N:
+                toks.append(np.argmax(lgs[-1], -1).astype(np.int32))
+        out[f"thinkv_logits_{backend}"] = np.stack(lgs)
+    out["thinkv_tokens"] = np.stack(toks)
+    out["final_buf_k"] = np.asarray(jb["buf_k"]).view(np.uint16)
+    out["final_buf_v"] = np.asarray(jb["buf_v"]).view(np.uint16)
+    out["final_buf_len"] = np.asarray(jb["buf_len"])
+    if hybrid:
+        out["final_conv"] = np.asarray(jb["conv_state"])
+        out["final_ssm"] = np.asarray(jb["ssm_state"])
+    return out
+
+
+@pytest.fixture(scope="module", params=sorted(STEPS_RECORDS))
+def steps_record(request):
+    """(name, the stored record, the live JAX steps' fresh record)."""
+    name = request.param
+    return name, SR.load(STEPS_FIXTURES[name]), jax_steps_record(name)
+
+
+def test_steps_fixtures_equal_the_live_jax_records(steps_record):
+    """The hybrid and encdec records: the live JAX serve steps' runs
+    (archive equal to a fresh run's: inputs and integers exactly, floats
+    to 1e-6), the smoke form's shapes (zamba2 at head_dim 112 with a tail
+    and 2 shared-block invocations; whisper's 16 frames), each record
+    under 1 MB, and both JAX backends within the bar of each other."""
+    name, rec, fresh = steps_record
+    path = STEPS_FIXTURES[name]
+    assert os.path.getsize(path) < 1 << 20
+    with np.load(path, allow_pickle=False) as z:
+        assert sorted(z.files) == sorted(fresh)
+        for k in fresh:
+            if z[k].dtype == np.float32:
+                np.testing.assert_allclose(z[k], fresh[k], rtol=0,
+                                           atol=1e-6, err_msg=k)
+            else:
+                assert z[k].dtype == fresh[k].dtype, k
+                np.testing.assert_array_equal(z[k], fresh[k], err_msg=k)
+    cfg = SR.config(rec["settings"])
+    if name == "hybrid":
+        assert (cfg.head_dim, cfg.num_attention_layers()) == (112, 2)
+        assert rec["k_codes"].shape == (STEPS_B, 2, 8, 8, 4, 112)
+        assert rec["final_ssm"].shape[1] == 5
+    else:
+        assert rec["frames"].shape == (STEPS_B, 16, 64)
+        assert rec["cross_k_codes"].shape == (STEPS_B, 2, 16, 2, 16)
+    assert rec["thinkv_tokens"].shape == (STEPS_N, STEPS_B)
+    np.testing.assert_allclose(rec["fullkv_logits"][-1],
+                               rec["prefill_logits"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(rec["thinkv_logits_kernel"],
+                               rec["thinkv_logits_reference"], rtol=0,
+                               atol=0.05)
+    np.testing.assert_array_equal(rec["final_buf_len"],
+                                  rec["buf_len"] + STEPS_N)
+
+
+@pytest.mark.parametrize("backend", ["reference", "kernel"])
+def test_port_replays_the_steps_records_on_the_cpu(steps_record, backend):
+    """Each steps record through ``test_torch_steps_record.replay`` on the
+    CPU: the prefill and FullKV logits within 1e-4; the ThinKV logits over
+    the 8 chained steps within 1e-3 of the same JAX backend's on the
+    kernel backend; on the reference backend the first step within 1e-3
+    and the chain within 2e-3 (``THINKV_CHAIN_ATOL``: its bf16 rounding of
+    queries and probabilities flips now and then); the final buffers
+    (kernel backend) within one bf16 step; the hybrid's states;
+    buf_len."""
+    name, rec, _ = steps_record
+    launches = dict(ops.LAUNCHES)
+    res = SR.replay(rec, backend, "cpu")
+    assert not res["failed"], res
+    assert ops.LAUNCHES == launches
+    print(name, backend, {k: res[k] for k in ("prefill", "fullkv",
+                                              "thinkv")})
+
+
+def write_steps_fixtures() -> None:
+    for name, path in STEPS_FIXTURES.items():
+        np.savez(path, **jax_steps_record(name))
+
+
 if __name__ == "__main__":
     write_fixture()
     write_pressure_fixture()
     write_sampled_fixture()
     write_policy_fixtures()
     write_arch_fixtures()
+    write_steps_fixtures()
     for path in (FIXTURE, PRESSURE_FIXTURE, SAMPLED_FIXTURE,
-                 *POLICY_FIXTURES.values(), *ARCH_FIXTURES.values()):
+                 *POLICY_FIXTURES.values(), *ARCH_FIXTURES.values(),
+                 *STEPS_FIXTURES.values()):
         print(f"wrote {path}: {os.path.getsize(path)} bytes")

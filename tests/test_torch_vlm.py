@@ -88,7 +88,8 @@ def test_config_equals_the_reference(size):
     jcfg, tcfg = ((jax_config(ARCH), get_config(ARCH)) if size == "full"
                   else (jax_smoke(ARCH), get_smoke_config(ARCH)))
     kept = {f.name for f in dataclasses.fields(tcfg)}
-    assert {"num_image_tokens", "frontend_dim"} <= kept
+    assert {"num_image_tokens", "frontend_dim", "hybrid_attn_every",
+            "encoder_layers", "encoder_seq", "cross_attention"} <= kept
     for name in kept:
         assert plain(getattr(jcfg, name)) == plain(getattr(tcfg, name)), name
     defaults = {f.name: f.default for f in dataclasses.fields(RC.ModelConfig)}
