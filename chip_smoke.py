@@ -88,6 +88,14 @@ failure:
                 the FullKV prefill of the same prompts and one FullKV
                 decode step (bf16 caches); device ms per step, KV bytes
                 per request and the two steps' top-1 agreement;
+   audit      — the entry-point contracts (``repro_torch.analysis``) at
+                the serve shapes, one rank, both backends, 8 ticks per
+                dispatch, the drift probe on: each entry point run once
+                on a scratch request (K1 once per tick and per trip, K2
+                and K3 once per layer of a chunk, K4 once per commit, no
+                fp64, no collective; the census's dispatches equal to
+                ``ops.LAUNCHES``) and the standalone K3 entry; then the
+                host syncs per entry point on a line of their own;
    sampled    — the serve phase's model at 8 of its 32 layers
                 (``CUT_LAYERS``) and its first two prompts, each with
                 ``samples_per_slot=2`` (2 parents and 2 forks on 4 slots),
@@ -110,6 +118,23 @@ failure:
                 dense replay); held: every request's tokens, a clean
                 audit, one probe per request with finite drift, K1 once
                 per tick, K4 once per commit, uniform's mean bits 4.00;
+   tp         — tensor-parallel serving over kv heads on 2 gloo ranks
+                (``launch.mesh.run_ranks``, both on the one card):
+                the pressure phase's traffic at its depth on both
+                backends, every rank bit-identical (tokens, every logit,
+                counters, audit) to the pressure phase's one-process run
+                of that backend, and a prefix detached on 2 ranks equal
+                to one detached here on one rank and decoding the same
+                16 tokens after an insert into this one-rank engine;
+                then, this process holding no weights, r1-llama-8b at
+                full width and depth on 2 ranks (32.1 GB of weights
+                each) serving the serve phase's traffic, every rank
+                bit-identical to the serve phase's run, with its launch
+                contracts (K1 once per tick, K2 and K3 once per layer
+                per chunk, K4 once per commit, launch counts zeroed just
+                before and read just after) and a clean
+                ``audit_compiled()``; per rank ms per tick, the gather's
+                time and peak memory;
 6. parity     — a 4-layer full-width model through the kernel and the
                 reference backends where their results must agree (see
                 ``parity``): identical tokens, logits within the reference's
@@ -188,7 +213,8 @@ failure:
                 against ``decode_attention_ref`` (3e-4 + 3e-4 |r|).
 
 Then the kernels line (each kernel's launches on its own path: K1-K4 from
-the serve phase, from the pressure phase as ``launches_pressure`` and from
+the serve phase, from the tp phase's serve leg (rank 0) as
+``launches_tp``, from the pressure phase as ``launches_pressure`` and from
 the sampled phase's first run at 8 ticks per dispatch as
 ``launches_sampled``, from the policy phase's runs as ``launches_policy``
 (by policy) and, for K1, from the serve_step phase's ThinKV step as
@@ -695,9 +721,9 @@ def check_mamba_scan(dev, gen, B=4, S=1024, di=8192, N=16):
     return rec
 
 
-def serve(engine_cls, cfg, params, prompts, max_new, backend, dev):
+def serve(engine_cls, cfg, params, prompts, max_new, backend, dev, **kw):
     eng = engine_cls(cfg, params=params, backend=backend, device=dev,
-                     record_logits=True)
+                     record_logits=True, **kw)
     eng.submit(prompts, max_new_tokens=max_new)
     done = eng.run()
     return eng, done
@@ -1541,7 +1567,19 @@ def serve_phase(engine_cls, cfg, params, prompts, max_new, init_s, dev,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(rec)
     rec["outputs"] = {r.arrival: r.output for r in done}
+    rec["run"] = run_record(eng, done)
     return rec
+
+
+def run_record(eng, done) -> dict:
+    """What the tp phase holds a run to: every request's tokens and
+    recorded logits, the engine counters and the pool audit."""
+    import numpy as np
+    return {"outputs": {r.arrival: r.output for r in done},
+            "logits": {a: np.stack(v) for a, v in eng.request_logits.items()},
+            "counters": {k: v for k, v in eng.metrics.items()
+                         if not k.endswith("_s")},
+            "audit": eng.audit_pool()}
 
 
 PRESSURE_FRAC = 0.5      # of the worst case, 4 slots x NB blocks
@@ -1835,9 +1873,9 @@ def pressure_phase(engine_cls, params, mc, dev, max_new=64) -> dict:
     unpressured = against(pressure_serve(
         engine_cls, cfg, params, prompts, priorities, max_new, dev, "kernel",
         None, False, watch=False))
-    reference = against(pressure_serve(
-        engine_cls, cfg, params, prompts, priorities, max_new, dev,
-        "reference", pool_blocks, True))
+    ref_run = pressure_serve(engine_cls, cfg, params, prompts, priorities,
+                             max_new, dev, "reference", pool_blocks, True)
+    reference = against(ref_run)
     rec = {"phase": "pressure", "layers": mc.num_layers,
            "d_model": mc.d_model, "heads": mc.num_heads,
            "kv_heads": mc.num_kv_heads, "head_dim": mc.head_dim,
@@ -1870,6 +1908,9 @@ def pressure_phase(engine_cls, params, mc, dev, max_new=64) -> dict:
     emit(rec)
     if failed:
         raise AssertionError(f"pressure phase failed: {failed}")
+    rec["runs"] = {"kernel": run_record(eng, done),
+                   "reference": run_record(*ref_run[:2])}
+    rec["traffic"] = (prompts, priorities, pool_blocks)
     return rec
 
 
@@ -2548,8 +2589,8 @@ def archs_phase(dev, tk) -> dict:
                          for p in params.parameters()) / 1e9
         srv = serve_phase(ThinKVEngine, cfg, params, prompts, ARCH_NEW,
                           init_s, dev, phase=f"archs {arch}")
-        rec = {k: v for k, v in srv.items() if k not in ("phase",
-                                                         "outputs")}
+        rec = {k: v for k, v in srv.items() if k not in ("phase", "outputs",
+                                                         "run")}
         rec.update(layers_of=get_config(arch).num_layers,
                    heads=mc.num_heads, kv_heads=mc.num_kv_heads,
                    qkv_bias=mc.qkv_bias, weights_gb=weights_gb)
@@ -2645,7 +2686,8 @@ def vlm_phase(dev, tk) -> dict:
     init_s = time.perf_counter() - t0
     srv = serve_phase(ThinKVEngine, cfg, params, prompts, ARCH_NEW, init_s,
                       dev, phase=f"vlm {VLM_ARCH}")
-    rec = {k: v for k, v in srv.items() if k not in ("phase", "outputs")}
+    rec = {k: v for k, v in srv.items()
+           if k not in ("phase", "outputs", "run")}
     rec.update(heads=mc.num_heads, kv_heads=mc.num_kv_heads,
                head_dim=mc.head_dim, weights_gb=sum(
                    p.numel() * p.element_size()
@@ -3058,6 +3100,331 @@ def encdec_phase(dev, tk) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tp: tensor-parallel serving over kv heads, 2 gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+TP_STEPS = 16            # greedy trips after inserting the portable prefix
+
+
+def logits_digest(logits: dict) -> str:
+    """sha256 of every request's recorded logits, in arrival order."""
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    for a in sorted(logits):
+        h.update(str(a).encode())
+        h.update(np.ascontiguousarray(logits[a]).tobytes())
+    return h.hexdigest()
+
+
+def tp_run_record(eng, done, rank: int) -> dict:
+    """A rank's ``run_record``: rank 0 carries the logits, every rank
+    their digest."""
+    rec = run_record(eng, done)
+    rec["logits_sha256"] = logits_digest(rec["logits"])
+    if rank:
+        del rec["logits"]
+    return rec
+
+
+def tp_checks(got: dict, want: dict, what: str) -> list:
+    """A rank's run against the one-process run: tokens, counters and
+    audit equal, and the logits bit-identical (rank 0's compared, the
+    others' digests)."""
+    import numpy as np
+    bad = [f"{what}: {k}" for k in ("outputs", "counters", "audit")
+           if got[k] != want[k]]
+    if got["logits_sha256"] != logits_digest(want["logits"]):
+        diff = max((float(np.abs(got["logits"][a] - want["logits"][a]).max())
+                    for a in want["logits"]), default=0.0) \
+            if "logits" in got and set(got["logits"]) == \
+            set(want["logits"]) else None
+        bad.append(f"{what}: logits not bit-identical (max |diff| {diff})")
+    return bad
+
+
+def tp_serve_rank(mesh, mc, prompts, max_new) -> dict:
+    """One rank of the serve leg: r1-llama-8b at full width and depth, the
+    serve phase's traffic on its share of the kv heads (kernel backend),
+    launch counts zeroed just before and read just after; then the
+    entry-point audit, the time of the tick's one gather and the rank's
+    peak memory."""
+    import torch
+    from repro_torch.config import ServeConfig, ThinKVConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import init_params
+    from repro_torch.serving.engine import ThinKVEngine
+    dev = mesh.device
+    t0 = time.perf_counter()
+    params = init_params(mc, SEED, dev)
+    init_s = time.perf_counter() - t0
+    cfg = ServeConfig(model=mc, thinkv=ThinKVConfig(), max_seqs=4)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    SH.reset_collectives()
+    eng, done = serve(ThinKVEngine, cfg, params, prompts, max_new, "kernel",
+                      dev, mesh=mesh)
+    launches = dict(ops.LAUNCHES)
+    collectives = {f"{k}({d})": n for (k, d), n in SH.COLLECTIVES.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    m = eng.metrics
+    rec = tp_run_record(eng, done, mesh.rank)
+    rep = eng.audit_compiled()
+    x = torch.randn((mc.num_layers, 4, mc.num_heads // mesh.size,
+                     mc.head_dim), device=dev)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    SH.gather_heads(x, mesh, 2)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        SH.gather_heads(x, mesh, 2)
+        sync()
+    gather_ms = (time.perf_counter() - t0) / 20 * 1e3
+    rec.update(rank=mesh.rank, init_s=init_s, launches=launches,
+               collectives=collectives, prefill_s=m["prefill_s"],
+               decode_s=m["decode_s"], wall_s=m["wall_s"],
+               ms_per_tick=1e3 * m["decode_s"] / m["ticks"],
+               layers=mc.num_layers, prefill_chunks=m["prefill_chunks"],
+               prefill_big_chunks=m["prefill_big_chunks"],
+               peak_mem_gb=peak, gather_ms=gather_ms,
+               gather_shape=list(x.shape), audit_ok=rep.ok,
+               audit_launches={k: e.census.launches
+                               for k, e in rep.entries.items()},
+               audit_violations=[str(v) for v in rep.violations],
+               host_syncs=rep.host_syncs())
+    return rec
+
+
+def tp_launch_failures(rec: dict, mc, prompts, max_new, G: int) -> list:
+    """K1 once per tick, K2 and K3 once per layer per chunk, K4 once per
+    commit, and the rank's entry-point audit clean."""
+    launches, c = rec["launches"], rec["counters"]
+    chunks = (rec["prefill_chunks"] + rec["prefill_big_chunks"]) \
+        * mc.num_layers
+    commits = sum((len(p) + max_new - 1) // G for p in prompts)
+    want = {"ct_paged_attention_fused": c["ticks"],
+            "ct_paged_attention_batched": chunks, "flash_prefill": chunks,
+            "group_quant": commits}
+    bad = [f"rank {rec['rank']}: {k} launched {launches.get(k, 0)}, want "
+           f"{n}" for k, n in want.items() if launches.get(k, 0) != n]
+    if not rec["audit_ok"]:
+        bad.append(f"rank {rec['rank']}: audit {rec['audit_violations']}")
+    return bad
+
+
+def tp_pressure_rank(mesh, mc, prompts, priorities, pool_blocks, max_new,
+                     prefix_prompt) -> dict:
+    """One rank of the pressure leg: the pressure phase's traffic, pool and
+    prefix cache at its depth on both backends, then a prefix prefilled on
+    the kernel backend's engine and detached (its spill holds every
+    head)."""
+    from repro_torch.config import ServeConfig, ThinKVConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import init_params
+    from repro_torch.serving.engine import ThinKVEngine
+    params = init_params(mc, SEED, mesh.device)
+    cfg = ServeConfig(model=mc, thinkv=ThinKVConfig(
+        token_budget=PRESSURE_BUDGET), max_seqs=4)
+    out, engines = {}, {}
+    for backend in ("kernel", "reference"):
+        ops.reset_launches()
+        eng = ThinKVEngine(cfg, params=params, backend=backend,
+                           device=mesh.device, record_logits=True,
+                           pool_blocks=pool_blocks, prefix_cache=True,
+                           mesh=mesh)
+        eng.submit(prompts, max_new_tokens=max_new, priorities=priorities)
+        t0 = time.perf_counter()
+        done = eng.run()
+        rec = tp_run_record(eng, done, mesh.rank)
+        rec.update(seconds=time.perf_counter() - t0,
+                   launches=dict(ops.LAUNCHES),
+                   ms_per_tick=1e3 * eng.metrics["decode_s"]
+                   / max(eng.metrics["ticks"], 1))
+        out[backend], engines[backend] = rec, eng
+    eng = engines["kernel"]
+    out["prefix"] = eng.detach_prefix(eng.prefill(prefix_prompt, 0))
+    return out
+
+
+def prefix_steps(eng, prefix, steps: int):
+    """Insert a portable prefix into slot 1 of an idle engine and run
+    ``steps`` greedy trips: (tokens, logits [steps, V]) of slot 1."""
+    import numpy as np
+    import torch
+    if not eng.insert(prefix, 1):
+        raise AssertionError("the portable prefix does not fit the pool")
+    active = np.zeros(eng.cfg.max_seqs, bool)
+    active[1] = True
+    feed = torch.as_tensor(eng._feed, device=eng.device)
+    toks, lgs = [], []
+    for _ in range(steps):
+        feed, lg = eng._trip(active, feed)
+        toks.append(int(feed[1]))
+        lgs.append(lg[1].float().cpu().numpy())
+    eng.free_resource(1)
+    eng._check_fails()
+    eng.audit_pool()
+    return toks, np.stack(lgs)
+
+
+def spill_bits(st) -> dict:
+    """A spill's cache fields and its planes over the mapped blocks (an
+    unmapped block's planes are whatever physical block 0 held, and are
+    never restored)."""
+    import torch
+    mapped = torch.as_tensor(st.mapped)
+    out = {f: getattr(st.cache, f) for f in st.cache.FIELDS}
+    out.update({f"view{i}": p[mapped] for i, p in enumerate(st.view)},
+               mapped=mapped)
+    return {k: (t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+            for k, t in out.items()}
+
+
+def tp_pressure_leg(engine_cls, params, mc, dev, prs) -> dict:
+    """The pressure phase's traffic on 2 ranks (its depth, ``CUT_LAYERS``),
+    both backends, each rank held bit-identical to the pressure phase's
+    one-process run of that backend (its 18 preemptions, prefix hits and
+    COW faults included); then a prefix detached on 2 ranks equals the one
+    detached here on one rank, and inserted into this one-rank engine it
+    decodes the same tokens and logits."""
+    import torch
+    from repro_torch.config import ServeConfig, ThinKVConfig
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    prompts, priorities, pool_blocks = prs["traffic"]
+    ranks = run_ranks(tp_pressure_rank, TP_RANKS, dev.type, mc, prompts,
+                      priorities, pool_blocks, 64, prompts[0], timeout=900)
+    failed = []
+    for r, got in enumerate(ranks):
+        for backend in ("kernel", "reference"):
+            failed += tp_checks(got[backend], prs["runs"][backend],
+                                f"pressure {backend} rank {r}")
+        k = got["kernel"]["launches"]
+        if k["ct_paged_attention_fused"] != got["kernel"]["counters"][
+                "ticks"] or k["group_quant"] != got["kernel"]["counters"][
+                    "commits"]:
+            failed.append(f"rank {r}: launches {k}")
+    eng = engine_cls(ServeConfig(model=mc, thinkv=ThinKVConfig(
+        token_budget=PRESSURE_BUDGET), max_seqs=4), params=params,
+        backend="kernel", device=dev, pool_blocks=pool_blocks)
+    one = eng.detach_prefix(eng.prefill(prompts[0], 0))
+    two = ranks[0]["prefix"]
+    want, got = spill_bits(one.state), spill_bits(two.state)
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    if bad or one.first_token != two.first_token:
+        failed.append(f"detached prefix differs: {bad}")
+    t1, l1 = prefix_steps(eng, one, TP_STEPS)
+    t2, l2 = prefix_steps(eng, two, TP_STEPS)
+    if t1 != t2 or not (l1 == l2).all():
+        failed.append("the 2-rank prefix decodes otherwise on one rank")
+    r0 = ranks[0]
+    return {"layers": mc.num_layers, "ranks": TP_RANKS,
+            "counters": {b: {k: r0[b]["counters"][k] for k in (
+                "preemptions", "resumes", "prefix_hits", "cow_faults",
+                "ticks", "commits")} for b in ("kernel", "reference")},
+            "seconds_per_run": {b: [g[b]["seconds"] for g in ranks]
+                                for b in ("kernel", "reference")},
+            "ms_per_tick": {b: [g[b]["ms_per_tick"] for g in ranks]
+                            for b in ("kernel", "reference")},
+            "launches": r0["kernel"]["launches"],
+            "prefix_tokens": len(prompts[0]), "prefix_steps": TP_STEPS,
+            "prefix_identical": t1 == t2, "failed": failed,
+            "seconds": time.perf_counter() - t0}
+
+
+def tp_serve_leg(mc, prompts, max_new, srv, dev) -> dict:
+    """The serve phase's traffic on 2 ranks at full width and depth,
+    each rank bit-identical to the serve phase's one-process run (tokens,
+    every logit, counters, audit), with its launch contracts."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    held_gb = torch.cuda.memory_allocated() / 1e9 \
+        if dev.type == "cuda" else None
+    ranks = run_ranks(tp_serve_rank, TP_RANKS, dev.type, mc, prompts,
+                      max_new, timeout=900)
+    failed = []
+    for r, got in enumerate(ranks):
+        failed += tp_checks(got, srv["run"], f"serve rank {r}")
+        failed += tp_launch_failures(got, mc, prompts, max_new, 16)
+    keys = ("init_s", "prefill_s", "decode_s", "wall_s", "ms_per_tick",
+            "peak_mem_gb", "gather_ms", "collectives", "host_syncs")
+    return {"layers": mc.num_layers, "ranks": TP_RANKS,
+            "main_process_gb_on_card": held_gb,
+            "per_rank": [{k: g[k] for k in keys} for g in ranks],
+            "one_process_ms_per_tick": srv["ms_per_tick"],
+            "one_process_peak_mem_gb": srv["peak_mem_gb"],
+            "gather_shape": ranks[0]["gather_shape"],
+            "launches": ranks[0]["launches"],
+            "audit_launches": ranks[0]["audit_launches"],
+            "failed": failed, "seconds": time.perf_counter() - t0}
+
+
+def audit_phase(engine_cls, params, mc, dev) -> dict:
+    """The entry-point audit (``analysis.audit_engine``) at the serve
+    shapes, one rank, both backends, 8 ticks per dispatch and the drift
+    probe on: launches per kernel held to the contracts (and on the card
+    equal to ``ops.LAUNCHES``), no fp64, no collective; host syncs per
+    entry point reported.  Then the kernel backend sampling as the
+    ``sampled`` phase does: its tick and pack make fp64 only where their
+    contracts name it (``SAMPLED_FP64``).  Also the standalone K3 entry."""
+    from repro_torch.analysis import audit_engine
+    from repro_torch.analysis.census import fp64_origin
+    from repro_torch.analysis.contracts import (SAMPLED_FP64,
+                                                audit_flash_prefill)
+    from repro_torch.config import ServeConfig, ThinKVConfig
+    t0 = time.perf_counter()
+    out, failed = {}, []
+    for backend, temp in (("kernel", 0.0), ("reference", 0.0),
+                          ("kernel", SAMPLED_T)):
+        eng = engine_cls(ServeConfig(model=mc, thinkv=ThinKVConfig(),
+                                     max_seqs=4, temperature=temp,
+                                     top_p=SAMPLED_TOP_P if temp else 1.0),
+                         params=params, backend=backend, device=dev,
+                         ticks_per_dispatch=8, drift_probe=True)
+        rep = audit_engine(eng)
+        del eng
+        if temp:
+            backend = "kernel_sampled"
+            origins = {fp64_origin(e) for k in ("_tick_fn", "_megatick_fn")
+                       for e in rep.entries[k].census.fp64}
+            if origins != set(SAMPLED_FP64):
+                failed.append(f"sampled fp64 from {sorted(origins)}")
+        out[backend] = {
+            "ok": rep.ok, "violations": [str(v) for v in rep.violations],
+            "entries": {k: {"launches": e.census.launches,
+                            "trips": e.census.trips,
+                            "commits": e.census.commits,
+                            "fp64": len(e.census.fp64),
+                            "host_syncs": e.census.host_syncs}
+                        for k, e in sorted(rep.entries.items())}}
+        failed += [f"{backend}: {v}" for v in out[backend]["violations"]]
+        failed += [f"{backend} {k}: dispatches {e.census.launches} but "
+                   f"launches {e.census.device_launches}"
+                   for k, e in rep.entries.items()
+                   if e.census.launches != e.census.device_launches]
+    fp = audit_flash_prefill(device=dev)
+    if not fp.ok or fp.census.device_launches != {"flash_prefill": 1}:
+        failed.append(f"flash_prefill: {fp.census.launches}")
+    gc.collect()
+    rec = {"phase": "audit", "layers": mc.num_layers, **out,
+           "failed": failed, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    emit({"host_syncs_per_entry_point": {
+        b: {k: sum(e["host_syncs"].values())
+            for k, e in out[b]["entries"].items()} for b in out}})
+    if failed:
+        raise AssertionError(f"audit phase failed: {failed}")
+    return rec
+
+
 def ab(parent: str) -> int:
     """The parent tree (``parent``/src, its kernels built there) and this
     one, each in its own process, in turns: parent, this, this, parent;
@@ -3140,6 +3507,7 @@ def main() -> int:
     emit(prof)
     if not ab_run:
         sst = serve_step_phase(params, mc, dev, prompts)
+        audit_phase(ThinKVEngine, params, mc, dev)
     del params
     gc.collect()                      # engines keep the weights in cycles
     torch.cuda.empty_cache()
@@ -3149,9 +3517,18 @@ def main() -> int:
         prs = pressure_phase(ThinKVEngine, params, mcc, dev)
         smp = sampled_phase(ThinKVEngine, params, mcc, prompts, dev)
         pol = policy_phase(ThinKVEngine, params, mcc, dev)
+        tpp = tp_pressure_leg(ThinKVEngine, params, mcc, dev, prs)
         del params
+        prs.pop("runs")
         gc.collect()
         torch.cuda.empty_cache()
+        # two ranks of 32.1 GB of weights each: this process holds none
+        tps = tp_serve_leg(mc, prompts, max_new, srv, dev)
+        emit({"phase": "tp", "pressure": tpp, "serve": tps})
+        srv.pop("run")
+        if tpp["failed"] or tps["failed"]:
+            raise AssertionError(f"tp phase failed: "
+                                 f"{tpp['failed'] + tps['failed']}")
     if ab_run:
         _, ssm_params, _, ssm_pre = ssm_prefill(dev, rng)
         del ssm_params
@@ -3220,6 +3597,7 @@ def main() -> int:
         recs[n]["launches_pressure"] = prs["launches"][recs[n]["name"]]
         recs[n]["launches_sampled"] = smp["runs"][1]["launches"][
             recs[n]["name"]]
+        recs[n]["launches_tp"] = tps["launches"][recs[n]["name"]]
     for n, r in recs.items():
         r["launches_policy"] = {p: run["launches"].get(r["name"], 0)
                                 for p, run in pol["runs"].items()}
@@ -3238,7 +3616,8 @@ def main() -> int:
     recs["K1"]["launches_hybrid"] = hyb["thinkv"]["k1_launches"]
     recs["K1"]["launches_encdec"] = enc["thinkv"]["k1_launches"]
     recs["K4"]["launches_encdec"] = enc["k4_cross"]["launches"]
-    extra = ("launches_pressure", "launches_sampled", "launches_policy",
+    extra = ("launches_pressure", "launches_sampled", "launches_tp",
+             "launches_policy",
              "launches_serve_step", "launches_archs", "launches_vlm",
              "launches_vlm_serve_step", "launches_hybrid", "launches_encdec",
              "launches_trace")

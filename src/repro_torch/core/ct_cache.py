@@ -36,6 +36,14 @@ COW step (``changed_slots``, ``sync_block_tables`` with a dirty mask,
 ``cow_blocks``), references (``incref_blocks``, ``release_blocks``) and the
 spill pair (``claim_blocks``, ``extract_request``, ``restore_request``).
 Physical ids are the reference's: claims take the lowest free id.
+
+Under tensor-parallel serving (``mesh``, ``distributed/sharding.py``) the
+planes and buffers hold a rank's share of the kv heads, and the two
+computations that cross heads gather first, as the reference's do
+(its lines 340-401 and 956-967): the keys an anneal or a budget eviction
+selects from are gathered to the full head set, so every rank makes the
+one-rank decision, and the COW dirty mask is ORed over ranks.  Nothing
+else here reads across heads.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ from repro_torch.config import ThinKVConfig, ThoughtType
 from repro_torch.core import quantization as Q
 from repro_torch.core.policy import get_policy
 from repro_torch.core.thoughts import classify
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 
 SCALE_DTYPE = torch.bfloat16
@@ -250,9 +259,11 @@ def commit_group(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
 def _anneal_segment(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
                     k_codes: torch.Tensor, k_scales: torch.Tensor,
                     seg: torch.Tensor, enable: torch.Tensor,
-                    policy=None) -> None:
+                    policy=None, mesh=None) -> None:
     """Anneal segment ``seg[l]`` one retention level in every layer l where
-    ``enable[l]``.  k_codes/k_scales are the flat [L, NS, H, ...] planes."""
+    ``enable[l]``.  k_codes/k_scales are the flat [L, NS, H, ...] planes
+    (a rank's heads under ``mesh``: the selection keys are gathered to the
+    full head set first)."""
     policy = get_policy(policy)
     L, NS = dims.L, dims.NS
     dev = seg.device
@@ -270,6 +281,7 @@ def _anneal_segment(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
     keys = Q.dequantize_by_bitcode(k_codes[lrow, idx],
                                    k_scales[lrow, idx].float(),
                                    bits[..., None, None])
+    keys = SH.gather_heads(keys, mesh, 2)
     keep = policy.select_tokens(keys.reshape(L, idx.shape[1], -1), valid,
                                 target, cfg)
     evict = valid & ~keep & (do & (count > target))[:, None]
@@ -291,7 +303,7 @@ def _free_empty_blocks(dims: CacheDims, cache: CTCache) -> None:
 
 def tbe_anneal_all(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
                    view: PoolView, before_seg: int, seg_type: List[int],
-                   policy=None) -> None:
+                   policy=None, mesh=None) -> None:
     """A transition segment ended: anneal every earlier used segment one
     retention level in every layer (``seg_type`` is the host copy)."""
     k_codes, _, k_scales, _ = view_flat(view)
@@ -301,20 +313,26 @@ def tbe_anneal_all(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
         if seg_type[seg] >= 0:
             _anneal_segment(cfg, dims, cache, k_codes, k_scales,
                             torch.full((dims.L,), seg, device=dev), on,
-                            policy)
+                            policy, mesh)
     _free_empty_blocks(dims, cache)
 
 
 def budget_evict(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
-                 view: PoolView, max_rounds: int = 4, policy=None) -> None:
+                 view: PoolView, max_rounds: int = 4, policy=None,
+                 mesh=None, num_tokens: Optional[int] = None) -> None:
     """Above budget: anneal each layer's least important, oldest segment one
     level per round.  Layers within budget are masked, not branched on, so
-    no flag is read back from the card."""
+    no flag is read back from the card.  ``num_tokens``, the caller's host
+    count of the request's tokens, bounds every layer's VALID slots: at or
+    under the budget no round can anneal, and the rounds are skipped (the
+    reference's ``lax.cond`` pays for a round only over budget)."""
     policy = get_policy(policy)
     k_codes, _, k_scales, _ = view_flat(view)
     S = dims.S
     dev = cache.slot_state.device
     seg_ids = torch.arange(S, device=dev)
+    if num_tokens is not None and num_tokens <= cfg.token_budget:
+        max_rounds = 0
     for _ in range(max_rounds):
         valid = cache.slot_state == VALID
         over = valid.sum(-1) > cfg.token_budget
@@ -326,25 +344,30 @@ def budget_evict(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
         key = policy.rho(cache.seg_type).long() * S + seg_ids
         key = torch.where(shrinkable, key, 2 ** 30)
         _anneal_segment(cfg, dims, cache, k_codes, k_scales,
-                        key.argmin(-1), over & shrinkable.any(-1), policy)
+                        key.argmin(-1), over & shrinkable.any(-1), policy,
+                        mesh)
     _free_empty_blocks(dims, cache)
 
 
 def refresh(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
-            view: PoolView, sparsity: torch.Tensor, policy=None) -> None:
+            view: PoolView, sparsity: torch.Tensor, policy=None,
+            mesh=None, num_tokens: Optional[int] = None) -> None:
     """Every tau tokens: classify the sparsity into a thought type, close the
-    current segment (TBE if it was a transition), then enforce the budget."""
+    current segment (TBE if it was a transition), then enforce the budget
+    (``num_tokens`` as in :func:`budget_evict`)."""
     new_thought = classify(sparsity, cfg.sparsity_thresholds)
     host = torch.cat([cache.cur_seg[None], cache.seg_type]).tolist()
     ended_seg, seg_type = host[0], host[1:]
     if seg_type[ended_seg] == int(ThoughtType.TRANSITION):
-        tbe_anneal_all(cfg, dims, cache, view, ended_seg, seg_type, policy)
+        tbe_anneal_all(cfg, dims, cache, view, ended_seg, seg_type, policy,
+                       mesh)
     nxt = min(ended_seg + 1, dims.S - 1)
     cache.cur_seg.fill_(nxt)
     cache.seg_type[nxt] = new_thought
     cache.prev_thought.copy_(cache.cur_thought)
     cache.cur_thought.copy_(new_thought)
-    budget_evict(cfg, dims, cache, view, policy=policy)
+    budget_evict(cfg, dims, cache, view, policy=policy, mesh=mesh,
+                 num_tokens=num_tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -632,7 +655,8 @@ def check_pool_invariants(pool: GlobalPool, tables, extra_tables=()) -> dict:
 def engine_advance(cfg: ThinKVConfig, dims: CacheDims, pool: GlobalPool,
                    table: torch.Tensor, cache: CTCache,
                    sparsity: torch.Tensor, *, num_tokens: int, buf_len: int,
-                   n_new: int = 1, track_cow: bool = False, policy=None
+                   n_new: int = 1, track_cow: bool = False, policy=None,
+                   mesh=None
                    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
                               int, int]:
     """``n_new`` tokens were written into the slot's buffer: commit (with
@@ -645,7 +669,9 @@ def engine_advance(cfg: ThinKVConfig, dims: CacheDims, pool: GlobalPool,
     post-commit one, and every shared block the commit changed COW-faults
     (:func:`sync_block_tables`).  Returns (whether a commit claim failed,
     the commit's COW-fault count — tensors the caller reads once, None when
-    nothing was due —, new num_tokens, new buf_len).
+    nothing was due —, new num_tokens, new buf_len).  Under ``mesh`` the
+    planes hold a rank's heads: a slot dirty in any rank's heads COW-faults
+    on every rank (the mask is ORed over ranks).
     """
     policy = get_policy(policy)
     cache.buf_len.add_(n_new)
@@ -660,12 +686,15 @@ def engine_advance(cfg: ThinKVConfig, dims: CacheDims, pool: GlobalPool,
         view0 = PoolView(*(p.clone() for p in view)) if track_cow else None
         if at_commit:
             commit_group(cfg, dims, cache, view, policy)
-            budget_evict(cfg, dims, cache, view, policy=policy)
+            budget_evict(cfg, dims, cache, view, policy=policy, mesh=mesh,
+                         num_tokens=num_tokens)
             buf_len = 0
         if at_refresh:
             with torch.profiler.record_function("thinkv.refresh"):
-                refresh(cfg, dims, cache, view, sparsity, policy)
-        dirty = changed_slots(view0, view) if track_cow else None
+                refresh(cfg, dims, cache, view, sparsity, policy, mesh,
+                        num_tokens)
+        dirty = SH.any_shard(changed_slots(view0, view), mesh) \
+            if track_cow else None
         failed, cow = sync_block_tables(dims, pool, table, cache, view,
                                         dirty_slots=dirty)
     return failed.any(), cow.sum(), num_tokens, buf_len

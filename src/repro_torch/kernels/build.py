@@ -7,7 +7,9 @@ checkout alone, into ``build/repro_torch_kernels/<hash>/`` at the root of
 the checkout (git-ignored), keyed by a hash of the sources, the headers
 they share (``csrc/*.cuh``) and the flags, so a changed kernel is rebuilt
 and an unchanged one is loaded as is.  Nothing is built when this module
-is imported.
+is imported.  :data:`BUILDS` counts the times the libraries were built or
+loaded (once per process), which ``analysis/retrace.py`` reads as the
+port's counterpart of a retrace.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ SIGNATURES = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+BUILDS = 0
 
 
 def _nvcc() -> str:
@@ -62,6 +65,7 @@ def _digest() -> str:
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Compile every source in parallel (if not already built) and load
     the libraries; returns {source stem: CDLL}."""
+    global BUILDS
     if _LIBS:
         return _LIBS
     out_dir = BUILD_ROOT / _digest()
@@ -96,6 +100,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         f.argtypes = argtypes
         f.restype = ctypes.c_int
     _LIBS.update(libs)
+    BUILDS += 1
     return _LIBS
 
 

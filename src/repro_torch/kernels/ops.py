@@ -5,7 +5,10 @@ its kernel does not take, on either device.  Then, for tensors on the CPU
 it computes its kernel's plain version (``kernels/ref.py``); for CUDA
 tensors it launches the hand-written CUDA kernel (``csrc/*.cu``, built by
 ``kernels/build.py``) or raises — there is no fallback.  It adds one to its
-entry of :data:`LAUNCHES` where it launches the kernel and nowhere else.
+entry of :data:`LAUNCHES` where it launches the kernel and nowhere else,
+and one to its entry of :data:`DISPATCHES` where it either launches the
+kernel or computes the plain version: on the card the two counts agree,
+and on the CPU the second is what ``analysis/census.py`` counts.
 
 Kernels (TPU kernel each replaces in brackets):
 
@@ -21,7 +24,9 @@ Kernels (TPU kernel each replaces in brackets):
 * ``mamba_scan``                     K5 [mamba_scan]
 
 ``buffer_attention`` and ``thinkv_decode_attention`` are the reference's
-plain-array helpers of the single-request controller around the wrapper.
+plain-array helpers of the single-request controller around the wrapper;
+``local_heads`` is a rank's share of a head axis under tensor-parallel
+serving (``distributed/sharding.py``).
 """
 from __future__ import annotations
 
@@ -39,10 +44,33 @@ LAUNCHES = {"ct_paged_attention_fused": 0, "ct_paged_attention_batched": 0,
             "ct_paged_attention": 0, "flash_prefill": 0, "group_quant": 0,
             "mamba_scan": 0}
 
+DISPATCHES = dict.fromkeys(LAUNCHES, 0)
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        DISPATCHES[k] = 0
+
+
+def _plain(name: str) -> None:
+    """A wrapper computes its kernel's plain version (CPU tensors)."""
+    DISPATCHES[name] += 1
+
+
+def local_heads(x: torch.Tensor, dim: int, rank: int, n: int
+                ) -> torch.Tensor:
+    """Rank ``rank``'s contiguous share of the head axis ``dim`` of ``x``
+    over ``n`` ranks (the axis must divide by ``n``).  Queries are laid
+    out kv-head-major (``Hq = H * gq``), so a contiguous ``Hq / n`` share
+    is exactly the queries of the rank's kv heads.  No kernel step reads
+    across heads, so a launch over a rank's share computes that share of
+    the one-rank launch.  A view, no copy."""
+    size = x.shape[dim]
+    if size % n:
+        raise ValueError(f"head axis of {size} does not divide over {n} "
+                         f"ranks")
+    return x.narrow(dim, rank * (size // n), size // n)
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -106,7 +134,11 @@ def kv_splits(r: int, h: int, gq: int, nb: int, sms: int, d: int) -> int:
     slice) walk of the live pool blocks into: enough that about two blocks
     run on each of the card's ``sms`` SMs, at most one share per table
     entry and 32.  Head_dim ``d`` above :data:`OUT_COLS` is cut into column
-    slices of that width, each its own block."""
+    slices of that width, each its own block.  The split count sets the
+    order in which the merge adds the partial sums, so ``h`` is the
+    MODEL's kv-head count even when a launch covers a rank's share of the
+    heads: every rank then splits each head's walk as one rank does, and
+    its output is that share of the one-rank launch's, bit for bit."""
     tiles = r * h * -(-gq // K2_ROWS) * max(1, d // OUT_COLS)
     return max(1, min(2 * sms // tiles, nb, 32))
 
@@ -116,6 +148,7 @@ def _launch(name: str, fn: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
     LAUNCHES[name] += 1
+    DISPATCHES[name] += 1
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -152,6 +185,7 @@ def paged_decode_attention_fused(qh, k_codes, v_codes, k_scales, v_scales,
         _check(n, t, torch.bfloat16, (L, r, g, h, d))
     _check("buf_len", buf_len, torch.int32, (r,))
     if on_cpu:
+        _plain("ct_paged_attention_fused")
         return R.ct_paged_attention_fused_ref(*args, group=group)
     _check_head_dim("K1", d, K1_HEAD_DIMS)
     _check_paged(d, group, k_codes, v_codes)
@@ -171,16 +205,19 @@ def paged_decode_attention_fused(qh, k_codes, v_codes, k_scales, v_scales,
 
 def paged_decode_attention_batched(qh, k_codes, v_codes, k_scales, v_scales,
                                    slot_state, slot_bits, block_table, *,
-                                   group: int = 16):
+                                   group: int = 16,
+                                   split_heads: Optional[int] = None):
     """Paged attention over the shared pool for one layer, every slot.
 
     qh [R, H, GQ, D] f32; planes [NP, BS, H, ...]; slot_state/slot_bits
-    [R, NB, BS] uint8; block_table [R, NB] int32 raw.  Returns
+    [R, NB, BS] uint8; block_table [R, NB] int32 raw.  ``split_heads`` is
+    the model's kv-head count when H is a rank's share of it (the walk's
+    split count follows it, :func:`kv_splits`); None means H.  Returns
     (out [R, H, GQ, D], m [R, H, GQ, 1], l [R, H, GQ, 1]) f32.
     """
     return _batched("ct_paged_attention_batched", qh, k_codes, v_codes,
                     k_scales, v_scales, slot_state, slot_bits, block_table,
-                    group)
+                    group, split_heads)
 
 
 def paged_decode_attention(q, k_codes, v_codes, k_scales, v_scales,
@@ -219,7 +256,7 @@ def paged_decode_attention(q, k_codes, v_codes, k_scales, v_scales,
 
 
 def _batched(name, qh, k_codes, v_codes, k_scales, v_scales, slot_state,
-             slot_bits, block_table, group):
+             slot_bits, block_table, group, split_heads=None):
     """K2's checks and launch, counted under ``name``."""
     args = (qh, k_codes, v_codes, k_scales, v_scales, slot_state, slot_bits,
             block_table)
@@ -236,7 +273,12 @@ def _batched(name, qh, k_codes, v_codes, k_scales, v_scales, slot_state,
         _check(n, t, torch.uint8, (r, nb, bs))
     _check("block_table", block_table, torch.int32, (r, nb))
     _check_head_dim("K2", d)
+    split_heads = h if split_heads is None else int(split_heads)
+    if split_heads % h:
+        raise ValueError(f"split_heads {split_heads} is not a multiple of "
+                         f"the launch's {h} kv heads")
     if on_cpu:
+        _plain(name)
         return R.ct_paged_attention_batched_ref(*args, group=group)
     _check_paged(d, group, k_codes, v_codes)
     if group != 16 or bs % 8 or bs > 32:
@@ -247,7 +289,8 @@ def _batched(name, qh, k_codes, v_codes, k_scales, v_scales, slot_state,
     out = torch.empty_like(qh)
     m = torch.empty((r, h, gq, 1), dtype=torch.float32, device=qh.device)
     l = torch.empty_like(m)
-    ns = kv_splits(r, h, gq, nb, _sm_count(qh.device.index or 0), d)
+    ns = kv_splits(r, split_heads, gq, nb, _sm_count(qh.device.index or 0),
+                   d)
     part = torch.empty((ns, r, h, gq, d) if ns > 1 else (0,),
                        dtype=torch.float32, device=qh.device)
     pml = torch.empty((ns, r, h, gq, 2) if ns > 1 else (0,),
@@ -312,6 +355,7 @@ def prefill_attention_stats(q, k, v, *, causal: bool = True, window: int = 0,
     _check("v", v, torch.float32, (s_len, h, d))
     _check_head_dim("K3", d)
     if on_cpu:
+        _plain("flash_prefill")
         kv_valid = None if n_valid is None else \
             torch.arange(s_len) < n_valid
         return R.flash_prefill_stats_ref(q, k, v, causal=causal,
@@ -356,6 +400,7 @@ def mamba_scan(x, dt, b, c, a):
     _check("c", c, torch.float32, (*lead, s_len, n))
     _check("a", a, torch.float32, (di, n))
     if on_cpu:
+        _plain("mamba_scan")
         return R.mamba_scan_ref(x, dt, b, c, a)
     y = torch.empty_like(x)
     _launch("mamba_scan", "mamba_scan", _ptr(x), _ptr(dt), _ptr(b), _ptr(c),
@@ -374,6 +419,7 @@ def tbq_group_quant(x: torch.Tensor, bits: int, group: int = 16):
         raise ValueError(f"D={d} not divisible by group {group}")
     _check("x", x, torch.float32)
     if on_cpu:
+        _plain("group_quant")
         return R.group_quant_ref(x, bits, group)
     if group != Q.GROUP:
         raise ValueError(f"K4 takes a scale per {Q.GROUP} lanes (got "
@@ -411,6 +457,7 @@ def tbq_commit_quant(buf_k: torch.Tensor, buf_v: torch.Tensor,
         raise ValueError(f"buffers and bits on different devices: "
                          f"{buf_k.device}, {buf_v.device}, {bits.device}")
     if on_cpu:
+        _plain("group_quant")
         return R.group_quant_commit_ref(buf_k, buf_v, bits, levels)
     _aligned("buf_k and buf_v", 16, buf_k, buf_v)
     shape, dev = buf_k.shape, buf_k.device

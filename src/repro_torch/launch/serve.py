@@ -49,9 +49,17 @@ card unless ``cpu`` is asked for):
   ``--stream``; with forks, fork COW faults, shared refcounts and forks
   equal to their parents).
 
-``--mesh``, ``--heads``, ``--kv-heads`` and ``--expect-mesh-parity``
-belong to tensor-parallel serving (ROADMAP queue 1 item 13) and are
-refused, naming it.
+Tensor-parallel serving: ``--mesh model=N`` spawns N ranks
+(``launch.mesh.run_ranks``: one process each, a gloo group, every rank on
+the card, or on the CPU with ``--device cpu``), each serving the same
+traffic over its share of the kv heads; rank 0 prints the lines above and
+a ``mesh:`` line.  ``--heads`` / ``--kv-heads`` override the config's head
+counts (to make a smoke config head-shardable); a kv-head count that N
+does not divide is refused.  ``--expect-mesh-parity`` (the reference's CI
+gate) has the ranks drop their engines, then replays the traffic on an
+unsharded engine in rank 0: every request's tokens and per-step logits
+must be bit-identical and both pool audits clean, or it exits non-zero.
+A rank that fails fails the run.
 
     python -m repro_torch.launch.serve --full --backend kernel --temperature 0
     python -m repro_torch.launch.serve --device cpu --pool-frac 0.6 \
@@ -63,17 +71,24 @@ refused, naming it.
     python -m repro_torch.launch.serve --device cpu --arch mixtral-8x7b
     python -m repro_torch.launch.serve --arch paligemma-3b --full \
         --backend kernel --temperature 0
+    python -m repro_torch.launch.serve --device cpu --mesh model=2 \
+        --heads 8 --kv-heads 4 --pool-frac 0.6 --prefix-cache \
+        --expect-mesh-parity
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
+import gc
 
 import numpy as np
 
 from repro_torch.config import ServeConfig, ThinKVConfig
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core import ct_cache as CC
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch import mesh as M
 from repro_torch.serving.engine import ThinKVEngine
 from repro_torch.serving.orchestrator import Orchestrator
 
@@ -191,13 +206,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="gate (needs --stream, greedy): a second engine's "
                          "synchronous run() must give bit-identical "
                          "per-request logits, both pool audits clean")
-    for flag in ("--mesh", "--heads", "--kv-heads"):
-        ap.add_argument(flag, default=None,
-                        help="tensor-parallel serving: not ported (ROADMAP "
-                             "queue 1 item 13)")
+    ap.add_argument("--mesh", type=str, default=None,
+                    help="mesh spec for tensor-parallel serving, e.g. "
+                         "model=2 (N ranks, each serving its share of the "
+                         "kv heads; kv_heads %% N == 0)")
+    ap.add_argument("--heads", type=int, default=None,
+                    help="override the arch's query-head count (e.g. to "
+                         "make a smoke config head-shardable)")
+    ap.add_argument("--kv-heads", type=int, default=None,
+                    help="override the arch's kv-head count")
     ap.add_argument("--expect-mesh-parity", action="store_true",
-                    help="tensor-parallel gate: not ported (ROADMAP queue "
-                         "1 item 13)")
+                    help="gate (needs --mesh): replay the traffic on an "
+                         "UNSHARDED engine and fail unless every request's "
+                         "tokens and logits are bit-identical and both "
+                         "pool audits are clean")
     ap.add_argument("--policy", default="thinkv",
                     choices=("thinkv", "rkv", "uniform"),
                     help="retention policy: the paper's thought-adaptive "
@@ -226,11 +248,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_args(ap, args) -> None:
-    """The reference's refusals, and item 13's flags."""
-    if args.mesh or args.heads or args.kv_heads or args.expect_mesh_parity:
-        ap.error("--mesh, --heads, --kv-heads and --expect-mesh-parity "
-                 "belong to tensor-parallel serving, not ported yet "
-                 "(ROADMAP queue 1 item 13)")
+    """The reference's refusals."""
+    if args.expect_mesh_parity and not args.mesh:
+        ap.error("--expect-mesh-parity requires --mesh")
     if args.temperature < 0:
         ap.error("--temperature must be >= 0")
     if not 0 < args.top_p <= 1:
@@ -259,13 +279,48 @@ def _check_args(ap, args) -> None:
         ap.error("--expect-prefix-hits requires --prefix-cache")
 
 
+def _model_config(ap, args):
+    mcfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    if args.heads is not None:
+        mcfg = dataclasses.replace(mcfg, num_heads=args.heads)
+    if args.kv_heads is not None:
+        mcfg = dataclasses.replace(mcfg, num_kv_heads=args.kv_heads)
+    if mcfg.num_kv_heads < 1 or mcfg.num_heads % mcfg.num_kv_heads:
+        ap.error(f"--heads/--kv-heads must keep num_heads divisible by "
+                 f"num_kv_heads (got {mcfg.num_heads} / "
+                 f"{mcfg.num_kv_heads})")
+    return mcfg
+
+
 def main(argv=None, params=None):
     """Run the CLI on ``argv``; ``params`` are the weights to serve (random
-    from the config's seed when None).  Returns the finished requests."""
+    from the config's seed when None).  Returns the finished requests
+    (rank 0's under ``--mesh``)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     _check_args(ap, args)
-    mcfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    mcfg = _model_config(ap, args)
+    if not args.mesh:
+        return _serve(None, args, mcfg, params)
+    try:
+        n = M.serve_ranks(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    if not SH.head_shardable(mcfg.num_kv_heads, n):
+        ap.error(f"mesh['{SH.SERVE_HEAD_AXIS}']={n} cannot shard "
+                 f"{mcfg.num_kv_heads} kv heads (head sharding needs "
+                 f"kv_heads % mesh size == 0)")
+    if n == 1:
+        return _serve(M.make_serve_mesh(args.mesh, 0, args.device), args,
+                      mcfg, params)
+    return M.run_ranks(_serve, n, args.device, args, mcfg, params)[0]
+
+
+def _serve(mesh, args, mcfg, params):
+    """Serve the traffic on this process's engine (one rank's of ``mesh``,
+    when there is one); rank 0 reports and runs the gates.  Returns the
+    finished requests."""
+    lead = mesh is None or mesh.rank == 0
     tk = ThinKVConfig(refresh_interval=args.tau, group_size=args.group,
                       block_size=args.group, token_budget=args.budget,
                       retention_schedule=(32, 16, 8, 4), min_retention=4,
@@ -279,12 +334,14 @@ def main(argv=None, params=None):
     if args.pool_frac is not None:
         pool_blocks = max(int(worst_case * args.pool_frac), 1)
     eng = ThinKVEngine(cfg, params=params, backend=args.backend,
-                       device=args.device, pool_blocks=pool_blocks,
-                       prefix_cache=args.prefix_cache,
+                       device=args.device if mesh is None else mesh.device,
+                       pool_blocks=pool_blocks,
+                       prefix_cache=args.prefix_cache, mesh=mesh,
                        ticks_per_dispatch=args.ticks_per_dispatch,
                        allow_forks=args.samples_per_slot > 1,
                        policy=args.policy, drift_probe=args.drift_probe,
-                       record_logits=args.expect_stream_parity)
+                       record_logits=(args.expect_stream_parity
+                                      or args.expect_mesh_parity))
     rng = np.random.default_rng(0)
     shared_len = int(round(args.prompt_len * args.shared_prefix_frac))
     shared = rng.integers(0, mcfg.vocab_size, shared_len)
@@ -304,18 +361,35 @@ def main(argv=None, params=None):
         eng.submit(prompts, max_new_tokens=args.max_new,
                    priorities=priorities)
         done = eng.run()
-    report(args, eng, done, worst_case, orch, counts)
-    ctx = dict(args=args, cfg=cfg, eng=eng, done=done, prompts=prompts,
-               priorities=priorities, pool_blocks=pool_blocks, orch=orch,
-               streams=streams)
-    for flag, gate in (("expect_all", all_gate),
-                       ("expect_preemptions", preemption_gate),
-                       ("expect_prefix_hits", prefix_gate),
-                       ("expect_stream_parity", stream_parity_gate),
-                       ("expect_drift", drift_gate),
-                       ("expect_multi_tick", multi_tick_gate)):
-        if getattr(args, flag):
-            gate(**ctx)
+    if not lead:
+        eng.audit_pool()
+    else:
+        report(args, eng, done, worst_case, orch, counts)
+        if mesh is not None:
+            print(f"mesh: {mesh.spec} over {mesh.size} ranks (gloo, "
+                  f"{eng.device.type}) | kv heads sharded "
+                  f"{eng._nshard}-way | one fused launch per tick per rank")
+        ctx = dict(args=args, cfg=cfg, eng=eng, done=done, prompts=prompts,
+                   priorities=priorities, pool_blocks=pool_blocks, orch=orch,
+                   streams=streams)
+        for flag, gate in (("expect_all", all_gate),
+                           ("expect_preemptions", preemption_gate),
+                           ("expect_prefix_hits", prefix_gate),
+                           ("expect_stream_parity", stream_parity_gate),
+                           ("expect_drift", drift_gate),
+                           ("expect_multi_tick", multi_tick_gate)):
+            if getattr(args, flag):
+                gate(**ctx)
+    if args.expect_mesh_parity:
+        run = {"outputs": {r.uid: r.output for r in done},
+               "logits": eng.request_logits, "audit": eng.audit_pool(),
+               "done": len(done)}
+        params, backend, dev = eng.model, eng.backend, eng.device
+        eng = ctx = None
+        gc.collect()
+        if lead:
+            mesh_parity_gate(args, cfg, params, backend, dev, pool_blocks,
+                             prompts, priorities, run)
     return done
 
 
@@ -470,6 +544,51 @@ def stream_parity_gate(args, cfg, eng, done, prompts, priorities,
           f"steps bit-identical between the streamed orchestrator and the "
           f"synchronous run() path; prefill/decode overlap observed; both "
           f"audits clean")
+
+
+def mesh_parity_gate(args, cfg, params, backend, device, pool_blocks,
+                     prompts, priorities, run) -> None:
+    """The sharded run (``run``: its outputs, logits and audit, its engines
+    dropped) against an unsharded engine serving the same traffic with the
+    same weights: every request's tokens and per-step logits bit-identical
+    and both pool audits clean and equal."""
+    ref = ThinKVEngine(cfg, params=params, backend=backend, device=device,
+                       pool_blocks=pool_blocks,
+                       prefix_cache=args.prefix_cache, policy=args.policy,
+                       ticks_per_dispatch=args.ticks_per_dispatch,
+                       record_logits=True)
+    ref.submit([p.copy() for p in prompts], max_new_tokens=args.max_new,
+               priorities=priorities)
+    ref_done = ref.run()
+    mismatch = []
+    if run["done"] != len(ref_done):
+        mismatch.append(f"completed {run['done']} vs {len(ref_done)}")
+    if set(run["logits"]) != set(ref.request_logits):
+        mismatch.append("recorded-request sets differ")
+    mismatch += [r.uid for r in ref_done
+                 if run["outputs"].get(r.uid) != r.output]
+    logit_steps = bad_steps = 0
+    for key in set(run["logits"]) & set(ref.request_logits):
+        seq, ref_seq = run["logits"][key], ref.request_logits[key]
+        if len(seq) != len(ref_seq):
+            mismatch.append(f"arrival{key}:steps")
+            continue
+        for a, b in zip(seq, ref_seq):
+            logit_steps += 1
+            if a.shape != b.shape or not (a == b).all():
+                bad_steps += 1
+    try:
+        audit_s = ref.audit_pool()
+    except AssertionError as e:
+        raise SystemExit(f"mesh-parity gate FAILED: pool audit: {e}")
+    if mismatch or bad_steps or run["audit"] != audit_s:
+        raise SystemExit(
+            f"mesh-parity gate FAILED: output mismatches {mismatch}, "
+            f"{bad_steps}/{logit_steps} non-bit-identical logit steps, "
+            f"audits {run['audit']} vs {audit_s}")
+    print(f"mesh-parity gate OK: {run['done']} requests, {logit_steps} "
+          f"logit steps bit-identical between --mesh {args.mesh} and the "
+          f"unsharded engine; both audits clean")
 
 
 def drift_gate(eng, done, orch, **_) -> None:

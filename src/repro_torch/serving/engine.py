@@ -92,8 +92,33 @@ prefix reaches the engine).
 
 The SSM, hybrid and encoder-decoder families are refused with a
 ValueError, as the reference engine refuses them: they are served through
-``serving/serve_step.py``.  Not in this slice (raises NotImplementedError
-naming the ROADMAP item): tensor parallelism (item 13).
+``serving/serve_step.py``.
+
+Tensor-parallel serving (``mesh=``, a ``launch.mesh.ServeMesh``: one
+process per rank, ``launch.mesh.run_ranks``), as the reference's (its
+lines 139-170): each rank holds the pool planes ``[L, NP, BS, H/N, ...]``
+and TBQ buffers ``[R, L, G, H/N, D]`` of its contiguous share of the kv
+heads, and launches the same kernels over it (K1 once per tick, K2 and K3
+once per layer of a chunk, K2 split as a one-rank launch is:
+``split_heads``).  Everything head-agnostic is whole and identical on
+every rank: weights, projections, MLP, residuals and logits, block tables,
+refcounts, slot and segment metadata, the scheduler, the prefix cache and
+every host decision.  Queries and keys are sliced to the rank's heads
+(``kernels.ops.local_heads``) before the buffer write and the attention,
+and only attention outputs are gathered back
+(``distributed.sharding.gather_heads``); the cache's two cross-head
+computations gather too (``core.ct_cache``).  No float reduction crosses
+ranks, so N ranks are bit-identical to one: tokens, logits, counters and
+audits.  A spill or a detached prefix holds the whole heads on the host
+(each rank gathers its shares), and resume or ``insert`` takes this
+rank's, so a spill moves between rank counts.  Every rank reports the
+same; the launcher prints rank 0's.
+
+The compiled-path checks (``analysis``): ``compiled_entry_points`` lists
+the entry points the contracts pin, ``audit_compiled`` audits them and
+``tick_launch_count`` / ``megatick_launch_count`` /
+``prefill_launch_count`` read their launch counts, each by running the
+entry point on a scratch request (the reference reads its jaxprs).
 """
 from __future__ import annotations
 
@@ -112,6 +137,7 @@ from repro_torch.core import thinkv as TV
 from repro_torch.core.policy import get_policy
 from repro_torch.core.thoughts import row_sparsity
 from repro_torch.device import resolve_device, set_f32_numerics
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as KR
 from repro_torch.layers import attention as A
@@ -128,11 +154,6 @@ from repro_torch.serving.scheduler import Request, Scheduler
 NEG_INF = -1e30
 # the drift probe pads prompt + output to a multiple of this length
 DRIFT_PAD = 32
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 "
-                              f"item {item})")
 
 
 def _sample_slots(keys: torch.Tensor, logits: torch.Tensor,
@@ -168,14 +189,18 @@ def _joint_attend(q, k_pool, v_pool, valid_pool, buf_k, buf_v, buf_mask):
     return out.reshape(b, t, hq, hd).to(q.dtype), p, valid
 
 
-def _probs_sparsity(p_t: torch.Tensor, valid_t: torch.Tensor) -> torch.Tensor:
+def _probs_sparsity(p_t: torch.Tensor, valid_t: torch.Tensor,
+                    mesh=None) -> torch.Tensor:
     """Sparsity of one query's probs per slot: p_t [B, H, gq, N], valid_t
     [B, N] -> [B] (max-pool over the q group, renormalize, mean over
-    heads)."""
+    heads).  Per-head values are head-local; under ``mesh`` they are
+    gathered to every head before the mean, never summed across ranks (a
+    float sum would reorder)."""
     vm = valid_t[:, None, :]
     pooled = torch.where(vm, p_t.amax(dim=2), 0.0)
     pooled = pooled / pooled.sum(-1, keepdim=True).clamp_min(1e-30)
-    return row_sparsity(pooled, vm.expand_as(pooled)).mean(-1)
+    per_head = row_sparsity(pooled, vm.expand_as(pooled))         # [B, H]
+    return SH.gather_heads(per_head, mesh, 1).mean(-1)
 
 
 @dataclasses.dataclass
@@ -183,9 +208,10 @@ class PreemptedState:
     """Host copy of a paused request's device state (the reference's).
 
     ``view`` holds the pool planes gathered through the request's table
-    ([L, NB, BS, ...] CPU tensors; bf16 stays torch bf16), ``mapped`` the
-    PRIVATE logical blocks resume claims fresh blocks for, ``cache`` the
-    request's metadata and TBQ buffer (CPU tensors), ``shared_table`` the
+    ([L, NB, BS, H, ...] CPU tensors, every kv head even on one rank of a
+    mesh; bf16 stays torch bf16), ``mapped`` the PRIVATE logical blocks
+    resume claims fresh blocks for, ``cache`` the request's metadata and
+    TBQ buffer (CPU tensors, every kv head), ``shared_table`` the
     physical ids of the SHARED blocks whose reference the paused request
     keeps (re-attached verbatim on resume; -1 elsewhere), ``rng`` the
     request's sampling key at the spill ([2] int64), restored verbatim so
@@ -214,7 +240,8 @@ class Prefix:
     ``slot``'s block table; ``insert`` into that slot seeds the feed.
     PORTABLE (``state`` set by :meth:`ThinKVEngine.detach_prefix`, the
     spill format preemption uses): ``insert`` claims fresh blocks and
-    scatters the planes into any slot of an engine with the same dims."""
+    scatters the planes into any slot of an engine with the same dims, on
+    any number of ranks."""
 
     length: int
     first_token: int
@@ -320,7 +347,7 @@ class MultiTickResult:
 
 class ThinKVEngine:
     """Dense-, MoE- and VLM-backbone LM serving with ThinKV on one card (or
-    the CPU)."""
+    the CPU), or on one rank of a tensor-parallel mesh."""
 
     def __init__(self, cfg: ServeConfig, params: Optional[LM] = None,
                  lstar: Optional[Sequence[int]] = None,
@@ -344,10 +371,26 @@ class ThinKVEngine:
                 f"serving/serve_step.py")
         if int(ticks_per_dispatch) < 1:
             raise ValueError(f"ticks_per_dispatch {ticks_per_dispatch} < 1")
-        if mesh is not None:
-            _not_ported("tensor-parallel serving", "13")
         if cfg.thinkv.refresh_interval % cfg.thinkv.group_size:
             raise ValueError("chunked prefill needs tau % g == 0")
+        # tensor-parallel sharding over the kv-head axis (module
+        # docstring): this rank's share of the pool planes, buffers and
+        # attention; everything head-agnostic whole
+        self.mesh = mesh
+        n = 1 if mesh is None else int(mesh.size)
+        if not SH.head_shardable(cfg.model.num_kv_heads, n):
+            raise ValueError(
+                f"mesh['{SH.SERVE_HEAD_AXIS}']={n} cannot shard "
+                f"{cfg.model.num_kv_heads} kv heads (head sharding needs "
+                f"kv_heads % mesh size == 0)")
+        self._nshard, self._rank = n, 0 if mesh is None else int(mesh.rank)
+        if mesh is not None:
+            want = mesh.device if device is None else torch.device(device)
+            if want.type != mesh.device.type or want.index not in (
+                    None, mesh.device.index):
+                raise ValueError(f"engine on {device}, its mesh rank on "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         set_f32_numerics()
         if backend == "auto":
@@ -366,6 +409,8 @@ class ThinKVEngine:
         mc = cfg.model
         self.dims = CC.make_dims(self.tk, mc.num_layers, mc.num_kv_heads,
                                  mc.head_dim)
+        # the geometry of this rank's planes and buffers
+        self.ldims = self.dims._replace(H=self.dims.H // n)
         n_lstar = min(self.tk.num_calib_layers, mc.num_layers)
         self.lstar = tuple(int(x) for x in (
             lstar if lstar is not None else range(n_lstar)))
@@ -373,11 +418,11 @@ class ThinKVEngine:
         self.scheduler = Scheduler(R)
         self.num_pool_blocks = pool_blocks if pool_blocks is not None \
             else R * self.dims.NB
-        self.pool = CC.init_global_pool(self.dims, self.num_pool_blocks,
+        self.pool = CC.init_global_pool(self.ldims, self.num_pool_blocks,
                                         self.device)
         self.tables = CC.init_block_table(self.dims, self.device, batch=R)
-        self.caches = CC.init_cache(self.dims, self.device, batch=R)
-        self._fresh = CC.init_cache(self.dims, self.device)
+        self.caches = CC.init_cache(self.ldims, self.device, batch=R)
+        self._fresh = CC.init_cache(self.ldims, self.device)
         if prefill_chunk is None:
             prefill_chunk = 128 if 128 % self.dims.G == 0 else 0
         if prefill_chunk and (prefill_chunk % 128 or
@@ -425,12 +470,21 @@ class ThinKVEngine:
         self._fails: List[torch.Tensor] = []
         self._cows: List[tuple] = []
         self.last_orchestrator = None
+        self._retrace_guard = None     # an analysis.RetraceGuard, installed
         # worst-case fresh blocks one group commit claims per layer
         self._cc = -(-self.dims.G // self.dims.BS)
 
     # ------------------------------------------------------------------
     # attention helpers shared by tick + prefill
     # ------------------------------------------------------------------
+
+    def _local(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's share of a head axis (all of it on one rank)."""
+        return K.local_heads(x, dim, self._rank, self._nshard)
+
+    def _whole(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """A head axis gathered from every rank's share."""
+        return SH.gather_heads(x, self.mesh, dim)
 
     def _dense_layer(self, l: int, q, slots, k_buf, v_buf, buf_mask):
         """Reference attention of layer ``l`` for the given slots: gather
@@ -469,7 +523,7 @@ class ThinKVEngine:
             qh, pv.k_codes[l], pv.v_codes[l], pv.k_scales[l], pv.v_scales[l],
             self.caches.slot_state[i, l].reshape(shp),
             self.caches.slot_bits[i, l].reshape(shp),
-            self.tables[i, l][None])
+            self.tables[i, l][None], split_heads=dims.H)
 
         def unfold(a):
             return a[0].reshape(h, c, gq, -1).transpose(0, 1) \
@@ -489,7 +543,8 @@ class ThinKVEngine:
                 self.caches.slot(i), sparsity,
                 num_tokens=int(self._slot_ntok[i]),
                 buf_len=int(self._slot_buflen[i]), n_new=n_new,
-                track_cow=self._track_cow, policy=self.policy)
+                track_cow=self._track_cow, policy=self.policy,
+                mesh=self.mesh)
         if fail is not None:
             self._fails.append(fail)
             self._cows.append((i, cow))
@@ -527,8 +582,9 @@ class ThinKVEngine:
     def _tick(self, active: np.ndarray, feed: torch.Tensor) -> torch.Tensor:
         """One decode tick over every slot from the tokens ``feed`` ([R] on
         the device): returns the logits [R, V]; active slots' caches
-        advance."""
-        mc, tk, dims = self.mcfg, self.tk, self.dims
+        advance.  Queries, keys and values are sliced to this rank's heads
+        and the attention outputs gathered back, once per tick."""
+        mc, tk, dims = self.mcfg, self.tk, self.ldims
         R, L, dev = self.cfg.max_seqs, mc.num_layers, self.device
         m, caches = self.model, self.caches
         h = E.embed(m.embed_params, feed, mc)                    # [R, Dm]
@@ -544,20 +600,25 @@ class ThinKVEngine:
             lp = m.layer(l)
             x1 = rmsnorm(lp["norm1"], h, mc.norm_eps)
             q, k, v = A.qkv_decode(lp["attn"], x1, mc, pos)
-            caches.buf_k[ridx, l, buf_len] = k.to(torch.bfloat16)
-            caches.buf_v[ridx, l, buf_len] = v.to(torch.bfloat16)
+            caches.buf_k[ridx, l, buf_len] = self._local(k, 1) \
+                .to(torch.bfloat16)
+            caches.buf_v[ridx, l, buf_len] = self._local(v, 1) \
+                .to(torch.bfloat16)
             h = lm.mlp_residual(lp, h, mc)
-            qs.append(q)
-        qs = torch.stack(qs)                                     # [L,R,Hq,D]
+            qs.append(self._local(q, 1))
+        qs = torch.stack(qs)                             # [L, R, Hq/N, D]
         n_buf = caches.buf_len + 1
 
         def dense(l):
+            """Layer l's attention and, for a calibration layer, its
+            sparsity (None elsewhere)."""
             mask = (torch.arange(dims.G, device=dev)[None]
                     < n_buf[:, None])[:, None]                   # [R, 1, G]
             o, p, valid = self._dense_layer(
                 l, qs[l][:, None], ridx, caches.buf_k[:, l],
                 caches.buf_v[:, l], mask)
-            return o[:, 0], _probs_sparsity(p[:, 0], valid[:, 0])
+            return o[:, 0], _probs_sparsity(p[:, 0], valid[:, 0], self.mesh) \
+                if l in self.lstar else None
 
         # pass 2: attention, once, over the stacked queries
         if self.backend == "kernel":
@@ -569,8 +630,7 @@ class ThinKVEngine:
                 CC.stacked_slot_plane(dims, caches.slot_bits), self.tables,
                 CC.stacked_buffers(caches.buf_k),
                 CC.stacked_buffers(caches.buf_v), n_buf)
-            o_all = o_all.reshape(L, R, mc.num_heads, mc.head_dim) \
-                .to(qs.dtype)
+            o_all = o_all.reshape(qs.shape).to(qs.dtype)
             if refresh_due.any():
                 sparsity = torch.stack([dense(l)[1] for l in self.lstar]) \
                     .mean(0)
@@ -580,6 +640,7 @@ class ThinKVEngine:
             outs = [dense(l) for l in range(L)]
             o_all = torch.stack([o for o, _ in outs])
             sparsity = torch.stack([outs[l][1] for l in self.lstar]).mean(0)
+        o_all = self._whole(o_all, 2)                     # [L, R, Hq, D]
 
         # pass 3: attention output residuals
         for l in range(L):
@@ -625,7 +686,8 @@ class ThinKVEngine:
     @torch.no_grad()
     def _prefill_chunk(self, i: int, tokens: np.ndarray):
         """Up to g prompt tokens of slot ``i`` in one forward (the buffer
-        starts empty: chunks align with commits)."""
+        starts empty: chunks align with commits).  Each layer's attention
+        runs over this rank's heads; its output is gathered back."""
         mc, tk, dims, dev = self.mcfg, self.tk, self.dims, self.device
         C, n_valid = dims.G, len(tokens)
         start = int(self._slot_ntok[i])
@@ -646,6 +708,7 @@ class ThinKVEngine:
         for l in range(mc.num_layers):
             lp = self.model.layer(l)
             q, k, v = self._layer_qkv(lp, h, positions)
+            q, k, v = (self._local(t, 1) for t in (q, k, v))
             km = torch.where(tok_valid[:, None, None], k, 0.0) \
                 .to(torch.bfloat16)
             vm = torch.where(tok_valid[:, None, None], v, 0.0) \
@@ -653,18 +716,21 @@ class ThinKVEngine:
             cache.buf_k[l] = km
             cache.buf_v[l] = vm
 
+            need = l in self.lstar and refresh_due
+
             def dense():
                 o, p, valid = self._dense_layer(l, q[None], slot, km[None],
                                                 vm[None], buf_mask)
-                return o[0], _probs_sparsity(p[:, last], valid[:, last])[0]
+                return o[0], _probs_sparsity(p[:, last], valid[:, last],
+                                             self.mesh)[0] if need else None
 
             if self.backend == "kernel":
                 o = self._chunk_kernel(q, l, i, km, vm, n_valid)
-                if l in self.lstar and refresh_due:
+                if need:
                     spars[l] = dense()[1]
             else:
                 o, spars[l] = dense()
-            h = self._layer_out(lp, h, o)
+            h = self._layer_out(lp, h, self._whole(o, 1))
         sparsity = torch.stack([spars[l] for l in self.lstar]).mean() \
             if refresh_due else torch.zeros((), device=dev)
         self._advance(i, sparsity, n_valid)
@@ -674,7 +740,8 @@ class ThinKVEngine:
     def _prefill_big(self, i: int, tokens: np.ndarray):
         """``prefill_chunk`` tokens of slot ``i`` in one forward (intra-chunk
         attention at full precision, one sparsity value for the chunk), then
-        C/g group commits in order."""
+        C/g group commits in order.  Attention runs over this rank's heads
+        and the buffers take its keys and values."""
         mc, tk, dims, dev = self.mcfg, self.tk, self.dims, self.device
         C = self.prefill_chunk
         start = int(self._slot_ntok[i])
@@ -690,25 +757,29 @@ class ThinKVEngine:
         for l in range(mc.num_layers):
             lp = self.model.layer(l)
             q, k, v = self._layer_qkv(lp, h, positions)
+            q, k, v = (self._local(t, 1) for t in (q, k, v))
+
+            need = l in self.lstar and has_refresh
 
             def dense():
                 o, p, valid = self._dense_layer(l, q[None], slot, k[None],
                                                 v[None], causal)
-                return o[0], _probs_sparsity(p[:, C - 1],
-                                             valid[:, C - 1])[0]
+                return o[0], _probs_sparsity(
+                    p[:, C - 1], valid[:, C - 1], self.mesh)[0] \
+                    if need else None
 
             if self.backend == "kernel":
                 o = self._chunk_kernel(q, l, i, k, v, None)
-                if l in self.lstar and has_refresh:
+                if need:
                     spars[l] = dense()[1]
             else:
                 o, spars[l] = dense()
-            h = self._layer_out(lp, h, o)
+            h = self._layer_out(lp, h, self._whole(o, 1))
             ks.append(k)
             vs.append(v)
         sparsity = torch.stack([spars[l] for l in self.lstar]).mean() \
             if has_refresh else torch.zeros((), device=dev)
-        ks, vs = torch.stack(ks), torch.stack(vs)            # [L, C, H, D]
+        ks, vs = torch.stack(ks), torch.stack(vs)        # [L, C, H/N, D]
         cache = self.caches.slot(i)
         for g0 in range(0, C, dims.G):
             cache.buf_k.copy_(ks[:, g0:g0 + dims.G])
@@ -890,13 +961,16 @@ class ThinKVEngine:
     def _spill(self, i: int, mapped: np.ndarray, tokens_out: int,
                next_token: int, shared_table=None) -> PreemptedState:
         """Slot ``i``'s planes (gathered through its table), cache and
-        sampling key, copied to host memory."""
+        sampling key, copied to host memory, every head whole (each rank
+        gathers its shares)."""
         t0 = time.perf_counter()
         view, _ = CC.extract_request(self.pool, self.tables[i])
         cpu = torch.device("cpu")
         st = PreemptedState(
-            view=CC.PoolView(*(p.to(cpu) for p in view)), mapped=mapped,
-            cache=CC.CTCache(**{f: getattr(self.caches, f)[i].to(
+            view=CC.PoolView(*(self._whole(p, SH.PLANE_HEAD_DIM).to(cpu)
+                               for p in view)), mapped=mapped,
+            cache=CC.CTCache(**{f: self._cache_field(
+                f, getattr(self.caches, f)[i], self._whole).to(
                 cpu, copy=True) for f in CC.CTCache.FIELDS}),
             tokens_out=tokens_out, next_token=next_token,
             shared_table=shared_table,
@@ -904,6 +978,13 @@ class ThinKVEngine:
         self.metrics["spill_s"] += time.perf_counter() - t0
         self.metrics["spill_bytes"] += st.nbytes
         return st
+
+    @staticmethod
+    def _cache_field(name: str, t: torch.Tensor, heads) -> torch.Tensor:
+        """One request's cache field, its TBQ buffers passed through
+        ``heads`` (a rank's share, or every rank's gathered)."""
+        return heads(t, SH.BUF_HEAD_DIM) if name in ("buf_k", "buf_v") \
+            else t
 
     def _preempt(self, slot) -> None:
         """Pause a running request: spill its PRIVATE blocks, table and
@@ -1171,7 +1252,8 @@ class ThinKVEngine:
         st, dev = prefix.state, self.device
         table, ok = CC.restore_request(
             self.pool, torch.as_tensor(st.mapped, device=dev),
-            CC.PoolView(*(p.to(dev) for p in st.view)))
+            CC.PoolView(*(self._local(p, SH.PLANE_HEAD_DIM).to(dev)
+                          for p in st.view)))
         if not bool(ok):
             CC.release_blocks(self.pool, table)
             return False
@@ -1179,7 +1261,9 @@ class ThinKVEngine:
             shared = torch.as_tensor(st.shared_table, device=dev)
             table = torch.where(shared >= 0, shared, table)
         self.tables[i].copy_(table)
-        self.caches.slot(i).copy_(st.cache)
+        self.caches.slot(i).copy_(CC.CTCache(**{
+            f: self._cache_field(f, getattr(st.cache, f), self._local)
+            for f in CC.CTCache.FIELDS}))
         self._slot_ntok[i] = int(st.cache.num_tokens)
         self._slot_buflen[i] = int(st.cache.buf_len)
         self._feed[i] = st.next_token
@@ -1221,17 +1305,26 @@ class ThinKVEngine:
                if s.request.eos_token is not None}
         eos_dev = torch.tensor([eos.get(i, -1) for i in range(len(active))],
                                device=self.device) if eos else None
+        tokens, valid, logits = self._pack(active, feed, trips, eos_dev)
+        return MultiTickResult(int(self.metrics["ticks"]),
+                               self.ticks_per_dispatch, requested, tokens,
+                               valid, logits, self._flags(), t0)
+
+    def _pack(self, active: np.ndarray, feed: torch.Tensor, trips: int,
+              eos_dev: Optional[torch.Tensor] = None):
+        """Up to ``trips`` trips, each trip's tokens feeding the next; with
+        ``eos_dev`` ([R], -1 where a slot has no eos) it stops after the
+        trip on which a slot samples its eos (one read per trip).  Returns
+        per-trip (tokens, active mask, logits) lists."""
         tokens, valid, logits = [], [], []
         for _ in range(trips):
             feed, lg = self._trip(active, feed)
             tokens.append(feed)
             valid.append(active)
             logits.append(lg)
-            if eos and bool((feed == eos_dev).any()):   # one read per trip
+            if eos_dev is not None and bool((feed == eos_dev).any()):
                 break
-        return MultiTickResult(int(self.metrics["ticks"]),
-                               self.ticks_per_dispatch, requested, tokens,
-                               valid, logits, self._flags(), t0)
+        return tokens, valid, logits
 
     def consume(self, res: Union[TickResult, MultiTickResult]):
         """Fold a dispatch's COW faults into the metrics (those on forked
@@ -1365,6 +1458,103 @@ class ThinKVEngine:
         self.metrics["drift_max_abs"] = max(self.metrics["drift_max_abs"],
                                             max_abs)
         return out
+
+    # ------------------------------------------------------------------
+    # compiled-path checks (repro_torch.analysis)
+    # ------------------------------------------------------------------
+
+    def compiled_entry_points(self) -> Dict[str, tuple]:
+        """``{name: (fn, prepare)}`` for every entry point of the device
+        seam whose launches ``analysis.contracts.engine_contracts`` pins
+        (the reference's registry, by its names; ``_commit_fn`` is the
+        port's own: its commit launches K4).  ``prepare()`` puts a scratch
+        request into slot 0 of an idle engine and returns the arguments
+        ``fn`` is called with; the caller releases the slot after.
+        Registering an entry point here needs a contract there
+        (``audit_engine`` raises on one without)."""
+        G, V = self.dims.G, self.mcfg.vocab_size
+        R = self.cfg.max_seqs
+        active = np.zeros(R, bool)
+        active[0] = True
+
+        def toks(n):
+            return (np.arange(n, dtype=np.int64) * 7 + 3) % V
+
+        def fresh(n=0):
+            if any(not s.free for s in self.scheduler.slots) or \
+                    self._slot_ntok[0]:
+                raise RuntimeError("the entry points run on an idle engine")
+            if n:
+                self._prefill_chunk(0, toks(n))
+                self._check_fails()
+
+        def tick():
+            fresh(1)           # the tick writes token 2: no commit when G > 2
+            return active, torch.zeros(R, dtype=torch.int64,
+                                       device=self.device)
+
+        def chunk(n):
+            def prepare():
+                fresh()
+                return 0, toks(n)
+            return prepare
+
+        def commit():
+            fresh(G - 1)
+            return 0, torch.zeros((), device=self.device), 1
+
+        eps = {"_tick_fn": (self._trip, tick),
+               "_prefill_chunk_fn": (self._prefill_chunk, chunk(G)),
+               "_commit_fn": (self._advance, commit)}
+        if self.ticks_per_dispatch > 1:
+            eps["_megatick_fn"] = (self._pack, lambda: (
+                *tick(), self.ticks_per_dispatch))
+        if self.prefill_chunk:
+            eps["_prefill_big_fn"] = (self._prefill_big,
+                                      chunk(self.prefill_chunk))
+        if self.drift_probe:
+            eps["_drift_probe_fn"] = (self._drift_probe, lambda: (
+                torch.as_tensor(toks(DRIFT_PAD)[None], device=self.device),
+                slice(0, DRIFT_PAD)))
+        return eps
+
+    def audit_compiled(self):
+        """Contract audit of every entry point -> ``analysis.AuditReport``
+        (launches per kernel, collectives, fp64; host syncs reported)."""
+        from repro_torch.analysis import audit_engine
+        return audit_engine(self)
+
+    def _entry_census(self, name: str):
+        from repro_torch.analysis.census import census_of
+        fn, prepare = self.compiled_entry_points()[name]
+        try:
+            return census_of(fn, *prepare(), engine=self,
+                             trips=name == "_megatick_fn")
+        finally:
+            self._release_slot(0)
+
+    def tick_launch_count(self) -> int:
+        """Kernel launches of one decode tick, counted by running it: K1
+        once on the kernel backend at any layer count, none on the
+        reference backend (on the CPU: the plain versions' dispatches)."""
+        return sum(self._entry_census("_tick_fn").launches.values())
+
+    def megatick_launch_count(self) -> tuple:
+        """``(per_trip, outside)`` launches of a pack of
+        ``ticks_per_dispatch`` trips: K1 once per trip on the kernel
+        backend, none outside the trips."""
+        if self.ticks_per_dispatch == 1:
+            raise ValueError("multi-tick dispatch is off "
+                             "(ticks_per_dispatch == 1)")
+        c = self._entry_census("_megatick_fn")
+        return sum((c.launches_per_trip or {}).values()), \
+            sum(c.launches_outside_trips.values())
+
+    def prefill_launch_count(self) -> int:
+        """Attention launches of one g-chunk (K2 and K3 once per layer on
+        the kernel backend); its commit's K4 is not counted here."""
+        c = self._entry_census("_prefill_chunk_fn")
+        return sum(n for k, n in c.launches.items() if k != "group_quant")
 
     def slot_stats(self, i: int) -> Dict:
         comp = TV.compression_ratio(self.tk, self.dims, self.caches.slot(i),

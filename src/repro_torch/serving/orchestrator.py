@@ -47,8 +47,13 @@ Pacing: ``schedule_arrival(after_tick=...)`` injects requests in tick space
 (reproducible); ``submit`` may be called from any task (wall-clock
 arrivals).  An idle loop waits on an arrival event.
 
-Not ported: ``_drain_retrace_events``, which folds XLA retrace events into
-the log and has no PyTorch meaning (nothing retraces).
+Builds: with an ``analysis.RetraceGuard`` installed on the engine, every
+kernel library its entry points build or load lands in the log as a
+``"retrace"`` event (``_drain_retrace_events``), after each consume and at
+the end; steady-state serving logs none.
+
+Under tensor-parallel serving each rank runs its own orchestrator over its
+own engine, unchanged: every host decision is the same on every rank.
 """
 from __future__ import annotations
 
@@ -304,6 +309,7 @@ class Orchestrator:
             await asyncio.get_running_loop().run_in_executor(None, res.block)
             eng.consume(res)
             self._log("consume", tick=res.tick)
+            self._drain_retrace_events()
             toks, logits = res.tokens_host, res.logits_host
             if res.packed:
                 # trip by trip: finished slots leave active_slots() for
@@ -321,8 +327,10 @@ class Orchestrator:
                     self._record_logits(slot.request, logits[slot.idx])
                     self._finish_token(slot, int(toks[slot.idx]), res.tick)
             await self._admit_and_prefill()
+        self._drain_retrace_events()   # events from trailing prefills
         if eng.device.type == "cuda":
-            torch.cuda.synchronize(eng.device)
+            await asyncio.get_running_loop().run_in_executor(
+                None, torch.cuda.synchronize, eng.device)
         eng.metrics["wall_s"] = time.perf_counter() - self._t0
         return sch.finished
 
@@ -577,6 +585,17 @@ class Orchestrator:
             "tick": kw.pop("tick", int(self.engine.metrics["ticks"])),
             "wall": time.perf_counter() - (self._t0 or time.perf_counter()),
             **kw})
+
+    def _drain_retrace_events(self) -> None:
+        """Fold ``analysis.RetraceGuard`` events into the metrics log as
+        ``kind="retrace"`` (a kernel library built or loaded by an entry
+        point); steady-state serving must log none after warmup."""
+        guard = getattr(self.engine, "_retrace_guard", None)
+        if guard is None:
+            return
+        for ev in guard.drain_new_events():
+            self._log("retrace", entry=ev.entry,
+                      call_index=ev.call_index, steady=ev.steady)
 
     def request_summary(self) -> Dict[int, Dict]:
         """Per-request {ttft_s, ttft_ticks, tpot_s, queue_wait_*, tokens}

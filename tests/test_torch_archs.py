@@ -312,8 +312,9 @@ def test_entry_points_take_the_slice_and_refuse_the_rest():
     backends; the engine and the CLI refuse them with a ValueError naming
     the serve steps, as the reference's engine serves neither, and
     ``models/lm.py`` refuses their configs, naming the factory.  Tensor
-    parallelism (item 13) and training (item 16) still raise, naming their
-    items.  Tied embeddings are taken (no ``lm_head``; embeddings scaled
+    parallelism (item 13) is ported: the engine takes a mesh whose rank
+    count divides the kv heads and refuses one that does not; training
+    (item 16) still raises, naming its item.  Tied embeddings are taken (no ``lm_head``; embeddings scaled
     by sqrt(d_model)) and give the JAX forward's logits."""
     from repro_torch.launch import serve
     from repro_torch.models import encdec as ET
@@ -350,9 +351,13 @@ def test_entry_points_take_the_slice_and_refuse_the_rest():
         with pytest.raises(ValueError, match="models/factory.py"):
             LT.init_params(cfg, device="cpu")
     base = get_smoke_config("r1-llama-8b")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    from repro_torch.launch.mesh import ServeMesh, make_serve_mesh
+    assert ThinKVEngine(ServeConfig(model=base, max_seqs=1), device="cpu",
+                        mesh=make_serve_mesh("model=1", device="cpu")
+                        )._nshard == 1
+    with pytest.raises(ValueError, match="cannot shard"):
         ThinKVEngine(ServeConfig(model=base, max_seqs=1), device="cpu",
-                     mesh=object())
+                     mesh=ServeMesh(0, 4, None, torch.device("cpu")))
     with pytest.raises(NotImplementedError, match="item 16"):
         FT.build_model(base).loss(None, None, base)
     jcfg = dataclasses.replace(jax_smoke("r1-llama-8b"), tie_embeddings=True)

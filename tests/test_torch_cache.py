@@ -210,3 +210,69 @@ def test_commit_quantizes_through_the_group_quant_path(bits):
                                       as_bits(getattr(cache_j, f)),
                                       err_msg=f)
     assert (cache_t.slot_bits[cache_t.slot_state == CT.VALID] == bits).all()
+
+
+def port_op_sequence(g, bs, prec, seed):
+    """The port's side of ``run_op_sequence`` alone: every plane, table,
+    refcount and cache field (bf16 as bits) after every call."""
+    tk = ThinKVConfig(group_size=g, block_size=bs, precision=prec, **TK)
+    dims = CT.make_dims(tk, L, H, D)
+    R, cpu = 2, torch.device("cpu")
+    pool = CT.init_global_pool(dims, R * dims.NB, cpu)
+    tables = list(CT.init_block_table(dims, cpu, batch=R))
+    caches = [CT.init_cache(dims, cpu) for _ in range(R)]
+    ntok, buf, refreshes = [0] * R, [0] * R, [0] * R
+    rng = np.random.default_rng(seed)
+    pieces = {0: [g] * 12, 1: [g // 2, 1, g // 2 - 1] + [g] * 9}
+    states = []
+    for step in range(max(len(p) for p in pieces.values())):
+        for r in range(R):
+            if step >= len(pieces[r]):
+                continue
+            n = pieces[r][step]
+            if buf[r] == 0:
+                caches[r].buf_k.copy_(tensor_from_numpy(
+                    clustered_keys(rng, g), cpu))
+                caches[r].buf_v.copy_(tensor_from_numpy(
+                    rng.standard_normal((L, g, H, D)).astype(jnp.bfloat16),
+                    cpu))
+            at_refresh = (ntok[r] + n) % tk.refresh_interval == 0
+            s = np.float32(SPARSITY[refreshes[r] % len(SPARSITY)])
+            refreshes[r] += at_refresh
+            _, _, ntok[r], buf[r] = CT.engine_advance(
+                tk, dims, pool, tables[r], caches[r], torch.tensor(s),
+                num_tokens=ntok[r], buf_len=buf[r], n_new=n)
+            states.append(
+                [as_bits(p).copy() for p in pool.view]
+                + [as_bits(pool.refcount).copy()]
+                + [as_bits(t).copy() for t in tables]
+                + [as_bits(getattr(c, f)).copy() for c in caches
+                   for f in CJ.CTCache.FIELDS])
+    return states
+
+
+@pytest.mark.parametrize("g,bs,prec,seed", CASES, ids=str)
+def test_budget_evict_skips_only_rounds_that_change_nothing(
+        g, bs, prec, seed, monkeypatch):
+    """``budget_evict`` skips its rounds when the caller's host token count
+    is within the budget.  The op sequence, which crosses the budget, run
+    as the engine runs it and again with that count withheld (every round
+    run) leaves every plane, table, refcount and cache field (slot_state
+    and seg_type among them) bit-identical after every call, and takes
+    both branches."""
+    evict, counts = CT.budget_evict, []
+
+    def counting(*a, num_tokens=None, **k):
+        counts.append(num_tokens)
+        return evict(*a, num_tokens=num_tokens, **k)
+    monkeypatch.setattr(CT, "budget_evict", counting)
+    skipping = port_op_sequence(g, bs, prec, seed)
+    assert any(n <= TK["token_budget"] for n in counts)
+    assert any(n > TK["token_budget"] for n in counts)
+    monkeypatch.setattr(CT, "budget_evict",
+                        lambda *a, num_tokens=None, **k: evict(*a, **k))
+    every_round = port_op_sequence(g, bs, prec, seed)
+    assert len(skipping) == len(every_round)
+    for i, (a, b) in enumerate(zip(skipping, every_round)):
+        for j, (x, y) in enumerate(zip(a, b)):
+            np.testing.assert_array_equal(x, y, err_msg=f"call {i} part {j}")

@@ -1194,3 +1194,166 @@ def test_steps_records_on_the_card_give_the_jax_records(card, name):
     cfg = SR.config(rec["settings"])
     assert res["k1_launches"] == \
         cfg.num_attention_layers() * rec["thinkv_tokens"].shape[0]
+
+
+# ----------------------------------------------------------------------
+# tensor-parallel serving: a launch over one rank's share of the kv heads
+# ----------------------------------------------------------------------
+
+
+def rank_share(t, dim, r, n=2):
+    return ops.local_heads(t, dim, r, n).contiguous()
+
+
+@pytest.mark.parametrize("r", [0, 1])
+def test_k1_over_half_the_heads_is_that_half_of_the_full_launch(card, r):
+    """K1 at the serve tick's shape (r1-llama-8b: L 32, R 4, H 8, GQ 4, D
+    128, NB 128) over kv heads [4r, 4r + 4) equals that share of the
+    8-head launch bit for bit: no choice of the launch depends on H."""
+    c = pool_case(torch.Generator().manual_seed(32), L=32, R_=4, H=8, GQ=4,
+                  D=128, BS=16, NB=128)
+    c["buf_len"] = torch.tensor([0, 5, 16, 16], dtype=torch.int32)
+    full = ops.paged_decode_attention_fused(*on(card, c.values()))
+    heads = {"qh": 2, "k_codes": 3, "v_codes": 3, "k_scales": 3,
+             "v_scales": 3, "buf_k": 3, "buf_v": 3}
+    part = launched_once("ct_paged_attention_fused",
+                         ops.paged_decode_attention_fused,
+                         *on(card, [rank_share(v, heads[k], r)
+                                    if k in heads else v
+                                    for k, v in c.items()]))
+    assert torch.equal(part, rank_share(full, 2, r))
+
+
+def batched_share(args, r):
+    """K2's arguments (``batched_args``) for rank ``r``'s 4 of 8 heads."""
+    qh, kc, vc, ks, vs, *meta = args
+    return [rank_share(qh, 1, r), *(rank_share(p, 2, r)
+                                    for p in (kc, vc, ks, vs)), *meta]
+
+
+@pytest.mark.parametrize("r", [0, 1])
+@pytest.mark.parametrize("GQ", [512, 64])
+def test_k2_with_split_heads_over_half_the_heads_is_that_half(card, GQ, r):
+    """K2 at r1-llama-8b's big chunk (GQ 512) and g-chunk (GQ 64) over 4
+    of its 8 kv heads, told the model's 8 (``split_heads``): every head's
+    walk is split as in the 8-head launch, so out, m and l equal that
+    share of it bit for bit."""
+    c = pool_case(torch.Generator().manual_seed(GQ), L=1, R_=1, H=8, GQ=GQ,
+                  D=128, BS=16, NB=128)
+    args = on(card, batched_args(c))
+    full = ops.paged_decode_attention_batched(*args)
+    part = launched_once(
+        "ct_paged_attention_batched",
+        lambda *a: ops.paged_decode_attention_batched(*a, split_heads=8),
+        *batched_share(args, r))
+    for p, f in zip(part, full):
+        assert torch.equal(p, rank_share(f, 1, r))
+
+
+def test_k2_without_split_heads_differs_over_half_the_heads(card):
+    """The trap ``split_heads`` closes: at the big chunk a launch over 4
+    kv heads sized its own split count (8 shares of each walk where the
+    8-head launch cuts 4), so the merge adds other partial sums and the
+    output differs from that share of the 8-head launch."""
+    c = pool_case(torch.Generator().manual_seed(512), L=1, R_=1, H=8,
+                  GQ=512, D=128, BS=16, NB=128)
+    args = on(card, batched_args(c))
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert ops.kv_splits(1, 4, 512, 128, sms, 128) != \
+        ops.kv_splits(1, 8, 512, 128, sms, 128)
+    full = ops.paged_decode_attention_batched(*args)
+    part = ops.paged_decode_attention_batched(*batched_share(args, 0))
+    torch.cuda.synchronize()
+    assert not torch.equal(part[0], rank_share(full[0], 1, 0))
+    assert_close(part[:2], tuple(rank_share(f, 1, 0).cpu()
+                                 for f in full[:2]))
+
+
+@pytest.mark.parametrize("r", [0, 1])
+@pytest.mark.parametrize("S,n_valid", [(128, None), (16, 11)])
+def test_k3_over_half_the_heads_is_that_half_of_the_full_launch(card, S,
+                                                                n_valid, r):
+    """K3 at r1-llama-8b's heads (Hq 32 / H 8, D 128), the big chunk and a
+    g-chunk with 11 valid keys, over 16 / 4 of them equals that share of
+    the full launch bit for bit."""
+    gen = torch.Generator().manual_seed(S)
+    q = torch.randn((S, 32, 128), generator=gen)
+    k = torch.randn((S, 8, 128), generator=gen)
+    v = torch.randn((S, 8, 128), generator=gen)
+    q, k, v = on(card, (q, k, v))
+    full = ops.prefill_attention_stats(q, k, v, n_valid=n_valid)
+    part = launched_once(
+        "flash_prefill",
+        lambda *a: ops.prefill_attention_stats(*a, n_valid=n_valid),
+        *(rank_share(t, 1, r) for t in (q, k, v)))
+    for p, f in zip(part, full):
+        assert torch.equal(p, rank_share(f, 1, r))
+
+
+# ----------------------------------------------------------------------
+# the RetraceGuard where a build can happen: a fresh process on the card
+# ----------------------------------------------------------------------
+
+
+def retrace_child(mesh, steady_first):
+    """A smoke engine (8 q / 4 kv heads) under the guard in a fresh
+    process, which has built or loaded no kernel library yet (a
+    module-level function: the rank imports it).  A warm batch, then a
+    steady phase of staggered prefix-sharing arrivals over an
+    oversubscribed pool; with ``steady_first`` warmup is declared over
+    before the first launch.  Returns the build counter at each stage, the
+    guard's report and what ``assert_steady_state`` raised."""
+    from repro_torch.analysis import RetraceGuard, RetraceViolation
+    from repro_torch.kernels import build
+    from repro_torch.launch.audit import _stream
+    builds = [build.BUILDS]
+    mc = dataclasses.replace(get_smoke_config("r1-llama-8b"), num_heads=8,
+                             num_kv_heads=4)
+    tk = ThinKVConfig(refresh_interval=16, group_size=8, block_size=8,
+                      token_budget=48, retention_schedule=(16, 8, 4),
+                      min_retention=4, max_segments=64, kmeans_iters=4)
+    eng = ThinKVEngine(ServeConfig(model=mc, thinkv=tk, max_seqs=3,
+                                   temperature=0.0),
+                       backend="kernel", device=mesh.device,
+                       prefix_cache=True, pool_blocks=20,
+                       ticks_per_dispatch=1)
+    rng = np.random.default_rng(0)
+    raised = ""
+    with RetraceGuard(eng) as guard:
+        if steady_first:
+            guard.mark_steady()
+        _stream(eng, [rng.integers(0, 256, 12) for _ in range(2)], 8)
+        builds.append(build.BUILDS)
+        guard.mark_steady()
+        shared = rng.integers(0, 256, 16)
+        _stream(eng, [np.concatenate([shared, rng.integers(0, 256, 4)])
+                      for _ in range(5)], 16, 2)
+        builds.append(build.BUILDS)
+        try:
+            guard.assert_steady_state()
+        except RetraceViolation as e:
+            raised = str(e)
+        return {"builds": builds, "report": guard.report(),
+                "raised": raised}
+
+
+@pytest.mark.parametrize("steady_first", [False, True],
+                         ids=["warm", "cold"])
+def test_retrace_guard_in_a_fresh_process(card, steady_first):
+    """In a process of its own the port builds or loads its kernel
+    libraries once, at the first launch: after a warm batch the counter is
+    1 and the steady phase leaves it there, so the guard passes; a process
+    whose first launch comes after ``mark_steady`` fails it, naming the
+    entry point and its first call."""
+    from repro_torch.launch import mesh as M
+    res, = M.run_ranks(retrace_child, 1, "cuda", steady_first, timeout=600)
+    assert res["builds"] == [0, 1, 1]
+    events = res["report"]["events"]
+    assert len(events) == 1 and events[0]["call_index"] == 1
+    assert events[0]["steady"] is steady_first
+    assert res["report"]["steady_retraces"] == int(steady_first)
+    if steady_first:
+        assert f"{events[0]['entry']} built a kernel library at its call " \
+            "#1" in res["raised"]
+    else:
+        assert res["raised"] == ""

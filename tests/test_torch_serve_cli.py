@@ -228,8 +228,8 @@ def test_serve_cli_serves_the_moe_and_qkv_bias_archs(arch, capsys):
 
 @pytest.mark.parametrize("argv,what", [
     (["--drift-probe"], "requires --stream"),
-    (["--mesh", "model=2"], "item 13"),
-    (["--kv-heads", "2"], "item 13"),
+    (["--expect-mesh-parity"], "requires --mesh"),
+    (["--mesh", "data=2"], "has no 'model' axis"),
     (["--expect-drift", "--stream"], "requires --drift-probe"),
     (["--arrival-rate", "0.5"], "require --stream"),
     (["--samples-per-slot", "2"], "requires --stream")])
