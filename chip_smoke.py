@@ -211,6 +211,25 @@ failure:
                 2048-token K/V stream, and at every tau boundary every
                 layer's ``thinkv_decode_attention`` through the wrapper
                 against ``decode_attention_ref`` (3e-4 + 3e-4 |r|).
+9. train      — single-card training, which runs no kernel of the port
+                (K1-K5 have no backward; the reference's train path runs
+                plain XLA): r1-llama-8b at full width and 2 of its 32
+                layers (1.487 G parameters, random f32 weights from seed
+                0, TF32 off), ``lm_batches`` at batch 8 and sequence 512
+                (the loss in 2 chunks of 256), remat on.  Step 1's loss
+                and gradient norm within 1e-4 relative of the same step
+                evaluated in f64 (an f64 copy of the weights through the
+                same code), every gradient leaf within 1e-4 of its largest
+                |g|, and the same for the step in two microbatches; then 8
+                default AdamW steps: ms per step, tokens per second, the
+                share of the f32 peak that 6·N·tokens reaches (N the
+                parameters in products; with the recomputed forward
+                8·N·tokens), peak GB, the losses, zero kernel launches;
+                the JAX train record (``tests/golden/
+                torch_train_steps.npz``) replayed within 1e-4 relative; a
+                smoke run failing at step 5 and resumed ending on the
+                uninterrupted run's loss within 1e-4; the train step's
+                contract on the card.
 
 Then the kernels line (each kernel's launches on its own path: K1-K4 from
 the serve phase, from the tp phase's serve leg (rank 0) as
@@ -3425,6 +3444,213 @@ def audit_phase(engine_cls, params, mc, dev) -> dict:
     return rec
 
 
+TRAIN_ARCH = "r1-llama-8b"
+TRAIN_LAYERS = 2           # of r1-llama-8b's 32: 1.487 G parameters
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+TRAIN_RTOL = 1e-4          # step 1's loss and gradient norm vs the f64 run
+TRAIN_GRAD_REL = 1e-4      # each gradient leaf, of that leaf's largest |g|
+TRAIN_RESUME_RTOL = 1e-4   # the reference's bar (test_fault_tolerance.py)
+
+
+def train_f64_errors(g32: dict, g64: dict) -> dict:
+    """Per gradient leaf: max |g32 - g64| over the leaf's largest |g64|."""
+    out = {}
+    for k, w in g64.items():
+        out[k] = float((g32[k].double() - w).abs().max()
+                       / w.abs().max().clamp_min(1e-300))
+    return out
+
+
+def train_resume_check(dev, tmp: str) -> dict:
+    """The reference's resume case at smoke size on the card: yi-6b smoke,
+    8 steps with checkpoints every 2; a run failing at step 5 and restarted
+    ends on the uninterrupted run's last loss within 1e-4 relative."""
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.ft.failures import FailureInjector, InjectedFailure
+    from repro_torch.training.trainer import Trainer
+    m = get_smoke_config("yi-6b")
+    cfg = TrainConfig(model=m, optimizer=OptimizerConfig(
+        lr=1e-3, warmup_steps=2, decay_steps=8), seq_len=16, global_batch=4,
+        steps=8, checkpoint_every=2, keep_checkpoints=2,
+        checkpoint_dir=os.path.join(tmp, "ckpt"))
+
+    def data_fn(start):
+        it = lm_batches(m.vocab_size, 4, 16, seed=7)
+        for _ in range(start):
+            next(it)
+        return it
+    ref = Trainer(dataclasses.replace(cfg, checkpoint_dir=os.path.join(
+        tmp, "ref")), data_fn, device=dev).run()
+    failed = False
+    try:
+        Trainer(cfg, data_fn, failure_injector=FailureInjector(
+            fail_at_steps=(5,)), device=dev).run()
+    except InjectedFailure:
+        failed = True
+    res = Trainer(cfg, data_fn, device=dev).run()
+    return {"injected": failed, "resumed_from": res.resumed_from,
+            "final_step": res.final_step, "last_loss": res.losses[-1],
+            "uninterrupted_last_loss": ref.losses[-1],
+            "rel_err": abs(res.losses[-1] - ref.losses[-1])
+            / abs(ref.losses[-1])}
+
+
+def train_phase(dev) -> dict:
+    """Single-card training at r1-llama-8b's full width and 2 of its 32
+    layers (random f32 weights from ``SEED``, TF32 off), ``lm_batches`` at
+    batch 8 and sequence 512, remat on.  Step 1's loss, gradient norm and
+    every gradient leaf held to the same step evaluated in f64 (an f64
+    copy of the weights through the same code), and the step in two
+    microbatches held to it too; then ``TRAIN_STEPS`` AdamW steps (default
+    settings) timed; no kernel of the port may launch.  Then the JAX train
+    record replayed, the resume check at smoke size and the train step's
+    contract on the card (``audit_train_step``: no launch, no collective,
+    no fp64)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import test_torch_train_record as TRR
+    from repro_torch.analysis import audit_train_step
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.device import set_f32_numerics
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.factory import build_model
+    from repro_torch.models.losses import chunk_size
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import (batch_grads,
+                                                 make_train_step,
+                                                 value_and_grad)
+    from repro_torch.training.trainer import batch_to
+    t0 = time.perf_counter()
+    set_f32_numerics()
+    mc = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    model = build_model(mc)
+    params = model.init_params(SEED, dev).requires_grad_(True)
+    n_params = sum(p.numel() for p in params.parameters())
+    # parameters in products (the embedding is a gather, norms are scales)
+    n_matmul = sum(p.numel() for n, p in params.named_parameters()
+                   if p.dim() >= 2 and n != "embedding")
+    data = lm_batches(mc.vocab_size, batch, seq, seed=SEED)
+    batches = [batch_to(next(data), dev) for _ in range(TRAIN_STEPS)]
+    loss_fn = lambda p, b: model.loss(p, b, mc, remat=True)  # noqa: E731
+    failed = []
+    launches0 = dict(ops.LAUNCHES)
+
+    (l32, _), g32 = value_and_grad(loss_fn, params, batches[0])
+    (lmb, _), gmb = batch_grads(loss_fn, params, batches[0], 2)
+    p64 = lm.LM(mc, dev, torch.float64)
+    with torch.no_grad():
+        for k, x in p64.named_parameters():
+            x.copy_(getattr(params, k))
+    p64.requires_grad_(True)
+    (l64, _), g64 = value_and_grad(loss_fn, p64, batches[0])
+    del p64
+    norm = lambda g: float(torch.sqrt(sum(  # noqa: E731
+        (x.double() ** 2).sum() for x in g.values())))
+    n32, nmb, n64 = norm(g32), norm(gmb), norm(g64)
+    err32, errmb = train_f64_errors(g32, g64), train_f64_errors(gmb, g64)
+    del g32, gmb, g64
+    f64 = {"loss_f64": float(l64), "loss": float(l32),
+           "loss_rel_err": abs(float(l32) - float(l64)) / abs(float(l64)),
+           "grad_norm_f64": n64, "grad_norm": n32,
+           "grad_norm_rel_err": abs(n32 - n64) / n64,
+           "grad_max_rel_err": max(err32.values()),
+           "grad_rel_err_by_leaf": err32,
+           "microbatches_2": {
+               "loss_rel_err": abs(float(lmb) - float(l64)) / abs(float(l64)),
+               "grad_norm_rel_err": abs(nmb - n64) / n64,
+               "grad_max_rel_err": max(errmb.values())}}
+    for what, e in (("step 1", f64), ("microbatches=2",
+                                      f64["microbatches_2"])):
+        if not e["loss_rel_err"] <= TRAIN_RTOL:
+            failed.append(f"{what} loss vs f64: {e['loss_rel_err']}")
+        if not e["grad_norm_rel_err"] <= TRAIN_RTOL:
+            failed.append(f"{what} grad norm vs f64: "
+                          f"{e['grad_norm_rel_err']}")
+        if not e["grad_max_rel_err"] <= TRAIN_GRAD_REL:
+            failed.append(f"{what} gradients vs f64: "
+                          f"{e['grad_max_rel_err']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = adamw_init(params)
+    step = make_train_step(model.loss, mc, OptimizerConfig(), remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for b in batches:
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        failed.append(f"losses {losses}")
+    if abs(losses[0] - float(l32)) > TRAIN_RTOL * abs(float(l32)):
+        failed.append(f"step 1's loss {losses[0]} vs {float(l32)}")
+    launched = {k: n - launches0[k] for k, n in ops.LAUNCHES.items()
+                if n != launches0[k]}
+    if launched:
+        failed.append(f"kernel launches in training: {launched}")
+    del params, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    tokens = batch * seq
+    model_flops = 6 * n_matmul * tokens
+
+    rec = TRR.load(os.path.join(HERE, "tests", "golden",
+                                "torch_train_steps.npz"))
+    replay = TRR.mismatches(rec, TRR.replay(rec, dev))
+    failed += [f"train record: {x}" for x in replay]
+    with tempfile.TemporaryDirectory() as tmp:
+        resume = train_resume_check(dev, tmp)
+    contract = audit_train_step(TRAIN_ARCH, dev)
+    if not contract.ok or contract.census.device_launches:
+        failed.append(f"train step contract: {contract.violations}, "
+                      f"launches {contract.census.device_launches}")
+    if not (resume["injected"] and resume["resumed_from"] == 4
+            and resume["final_step"] == 8
+            and resume["rel_err"] <= TRAIN_RESUME_RTOL):
+        failed.append(f"resume: {resume}")
+    out = {"phase": "train", "arch": mc.name, "layers": mc.num_layers,
+           "reduced": {"num_layers": f"{mc.num_layers} of 32"},
+           "params": n_params, "matmul_params": n_matmul,
+           "batch": batch, "seq": seq, "steps": TRAIN_STEPS, "remat": True,
+           "loss_chunks": seq // chunk_size(batch, seq, mc.vocab_size),
+           "ms_per_step": ms, "steady_ms_per_step": steady,
+           "tokens_per_s": tokens / (steady / 1e3),
+           "model_flops": model_flops,
+           "mfu_f32": model_flops / (steady / 1e3) / F32_FLOPS,
+           "hfu_f32_with_recompute": model_flops * 8 / 6 / (steady / 1e3)
+           / F32_FLOPS,
+           "peak_gb": peak_gb, "losses": losses, "f64_check": f64,
+           "bars": {"loss_and_norm_rel": TRAIN_RTOL,
+                    "grad_leaf_rel_of_max": TRAIN_GRAD_REL,
+                    "resume_rel": TRAIN_RESUME_RTOL,
+                    "record_rel": TRR.TRAIN_RTOL},
+           "record_replay": "ok" if not replay else replay,
+           "resume": resume, "kernel_launches": launched,
+           "contract": {"ok": contract.ok,
+                        "launches": contract.census.device_launches,
+                        "fp64": len(contract.census.fp64),
+                        "host_syncs": contract.census.host_syncs},
+           "failed": failed, "seconds": time.perf_counter() - t0}
+    emit(out)
+    if failed:
+        raise AssertionError(f"train phase failed: {failed}")
+    return out
+
+
 def ab(parent: str) -> int:
     """The parent tree (``parent``/src, its kernels built there) and this
     one, each in its own process, in turns: parent, this, this, parent;
@@ -3587,6 +3813,9 @@ def main() -> int:
     ssm = ssm_phase(dev, rng)
     torch.cuda.empty_cache()
     ctl = controller_phase(dev, mc, tk)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -6,7 +6,8 @@ call (``census``), and the runtime :class:`RetraceGuard`, which proves
 steady-state serving builds no kernel library.  ``python -m
 repro_torch.launch.audit`` runs the backends x ranks x ticks-per-dispatch
 matrix and writes ``analysis_report.json``.  ``lint`` holds the
-reference's three repo rules over ``src/repro_torch``.
+reference's three repo rules over ``src/repro_torch``.  ``audit_train_step``
+holds the single-card train step (no kernel, no collective, no fp64).
 
 Not ported: ``jaxpr_audit.py`` (it reads jaxprs; ``census`` stands in),
 and with it ``CondBranches``, ``PrimitiveUse`` and ``count_launches``.
@@ -17,6 +18,7 @@ from repro_torch.analysis.contracts import (AuditReport, CollectiveRule,
                                             ContractViolation, EntryAudit,
                                             Violation, audit_engine,
                                             audit_flash_prefill,
+                                            audit_train_step,
                                             engine_contracts,
                                             serve_collective_rule)
 from repro_torch.analysis.retrace import (RetraceEvent, RetraceGuard,
@@ -27,7 +29,7 @@ __all__ = [
     "AuditReport", "Census", "CollectiveRule", "CollectiveUse",
     "CompiledContract", "ContractViolation", "EntryAudit", "RetraceEvent",
     "RetraceGuard", "RetraceViolation", "Violation",
-    "audit_engine", "audit_flash_prefill",
+    "audit_engine", "audit_flash_prefill", "audit_train_step",
     "census_of", "engine_contracts", "no_implicit_transfers",
     "serve_collective_rule",
 ]

@@ -15,8 +15,10 @@ what the call did, on the card launches and on the CPU the plain versions'
 dispatches.  Host syncs are counted and reported per entry point, not
 pinned (ROADMAP item 17 exists to lower them).  Not ported: the
 callback and in-graph transfer rules and the cond-divergence rule (host
-branches are Python, and a run counts the launches of the branch taken),
-and ``audit_train_step`` (ROADMAP item 16).
+branches are Python, and a run counts the launches of the branch taken).
+``audit_train_step`` holds the single-card train step: no kernel of the
+port (K1-K5 have no backward, and the reference's train path runs none of
+its Pallas kernels), no collective, no fp64.
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ from repro_torch.analysis.census import Census, census_of, fp64_origin
 
 _MAX_ITEMIZED = 5      # cap per-item violations so reports stay readable
 
-K1, K2, K3, K4 = ("ct_paged_attention_fused", "ct_paged_attention_batched",
-                  "flash_prefill", "group_quant")
+K1, K2, K3, K4, K5 = ("ct_paged_attention_fused",
+                      "ct_paged_attention_batched", "flash_prefill",
+                      "group_quant", "mamba_scan")
 
 #: The sampled tick's one float64 source: ``prng.uniform`` emulates XLA's
 #: fused scale-and-shift of ``jax.random.uniform`` (one f32 FMA) with an
@@ -350,12 +353,52 @@ def audit_flash_prefill(seq: int = 128, heads: int = 4, kv_heads: int = 2,
     return EntryAudit("flash_prefill", census, con, con.check(census))
 
 
+def audit_train_step(arch: str = "r1-llama-8b", device="cpu",
+                     microbatches: int = 1) -> EntryAudit:
+    """Contract audit of one train step (``training/train_step.py``:
+    the loss's gradients and an AdamW update, remat on) at the smoke
+    config from the seeded weights, on a 2 x 16 batch (with ``patches`` or
+    ``frames`` for the VLM and encoder-decoder families): zero launches of
+    K1-K5, no collective (one device), no fp64."""
+    import torch
+
+    from repro_torch.config import ArchFamily, OptimizerConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import factory
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = get_smoke_config(arch)
+    model = factory.build_model(cfg)
+    params = model.init_params(0, device).requires_grad_(True)
+    B, S = 2, 16
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.family == ArchFamily.VLM:
+        batch["patches"] = torch.randn(
+            (B, cfg.num_image_tokens, cfg.frontend_dim), generator=g)
+    if cfg.family == ArchFamily.ENCDEC:
+        batch["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                      generator=g)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    step = make_train_step(model.loss, cfg, OptimizerConfig(),
+                           microbatches=microbatches)
+    census = census_of(step, params, adamw_init(params), batch)
+    con = CompiledContract(
+        "train_step", launches=dict.fromkeys((K1, K2, K3, K4, K5), 0),
+        collectives=CollectiveRule(movement=(), integer_reductions=()),
+        note="train step: plain PyTorch under autograd, no kernel")
+    return EntryAudit("train_step", census, con, con.check(census))
+
+
 def _model_step_audits(arch: str = "r1-llama-8b", device="cpu"
                        ) -> Dict[str, EntryAudit]:
     """Contract audits of the serve steps (``serving/serve_step.py``) at
     the smoke config: the prefill step and a FullKV decode step over bf16
-    caches, neither launching a kernel.  No fp64; collectives unchecked.
-    The train step belongs to ROADMAP item 16."""
+    caches, neither launching a kernel (no fp64; collectives unchecked);
+    and the train step (``audit_train_step``)."""
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -383,4 +426,5 @@ def _model_step_audits(arch: str = "r1-llama-8b", device="cpu"
         census = census_of(fn, params, batch)
         con = CompiledContract(name, note="serve step at the smoke config")
         out[name] = EntryAudit(name, census, con, con.check(census))
+    out["train_step"] = audit_train_step(arch, device)
     return out

@@ -37,13 +37,17 @@ BLOCKING_METHODS = {"block", "cpu", "item"}
 FLOAT64_ALLOWLIST = {
     # host-side statistics of calibration samples (numpy, never on the card)
     "core/calibration.py",
+    # the synthetic reasoning traces' sampling probabilities and planted
+    # sparsities (numpy, the reference's draws, never on the card)
+    "data/synthetic.py",
     # the exact f64 product of two f32 values emulates XLA's fused
     # scale-and-shift of jax.random.uniform (one rounding), so sampled
     # tokens equal JAX's
     "serving/prng.py",
-    # the plain versions keep f64 inputs in f64 (the card's checks
-    # evaluate them so); the engine never passes f64
-    "kernels/ref.py",
+    # ``wide`` keeps an f64 tensor in f64 where the forward and the plain
+    # kernels upcast to f32 (the card's f64 checks of the plain K3 and of
+    # a train step); the engine never passes f64
+    "layers/common.py",
     # the census detects float64 tensors; this rule spells what it flags
     "analysis/census.py",
     "analysis/lint.py",

@@ -7,12 +7,15 @@ its ``moe`` and ``ssm`` fields, the hybrid's ``hybrid_attn_every``, the
 encoder-decoder's ``encoder_layers``, ``encoder_seq`` and
 ``cross_attention``, the VLM's ``num_image_tokens`` and ``frontend_dim``,
 and ``num_attention_layers``), :class:`MoEConfig`, :class:`SSMConfig`,
-:class:`ThinKVConfig`, :class:`ServeConfig`, the enums, and
+:class:`ThinKVConfig`, :class:`ServeConfig`, the training settings
+(:class:`OptimizerConfig`, :class:`TrainConfig`), the enums, and
 :func:`reduced` (the CPU smoke-size variant).
 """
 from __future__ import annotations
 
 import enum
+import os
+import tempfile
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional, Tuple
 
@@ -166,6 +169,45 @@ class ServeConfig:
     temperature: float = 0.0
     top_p: float = 1.0
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW with linear warmup and cosine decay, global-norm clipping
+    (``repro/config/base.py:260-269``)."""
+
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    decay_steps: int = 10000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """A single-device training run (``repro/config/base.py:273-289``);
+    checkpoints land in ``checkpoint_dir`` (by default under the temporary
+    directory).  ``remat`` checkpoints each layer body (the reference's
+    ``"full"``; its trainer treats ``"dots"`` the same).  Not ported: the
+    reference's ``mesh`` (sharded training, ROADMAP item 16b), and its
+    ``grad_compression`` and ``pipeline_stages``, which no code of the
+    reference reads (compression is the trainer's ``grad_transform``)."""
+
+    model: ModelConfig
+    optimizer: OptimizerConfig = OptimizerConfig()
+    seq_len: int = 4096
+    global_batch: int = 256
+    microbatches: int = 1                 # gradient accumulation steps
+    remat: bool = True
+    steps: int = 100
+    seed: int = 0
+    checkpoint_every: int = 50
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(),
+                                       "repro_torch_ckpt")
+    keep_checkpoints: int = 3
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -28,7 +28,7 @@ to.  Each helper counts its calls into :data:`COLLECTIVES` by
 ``(kind, dtype)``, the way ``kernels/ops.py`` counts ``LAUNCHES``.
 
 The train half (parameter specs, FSDP axes, batch specs, ``constrain``)
-belongs to ROADMAP queue 1 item 16.
+belongs to ROADMAP queue 1 item 16b.
 """
 from __future__ import annotations
 

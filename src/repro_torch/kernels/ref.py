@@ -20,14 +20,22 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import quantization as Q
+from repro_torch.layers.common import remat, wide
 
 NEG_INF = -1e30
 VALID = 1
 
 
-def _wide(t: torch.Tensor) -> torch.Tensor:
-    """t in f32, or kept in f64 (a plain version evaluated in f64)."""
-    return t if t.dtype == torch.float64 else t.float()
+def head_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., H, M, K] @ b [..., H, K, N] -> [..., H, M, N]: the head-batched
+    products of the plain attention paths, in one form whatever the number
+    of heads.  Both operands are made contiguous, so every head's block is
+    the same row-major [M, K] x [K, N] product of one batched call, and a
+    head's result has the same bits alone (a rank's share of the kv heads)
+    as inside the full batch.  ``torch.einsum`` folds an axis of size 1 out
+    of its batch and takes another BLAS layout for it, which on the CPU
+    rounds a one-head decode product differently."""
+    return torch.matmul(a.contiguous(), b.contiguous())
 
 
 def _masked_softmax_stats(s: torch.Tensor, valid: torch.Tensor):
@@ -62,9 +70,9 @@ def ct_paged_attention_batched_ref(qh, k_codes, v_codes, k_scales, v_scales,
     v = Q.dequantize_by_bitcode(take(v_codes), take(v_scales).float(), bits,
                                 g=group)
     valid = (slot_state.reshape(r, n) == VALID)[:, None, None, :]
-    s = torch.einsum("rhgd,rnhd->rhgn", qh.float(), k) / math.sqrt(d)
+    s = head_matmul(qh.float(), k.permute(0, 2, 3, 1)) / math.sqrt(d)
     p, m, l = _masked_softmax_stats(s, valid)
-    return torch.einsum("rhgn,rnhd->rhgd", p, v), m, l
+    return head_matmul(p, v.permute(0, 2, 1, 3)), m, l
 
 
 def ct_paged_attention_split_ref(qh, k_codes, v_codes, k_scales, v_scales,
@@ -162,10 +170,10 @@ def buffer_attention_batched_ref(qh, buf_k, buf_v, buf_len):
     g = buf_k.shape[1]
     valid = (torch.arange(g, device=qh.device)[None, :]
              < buf_len[:, None])[:, None, None, :]
-    s = torch.einsum("rhgd,rnhd->rhgn", qh.float(),
-                     buf_k.float()) / math.sqrt(d)
+    s = head_matmul(qh.float(), buf_k.float().permute(0, 2, 3, 1)) \
+        / math.sqrt(d)
     p, m, l = _masked_softmax_stats(s, valid)
-    return torch.einsum("rhgn,rnhd->rhgd", p, buf_v.float()), m, l
+    return head_matmul(p, buf_v.float().permute(0, 2, 1, 3)), m, l
 
 
 def merge_flash_ref(out_a, m_a, l_a, out_b, m_b, l_b):
@@ -274,8 +282,10 @@ def flash_prefill_stats_ref(q, k, v, *, causal: bool = True, window: int = 0,
     s_len, hq, d = q.shape
     t_len, h, _ = k.shape
     gq = hq // h
-    qh = _wide(q.reshape(s_len, h, gq, d))
-    scores = torch.einsum("shgd,thd->hgst", qh, _wide(k)) / math.sqrt(d)
+    qh = wide(q.reshape(s_len, h, gq, d))
+    scores = head_matmul(qh.permute(1, 0, 2, 3).reshape(h, s_len * gq, d),
+                         wide(k).permute(1, 2, 0)) / math.sqrt(d)
+    scores = scores.reshape(h, s_len, gq, t_len).transpose(1, 2)
     i = torch.arange(s_len, device=q.device)[:, None]
     j = torch.arange(t_len, device=q.device)[None, :]
     mask = torch.ones((s_len, t_len), dtype=torch.bool, device=q.device)
@@ -286,7 +296,9 @@ def flash_prefill_stats_ref(q, k, v, *, causal: bool = True, window: int = 0,
     if kv_valid is not None:
         mask &= kv_valid[None, :]
     p, m, l = _masked_softmax_stats(scores, mask[None, None])
-    out = torch.einsum("hgst,thd->shgd", p, _wide(v))
+    out = head_matmul(p.reshape(h, gq * s_len, t_len),
+                      wide(v).permute(1, 0, 2))
+    out = out.reshape(h, gq, s_len, d).permute(2, 0, 1, 3)
 
     def to_q(a):                                  # [h, g, s, 1] -> [s, hq, 1]
         return a[..., 0].permute(2, 0, 1).reshape(s_len, hq, 1)
@@ -297,23 +309,45 @@ def flash_prefill_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return flash_prefill_stats_ref(q, k, v, causal=causal, window=window)[0]
 
 
-def mamba_scan_ref(x, dt, b, c, a) -> torch.Tensor:
-    """Mamba-1 selective scan, sequential over time from ``h_0 = 0``:
-    ``h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t``, ``y_t = h_t . C_t``.
+SCAN_CHUNK = 64      # the reference's time steps per checkpointed chunk
 
-    x, dt [..., S, di]; b, c [..., S, N]; a [di, N] (negative).  Leading
-    batch axes are optional (the reference's is unbatched).  Returns
-    y [..., S, di] f32.
-    """
-    x, dt, b, c, a = (t.float() for t in (x, dt, b, c, a))
-    h = x.new_zeros(x.shape[:-2] + a.shape)
+
+def _scan_steps(h, x, dt, b, c, a):
+    """``x.shape[-2]`` steps of the recurrence from the state h:
+    (the last state, y [..., steps, di])."""
     ys = []
     for t in range(x.shape[-2]):
         dt_t = dt[..., t, :, None]
         h = torch.exp(dt_t * a) * h + (dt_t * x[..., t, :, None]) * \
             b[..., t, None, :]
         ys.append((h * c[..., t, None, :]).sum(-1))
-    return torch.stack(ys, dim=-2)
+    return h, torch.stack(ys, dim=-2)
+
+
+def mamba_scan_ref(x, dt, b, c, a) -> torch.Tensor:
+    """Mamba-1 selective scan, sequential over time from ``h_0 = 0``:
+    ``h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t``, ``y_t = h_t . C_t``.
+
+    x, dt [..., S, di]; b, c [..., S, N]; a [di, N] (negative).  Leading
+    batch axes are optional (the reference's is unbatched).  Returns
+    y [..., S, di] f32.  Differentiable: it is also the training scan (the
+    reference's chunked ``lax.scan``), each chunk of ``SCAN_CHUNK`` steps
+    (stepped down until it divides S) checkpointed when autograd records,
+    so backward keeps one state per chunk; under no-grad the chunks only
+    split the loop, and the result is the same bits.
+    """
+    x, dt, b, c, a = (t.float() for t in (x, dt, b, c, a))
+    s = x.shape[-2]
+    cs = min(SCAN_CHUNK, s)
+    while s % cs:
+        cs -= 1
+    h = x.new_zeros(x.shape[:-2] + a.shape)
+    ys = []
+    for c0 in range(0, s, cs):
+        h, y = remat(_scan_steps, h, *(t[..., c0:c0 + cs, :]
+                                       for t in (x, dt, b, c)), a)
+        ys.append(y)
+    return torch.cat(ys, dim=-2)
 
 
 def mamba_scan_lanes_ref(x, dt, b, c, a, *, lanes: int = 2,

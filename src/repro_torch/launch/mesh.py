@@ -13,7 +13,7 @@ gloo moves the tensors.  A rank that fails ends the whole run with its
 traceback; there is no run with fewer ranks.
 
 ``make_production_mesh`` and ``mesh_config`` (the train-side meshes)
-belong to ROADMAP queue 1 item 16.
+belong to ROADMAP queue 1 item 16b.
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ are.
 Not ported: the reference's ``REPRO_BF16_SCORES`` toggle (a measurement
 switch for bf16 score tiles on XLA's CPU backend) and its ring-attention
 branch of ``attn_forward`` (context parallelism under a multi-device
-mesh, ROADMAP queue 1 item 13).
+mesh, ROADMAP queue 1 item 16b).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import math
 import torch
 
 from repro_torch.config import ModelConfig, PositionEmbedding
+from repro_torch.layers.common import wide
 from repro_torch.layers.rope import apply_rope, rope_freqs
 
 NEG_INF = -1e30
@@ -63,8 +64,8 @@ def dense_attention(q, k, v, *, causal: bool = True, window: int = 0):
     broadcast, materialized [S, T] scores (short sequences)."""
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    qh = q.reshape(b, s, hkv, hq // hkv, hd).float()
-    scores = torch.einsum("bshgd,bthd->bhgst", qh, k.float()) / math.sqrt(hd)
+    qh = wide(q.reshape(b, s, hkv, hq // hkv, hd))
+    scores = torch.einsum("bshgd,bthd->bhgst", qh, wide(k)) / math.sqrt(hd)
     i = torch.arange(s, device=q.device)[:, None]
     j = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
@@ -73,7 +74,7 @@ def dense_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if window > 0:
         mask &= j > i + (t - s) - window
     probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
+    out = torch.einsum("bhgst,bthd->bshgd", probs, wide(v))
     return out.reshape(b, s, hq, hd).to(q.dtype)
 
 
@@ -93,11 +94,11 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     qc = q_chunk
     while s % qc:
         qc //= 2
-    kf, vf = k.float(), v.float()
+    kf, vf = wide(k), wide(v)
     j = torch.arange(t, device=q.device)[None, :]
     outs = []
     for c0 in range(0, s, qc):
-        qh = q[:, c0:c0 + qc].reshape(b, qc, hkv, hq // hkv, hd).float()
+        qh = wide(q[:, c0:c0 + qc].reshape(b, qc, hkv, hq // hkv, hd))
         scores = torch.einsum("bshgd,bthd->bhgst", qh, kf) / math.sqrt(hd)
         i = c0 + torch.arange(qc, device=q.device)[:, None] + (t - s)
         mask = torch.ones((qc, t), dtype=torch.bool, device=q.device)

@@ -1,5 +1,7 @@
 """Shared layer utilities (ports ``repro/layers/common.py``): seeded
-initializers, activations, logit soft-capping.
+initializers, activations, logit soft-capping, ``remat`` (the models'
+``jax.checkpoint`` of a layer body) and ``wide`` (the f32 upcast that
+keeps an f64 tensor in f64).
 
 Parameters are plain dicts of tensors (per-layer views of the model's
 stacked weights); the initializers fill a tensor in place from an explicit
@@ -12,6 +14,7 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init_(t: torch.Tensor, gen: torch.Generator,
@@ -44,3 +47,19 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0:
         return x
     return cap * torch.tanh(x / cap)
+
+
+def remat(fn: Callable, *args, enabled: bool = True):
+    """``fn(*args)``; with ``enabled`` and autograd recording, under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): only
+    the inputs are kept, and backward recomputes the body."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """x in f32 (the reference's ``astype(float32)`` of its bf16 and f32
+    values), or left in f64: the same forward evaluated in f64 (the card's
+    check of a train step) stays f64 throughout."""
+    return x if x.dtype == torch.float64 else x.float()

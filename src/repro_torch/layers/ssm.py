@@ -5,22 +5,25 @@
 ``mamba2_dims``, ``mamba2_params``, ``_split_mamba2``, ``mamba2_forward``,
 ``Mamba2State``, ``mamba2_init_state``, ``mamba2_decode_step``).
 
-The prefill/teacher-forced forward runs its selective scan through K5
+The prefill forward runs its selective scan through K5
 (``kernels.ops.mamba_scan``, one launch per layer for the whole batch)
 where the reference runs a ``lax.scan``; the ``D`` skip and the
-``silu(z)`` gate stay plain torch.  Decode is one step of the recurrence in
-plain torch, as in the reference.  Two parts of the reference's
-``_mamba1_inner`` are not ported: its ``h0`` argument and ``h_last``
-result (nothing in the reference uses them: the forward always starts
-from ``h_0 = 0``), and its chunked ``jax.checkpoint`` (a training memory
-device; the port serves).
+``silu(z)`` gate stay plain torch.  K5 has no backward, so a forward that
+takes gradients (the training loss on every device) runs
+``backend="reference"``: ``kernels.ref.mamba_scan_ref`` is the
+reference's own recurrence, the ``lax.scan`` over chunks of 64 steps,
+each chunk checkpointed as the reference's ``jax.checkpoint`` of it.
+Decode is one step of the recurrence in plain torch, as in the
+reference.  Not ported:
+``_mamba1_inner``'s ``h0`` argument and ``h_last`` result (nothing in the
+reference uses them: the forward always starts from ``h_0 = 0``).
 
 Mamba-2 has no Pallas kernel in the reference, so it is plain torch here:
 the chunked SSD form of ``mamba2_forward`` (a quadratic form inside each
 chunk, the state carried between chunks; the chunk shrinks from
-``ssm.chunk_size`` until it divides S; f32 as the reference casts) and one
-step of the recurrence for decode.  The reference's ``jax.checkpoint`` of
-a chunk (a training memory device) is dropped, as Mamba-1's was.
+``ssm.chunk_size`` until it divides S; f32 as the reference casts; each
+chunk checkpointed when autograd records, as the reference's
+``jax.checkpoint`` of it) and one step of the recurrence for decode.
 
 Parameters are plain dicts of tensors, in the reference's layout
 (``x @ W`` with W ``[in, out]``); the depthwise conv is ``F.conv1d`` with
@@ -38,7 +41,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as KR
-from repro_torch.layers.common import dense_init_
+from repro_torch.layers.common import dense_init_, remat
 
 # the per-layer mixer parameters, in the reference's order
 MAMBA1_PARAMS = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
@@ -125,12 +128,12 @@ def _mamba1_inner(p: dict, xc: torch.Tensor, z: torch.Tensor,
     return y.to(xc.dtype)
 
 
-@torch.no_grad()
 def mamba1_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                    backend: str = "kernel") -> torch.Tensor:
     """Prefill / teacher-forced forward: x [B, S, D] -> [B, S, D].
     ``backend="kernel"`` scans through K5 (its plain version for CPU
-    tensors), ``"reference"`` through ``mamba_scan_ref`` on any device."""
+    tensors), ``"reference"`` through ``mamba_scan_ref`` on any device
+    (differentiable: the training scan)."""
     di, *_ = mamba1_dims(cfg)
     x_in, z = (x @ p["in_proj"]).split(di, dim=-1)
     xc = causal_conv1d(x_in, p["conv_w"], p["conv_b"])
@@ -231,7 +234,23 @@ def _gated_out(p: dict, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return (y * torch.rsqrt(var + 1e-5) * p["norm"]) @ p["out_proj"]
 
 
-@torch.no_grad()
+def _ssd_chunk(h, xz, bz, cz, dtz, daz, tri):
+    """One SSD chunk from the state h [B, nh, hp, N]: (its y [B, cs, nh,
+    hp], the state after it)."""
+    cum = torch.cumsum(daz, dim=1)                           # [B, cs, nh]
+    decay = torch.where(tri, torch.exp(cum[:, :, None] - cum[:, None]),
+                        0.0)                                 # [B, t, s, nh]
+    w = torch.einsum("bthn,bshn->btsh", cz, bz) * decay * dtz[:, None]
+    y = torch.einsum("btsh,bshp->bthp", w, xz)
+    y = y + torch.einsum("bthn,bhpn->bthp", cz * torch.exp(cum)[..., None],
+                         h)
+    last = cum[:, -1:]
+    sw = torch.exp(last - cum) * dtz                         # [B, cs, nh]
+    h = torch.exp(last[:, 0])[:, :, None, None] * h + torch.einsum(
+        "bshn,bshp->bhpn", sw[..., None] * bz, xz)
+    return y, h
+
+
 def mamba2_forward(p: dict, x: torch.Tensor, cfg: ModelConfig
                    ) -> torch.Tensor:
     """Chunked SSD forward: x [B, S, D] -> [B, S, D], from h_0 = 0."""
@@ -254,18 +273,8 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg: ModelConfig
     h = x.new_zeros((bsz, nh, hp, n), dtype=torch.float32)
     ys = []
     for c0 in range(0, s, cs):
-        xz, bz, cz, dtz = (t[:, c0:c0 + cs] for t in (xh, bh, ch, dt))
-        cum = torch.cumsum(da[:, c0:c0 + cs], dim=1)           # [B, cs, nh]
-        decay = torch.where(tri, torch.exp(cum[:, :, None] - cum[:, None]),
-                            0.0)                               # [B, t, s, nh]
-        w = torch.einsum("bthn,bshn->btsh", cz, bz) * decay * dtz[:, None]
-        y = torch.einsum("btsh,bshp->bthp", w, xz)
-        y = y + torch.einsum("bthn,bhpn->bthp", cz * torch.exp(cum)[..., None],
-                             h)
-        last = cum[:, -1:]
-        sw = torch.exp(last - cum) * dtz                       # [B, cs, nh]
-        h = torch.exp(last[:, 0])[:, :, None, None] * h + torch.einsum(
-            "bshn,bshp->bhpn", sw[..., None] * bz, xz)
+        y, h = remat(_ssd_chunk, h,
+                     *(t[:, c0:c0 + cs] for t in (xh, bh, ch, dt, da)), tri)
         ys.append(y)
     y = torch.cat(ys, 1) + p["D"][:, None] * xh
     return _gated_out(p, y.reshape(bsz, s, di), z).to(x.dtype)

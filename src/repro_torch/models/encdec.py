@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder (ports ``repro/models/encdec.py``: ``init``,
-``encode``, ``decode_train``, ``logits_fn``, ``hidden_fn``,
+``encode``, ``decode_train``, ``logits_fn``, ``hidden_fn``, ``loss_fn``,
 ``cross_caches``, ``decode_step_fullkv``).
 
 Whisper's conventions: pre-norm LayerNorm, learned positions (``enc_pos``
@@ -12,8 +12,8 @@ attention's keys and values are computed once from the encoder states
 (``cross_caches``) and, on the ThinKV path, TBQ-quantized but never
 evicted (``serving/serve_step.py``).  Python loops replace the reference's
 ``lax.scan``; the decode step is batched over a leading B axis where the
-reference's is per request.  Left out: ``remat`` and ``loss_fn``
-(training, ROADMAP queue 1 item 16).
+reference's is per request.  ``remat`` checkpoints each decoder layer of
+the training forward (the encoder is not, as in the reference).
 
 Weights keep the reference's layout: each encoder and decoder weight
 stacked on a leading ``[L]`` axis, ``x @ W`` with W ``[in, out]``;
@@ -30,9 +30,10 @@ from repro_torch.config import ArchFamily, ModelConfig
 from repro_torch.device import resolve_device, set_f32_numerics
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
-from repro_torch.layers.common import dense_init_, embed_init_
+from repro_torch.layers.common import dense_init_, embed_init_, remat
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import layernorm
+from repro_torch.models.losses import batch_nll
 
 MAX_DEC_POS = 4096          # the reference's ``init(max_dec_pos=4096)``
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -61,7 +62,8 @@ def _stack_params(cfg: ModelConfig, stack: str, attns, norms):
 
 
 class EncDecLM(nn.Module):
-    """Encoder and decoder weights (no gradients: the port serves)."""
+    """Encoder and decoder weights (registered without gradients; a trainer
+    turns them on)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  dtype: torch.dtype = torch.float32):
@@ -142,7 +144,6 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return EncDecLM(cfg, resolve_device(device), dtype).reset_parameters(seed)
 
 
-@torch.no_grad()
 def encode(params: EncDecLM, frames: torch.Tensor, cfg: ModelConfig
            ) -> torch.Tensor:
     """frames [B, T_enc, D] (stub embeddings) -> encoder states [B, T_enc,
@@ -159,23 +160,29 @@ def encode(params: EncDecLM, frames: torch.Tensor, cfg: ModelConfig
     return layernorm(params.norm("enc_norm"), h)
 
 
-@torch.no_grad()
+def _decoder_layer(lp: dict, h: torch.Tensor, enc: torch.Tensor,
+                   positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = h + A.attn_forward(lp["self_attn"], layernorm(lp["norm1"], h), cfg,
+                           positions, causal=True)
+    kv = A.cross_kv(lp["cross_attn"], enc, cfg)
+    h = h + A.attn_forward(lp["cross_attn"], layernorm(lp["norm2"], h), cfg,
+                           positions, kv_override=kv)
+    return h + mlp(lp["mlp"], layernorm(lp["norm3"], h), "gelu", False)
+
+
 def decode_hidden(params: EncDecLM, tokens: torch.Tensor, enc: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
-    """The teacher-forced decoder's final-norm hidden states [B, S, D]."""
+                  cfg: ModelConfig, *, remat_layers: bool = False
+                  ) -> torch.Tensor:
+    """The teacher-forced decoder's final-norm hidden states [B, S, D];
+    ``remat_layers`` recomputes each layer in backward."""
     set_f32_numerics()
     s = tokens.shape[1]
     h = E.embed(params.embed_params, tokens, cfg)
     h = h + params.dec_pos[None, :s].to(h.dtype)
     positions = torch.arange(s, device=tokens.device)[None]
     for i in range(cfg.num_layers):
-        lp = params.layer("decoder", i)
-        h = h + A.attn_forward(lp["self_attn"], layernorm(lp["norm1"], h),
-                               cfg, positions, causal=True)
-        kv = A.cross_kv(lp["cross_attn"], enc, cfg)
-        h = h + A.attn_forward(lp["cross_attn"], layernorm(lp["norm2"], h),
-                               cfg, positions, kv_override=kv)
-        h = h + mlp(lp["mlp"], layernorm(lp["norm3"], h), "gelu", False)
+        h = remat(_decoder_layer, params.layer("decoder", i), h, enc,
+                  positions, cfg, enabled=remat_layers)
     return layernorm(params.norm("final_norm"), h)
 
 
@@ -195,10 +202,22 @@ def logits_fn(params: EncDecLM, batch: Dict[str, torch.Tensor],
 
 
 def hidden_fn(params: EncDecLM, batch: Dict[str, torch.Tensor],
-              cfg: ModelConfig) -> torch.Tensor:
+              cfg: ModelConfig, *, remat_layers: bool = False
+              ) -> torch.Tensor:
     """The decoder's final-norm hidden states [B, S, D]."""
     return decode_hidden(params, batch["tokens"],
-                         encode(params, batch["frames"], cfg), cfg)
+                         encode(params, batch["frames"], cfg), cfg,
+                         remat_layers=remat_layers)
+
+
+def loss_fn(params: EncDecLM, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, *, remat: bool = False):
+    """(the chunked NLL, {"nll", "moe_aux": 0}) of the decoder's
+    ``tokens`` against ``targets`` (``loss_mask`` optional) over the
+    encoding of ``frames``; the head is the embedding's transpose."""
+    h = hidden_fn(params, batch, cfg, remat_layers=remat)
+    loss = batch_nll(h, params.embedding.T, batch)
+    return loss, {"nll": loss, "moe_aux": loss.new_zeros(())}
 
 
 @torch.no_grad()

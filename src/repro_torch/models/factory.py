@@ -1,7 +1,8 @@
 """Model factory (ports ``repro/models/factory.py``: ``Model`` and
 ``build_model``) for every family: DENSE, MOE and VLM (``models/lm.py``,
 as the reference maps all three), ENCDEC (``models/encdec.py``), SSM
-(``models/ssm_lm.py``) and HYBRID (``models/hybrid.py``).
+(``models/ssm_lm.py``) and HYBRID (``models/hybrid.py``).  ``Model.loss``
+is the family's ``loss_fn(params, batch, cfg, *, remat)``.
 
 ``input_specs`` is not ported: it builds ``jax.ShapeDtypeStruct`` stand-ins
 for the XLA dry-run's lowering, which has no PyTorch meaning.
@@ -15,11 +16,6 @@ import torch
 
 from repro_torch.config import ArchFamily, ModelConfig
 from repro_torch.models import encdec, hybrid, lm, ssm_lm
-
-
-def loss_fn(params, batch, cfg: ModelConfig):
-    raise NotImplementedError("training losses are not ported yet (ROADMAP "
-                              "queue 1 item 16)")
 
 
 _FAMILY_MODULES = {ArchFamily.DENSE: lm, ArchFamily.MOE: lm,
@@ -46,4 +42,4 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     mod = _FAMILY_MODULES[cfg.family]
     return Model(cfg=cfg, init=mod.init_params, logits=mod.logits_fn,
-                 loss=loss_fn, module=mod)
+                 loss=mod.loss_fn, module=mod)

@@ -1,7 +1,7 @@
 """zamba2: a Mamba-2 backbone and ONE shared attention block (ports
 ``repro/models/hybrid.py``: ``_groups``, ``init``, ``_mamba_scan``,
-``_shared_block``, ``logits_fn``, ``hidden_fn``, ``init_decode_state``,
-``decode_step_fullkv``).
+``_shared_block``, ``logits_fn``, ``hidden_fn``, ``loss_fn``,
+``init_decode_state``, ``decode_step_fullkv``).
 
 The shared block (attention + MLP, a single weight copy) runs after every
 ``hybrid_attn_every`` backbone layers: zamba2-7b's 81 layers are 13 groups
@@ -11,9 +11,9 @@ KV caches (``cfg.num_attention_layers()``, 13), and ThinKV manages exactly
 those (``serving/serve_step.py``).  Python loops replace the reference's
 ``lax.scan`` over groups and layers; the decode functions are batched over
 a leading B axis where the reference's are per request, ``vmap``ped by
-``serve_step``.  Left out: the ``constrain`` sharding hint (no meaning on
-one card), ``remat`` (training), and ``loss_fn`` (training, ROADMAP queue
-1 item 16).
+``serve_step``.  ``remat`` checkpoints each Mamba-2 layer body (the
+shared block is not, as in the reference).  Left out: the ``constrain``
+sharding hint (ROADMAP item 16b).
 
 Weights keep the reference's layout: every backbone layer's weight stacked
 on a leading ``[L]`` axis, the shared block's unstacked, ``x @ W`` with W
@@ -32,9 +32,10 @@ from repro_torch.device import resolve_device, set_f32_numerics
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import ssm as S
-from repro_torch.layers.common import dense_init_, embed_init_
+from repro_torch.layers.common import dense_init_, embed_init_, remat
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import rmsnorm
+from repro_torch.models.losses import batch_nll, head_weight
 
 # the shared block's weights: name -> (group, key) of the reference's tree
 # (``w_gate`` when the MLP is gated, the biases under qkv bias)
@@ -50,8 +51,8 @@ def _groups(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 class HybridLM(nn.Module):
-    """Mamba-2 backbone and shared-block weights (no gradients: the port
-    serves)."""
+    """Mamba-2 backbone and shared-block weights (registered without
+    gradients; a trainer turns them on)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  dtype: torch.dtype = torch.float32):
@@ -145,13 +146,19 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return HybridLM(cfg, resolve_device(device), dtype).reset_parameters(seed)
 
 
+def _mamba_layer(mixer: dict, norm: torch.Tensor, h: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    return h + S.mamba2_forward(mixer, rmsnorm({"scale": norm}, h,
+                                               cfg.norm_eps), cfg)
+
+
 def _mamba_scan(params: HybridLM, h: torch.Tensor, cfg: ModelConfig,
-                layers: range) -> torch.Tensor:
-    """Backbone layers ``layers`` over h [B, S, D], pre-norm residual."""
+                layers: range, remat_layers: bool = False) -> torch.Tensor:
+    """Backbone layers ``layers`` over h [B, S, D], pre-norm residual;
+    ``remat_layers`` recomputes each in backward."""
     for i in layers:
-        h = h + S.mamba2_forward(params.mixer(i),
-                                 rmsnorm({"scale": params.norm[i]}, h,
-                                         cfg.norm_eps), cfg)
+        h = remat(_mamba_layer, params.mixer(i), params.norm[i], h, cfg,
+                  enabled=remat_layers)
     return h
 
 
@@ -164,9 +171,9 @@ def _shared_block(sp: dict, h: torch.Tensor, cfg: ModelConfig,
                    cfg.act, cfg.mlp_gated)
 
 
-@torch.no_grad()
 def hidden_fn(params: HybridLM, batch: Dict[str, torch.Tensor],
-              cfg: ModelConfig) -> torch.Tensor:
+              cfg: ModelConfig, *, remat_layers: bool = False
+              ) -> torch.Tensor:
     """Final-norm hidden states [B, S, D] of ``batch["tokens"]`` [B, S]."""
     set_f32_numerics()
     h = E.embed(params.embed_params, batch["tokens"], cfg)
@@ -175,10 +182,21 @@ def hidden_fn(params: HybridLM, batch: Dict[str, torch.Tensor],
     e = cfg.hybrid_attn_every
     sp = params.shared
     for gi in range(ng):
-        h = _mamba_scan(params, h, cfg, range(gi * e, (gi + 1) * e))
+        h = _mamba_scan(params, h, cfg, range(gi * e, (gi + 1) * e),
+                        remat_layers)
         h = _shared_block(sp, h, cfg, positions)
-    h = _mamba_scan(params, h, cfg, range(ng * e, ng * e + tail))
+    h = _mamba_scan(params, h, cfg, range(ng * e, ng * e + tail),
+                    remat_layers)
     return rmsnorm({"scale": params.final_norm}, h, cfg.norm_eps)
+
+
+def loss_fn(params: HybridLM, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, *, remat: bool = False):
+    """(the chunked NLL, {"nll", "moe_aux": 0}) of ``tokens`` against
+    ``targets`` (``loss_mask`` optional)."""
+    h = hidden_fn(params, batch, cfg, remat_layers=remat)
+    loss = batch_nll(h, head_weight(params, cfg), batch)
+    return loss, {"nll": loss, "moe_aux": loss.new_zeros(())}
 
 
 def logits_fn(params: HybridLM, batch: Dict[str, torch.Tensor],

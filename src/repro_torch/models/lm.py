@@ -1,7 +1,15 @@
 """Decoder-only transformer LM, dense, mixture-of-experts or the VLM
 backbone (ports ``repro/models/lm.py``: the parameter shapes of ``init``,
-``assemble_inputs`` / ``backbone`` and the teacher-forced forward, and the
-FullKV serving paths ``prefill`` and ``decode_step_fullkv``).
+``assemble_inputs`` / ``backbone`` and the teacher-forced forward,
+``loss_fn``, and the FullKV serving paths ``prefill`` and
+``decode_step_fullkv``).
+
+The parameters are registered without gradients (the port serves); a
+trainer turns them on (``requires_grad_``), and the shared forward
+(``backbone``, ``LM.forward``, ``loss_fn``) then records for autograd.
+The serving entry points (the engine, ``serving/serve_step.py``, the
+FullKV paths here) run under ``torch.no_grad``.  ``remat`` checkpoints
+each layer body, as the reference's ``jax.checkpoint`` of its scan body.
 
 The VLM family (paligemma) ties the output head to the embedding (no
 ``lm_head``; embeddings scaled by sqrt(d_model), ``layers/embedding.py``)
@@ -35,9 +43,11 @@ from repro_torch.device import resolve_device
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import moe as MOE
-from repro_torch.layers.common import dense_init_, embed_init_, softcap
+from repro_torch.layers.common import dense_init_, embed_init_, remat, \
+    softcap
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import rmsnorm
+from repro_torch.models.losses import batch_nll, head_weight
 
 _FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.VLM)
 
@@ -59,7 +69,8 @@ def layer_params(cfg: ModelConfig) -> Dict[str, Tuple[str, str]]:
 
 
 class LM(nn.Module):
-    """Decoder weights (no gradients: the port serves)."""
+    """Decoder weights (registered without gradients; a trainer turns them
+    on)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  dtype: torch.dtype = torch.float32):
@@ -140,12 +151,25 @@ class LM(nn.Module):
             out.setdefault(group, {})[key] = getattr(self, name)[i]
         return out
 
+    def layers(self) -> list:
+        """Every layer's parameters (``layer``), split off the stacked
+        weights at once: one unbind per weight, whose gradient is one stack
+        rather than a full-size zero tensor per layer."""
+        parts = {name: getattr(self, name).unbind(0)
+                 for name in self.layer_params}
+        out = []
+        for i in range(self.cfg.num_layers):
+            lp: dict = {}
+            for name, (group, key) in self.layer_params.items():
+                lp.setdefault(group, {})[key] = parts[name][i]
+            out.append(lp)
+        return out
+
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         """Logits of final hidden states h [..., D] (softcapped)."""
         return softcap(E.unembed(self.embed_params, h, self.cfg),
                        self.cfg.logit_softcap)
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Teacher-forced logits [B, S, V] of tokens [B, S] (the
         reference's ``logits_fn`` for the dense family)."""
@@ -187,23 +211,29 @@ def mlp_residual(lp: dict, h: torch.Tensor, cfg: ModelConfig,
                    tokens_alone)[0]
 
 
-@torch.no_grad()
+def _block(lp: dict, h: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder block over h [B, S, D]: (h, its MoE auxiliary loss)."""
+    x1 = rmsnorm(lp["norm1"], h, cfg.norm_eps)
+    q, k, v = A._project_qkv(lp["attn"], x1, cfg)
+    q, k = A.rope_qk(q, k, positions, cfg)
+    o = A.full_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    h = h + A.out_proj(lp["attn"], o)
+    m, a = ffn(lp, rmsnorm(lp["norm2"], h, cfg.norm_eps), cfg)
+    return h + m, a
+
+
 def backbone(params: LM, h: torch.Tensor, cfg: ModelConfig,
-             positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+             positions: torch.Tensor, *, remat_layers: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every decoder block over hidden states h [B, S, D], then the final
     norm; returns (h, the MoE auxiliary loss summed over layers: 0 for the
-    dense family).  A MoE layer routes the B·S tokens together."""
+    dense family).  A MoE layer routes the B·S tokens together.
+    ``remat_layers`` recomputes each block in backward."""
     aux = torch.zeros((), device=h.device)
-    for i in range(cfg.num_layers):
-        lp = params.layer(i)
-        x1 = rmsnorm(lp["norm1"], h, cfg.norm_eps)
-        q, k, v = A._project_qkv(lp["attn"], x1, cfg)
-        q, k = A.rope_qk(q, k, positions, cfg)
-        o = A.full_attention(q, k, v, causal=True,
-                             window=cfg.sliding_window)
-        h = h + A.out_proj(lp["attn"], o)
-        m, a = ffn(lp, rmsnorm(lp["norm2"], h, cfg.norm_eps), cfg)
-        h, aux = h + m, aux + a
+    for lp in params.layers():
+        h, a = remat(_block, lp, h, positions, cfg, enabled=remat_layers)
+        aux = aux + a
     return rmsnorm({"scale": params.final_norm}, h, cfg.norm_eps), aux
 
 
@@ -215,6 +245,23 @@ def logits_fn(params: LM, batch: dict, cfg: ModelConfig
     h, positions = assemble_inputs(params, batch, cfg)
     h, aux = backbone(params, h, cfg, positions)
     return params.unembed(h), aux
+
+
+def loss_fn(params: LM, batch: dict, cfg: ModelConfig, *,
+            remat: bool = False) -> Tuple[torch.Tensor, dict]:
+    """(total loss, {"nll", "moe_aux"}) of a teacher-forced batch
+    (``tokens``, ``targets`` [B, S], optional ``loss_mask`` [B, S] and,
+    for the VLM family, ``patches``): the chunked NLL over the text
+    positions (image positions carry no loss) plus the MoE auxiliary loss
+    weighted by ``aux_loss_weight / num_layers``."""
+    h, positions = assemble_inputs(params, batch, cfg)
+    h, aux = backbone(params, h, cfg, positions, remat_layers=remat)
+    if cfg.family == ArchFamily.VLM and "patches" in batch:
+        h = h[:, -batch["targets"].shape[1]:]
+    loss = batch_nll(h, head_weight(params, cfg), batch, cfg.logit_softcap)
+    aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+    total = loss + aux_w * aux / max(cfg.num_layers, 1)
+    return total, {"nll": loss, "moe_aux": aux}
 
 
 @torch.no_grad()

@@ -1,0 +1,80 @@
+"""Sequence-chunked cross entropy (ports ``repro/models/losses.py``:
+``chunked_softmax_xent``) and the tail every family's ``loss_fn`` shares
+(:func:`head_weight`, :func:`batch_nll`).
+
+At a large vocabulary the full logits of a batch would not fit, so the loss
+runs over chunks of the sequence (the reference's chunk rule: at most
+``_MAX_CHUNK_ELEMS`` logits per chunk, the chunk stepped down until it
+divides S), each chunk under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``): backward recomputes the chunk's unembed product
+instead of keeping its logits.  The target's log-probability is read with
+``gather``; the reference sums a one-hot mask over the vocabulary, which
+gives the same value (one term and zeros) and the same gradient.  Not
+ported: ``REPRO_TAKE_ALONG``, an XLA measurement toggle.
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.layers.common import wide
+
+# max elements of one logits chunk (B * chunk * V)
+_MAX_CHUNK_ELEMS = 1 << 28
+
+
+def chunk_size(b: int, s: int, v: int) -> int:
+    """Sequence positions per chunk for a batch of B, length S, vocab V."""
+    chunk = max(1, min(s, _MAX_CHUNK_ELEMS // max(b * v, 1)))
+    while s % chunk:
+        chunk -= 1
+    return chunk
+
+
+def _chunk_nll(hb: torch.Tensor, w: torch.Tensor, tb: torch.Tensor,
+               mb: torch.Tensor, softcap: float):
+    """(sum of masked NLL, sum of the mask) over one chunk: hb [B, c, D],
+    targets tb and mask mb [B, c]."""
+    lg = hb @ w.to(hb.dtype)
+    if softcap > 0:
+        lg = softcap * torch.tanh(lg / softcap)
+    lp = torch.log_softmax(wide(lg), dim=-1)
+    nll = -lp.gather(-1, tb.long()[..., None])[..., 0]
+    return (nll * mb).sum(), mb.sum()
+
+
+def chunked_softmax_xent(h: torch.Tensor, unembed_w: torch.Tensor,
+                         targets: torch.Tensor, mask: torch.Tensor,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """h [B, S, D] -> the mean masked NLL (f32; f64 for f64 inputs) of
+    targets [B, S] under the logits ``h @ unembed_w`` (``unembed_w`` [D,
+    V]), softcapped when ``softcap`` > 0; chunked over S."""
+    b, s, _ = h.shape
+    chunk = chunk_size(b, s, unembed_w.shape[-1])
+    tot = wide(h.new_zeros(()))
+    cnt = torch.zeros_like(tot)
+    mask = mask.to(tot.dtype)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        t, c = checkpoint(_chunk_nll, h[:, sl], unembed_w, targets[:, sl],
+                          mask[:, sl], softcap, use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / cnt.clamp_min(1.0)
+
+
+def head_weight(params, cfg) -> torch.Tensor:
+    """A decoder-only family's output head [D, V]: the embedding's
+    transpose when tied, else ``lm_head``."""
+    return params.embedding.T if cfg.tie_embeddings else params.lm_head
+
+
+def batch_nll(h: torch.Tensor, unembed_w: torch.Tensor, batch: dict,
+              softcap: float = 0.0) -> torch.Tensor:
+    """:func:`chunked_softmax_xent` of ``batch["targets"]`` [B, S] weighted
+    by ``batch["loss_mask"]`` (all ones when the batch has none)."""
+    targets = batch["targets"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    return chunked_softmax_xent(h, unembed_w, targets, mask, softcap)

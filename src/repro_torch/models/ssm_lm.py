@@ -1,5 +1,5 @@
 """falcon-mamba: attention-free Mamba-1 LM (ports ``repro/models/ssm_lm.py``:
-``init``, ``logits_fn``, ``hidden_fn``, ``init_decode_state``,
+``init``, ``logits_fn``, ``hidden_fn``, ``loss_fn``, ``init_decode_state``,
 ``decode_step``).
 
 Weights keep the reference's stacked ``[L, ...]`` layout, so converting a
@@ -7,9 +7,11 @@ JAX parameter tree is a copy.  There is no KV cache: decode state is the
 conv window and the SSM state of every layer, O(1) in sequence length, so
 ThinKV does not apply.  The decode functions are batched over a leading B
 axis (the reference's are per request, ``vmap``ped by ``serve_step``).
-Left out: ``hidden_fn``'s ``constrain`` sharding hint (no meaning on one
-card), ``remat`` (training), and ``loss_fn`` (training, ROADMAP queue 1
-item 16).
+The training loss scans with the model's own differentiable recurrence
+(``backend="reference"``: ``kernels/ref.py::mamba_scan_ref``, the
+reference's chunked ``lax.scan``): K5 has no backward.  ``remat``
+checkpoints each layer body, as the reference's ``jax.checkpoint``.  Left out: ``hidden_fn``'s ``constrain`` sharding hint
+(ROADMAP item 16b).
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ from repro_torch.config import ArchFamily, ModelConfig
 from repro_torch.device import resolve_device, set_f32_numerics
 from repro_torch.layers import embedding as E
 from repro_torch.layers import ssm as S
-from repro_torch.layers.common import embed_init_
+from repro_torch.layers.common import embed_init_, remat
 from repro_torch.layers.norms import rmsnorm
+from repro_torch.models.losses import batch_nll, head_weight
 
 # parameter name -> nested key path of the reference's per-layer tree
 LAYER_PARAMS = {**{k: ("mixer", k) for k in S.MAMBA1_PARAMS},
@@ -31,7 +34,8 @@ LAYER_PARAMS = {**{k: ("mixer", k) for k in S.MAMBA1_PARAMS},
 
 
 class SSMLM(nn.Module):
-    """Mamba-1 LM weights (no gradients: the port serves)."""
+    """Mamba-1 LM weights (registered without gradients; a trainer turns
+    them on)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  dtype: torch.dtype = torch.float32):
@@ -79,19 +83,25 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return SSMLM(cfg, resolve_device(device), dtype).reset_parameters(seed)
 
 
-@torch.no_grad()
+def _layer(lp: dict, h: torch.Tensor, cfg: ModelConfig,
+           backend: str) -> torch.Tensor:
+    return h + S.mamba1_forward(lp["mixer"],
+                                rmsnorm(lp["norm"], h, cfg.norm_eps), cfg,
+                                backend=backend)
+
+
 def hidden_fn(params: SSMLM, batch: Dict[str, torch.Tensor],
-              cfg: ModelConfig, *, backend: str = "kernel") -> torch.Tensor:
+              cfg: ModelConfig, *, backend: str = "kernel",
+              remat_layers: bool = False) -> torch.Tensor:
     """Final-norm hidden states [B, S, D] of ``batch["tokens"]`` [B, S];
-    every layer's scan is one K5 launch (``backend="kernel"``) or the plain
-    ``mamba_scan_ref`` (``"reference"``)."""
+    every layer's scan is one K5 launch (``backend="kernel"``) or the
+    plain, differentiable ``mamba_scan_ref`` (``"reference"``);
+    ``remat_layers`` recomputes each layer in backward."""
     set_f32_numerics()
     h = E.embed(params.embed_params, batch["tokens"], cfg)
     for i in range(cfg.num_layers):
-        lp = params.layer(i)
-        h = h + S.mamba1_forward(lp["mixer"],
-                                 rmsnorm(lp["norm"], h, cfg.norm_eps), cfg,
-                                 backend=backend)
+        h = remat(_layer, params.layer(i), h, cfg, backend,
+                  enabled=remat_layers)
     return rmsnorm({"scale": params.final_norm}, h, cfg.norm_eps)
 
 
@@ -101,6 +111,16 @@ def logits_fn(params: SSMLM, batch: Dict[str, torch.Tensor],
     """Teacher-forced logits [B, S, V] and the auxiliary loss (0)."""
     h = hidden_fn(params, batch, cfg, backend=backend)
     return E.unembed(params.embed_params, h, cfg), h.new_zeros(())
+
+
+def loss_fn(params: SSMLM, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, *, remat: bool = False):
+    """(the chunked NLL, {"nll", "moe_aux": 0}) of ``tokens`` against
+    ``targets`` (``loss_mask`` optional), scanning with the plain,
+    differentiable recurrence."""
+    h = hidden_fn(params, batch, cfg, backend="reference", remat_layers=remat)
+    loss = batch_nll(h, head_weight(params, cfg), batch)
+    return loss, {"nll": loss, "moe_aux": loss.new_zeros(())}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int = 1,

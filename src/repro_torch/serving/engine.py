@@ -180,12 +180,19 @@ def _joint_attend(q, k_pool, v_pool, valid_pool, buf_k, buf_v, buf_mask):
     k = torch.cat([k_pool, buf_k.to(k_pool.dtype)], 1)
     v = torch.cat([v_pool, buf_v.to(v_pool.dtype)], 1)
     valid = torch.cat([valid_pool[:, None].expand(b, t, -1), buf_mask], 2)
-    qh = q.reshape(b, t, h, hq // h, hd).float()
-    s = torch.einsum("bthgd,bnhd->bthgn", qh, k.float()) / math.sqrt(hd)
+    gq, n = hq // h, k.shape[1]
+    # heads lead each product (``head_matmul``): a rank's share of the kv
+    # heads rounds as the same heads of the whole batch
+    qh = q.reshape(b, t, h, gq, hd).float().transpose(1, 2) \
+        .reshape(b, h, t * gq, hd)
+    s = KR.head_matmul(qh, k.float().permute(0, 2, 3, 1)) / math.sqrt(hd)
+    s = s.reshape(b, h, t, gq, n).transpose(1, 2)
     vm = valid[:, :, None, None, :]
     p = torch.softmax(torch.where(vm, s, NEG_INF), dim=-1)
     p = torch.where(vm, p, 0.0)
-    out = torch.einsum("bthgn,bnhd->bthgd", p, v.float())
+    out = KR.head_matmul(p.transpose(1, 2).reshape(b, h, t * gq, n),
+                         v.float().permute(0, 2, 1, 3))
+    out = out.reshape(b, h, t, gq, hd).transpose(1, 2)
     return out.reshape(b, t, hq, hd).to(q.dtype), p, valid
 
 

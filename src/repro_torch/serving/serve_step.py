@@ -85,6 +85,7 @@ def make_prefill_step(model, cfg: ModelConfig) -> Callable:
               ArchFamily.HYBRID: hybrid.hidden_fn,
               ArchFamily.ENCDEC: encdec.hidden_fn}.get(cfg.family)
     if hidden is not None:
+        @torch.no_grad()
         def step(params, batch):
             h = hidden(params, batch, cfg)
             return E.unembed(params.embed_params, h[:, -1], cfg)
@@ -104,6 +105,7 @@ def make_decode_step_fullkv(cfg: ModelConfig) -> Callable:
     for the SSM family, (logits, conv_state, ssm_state, k_cache, v_cache)
     for the hybrid."""
     if cfg.family == ArchFamily.SSM:
+        @torch.no_grad()
         def step(params, batch):
             lg, new = ssm_lm.decode_step(
                 params, batch["tokens"],
@@ -111,6 +113,7 @@ def make_decode_step_fullkv(cfg: ModelConfig) -> Callable:
             return lg, new.conv, new.h
         return step
     if cfg.family == ArchFamily.HYBRID:
+        @torch.no_grad()
         def step(params, batch):
             lg, new, kc, vc = hybrid.decode_step_fullkv(
                 params, batch["tokens"], batch["positions"],
@@ -119,6 +122,7 @@ def make_decode_step_fullkv(cfg: ModelConfig) -> Callable:
             return lg, new.conv, new.h, kc, vc
         return step
     if cfg.family == ArchFamily.ENCDEC:
+        @torch.no_grad()
         def step(params, batch):
             return encdec.decode_step_fullkv(
                 params, batch["tokens"], batch["positions"],
@@ -126,6 +130,7 @@ def make_decode_step_fullkv(cfg: ModelConfig) -> Callable:
                 batch["cross_k"], batch["cross_v"], cfg)
         return step
 
+    @torch.no_grad()
     def step(params, batch):
         return lm.decode_step_fullkv(
             params, batch["tokens"], batch["positions"], batch["k_cache"],

@@ -399,8 +399,53 @@ def test_audit_cli_is_clean(tmp_path, capsys):
     rep = json.loads(out.read_text())
     assert rep["ok"] and len(rep["cells"]) == 4
     assert set(rep["steps"]) == {"flash_prefill", "prefill_step",
-                                 "decode_step_fullkv"}
+                                 "decode_step_fullkv", "train_step"}
+    assert rep["steps"]["train_step"]["ok"]
     assert "-> OK" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the train step's contract
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("r1-llama-8b", "mixtral-8x7b", "paligemma-3b",
+               "falcon-mamba-7b", "zamba2-7b", "whisper-medium")
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_contract_holds_for_every_family(arch):
+    """One train step of every family's smoke form (remat on): no launch
+    of K1-K5 (none has a backward; the reference's train path runs none of
+    its Pallas kernels), no collective, no fp64."""
+    from repro_torch.analysis import audit_train_step
+    a = audit_train_step(arch)
+    assert a.ok, a.violations
+    assert a.census.launches == {} and a.census.device_launches == {}
+    assert a.census.fp64 == [] and a.census.collectives == []
+
+
+def test_train_step_contract_holds_with_microbatches():
+    from repro_torch.analysis import audit_train_step
+    a = audit_train_step("r1-llama-8b", microbatches=2)
+    assert a.ok and a.census.launches == {}
+
+
+def test_train_step_contract_fails_on_a_kernel_launch(monkeypatch):
+    """A loss that reaches a kernel wrapper (here K3's, on the hidden
+    states) breaks the train step's contract, naming the kernel."""
+    from repro_torch.analysis import audit_train_step
+    from repro_torch.models import lm
+    real = lm.backbone
+
+    def backbone(params, h, cfg, positions, **kw):
+        q = h[0].reshape(h.shape[1], cfg.d_model // 16, 16).contiguous()
+        ops.prefill_attention(q, q, q)
+        return real(params, h, cfg, positions, **kw)
+    monkeypatch.setattr(lm, "backbone", backbone)
+    a = audit_train_step("r1-llama-8b")
+    assert not a.ok
+    assert any(v.rule == "launch-count" and K3 in v.message
+               for v in a.violations), a.violations
 
 
 # ---------------------------------------------------------------------------

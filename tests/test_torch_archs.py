@@ -314,8 +314,9 @@ def test_entry_points_take_the_slice_and_refuse_the_rest():
     ``models/lm.py`` refuses their configs, naming the factory.  Tensor
     parallelism (item 13) is ported: the engine takes a mesh whose rank
     count divides the kv heads and refuses one that does not; training
-    (item 16) still raises, naming its item.  Tied embeddings are taken (no ``lm_head``; embeddings scaled
-    by sqrt(d_model)) and give the JAX forward's logits."""
+    (item 16a) is ported: the factory's ``loss`` is ``models/lm.py``'s
+    ``loss_fn``.  Tied embeddings are taken (no ``lm_head``; embeddings
+    scaled by sqrt(d_model)) and give the JAX forward's logits."""
     from repro_torch.launch import serve
     from repro_torch.models import encdec as ET
     from repro_torch.models import hybrid as HT
@@ -358,8 +359,7 @@ def test_entry_points_take_the_slice_and_refuse_the_rest():
     with pytest.raises(ValueError, match="cannot shard"):
         ThinKVEngine(ServeConfig(model=base, max_seqs=1), device="cpu",
                      mesh=ServeMesh(0, 4, None, torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        FT.build_model(base).loss(None, None, base)
+    assert FT.build_model(base).loss is LT.loss_fn
     jcfg = dataclasses.replace(jax_smoke("r1-llama-8b"), tie_embeddings=True)
     tied = dataclasses.replace(base, tie_embeddings=True)
     assert not hasattr(LT.init_params(tied, device="cpu"), "lm_head")

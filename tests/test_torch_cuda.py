@@ -8,7 +8,9 @@ step's kernel path (one K1 launch per layer) against its plain path; a
 uniform single-level commit; the pressure trace on mixtral-8x7b's (MoE)
 and qwen2-7b's (qkv bias) smoke configs against their JAX records, and
 K1-K3 at those configs' query-group sizes; K1 at head_dim 112 and the JAX
-records of the hybrid and encoder-decoder serve steps.
+records of the hybrid and encoder-decoder serve steps; the JAX train
+record replayed by the port's train step, and a trainer resumed after an
+injected failure.
 
 Every test here needs a CUDA card and the CUDA toolkit (the kernels are
 built with nvcc at first use); without a card each test skips with the
@@ -1194,6 +1196,52 @@ def test_steps_records_on_the_card_give_the_jax_records(card, name):
     cfg = SR.config(rec["settings"])
     assert res["k1_launches"] == \
         cfg.num_attention_layers() * rec["thinkv_tokens"].shape[0]
+
+
+# ----------------------------------------------------------------------
+# single-card training
+
+
+def test_train_record_on_the_card_gives_the_jax_record(card):
+    """The JAX train record (4 steps of r1-llama-8b's and mixtral-8x7b's
+    smoke forms) replayed by the port's train step on the card: losses,
+    grad norms, learning rates and per-parameter digests within 1e-4
+    relative, launching no kernel (``test_torch_train_record``)."""
+    import test_torch_train_record as TRR
+    rec = TRR.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "golden", "torch_train_steps.npz"))
+    before = dict(ops.LAUNCHES)
+    assert TRR.mismatches(rec, TRR.replay(rec, card)) == []
+    assert ops.LAUNCHES == before
+
+
+def test_trainer_resumes_on_the_card(card, tmp_path):
+    """A smoke run on the card that fails at step 5 and resumes from its
+    step-4 checkpoint ends on the uninterrupted run's last loss within
+    1e-4 relative."""
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.ft.failures import FailureInjector, InjectedFailure
+    from repro_torch.training.trainer import Trainer
+    m = get_smoke_config("yi-6b")
+    cfg = TrainConfig(model=m, optimizer=OptimizerConfig(
+        lr=1e-3, warmup_steps=2, decay_steps=8), seq_len=16,
+        global_batch=4, steps=8, checkpoint_every=2, keep_checkpoints=2,
+        checkpoint_dir=str(tmp_path / "ckpt"))
+
+    def data_fn(start):
+        it = lm_batches(m.vocab_size, 4, 16, seed=7)
+        for _ in range(start):
+            next(it)
+        return it
+    ref = Trainer(dataclasses.replace(cfg, checkpoint_dir=str(
+        tmp_path / "ref")), data_fn, device=card).run()
+    with pytest.raises(InjectedFailure):
+        Trainer(cfg, data_fn, failure_injector=FailureInjector(
+            fail_at_steps=(5,)), device=card).run()
+    res = Trainer(cfg, data_fn, device=card).run()
+    assert (res.resumed_from, res.final_step) == (4, 8)
+    np.testing.assert_allclose(res.losses[-1], ref.losses[-1], rtol=1e-4)
 
 
 # ----------------------------------------------------------------------

@@ -35,6 +35,30 @@ def test_no_jax_or_reference_package_imports(path):
     assert forbidden_imports(path.read_text()) == []
 
 
+TRAINING_MODULES = ("models/losses.py", "training/optimizer.py",
+                    "training/train_step.py", "training/trainer.py",
+                    "checkpoint/checkpointer.py", "ft/failures.py",
+                    "data/synthetic.py", "distributed/compression.py",
+                    "launch/train.py")
+
+
+def test_training_modules_are_under_the_rule():
+    """The single-card training slice's modules are among the files the
+    import rule reads, and none of them (nor the families' losses)
+    reaches a kernel wrapper or a library attention kernel."""
+    pkg = ROOT / "src" / "repro_torch"
+    for rel in TRAINING_MODULES:
+        assert pkg / rel in FILES, rel
+    for path in FILES[:-1]:
+        assert "scaled_dot_product_attention" not in path.read_text(), path
+    for rel in TRAINING_MODULES:
+        tree = ast.parse((pkg / rel).read_text())
+        mods = {n.module for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom)}
+        assert not mods & {"repro_torch.kernels", "repro_torch.kernels.ops"}, \
+            rel
+
+
 @pytest.mark.parametrize("src,bad", [
     ("import jax", ["jax"]),
     ("import jax.numpy as jnp", ["jax.numpy"]),

@@ -80,6 +80,29 @@ def test_mamba_scan_batch_axis_is_per_row_scans():
         close(y[r], ops.mamba_scan(x[r], dt[r], b[r], c[r], a).numpy())
 
 
+@pytest.mark.parametrize("s", [64, 150])
+def test_mamba_scan_ref_trains_in_checkpointed_chunks(s):
+    """The plain scan is also the training scan: in chunks of 64 steps (50
+    at S 150) under ``torch.utils.checkpoint`` when autograd records, and
+    the same bits as one unchunked loop with or without gradients; its
+    gradient matches the f64 scan's."""
+    args = [torch.from_numpy(t) for t in scan_inputs(s, s, 32, 16, (2,))]
+    whole = RT._scan_steps(args[0].new_zeros((2, 32, 16)), *args)[1]
+    with torch.no_grad():
+        assert torch.equal(RT.mamba_scan_ref(*args), whole)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    y = RT.mamba_scan_ref(*leaves)
+    assert torch.equal(y.detach(), whole)
+    y.square().sum().backward()
+    wide = [t.double().requires_grad_(True) for t in args]
+    RT._scan_steps(wide[0].new_zeros((2, 32, 16)), *wide)[1].square(
+        ).sum().backward()
+    for t, w in zip(leaves, wide):
+        np.testing.assert_allclose(t.grad.numpy(), w.grad.numpy(),
+                                   rtol=1e-4, atol=1e-4 * float(
+                                       w.grad.abs().max()))
+
+
 def test_mamba_scan_refuses_what_the_kernel_does_not_take():
     x, dt, b, c, a = map(torch.from_numpy, scan_inputs(6, 8, 16, 16))
     with pytest.raises(TypeError):
@@ -244,8 +267,8 @@ def test_other_families_name_their_roadmap_item():
     """The dense serve-step makers build since item 12 was ported, the
     MoE and VLM families' since their parts of item 15 were, the
     encoder-decoder and hybrid families' since items 15c and 15b were: the
-    factory maps each family to its module; only training (item 16) still
-    raises, naming its item."""
+    factory maps each family to its module, and since item 16a (single-card
+    training) each family's ``loss`` is its module's ``loss_fn``."""
     cfg = get_smoke_config("r1-llama-8b")
     for c in (cfg, get_smoke_config("mixtral-8x7b"),
               get_smoke_config("paligemma-3b")):
@@ -266,8 +289,10 @@ def test_other_families_name_their_roadmap_item():
                      lambda: SST.make_decode_step_thinkv(other, None,
                                                          backend="kernel")):
             assert callable(make())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        FT.build_model(cfg).loss(None, None, cfg)
+    for c in (cfg, get_smoke_config(ARCH), get_smoke_config("zamba2-7b"),
+              get_smoke_config("whisper-medium")):
+        model = FT.build_model(c)
+        assert model.loss is model.module.loss_fn
 
 
 def test_engine_refuses_the_attention_free_family():

@@ -257,18 +257,72 @@ def write_sampled_fixture(path: str = SAMPLED_FIXTURE) -> None:
     np.savez(path, **jax_sampled_record())
 
 
+#: a stored record's computed f32 planes against a fresh run of the JAX
+#: reference: XLA's f32 rounding on the CPU differs with the host and its
+#: threads (up to 6.42e-5 seen on the hybrid record's reference-backend
+#: ThinKV logits, whose bf16 rounding of queries and probabilities carries
+#: an f32 ulp into a bf16 step; 2.35e-5 or less elsewhere).  The held
+#: logits are at most 3.8 in size, so their bar stays under 1.4e-4, 7x
+#: under the 1e-3 they are held to on the card
+RECORD_ATOL = 1e-4
+RECORD_RTOL = 1e-5
+#: record keys that are inputs (drawn, not computed), held exactly
+RECORD_INPUTS = (TR.PARAM, "frames", "init/")
+#: computed bf16 planes (stored as their uint16 bits): within one bf16 step
+#: of their size (an f32 ulp carried across a bf16 rounding) + RECORD_ATOL
+RECORD_BF16 = ("final_buf_",)
+
+
+def _bf16_values(bits: np.ndarray) -> np.ndarray:
+    """bf16 values stored as their uint16 bits -> f32."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _json_close(a, b, where: str) -> None:
+    """Two decoded JSON values: the same structure, strings, integers and
+    booleans exactly, floats within the record bar."""
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b), where
+        for k in a:
+            _json_close(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, list):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _json_close(x, y, f"{where}/{i}")
+    elif isinstance(a, float):
+        assert abs(a - b) <= RECORD_ATOL + RECORD_RTOL * abs(b), \
+            (where, a, b)
+    else:
+        assert type(a) is type(b) and a == b, (where, a, b)
+
+
 def assert_archive_equals(path: str, fresh: dict) -> None:
-    """Tokens, counters, audit, prompts and parameters exactly; logits to
-    1e-6."""
+    """Every record's archive check (the trace, steps and train records):
+    the same keys and dtypes; inputs, integers, tokens, counters and audits
+    exactly; computed f32 planes within ``RECORD_ATOL`` + ``RECORD_RTOL``
+    |x|, computed bf16 planes within one bf16 step + ``RECORD_ATOL``, and
+    the floats inside a JSON record (the drift statistics) within the f32
+    bar."""
     with np.load(path, allow_pickle=False) as z:
         assert sorted(z.files) == sorted(fresh)
         for k in fresh:
-            if k.startswith("logits_"):
-                np.testing.assert_allclose(z[k], fresh[k], rtol=0, atol=1e-6,
-                                           err_msg=k)
+            a, b = z[k], fresh[k]
+            if a.dtype.kind == "U":
+                _json_close(json.loads(str(a)), json.loads(str(b)), k)
+                continue
+            assert a.dtype == b.dtype, k
+            if k.startswith(RECORD_INPUTS):
+                np.testing.assert_array_equal(a, b, err_msg=k)
+            elif a.dtype == np.float32:
+                np.testing.assert_allclose(a, b, rtol=RECORD_RTOL,
+                                           atol=RECORD_ATOL, err_msg=k)
+            elif k.startswith(RECORD_BF16):
+                af, bf = (_bf16_values(x) for x in (a, b))
+                step = np.ldexp(1.0, np.frexp(np.maximum(
+                    np.abs(af), np.abs(bf)))[1] - 8)     # one bf16 step
+                assert (np.abs(af - bf) <= RECORD_ATOL + step).all(), k
             else:
-                assert z[k].dtype == fresh[k].dtype, k
-                np.testing.assert_array_equal(z[k], fresh[k], err_msg=k)
+                np.testing.assert_array_equal(a, b, err_msg=k)
 
 
 @pytest.fixture(scope="module")
@@ -282,8 +336,8 @@ def stored_pressure():
 
 
 def test_fixture_equals_the_live_jax_record(stored):
-    """Tokens, counters, audit, prompts and parameters exactly; logits to
-    1e-6."""
+    """Tokens, counters, audit, prompts and parameters exactly; logits
+    as ``assert_archive_equals`` holds them."""
     fresh = jax_record()
     assert_archive_equals(FIXTURE, fresh)
     n_params = sum(v.size for k, v in fresh.items()
@@ -617,21 +671,14 @@ def steps_record(request):
 def test_steps_fixtures_equal_the_live_jax_records(steps_record):
     """The hybrid and encdec records: the live JAX serve steps' runs
     (archive equal to a fresh run's: inputs and integers exactly, floats
-    to 1e-6), the smoke form's shapes (zamba2 at head_dim 112 with a tail
-    and 2 shared-block invocations; whisper's 16 frames), each record
-    under 1 MB, and both JAX backends within the bar of each other."""
+    as ``assert_archive_equals`` holds them), the smoke form's shapes
+    (zamba2 at head_dim 112 with a tail and 2 shared-block invocations;
+    whisper's 16 frames), each record under 1 MB, and both JAX backends
+    within the bar of each other."""
     name, rec, fresh = steps_record
     path = STEPS_FIXTURES[name]
     assert os.path.getsize(path) < 1 << 20
-    with np.load(path, allow_pickle=False) as z:
-        assert sorted(z.files) == sorted(fresh)
-        for k in fresh:
-            if z[k].dtype == np.float32:
-                np.testing.assert_allclose(z[k], fresh[k], rtol=0,
-                                           atol=1e-6, err_msg=k)
-            else:
-                assert z[k].dtype == fresh[k].dtype, k
-                np.testing.assert_array_equal(z[k], fresh[k], err_msg=k)
+    assert_archive_equals(path, fresh)
     cfg = SR.config(rec["settings"])
     if name == "hybrid":
         assert (cfg.head_dim, cfg.num_attention_layers()) == (112, 2)
