@@ -230,6 +230,19 @@ failure:
                 smoke run failing at step 5 and resumed ending on the
                 uninterrupted run's loss within 1e-4; the train step's
                 contract on the card.
+   train_mesh — sharded training on gloo ranks sharing the card
+                (``train_mesh_phase``): the train phase's model, batch
+                and seed on 2 ranks (data 2), 3 steps, step 1's loss,
+                gradient and every parameter held to the one-rank step
+                (the reference's bars); per rank the bytes held between
+                steps, the peak, ms per step and the gradient
+                all-reduce's bytes and ms per step; zero kernel
+                launches; then at smoke size yi-6b and mixtral on
+                (data 2, model 2) held to the one-rank step, the trainer
+                resumed 1 -> 2 and 2 -> 1 ranks against an uninterrupted
+                run, and ring attention, the pipeline, the compressed
+                cross-pod gradient and the overlapped MoE FFN over 2
+                ranks on card tensors against their one-rank formulas.
 
 Then the kernels line (each kernel's launches on its own path: K1-K4 from
 the serve phase, from the tp phase's serve leg (rank 0) as
@@ -246,7 +259,8 @@ times at those steps' shapes under ``by_shape``, head_dim 112 and 64) and
 K4 from the encdec phase's cross KV, from the traces' kernel-backend
 replays as ``launches_trace`` with their times at head_dim 16 under
 ``trace``, K2 and K3 also by shape, K5 from the ssm phase's
-prefill, the wrapper from the controller phase), the card's name and power limit as nvidia-smi gives
+prefill, the wrapper from the controller phase, and every kernel's 0
+from the train_mesh phase as ``launches_train_mesh``), the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -254,6 +268,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3651,6 +3666,447 @@ def train_phase(dev) -> dict:
     return out
 
 
+TM_ARCH = "r1-llama-8b"
+TM_LAYERS = 2              # of r1-llama-8b's 32, as the train phase
+TM_BATCH, TM_SEQ, TM_STEPS = 8, 512, 3
+TM_MESH = "data=2,model=1"  # 2 gloo ranks on the one card
+TM_SMOKE_MESH = "data=2,model=2"
+TM_LOSS_RTOL = 2e-5        # the reference's sharded-step bars
+TM_PARAM_RTOL, TM_PARAM_ATOL = 2e-4, 2e-5
+TM_GRAD_REL = 1e-4         # each gradient leaf, of that leaf's largest |g|
+TM_GNORM_RTOL = 1e-5       # the gradient norm against the one-rank step's
+TM_SMOKE_WARMUP = 1        # smoke steps at the full lr: updates over the bar
+TM_RING_ATOL, TM_PIPE_ATOL, TM_POD_REL, TM_MOE_ATOL = 3e-5, 2e-5, 0.02, 1e-5
+
+
+def _excess(got, want, rtol: float, atol: float) -> float:
+    """max(|got - want| - (atol + rtol |want|)): <= 0 within the bar."""
+    got, want = got.detach(), want.detach()
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def _grad_rel(got: dict, want: dict) -> dict:
+    return {k: float((got[k] - w).abs().max()
+                     / w.abs().max().clamp_min(1e-30))
+            for k, w in want.items()}
+
+
+def _one_rank_step(model, mc, batch) -> dict:
+    """The one-rank step of ``SEED``'s weights on ``batch``: its loss, its
+    gradient (a ``grad_transform`` that keeps it) and the new weights."""
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step
+    ref = {}
+
+    def keep(g):
+        ref["grads"] = {k: v.clone() for k, v in g.items()}
+        return g
+    p = model.init_params(SEED, batch["tokens"].device).requires_grad_(True)
+    step = make_train_step(model.loss, mc, OptimizerConfig(), remat=True,
+                           grad_transform=keep)
+    _, _, m = step(p, adamw_init(p), batch)
+    ref.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               params=p)
+    return ref
+
+
+def train_mesh_full_rank(mesh, dirs: dict) -> dict:
+    """One rank of the full-width data=2 step (``train_mesh_phase`` (a)).
+    Rank 0 first runs the one-rank step of the same seeds on its own copy
+    of the weights (``_one_rank_step``: its gradient and new parameters
+    stay on the card), then both ranks run ``TM_STEPS`` sharded steps;
+    step 1's gradient (a ``grad_transform`` that reads it) and gathered
+    parameters are held to the one-rank step on rank 0.  The gradient
+    all-reduce (``train_step.reduce_grads``) is timed inside each step.
+    Then, the card freed, the 2-rank part of (b)
+    (``train_mesh_smoke_rank2``)."""
+    import torch
+
+    import repro_torch.training.train_step as TS
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.configs import get_config
+    from repro_torch.convert import param_shapes
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.device import set_f32_numerics
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.trainer import batch_to
+    set_f32_numerics()
+    dev = mesh.device
+    launches0 = dict(ops.LAUNCHES)
+    mc = dataclasses.replace(get_config(TM_ARCH), num_layers=TM_LAYERS)
+    model = build_model(mc)
+    data = lm_batches(mc.vocab_size, TM_BATCH, TM_SEQ, seed=SEED)
+    batches = [batch_to(next(data), dev) for _ in range(TM_STEPS)]
+    out = {"rank": mesh.rank}
+    ref = _one_rank_step(model, mc, batches[0]) if mesh.rank == 0 else {}
+    torch.cuda.empty_cache()
+    SH.barrier(mesh)
+    params = model.init_params(SEED, dev).requires_grad_(True)
+    sp = TS.shard_params(params, mesh)
+    opt = adamw_init(sp.blocks)
+    held, errs = [], {}
+
+    def check_grads(g):
+        if "grads" in ref and "grad_rel" not in errs:
+            errs["grad_rel"] = _grad_rel(g, ref.pop("grads"))
+        return g
+
+    step = TS.make_train_step(model.loss, mc, OptimizerConfig(), remat=True,
+                              grad_transform=check_grads, mesh=mesh)
+    ms, losses, ar_bytes, ar_ms = [], [], [], []
+    reduce_grads = TS.reduce_grads
+
+    def timed_reduce(grads, mesh_):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out_ = reduce_grads(grads, mesh_)
+        torch.cuda.synchronize()
+        ar_ms.append((time.perf_counter() - t) * 1e3)
+        return out_
+    TS.reduce_grads = timed_reduce
+    try:
+        for i, b in enumerate(batches):
+            if i == 1:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            key = ("all_reduce", "float32")
+            b0 = SH.COLLECTIVE_BYTES.get(key, 0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sp, opt, m = step(sp, opt, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            ar_bytes.append(SH.COLLECTIVE_BYTES.get(key, 0) - b0)
+            held.append(_resident_bytes(sp, opt))
+            if i == 0:
+                worst = {}
+                for k, blk in sp.blocks.items():   # every rank gathers
+                    full = SH.unshard(blk, sp.specs[k], mesh)
+                    if "params" in ref:
+                        worst[k] = _excess(full, getattr(ref["params"], k),
+                                           TM_PARAM_RTOL, TM_PARAM_ATOL)
+                    del full
+                if "params" in ref:
+                    errs["param_excess"] = worst
+                    errs["loss_rel"] = abs(losses[0] - ref["loss"]) / \
+                        abs(ref["loss"])
+                    errs["loss_one_rank"] = ref["loss"]
+                    errs["gnorm_rel"] = abs(float(m["grad_norm"])
+                                            - ref["grad_norm"]) / \
+                        ref["grad_norm"]
+                    del ref["params"]
+    finally:
+        TS.reduce_grads = reduce_grads
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del sp, opt, params, batches, model
+    torch.cuda.empty_cache()
+    out.update(losses=losses, ms_per_step=ms, held_bytes=max(held),
+               peak_gb_steps_2_on=peak, allreduce_bytes_per_step=ar_bytes,
+               grad_bytes=4 * sum(math.prod(s)
+                                  for s in param_shapes(mc).values()),
+               allreduce_ms_per_step=ar_ms,
+               kernel_launches={k: n - launches0[k]
+                                for k, n in ops.LAUNCHES.items()
+                                if n != launches0[k]}, **errs)
+    out["smoke2"] = train_mesh_smoke_rank2(mesh, dirs)
+    return out
+
+
+def _resident_bytes(sp, opt) -> int:
+    """The bytes of every storage a rank's sharded state holds: the
+    parameter blocks, m, v and the full-size model the step gathers into
+    (a storage shared by several tensors counted once)."""
+    stores = {}
+    for t in [*sp.blocks.values(), *opt.m.values(), *opt.v.values(),
+              *sp.model.parameters()]:
+        st = t.untyped_storage()
+        stores[st.data_ptr()] = st.nbytes()
+    return sum(stores.values())
+
+
+def _smoke_batch(cfg, seed: int) -> dict:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (8, 17)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def train_mesh_smoke_step(mesh, arch: str, seed: int, dev=None):
+    """One step of ``arch``'s smoke form from ``SEED``'s weights (on
+    ``mesh`` when given, else on ``dev``) at the full learning rate: (loss,
+    gradient norm, the new parameters as numpy)."""
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.factory import build_model
+    from repro_torch.training.optimizer import adamw_init, named
+    from repro_torch.training.train_step import make_train_step, \
+        shard_params
+    from repro_torch.training.trainer import batch_to
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    dev = mesh.device if mesh is not None else dev
+    p = model.init_params(SEED, dev).requires_grad_(True)
+    batch = batch_to(_smoke_batch(cfg, seed), dev)
+    step = make_train_step(model.loss, cfg, OptimizerConfig(
+        warmup_steps=TM_SMOKE_WARMUP), mesh=mesh)
+    if mesh is None:
+        _, _, m = step(p, adamw_init(p), batch)
+        return float(m["loss"]), float(m["grad_norm"]), {
+            k: v.detach().cpu().numpy() for k, v in named(p).items()}
+    sp = shard_params(p, mesh)
+    sp, _, m = step(sp, adamw_init(sp.blocks), batch)
+    return float(m["loss"]), float(m["grad_norm"]), {
+        k: SH.unshard(b, sp.specs[k], mesh).detach().cpu().numpy()
+        for k, b in sp.blocks.items()}
+
+
+def train_mesh_smoke_rank(mesh, want: dict) -> dict:
+    """yi-6b and mixtral's smoke steps on this rank of (data 2, model 2),
+    each held to the one-rank step on the card."""
+    import numpy as np
+    import torch
+    out = {}
+    for i, arch in enumerate(sorted(want)):
+        loss, gnorm, params = train_mesh_smoke_step(mesh, arch, i)
+        wl, wg, wp = want[arch]
+        excess = max(_excess(torch.from_numpy(params[k]),
+                             torch.from_numpy(w), TM_PARAM_RTOL,
+                             TM_PARAM_ATOL) for k, w in wp.items())
+        out[arch] = {"loss_rel": abs(loss - wl) / abs(wl),
+                     "gnorm_rel": abs(gnorm - wg) / wg,
+                     "param_excess": excess,
+                     "finite": bool(np.isfinite(loss))}
+    return out
+
+
+def _tm_trainer(mesh, ckpt: str, steps: int, dev=None):
+    from repro_torch.config import MeshConfig, OptimizerConfig, TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.training.trainer import Trainer
+    layout = MeshConfig(mesh.shape, mesh.axis_names) if mesh is not None \
+        else MeshConfig()
+    cfg = TrainConfig(model=get_smoke_config("yi-6b"), mesh=layout,
+                      optimizer=OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                decay_steps=6),
+                      seq_len=16, global_batch=4, steps=steps,
+                      checkpoint_every=3, keep_checkpoints=2,
+                      checkpoint_dir=ckpt)
+    return Trainer(cfg, _tm_data, mesh=mesh, device=dev).run().losses
+
+
+def _tm_data(start: int):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import lm_batches
+    it = lm_batches(get_smoke_config("yi-6b").vocab_size, 4, 16, seed=7)
+    for _ in range(start):
+        next(it)
+    return it
+
+
+def train_mesh_patterns(mesh2) -> dict:
+    """The mesh patterns over this rank's 2-rank meshes on card tensors,
+    each against its one-rank formula: ring attention (out and the
+    gradients of q, k, v against plain attention's), the pipeline against
+    the stages in turn, the compressed cross-pod gradient against the
+    exact mean gradient, the overlapped MoE FFN against each slab through
+    its expert."""
+    import torch
+
+    from repro_torch.config import MeshConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.compression import make_cross_pod_grad_fn
+    from repro_torch.distributed.overlap import overlapped_moe_ffn
+    from repro_torch.distributed.ring_attention import ring_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.layers.attention import dense_attention
+    from repro_torch.training.pipeline import pipeline_apply
+    dev = mesh2.device
+    g = torch.Generator().manual_seed(SEED)
+    rnd = lambda *s: torch.randn(s, generator=g).to(dev)  # noqa: E731
+    out = {}
+    mesh = make_mesh(MeshConfig((2,), ("model",)), mesh2.rank, dev.type)
+    q, k, v, w = rnd(2, 256, 7, 32), rnd(2, 256, 1, 32), \
+        rnd(2, 256, 1, 32), rnd(2, 256, 7, 32)
+    qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = ring_attention(*qkv, mesh)
+    (o * w).sum().backward()
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    plain = dense_attention(*ref, causal=True)
+    (plain * w).sum().backward()
+    out["ring_max_abs"] = float((o - plain).detach().abs().max())
+    out["ring_grad_rel"] = max(
+        float((a.grad - b.grad).abs().max() / b.grad.abs().max())
+        for a, b in zip(qkv, ref))
+    pod = make_mesh(MeshConfig((2,), ("pod",)), mesh2.rank, dev.type)
+    ws, h0 = rnd(2, 16, 16) * 0.3, rnd(4, 2, 16)
+    pipe = pipeline_apply(lambda w_, h: torch.tanh(h @ w_),
+                          SH.shard_of(ws, ("pod",), pod), h0, pod,
+                          num_microbatches=4, axis="pod")
+    seq = h0
+    for w_ in ws:
+        seq = torch.tanh(seq @ w_)
+    out["pipeline_max_abs"] = float((pipe - seq).abs().max())
+    wp, bp = rnd(16), rnd(8, 16)
+    loss = lambda p, b: torch.mean((b @ p) ** 2)  # noqa: E731
+    blk = SH.shard_of(bp, ("pod",), pod)
+    gc_, _ = make_cross_pod_grad_fn(loss, pod)(wp, blk, torch.zeros_like(wp))
+    ge, _ = make_cross_pod_grad_fn(loss, pod, compress=False)(
+        wp, blk, torch.zeros_like(wp))
+    exact = 2 * bp.T @ (bp @ wp) / 8
+    out["pod_compressed_rel"] = float((gc_ - ge).norm() / ge.norm())
+    out["pod_exact_max_abs"] = float((ge - exact).abs().max())
+    x, wu, wd = rnd(16, 8), rnd(2, 8, 12) * 0.2, rnd(2, 12, 8) * 0.2
+    y = SH.unshard(overlapped_moe_ffn(
+        SH.shard_of(x, ("model",), mesh), wu[mesh.rank], wd[mesh.rank],
+        mesh, chunks=2), ("model",), mesh)
+    # token j of rank i's block of 8 goes to expert j // 4
+    want = torch.cat([torch.relu(x[r * 8 + e * 4:r * 8 + e * 4 + 4] @ wu[e])
+                      @ wd[e] for r in range(2) for e in range(2)])
+    out["moe_max_abs"] = float((y - want).abs().max())
+    return out
+
+
+def train_mesh_smoke_rank2(mesh, dirs: dict) -> dict:
+    """On this rank of 2: the resume of a 1-rank run, a run saved for the
+    1-rank resume, and the mesh patterns on card tensors."""
+    from repro_torch.distributed import sharding as SH
+    SH.reset_collectives()
+    out = {"resume_1_to_2": _tm_trainer(mesh, dirs["from1"], 6),
+           "saved_2": _tm_trainer(mesh, dirs["to1"], 3),
+           "patterns": train_mesh_patterns(mesh)}
+    out["collectives"] = {f"{k}({d})": n
+                          for (k, d), n in SH.COLLECTIVES.items()}
+    return out
+
+
+def train_mesh_phase(dev) -> dict:
+    """Sharded training on gloo ranks sharing the one card
+    (``launch.mesh.run_ranks``): (a) r1-llama-8b at full width and 2 of 32
+    layers, batch 8 x 512 from ``SEED``, 2 ranks (data 2), 3 steps: step
+    1's loss, gradient and every parameter leaf held to the one-rank step
+    of the same seeds (the reference's bars: loss rtol 2e-5, parameters
+    2e-4 / 2e-5; gradients 1e-4 of each leaf's largest |g|); per rank the
+    bytes held between steps (parameter, m and v blocks), the peak of
+    steps 2-3, ms per step, and the gradient all-reduce's bytes and ms per
+    step; no kernel launch.  (b) at smoke size: yi-6b and mixtral-8x7b on
+    (data 2, model 2) held to the one-rank step; the trainer saved on 1
+    rank and resumed on 2 and saved on 2 and resumed on 1 (the same 2
+    ranks, after (a)), against the uninterrupted run (1e-4 relative);
+    ring attention, the pipeline, the compressed cross-pod gradient and
+    the overlapped MoE FFN over 2 ranks on card tensors against their
+    one-rank formulas."""
+    import shutil
+    import tempfile
+
+    from repro_torch.config import MeshConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh, run_ranks
+    t0 = time.perf_counter()
+    launches0 = dict(ops.LAUNCHES)
+    failed = []
+    tmp = tempfile.mkdtemp(prefix="train_mesh_")
+    dirs = {k: os.path.join(tmp, k) for k in ("ref", "from1", "to1")}
+    one = make_mesh(MeshConfig((1, 1), ("data", "model")), 0, dev.type)
+    ref = _tm_trainer(None, dirs["ref"], 6, dev)
+    saved_1 = _tm_trainer(one, dirs["from1"], 3)
+    full = run_ranks(train_mesh_full_rank, TM_MESH, dev.type, dirs,
+                     timeout=900)
+    resume_2_to_1 = _tm_trainer(one, dirs["to1"], 6)
+    shutil.rmtree(tmp, ignore_errors=True)
+    r0 = full[0]
+    keys = ("losses", "ms_per_step", "held_bytes", "peak_gb_steps_2_on",
+            "allreduce_bytes_per_step", "grad_bytes",
+            "allreduce_ms_per_step", "kernel_launches")
+    rec_full = {
+        "phase": "train_mesh_full", "nvidia_smi": nvidia_smi(),
+        "arch": TM_ARCH, "layers": TM_LAYERS,
+        "reduced": {"num_layers": f"{TM_LAYERS} of 32"}, "mesh": TM_MESH,
+        "batch": TM_BATCH, "seq": TM_SEQ, "steps": TM_STEPS,
+        "per_rank": [{k: r[k] for k in keys} for r in full],
+        "one_rank_check": {
+            "loss_one_rank": r0.get("loss_one_rank"),
+            "loss_rel": r0.get("loss_rel"),
+            "param_max_excess": max(r0.get("param_excess",
+                                           {"": None}).values()),
+            "gnorm_rel": r0.get("gnorm_rel"),
+            "grad_max_rel": max(r0.get("grad_rel", {"": None}).values())},
+        "bars": {"loss_rtol": TM_LOSS_RTOL,
+                 "param_rtol_atol": [TM_PARAM_RTOL, TM_PARAM_ATOL],
+                 "grad_rel_of_max": TM_GRAD_REL,
+                 "gnorm_rtol": TM_GNORM_RTOL},
+        "seconds": time.perf_counter() - t0}
+    emit(rec_full)
+    if not r0.get("loss_rel", 1.0) <= TM_LOSS_RTOL:
+        failed.append(f"full width: loss vs one rank {r0.get('loss_rel')}")
+    if not max(r0.get("param_excess", {"": 1.0}).values()) <= 0:
+        failed.append(f"full width: parameters over the bar by "
+                      f"{max(r0.get('param_excess', {'': 1.0}).values())}")
+    if not r0.get("gnorm_rel", 1.0) <= TM_GNORM_RTOL:
+        failed.append(f"full width: gradient norm {r0.get('gnorm_rel')}")
+    if not max(r0.get("grad_rel", {"": 1.0}).values()) <= TM_GRAD_REL:
+        failed.append(f"full width: gradients "
+                      f"{max(r0.get('grad_rel', {'': 1.0}).values())}")
+    for r in full:
+        if r["kernel_launches"]:
+            failed.append(f"rank {r['rank']} launched {r['kernel_launches']}")
+        if r["losses"] != r0["losses"] or not all(
+                x == x for x in r["losses"]):
+            failed.append(f"rank {r['rank']} losses {r['losses']}")
+
+    two = [r["smoke2"] for r in full]
+    rel = lambda a, b: max(abs(x - y) / abs(y)  # noqa: E731
+                           for x, y in zip(a, b))
+    resume = {"uninterrupted": ref, "saved_1": saved_1,
+              "resume_1_to_2": two[0]["resume_1_to_2"],
+              "saved_2": two[0]["saved_2"], "resume_2_to_1": resume_2_to_1}
+    for what, got, want_ in (("saved_1", saved_1, ref[:3]),
+                             ("saved_2", two[0]["saved_2"], ref[:3]),
+                             ("resume_1_to_2", two[0]["resume_1_to_2"],
+                              ref[3:]),
+                             ("resume_2_to_1", resume_2_to_1, ref[3:])):
+        if len(got) != len(want_) or rel(got, want_) > TRAIN_RESUME_RTOL:
+            failed.append(f"{what}: {got} vs {want_}")
+    for key, bar in (("ring_max_abs", TM_RING_ATOL),
+                     ("ring_grad_rel", TM_GRAD_REL),
+                     ("pipeline_max_abs", TM_PIPE_ATOL),
+                     ("pod_compressed_rel", TM_POD_REL),
+                     ("pod_exact_max_abs", 1e-6),
+                     ("moe_max_abs", TM_MOE_ATOL)):
+        for r in two:
+            if not r["patterns"][key] <= bar:
+                failed.append(f"patterns {key}: {r['patterns'][key]}")
+
+    want = {a: train_mesh_smoke_step(None, a, i, dev)
+            for i, a in enumerate(sorted(("yi-6b", "mixtral-8x7b")))}
+    smoke = run_ranks(train_mesh_smoke_rank, TM_SMOKE_MESH, dev.type, want,
+                      timeout=600)
+    for r, res in enumerate(smoke):
+        for arch, e in res.items():
+            if not (e["loss_rel"] <= TM_LOSS_RTOL and e["param_excess"] <= 0
+                    and e["gnorm_rel"] <= TM_GNORM_RTOL and e["finite"]):
+                failed.append(f"smoke {arch} rank {r}: {e}")
+    launched = {k: n - launches0[k] for k, n in ops.LAUNCHES.items()
+                if n != launches0[k]}
+    if launched:
+        failed.append(f"kernel launches in the parent: {launched}")
+    out = {**rec_full, "phase": "train_mesh", "smoke_2x2": smoke[0],
+           "resume": resume, "patterns": two[0]["patterns"],
+           "collectives_rank0_smoke2": two[0]["collectives"],
+           "kernel_launches": {n: 0 for n in ops.LAUNCHES} | {
+               k: v for r in full for k, v in r["kernel_launches"].items()}
+           | launched,
+           "failed": failed, "seconds": time.perf_counter() - t0}
+    emit(out)
+    if failed:
+        raise AssertionError(f"train_mesh phase failed: {failed}")
+    return out
+
 def ab(parent: str) -> int:
     """The parent tree (``parent``/src, its kernels built there) and this
     one, each in its own process, in turns: parent, this, this, parent;
@@ -3816,6 +4272,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()                 # the ranks need ~60 GB
+    tm = train_mesh_phase(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -3839,6 +4298,8 @@ def main() -> int:
         recs[n]["launches_trace"] = trc["launches_kernel_backend"][
             recs[n]["name"]]
     recs["K5"]["launches"] = ssm["prefill"]["launches"]["mamba_scan"]
+    for n, r in recs.items():
+        r["launches_train_mesh"] = tm["kernel_launches"].get(r["name"], 0)
     recs["wrapper"]["launches"] = ctl["wrapper_launches"]
     recs["K1"]["launches_vlm_serve_step"] = \
         vlm["serve_step"]["k1_launches"]
@@ -3849,7 +4310,7 @@ def main() -> int:
              "launches_policy",
              "launches_serve_step", "launches_archs", "launches_vlm",
              "launches_vlm_serve_step", "launches_hybrid", "launches_encdec",
-             "launches_trace")
+             "launches_trace", "launches_train_mesh")
     lines = [{k: recs[n][k] for k in keys + tuple(
         k for k in extra if k in recs[n])}
         for n in ("K1", "K2", "K3", "K4", "K5", "wrapper")]

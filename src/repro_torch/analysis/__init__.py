@@ -7,7 +7,8 @@ steady-state serving builds no kernel library.  ``python -m
 repro_torch.launch.audit`` runs the backends x ranks x ticks-per-dispatch
 matrix and writes ``analysis_report.json``.  ``lint`` holds the
 reference's three repo rules over ``src/repro_torch``.  ``audit_train_step``
-holds the single-card train step (no kernel, no collective, no fp64).
+holds the train step (no kernel, no fp64; no collective on one card, and
+under a mesh only those of ``train_collective_rule``).
 
 Not ported: ``jaxpr_audit.py`` (it reads jaxprs; ``census`` stands in),
 and with it ``CondBranches``, ``PrimitiveUse`` and ``count_launches``.
@@ -20,7 +21,8 @@ from repro_torch.analysis.contracts import (AuditReport, CollectiveRule,
                                             audit_flash_prefill,
                                             audit_train_step,
                                             engine_contracts,
-                                            serve_collective_rule)
+                                            serve_collective_rule,
+                                            train_collective_rule)
 from repro_torch.analysis.retrace import (RetraceEvent, RetraceGuard,
                                           RetraceViolation,
                                           no_implicit_transfers)
@@ -31,5 +33,5 @@ __all__ = [
     "RetraceGuard", "RetraceViolation", "Violation",
     "audit_engine", "audit_flash_prefill", "audit_train_step",
     "census_of", "engine_contracts", "no_implicit_transfers",
-    "serve_collective_rule",
+    "serve_collective_rule", "train_collective_rule",
 ]

@@ -16,9 +16,11 @@ dispatches.  Host syncs are counted and reported per entry point, not
 pinned (ROADMAP item 17 exists to lower them).  Not ported: the
 callback and in-graph transfer rules and the cond-divergence rule (host
 branches are Python, and a run counts the launches of the branch taken).
-``audit_train_step`` holds the single-card train step: no kernel of the
-port (K1-K5 have no backward, and the reference's train path runs none of
-its Pallas kernels), no collective, no fp64.
+``audit_train_step`` holds the train step: no kernel of the port (K1-K5
+have no backward, and the reference's train path runs none of its Pallas
+kernels), no fp64, and no collective on one device; under a mesh every
+collective within the train whitelist (``train_collective_rule``: float
+sums over the dp axes are allowed in training, never in serving).
 """
 from __future__ import annotations
 
@@ -259,6 +261,21 @@ def serve_collective_rule() -> CollectiveRule:
         axis=SH.SERVE_HEAD_AXIS)
 
 
+def train_collective_rule() -> CollectiveRule:
+    """The sharded train step's whitelist
+    (``distributed.sharding.train_collective_whitelist``): movement, and
+    sums (float ones over the dp axes: the gradient mean, the MoE loss's
+    global means, the loss-mask count)."""
+    from repro_torch.distributed import sharding as SH
+    w = SH.train_collective_whitelist()
+    return CollectiveRule(
+        movement=tuple(w["movement"]),
+        integer_reductions=tuple(w["integer_reductions"]),
+        float_reductions=tuple((c, SH.DP_AXIS)
+                               for c in w["float_reductions"]),
+        axis=SH.DP_AXIS)
+
+
 def engine_contracts(engine) -> Dict[str, CompiledContract]:
     """The declared contract of every ``ThinKVEngine`` entry point.  Kernel
     backend: the decode tick is ONE fused K1 launch at any layer count, a
@@ -354,24 +371,30 @@ def audit_flash_prefill(seq: int = 128, heads: int = 4, kv_heads: int = 2,
 
 
 def audit_train_step(arch: str = "r1-llama-8b", device="cpu",
-                     microbatches: int = 1) -> EntryAudit:
+                     microbatches: int = 1, mesh=None) -> EntryAudit:
     """Contract audit of one train step (``training/train_step.py``:
     the loss's gradients and an AdamW update, remat on) at the smoke
     config from the seeded weights, on a 2 x 16 batch (with ``patches`` or
-    ``frames`` for the VLM and encoder-decoder families): zero launches of
-    K1-K5, no collective (one device), no fp64."""
+    ``frames`` for the VLM and encoder-decoder families; 2 rows per dp
+    rank under ``mesh``): zero launches of K1-K5, no fp64, and no
+    collective on one device.  Under ``mesh`` (every rank calls it) the
+    step is the sharded one and its collectives are held to
+    :func:`train_collective_rule`; the census records them."""
     import torch
 
     from repro_torch.config import ArchFamily, OptimizerConfig
     from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as SH
     from repro_torch.models import factory
     from repro_torch.training.optimizer import adamw_init
-    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.train_step import make_train_step, \
+        shard_params
 
     cfg = get_smoke_config(arch)
     model = factory.build_model(cfg)
     params = model.init_params(0, device).requires_grad_(True)
-    B, S = 2, 16
+    B = 2 if mesh is None else 2 * SH.axes_size(mesh, SH.dp_axes(mesh))
+    S = 16
     g = torch.Generator().manual_seed(0)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
                          dtype=torch.int32)
@@ -384,11 +407,18 @@ def audit_train_step(arch: str = "r1-llama-8b", device="cpu",
                                       generator=g)
     batch = {k: v.to(device) for k, v in batch.items()}
     step = make_train_step(model.loss, cfg, OptimizerConfig(),
-                           microbatches=microbatches)
-    census = census_of(step, params, adamw_init(params), batch)
+                           microbatches=microbatches, mesh=mesh)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+        opt = adamw_init(params.blocks)
+        rule = train_collective_rule()
+    else:
+        opt = adamw_init(params)
+        rule = CollectiveRule(movement=(), integer_reductions=())
+    census = census_of(step, params, opt, batch)
     con = CompiledContract(
         "train_step", launches=dict.fromkeys((K1, K2, K3, K4, K5), 0),
-        collectives=CollectiveRule(movement=(), integer_reductions=()),
+        collectives=rule,
         note="train step: plain PyTorch under autograd, no kernel")
     return EntryAudit("train_step", census, con, con.check(census))
 

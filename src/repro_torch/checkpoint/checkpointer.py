@@ -15,8 +15,13 @@ A tree is nested dicts, lists and tuples of tensors or numpy arrays; a
 leaf's key joins its path with "/" (dict keys, sequence indices), as the
 reference's ``_leaf_key`` does.  bf16 leaves are stored as their uint16
 bits (numpy has no bf16) under the manifest dtype ``bfloat16``.
-``restore`` takes a target device; the mesh-elastic restore (placing
-leaves with a sharding) is ROADMAP item 16b.
+``restore`` takes a target device.
+
+Under a mesh (``shardings``: a tree of ``sharding.Sharding`` matching the
+tree, each leaf a rank's block) ``save`` gathers every leaf to its
+logical form, rank 0 writes it in the same format, and every rank waits
+on a barrier; ``restore`` gives each rank its block of every stored leaf,
+so a run saved at N ranks resumes at M (the elastic restore).
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import sharding as SH
 
 MANIFEST = "MANIFEST.json"
 _BF16 = "bfloat16"
@@ -71,9 +78,32 @@ def _to_numpy(leaf) -> tuple:
     return arr, str(arr.dtype)
 
 
+def _mesh_of(shardings: Any):
+    return _flatten(shardings)[0][1].mesh
+
+
+def _writes(shardings: Any) -> bool:
+    """Does this rank write (rank 0 of a mesh, or no mesh)?"""
+    return shardings is None or _mesh_of(shardings).rank == 0
+
+
 def save(directory: Union[str, os.PathLike], step: int, tree: Any,
-         extra: Optional[Dict] = None) -> Path:
-    """Atomically save a tree; returns the final checkpoint path."""
+         extra: Optional[Dict] = None, shardings: Any = None) -> Path:
+    """Atomically save a tree; returns the final checkpoint path.  With
+    ``shardings`` every rank calls it: the leaves are gathered, rank 0
+    writes, and every rank returns after a barrier."""
+    if shardings is not None:
+        sh = dict(_flatten(shardings))
+        tree = _unflatten(tree, {k: SH.unshard(x, sh[k].spec, sh[k].mesh)
+                                 for k, x in _flatten(tree)})
+        path = _write(directory, step, tree, extra) if _writes(shardings) \
+            else Path(directory) / f"step_{step:08d}"
+        SH.barrier(_mesh_of(shardings))
+        return path
+    return _write(directory, step, tree, extra)
+
+
+def _write(directory, step: int, tree: Any, extra: Optional[Dict]) -> Path:
     base = Path(directory)
     base.mkdir(parents=True, exist_ok=True)
     final = base / f"step_{step:08d}"
@@ -147,23 +177,35 @@ def _leaf_from(arr: np.ndarray, dtype: str, target, device) -> Any:
 
 
 def restore(directory, step: int, target_tree: Any,
-            device: Optional[Union[str, torch.device]] = None) -> Any:
+            device: Optional[Union[str, torch.device]] = None,
+            shardings: Any = None) -> Any:
     """Restore into the structure of ``target_tree``: each leaf in its
     target's dtype, as a tensor on ``device`` (the target's own device by
-    default) where the target leaf is a tensor, else as a numpy array."""
+    default) where the target leaf is a tensor, else as a numpy array.
+    With ``shardings`` (a matching tree of ``sharding.Sharding``) each
+    target leaf is this rank's block, and each stored leaf is cut to it."""
     path = Path(directory) / f"step_{step:08d}"
     meta = json.loads((path / MANIFEST).read_text())["leaves"]
+    sh = dict(_flatten(shardings)) if shardings is not None else {}
     out = {}
     with np.load(path / "arrays.npz") as data:
         for key, leaf in _flatten(target_tree):
             if key not in data:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             arr = data[key]
-            if tuple(arr.shape) != tuple(leaf.shape):
+            shape = tuple(arr.shape)
+            if key in sh:
+                shape = SH.block_shape(shape, sh[key].spec, sh[key].mesh)
+            if shape != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: ckpt "
                                  f"{arr.shape} vs target {tuple(leaf.shape)}")
-            out[key] = _leaf_from(arr, meta.get(key, {}).get("dtype", ""),
-                                  leaf, device)
+            t = _leaf_from(arr, meta.get(key, {}).get("dtype", ""), leaf,
+                           "cpu" if key in sh else device)
+            if key in sh:
+                dev = leaf.device if device is None else torch.device(device)
+                t = SH.shard_of(t, sh[key].spec, sh[key].mesh).to(
+                    dev, copy=True).contiguous()
+            out[key] = t
     return _unflatten(target_tree, out)
 
 
@@ -182,9 +224,16 @@ class CheckpointManager:
         self._pending: List[threading.Thread] = []
 
     def maybe_save(self, step: int, tree, extra=None, *,
-                   asynchronous: bool = True) -> bool:
+                   asynchronous: bool = True, shardings=None) -> bool:
+        """Save every ``save_every`` steps and rotate.  With ``shardings``
+        every rank calls it and the save is synchronous (see ``save``)."""
         if step % self.save_every != 0:
             return False
+        if shardings is not None:
+            save(self.dir, step, tree, extra, shardings=shardings)
+            if _writes(shardings):
+                self._rotate()
+            return True
         if asynchronous:
             self._pending.append(save_async(self.dir, step, tree, extra))
         else:
@@ -203,9 +252,9 @@ class CheckpointManager:
         for s in steps[: -self.keep]:
             shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
 
-    def resume(self, target_tree, device=None):
+    def resume(self, target_tree, device=None, shardings=None):
         """(step, tree) from the newest valid checkpoint, or (0, target)."""
         s = latest_step(self.dir)
         if s is None:
             return 0, target_tree
-        return s, restore(self.dir, s, target_tree, device)
+        return s, restore(self.dir, s, target_tree, device, shardings)

@@ -8,7 +8,8 @@ encoder-decoder's ``encoder_layers``, ``encoder_seq`` and
 ``cross_attention``, the VLM's ``num_image_tokens`` and ``frontend_dim``,
 and ``num_attention_layers``), :class:`MoEConfig`, :class:`SSMConfig`,
 :class:`ThinKVConfig`, :class:`ServeConfig`, the training settings
-(:class:`OptimizerConfig`, :class:`TrainConfig`), the enums, and
+(:class:`MeshConfig`, :class:`OptimizerConfig`, :class:`TrainConfig`), the
+enums, and
 :func:`reduced` (the CPU smoke-size variant).
 """
 from __future__ import annotations
@@ -172,6 +173,35 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Parallelism layout (``repro/config/base.py:231-256``): axis names
+    and sizes; their product is the number of ranks."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axis_names
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    def axis_size(self, name: str) -> int:
+        if name not in self.axis_names:
+            return 1
+        return self.shape[self.axis_names.index(name)]
+
+    @property
+    def dp_degree(self) -> int:
+        return self.axis_size("data") * self.axis_size("pod")
+
+
+@dataclass(frozen=True)
 class OptimizerConfig:
     """AdamW with linear warmup and cosine decay, global-norm clipping
     (``repro/config/base.py:260-269``)."""
@@ -188,15 +218,17 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """A single-device training run (``repro/config/base.py:273-289``);
-    checkpoints land in ``checkpoint_dir`` (by default under the temporary
-    directory).  ``remat`` checkpoints each layer body (the reference's
-    ``"full"``; its trainer treats ``"dots"`` the same).  Not ported: the
-    reference's ``mesh`` (sharded training, ROADMAP item 16b), and its
-    ``grad_compression`` and ``pipeline_stages``, which no code of the
-    reference reads (compression is the trainer's ``grad_transform``)."""
+    """A training run (``repro/config/base.py:273-289``); checkpoints
+    land in ``checkpoint_dir`` (by default under the temporary directory).
+    ``remat`` checkpoints each layer body (the reference's ``"full"``; its
+    trainer treats ``"dots"`` the same).  ``mesh`` is the layout: the train
+    CLI starts its ranks from it, and ``Trainer(mesh=)`` refuses a
+    ``TrainMesh`` of another shape or other axes.  Not ported: the reference's ``grad_compression`` and
+    ``pipeline_stages``, which no code of the reference reads (compression
+    is the trainer's ``grad_transform``)."""
 
     model: ModelConfig
+    mesh: MeshConfig = MeshConfig()
     optimizer: OptimizerConfig = OptimizerConfig()
     seq_len: int = 4096
     global_batch: int = 256

@@ -1,41 +1,72 @@
-"""Tensor-parallel serving over kv heads: the serve half of
-``repro/distributed/sharding.py`` (its lines 215-290).
+"""Sharding rules and the port's collectives (ports
+``repro/distributed/sharding.py``).
 
-The serving engine shards the KV-HEAD axis of its paged planes
-``[L, NP, BS, H, ...]`` (axis 3) and of its TBQ buffers ``[R, L, G, H, D]``
-(axis 3; one request's ``[L, G, H, D]``: axis 2) over the mesh's ``model``
-axis.  Attention is parallel over heads, so a rank's per-head work is a
-slice of the one-rank run's, and only the attention OUTPUT rejoins the
-whole residual stream (an all-gather: pure data movement).  Everything
-head-agnostic stays whole and identical on every rank: the weights, block
-tables, refcounts, slot and segment metadata, the scheduler and the prefix
-cache, so every admission, preemption and COW decision is the same on
-every rank.
+**The train half** (its lines 25-180 and 285-311): parameters are FSDP
+over ``data`` (and ``pod`` when present) on the d_model / reduction dim x
+tensor-parallel over ``model`` on the heads / d_ff / experts / vocab dim;
+train batches are data-parallel over (``pod``, ``data``); decode caches
+shard their sequence axis over ``model``.  Every rule is
+divisibility-checked and falls back to replication.  A spec is a plain
+tuple with one entry per dim (the reference's ``PartitionSpec``): ``None``,
+an axis name, or a tuple of two or more axis names (a tuple of one is its
+name, as ``PartitionSpec`` normalises it); the parameter specs are keyed by
+the port's parameter names, each rule matching on the reference's path
+for that name (``convert.param_paths``).  A mesh is anything with
+``axis_names`` and ``shape`` (``launch.mesh.MeshConfig`` or
+``TrainMesh``); an axis a spec names but the mesh lacks counts as size 1
+(where the reference raises ``KeyError``), so a ``--mesh-shape 2`` run
+(axes ``data``) replicates what a ``model`` axis would split.
 
-The complete cross-rank communication of the engine is the two helpers
-below, and they are the only places the port calls a ``torch.distributed``
-collective (``tests/test_torch_imports.py`` holds this for the package and
-``chip_smoke.py``; ``launch/mesh.py`` only sets the group up):
+:func:`shard_of` gives a rank its block of a whole tensor and
+:func:`unshard` all-gathers the blocks back.  A dim sharded over a tuple
+such as ``("pod", "data")`` is cut into |pod|·|data| blocks, block index
+``pod_idx·|data| + data_idx`` (major axis first, as ``NamedSharding`` lays
+it out); axes a spec does not name replicate.
 
-* :func:`gather_heads` — the tiled all-gather of a head axis, exact at any
-  dtype;
-* :func:`any_shard` — the OR of per-rank boolean masks, as an int32 sum
-  (integer sums are exact in any order).
+``constrain`` is a GSPMD layout hint (``with_sharding_constraint``) and
+has no PyTorch meaning: it returns its input.  ``set_constraint_mesh``
+keeps the reference's role of switching on ``layers/attention.py``'s ring
+branch (:func:`constraint_mesh`).
 
-No float reduction crosses ranks: a float sum depends on its order, which
-would break the bit-identity across rank counts that the engine is held
-to.  Each helper counts its calls into :data:`COLLECTIVES` by
-``(kind, dtype)``, the way ``kernels/ops.py`` counts ``LAUNCHES``.
+**The serve half** (its lines 215-290): the serving engine shards the
+KV-HEAD axis of its paged planes ``[L, NP, BS, H, ...]`` (axis 3) and of
+its TBQ buffers ``[R, L, G, H, D]`` (axis 3; one request's ``[L, G, H,
+D]``: axis 2) over the mesh's ``model`` axis.  Everything head-agnostic
+stays whole and identical on every rank, so every admission, preemption
+and COW decision is the same on every rank.  No float reduction crosses
+ranks there: a float sum depends on its order, which would break the
+bit-identity across rank counts that the engine is held to.
 
-The train half (parameter specs, FSDP axes, batch specs, ``constrain``)
-belongs to ROADMAP queue 1 item 16b.
+**The collectives.**  The helpers below are the only places the port
+calls a ``torch.distributed`` collective (``tests/test_torch_imports.py``
+holds this; ``launch/mesh.py`` only sets groups up).  Each counts its
+calls into :data:`COLLECTIVES` and the bytes this rank sends into
+:data:`COLLECTIVE_BYTES`, both by ``(kind, dtype)``, the way
+``kernels/ops.py`` counts ``LAUNCHES``.  Serving uses
+:func:`gather_heads` and :func:`any_shard`; training adds movement
+(:func:`all_gather`, :func:`broadcast`, :func:`permute`,
+:func:`all_to_all`), the sum over ranks (:func:`all_reduce_sum`, float
+sums allowed: :func:`train_collective_whitelist`) and :func:`barrier`.
+Gloo takes a CUDA tensor in every one of these but the kinds in
+:data:`HOST_STAGED` (send and receive, :func:`permute`'s); that helper
+copies the tensor to the host and back, and counts the copy under
+``(kind + "_host_staged", dtype)``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+import dataclasses
+import math
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+Axes = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Axes, ...]
+
+# pytree path substrings marking stacked-per-layer parameter groups
+_STACKED_MARKERS = ("layers", "encoder", "decoder")
 
 SERVE_HEAD_AXIS = "model"          # mesh axis the kv-head dim shards over
 PLANE_HEAD_DIM = 3                 # [L, NP, BS, H, ...]
@@ -48,17 +79,333 @@ SERVE_MOVEMENT_COLLECTIVES = ("all_gather",)
 SERVE_INTEGER_REDUCTIONS = ("all_reduce",)
 SERVE_FLOAT_REDUCTIONS: tuple = ()
 
+# The train step's: the same movement plus broadcast, point-to-point and
+# all-to-all, and float sums over the data-parallel axes (the gradient
+# mean, the MoE auxiliary loss's global means, the loss-mask count).
+TRAIN_MOVEMENT_COLLECTIVES = ("all_gather", "broadcast", "send", "recv",
+                              "all_to_all")
+TRAIN_INTEGER_REDUCTIONS = ("all_reduce",)
+TRAIN_FLOAT_REDUCTIONS = ("all_reduce",)
+DP_AXIS = "dp"                     # the float reductions' axis: dp_axes
+
+# Kinds gloo cannot take on a CUDA tensor; their helpers stage through the
+# host.  Gloo's send and receive pass the tensor's address to its TCP
+# transport as host memory ("writev ... Bad address" on an H100), so the
+# point-to-point permute stages.  Its all-gather, all-reduce, broadcast
+# and single-tensor all-to-all take card tensors (its list all-to-all
+# exists on neither device).  tests/test_torch_cuda.py::test_gloo_* hold
+# every helper on card tensors and probe the raw collectives there.
+HOST_STAGED = frozenset({"send"})
+
 COLLECTIVES: Dict[Tuple[str, str], int] = {}
+COLLECTIVE_BYTES: Dict[Tuple[str, str], int] = {}
 
 
 def reset_collectives() -> None:
     COLLECTIVES.clear()
+    COLLECTIVE_BYTES.clear()
 
 
-def _count(kind: str, dtype: torch.dtype) -> None:
-    key = (kind, str(dtype).replace("torch.", ""))
+def _count(kind: str, x: Optional[torch.Tensor] = None) -> None:
+    """One call of ``kind`` moving ``x`` (nothing for a barrier)."""
+    key = (kind, "" if x is None else str(x.dtype).replace("torch.", ""))
     COLLECTIVES[key] = COLLECTIVES.get(key, 0) + 1
+    COLLECTIVE_BYTES[key] = COLLECTIVE_BYTES.get(key, 0) + \
+        (0 if x is None else x.numel() * x.element_size())
 
+
+def _staged(kind: str, x: torch.Tensor) -> bool:
+    """Does ``kind`` go through the host for ``x``?  Counts it if so."""
+    if x.device.type != "cuda" or kind not in HOST_STAGED:
+        return False
+    _count(kind + "_host_staged", x)
+    return True
+
+
+# ---------------------------------------------------------------------------
+# axes and the train-side specs
+# ---------------------------------------------------------------------------
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def fsdp_axes(mesh) -> Tuple[str, ...]:
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    return fsdp_axes(mesh)
+
+
+def _as_tuple(axes: Axes) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    return axes if isinstance(axes, tuple) else (axes,)
+
+
+def axes_size(mesh, axes: Axes) -> int:
+    """The number of blocks ``axes`` cut a dim into (absent axes: 1)."""
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes.get(a, 1) for a in _as_tuple(axes))
+
+
+def _entry(axes: Axes) -> Axes:
+    """A spec entry as ``PartitionSpec`` keeps it: a tuple of one axis is
+    that axis."""
+    return axes[0] if isinstance(axes, tuple) and len(axes) == 1 else axes
+
+
+def _fits(dim: int, mesh, axes: Axes) -> bool:
+    if axes is None:
+        return True
+    size = axes_size(mesh, axes)
+    return dim % size == 0 and dim >= size
+
+
+def _spec_for(path: str, shape: Sequence[int], mesh, stacked: bool) -> Spec:
+    fsdp = fsdp_axes(mesh)
+    dims = list(shape[1:]) if stacked else list(shape)
+
+    def build(*axes) -> Spec:
+        """divisibility-checked spec over ``dims``; None-pad to rank."""
+        out = [_entry(ax) if _fits(dim, mesh, ax) else None
+               for dim, ax in zip(dims, list(axes)
+                                  + [None] * (len(dims) - len(axes)))]
+        return tuple(([None] if stacked else []) + out)
+
+    name = path.lower()
+    if len(dims) == 0:
+        return ()
+    if len(dims) == 1:
+        return build(None)
+
+    # --- embeddings: [V, D] vocab on model, d on fsdp
+    if "embedding" in name:
+        return build("model", fsdp)
+    if "lm_head" in name:
+        return build(fsdp, "model")
+    if "enc_pos" in name or "dec_pos" in name:
+        return build(None, fsdp)
+
+    # --- MoE experts [E, D, F]: EP over model when divisible, else TP on F
+    if any(k in name for k in ("w_up", "w_gate")) and len(dims) == 3:
+        if _fits(dims[0], mesh, "model"):
+            return build("model", fsdp, None)
+        return build(None, fsdp, "model")
+    if "w_down" in name and len(dims) == 3:
+        if _fits(dims[0], mesh, "model"):
+            return build("model", None, fsdp)
+        return build(None, "model", fsdp)
+    if "router" in name:
+        return build(fsdp, None)
+
+    # --- attention
+    if "wq" in name or "wk" in name or "wv" in name:
+        return build(fsdp, "model")
+    if "wo" in name:
+        return build("model", fsdp)
+
+    # --- dense mlp [D, F] / [F, D]
+    if "w_up" in name or "w_gate" in name:
+        return build(fsdp, "model")
+    if "w_down" in name:
+        return build("model", fsdp)
+
+    # --- mamba: TP over d_inner
+    if "in_proj" in name:
+        return build(fsdp, "model")
+    if "out_proj" in name:
+        return build("model", fsdp)
+    if "conv_w" in name:
+        return build("model", None)
+    if "x_proj" in name:
+        return build("model", None)
+    if "dt_proj" in name:
+        return build(None, "model")
+    if "a_log" in name:
+        return build("model", None)
+
+    # default: FSDP the first dim
+    return build(fsdp)
+
+
+def param_specs(params, mesh, *, mode: str = "train") -> Dict[str, Spec]:
+    """The spec of each parameter by the port's name.  ``params`` is a
+    model of ``models/`` (it has ``cfg``) or a ``ModelConfig``.
+
+    mode="train": FSDP(data) x TP(model).  mode="serve": TP(model) only,
+    replicated over the FSDP axes (a decode step would re-gather every
+    weight for every token)."""
+    from repro_torch.convert import param_paths, param_shapes
+    cfg = getattr(params, "cfg", params)
+    if mode not in ("train", "serve"):
+        raise ValueError(f"mode must be 'train' or 'serve' (got {mode!r})")
+    shapes = param_shapes(cfg)
+    drop = set(fsdp_axes(mesh))
+    out = {}
+    for name, path in param_paths(cfg).items():
+        pstr = "/".join(path)
+        shape = shapes[name]
+        stacked = any(m in pstr for m in _STACKED_MARKERS) and len(shape) >= 1
+        spec = _spec_for(pstr, shape, mesh, stacked)
+        if mode == "serve":
+            spec = tuple(None if (ax in drop or (isinstance(ax, tuple)
+                                                 and set(ax) & drop)) else ax
+                         for ax in spec)
+        out[name] = spec
+    return out
+
+
+def train_batch_specs(batch: Mapping, mesh) -> Dict[str, Spec]:
+    """tokens / targets [B, S] -> (dp, None); frontend features likewise;
+    a batch axis that dp does not divide replicates."""
+    dp = dp_axes(mesh)
+
+    def one(leaf) -> Spec:
+        if leaf.ndim == 0:
+            return ()
+        if _fits(leaf.shape[0], mesh, dp):
+            return (_entry(dp),) + (None,) * (leaf.ndim - 1)
+        return (None,) * leaf.ndim
+
+    return {k: one(v) for k, v in batch.items()}
+
+
+def decode_batch_specs(batch: Mapping, mesh) -> Dict[str, Spec]:
+    """Decode-state sharding: batch over dp when divisible; cache and pool
+    sequence axes over ``model`` (and over dp too when the batch cannot
+    shard)."""
+    dp = dp_axes(mesh)
+    # names whose axis 2 is the sequence/slot axis ([B, L, T/NS, ...])
+    seq_axis2 = ("k_cache", "v_cache", "k_codes", "v_codes", "k_scales",
+                 "v_scales", "slot_state", "slot_bits", "cross_k", "cross_v")
+
+    def one(name: str, leaf) -> Spec:
+        name = name.lower()
+        spec: list = [None] * leaf.ndim
+        batch_sharded = leaf.ndim >= 1 and _fits(leaf.shape[0], mesh, dp)
+        if batch_sharded:
+            spec[0] = _entry(dp)
+        if any(s in name for s in seq_axis2) and leaf.ndim >= 3:
+            seq_ax = ("model",) if batch_sharded else (dp + ("model",)) \
+                if _fits(leaf.shape[2], mesh, dp + ("model",)) else ("model",)
+            if _fits(leaf.shape[2], mesh, seq_ax):
+                spec[2] = seq_ax if len(seq_ax) > 1 else seq_ax[0]
+        return tuple(spec)
+
+    return {k: one(k, v) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sharding:
+    """A leaf's layout: its spec on a mesh (the reference's
+    ``NamedSharding``)."""
+
+    spec: Spec
+    mesh: object
+
+
+def _live(mesh, axes: Axes) -> Tuple[str, ...]:
+    """The axes of ``axes`` that split: present in the mesh, size > 1."""
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in _as_tuple(axes) if sizes.get(a, 1) > 1)
+
+
+def block_index(mesh, axes: Axes) -> int:
+    """This rank's block along ``axes``: its coordinates read as a mixed
+    radix number, major axis first."""
+    sizes, idx = axis_sizes(mesh), 0
+    for a in _live(mesh, axes):
+        idx = idx * sizes[a] + mesh.coords[a]
+    return idx
+
+
+def shard_of(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``spec`` (a view;
+    dims past the spec replicate)."""
+    for dim, axes in enumerate(spec):
+        n = axes_size(mesh, _live(mesh, axes))
+        if n > 1:
+            step = x.shape[dim] // n
+            x = x.narrow(dim, block_index(mesh, axes) * step, step)
+    return x
+
+
+def unshard(block: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole tensor from every rank's block under ``spec``: one
+    all-gather per sharded dim, over that dim's axes."""
+    for dim, axes in enumerate(spec):
+        if _live(mesh, axes):
+            block = all_gather(block, mesh, axes, dim)
+    return block
+
+
+def block_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    out = list(shape)
+    for dim, axes in enumerate(spec):
+        out[dim] //= axes_size(mesh, _live(mesh, axes))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# in-graph sharding constraints: no PyTorch meaning; the mesh gates ring
+# attention
+# ---------------------------------------------------------------------------
+
+_CONSTRAINT_MESH: list = [None]
+
+
+def set_constraint_mesh(mesh) -> None:
+    """Install the mesh ``layers/attention.py``'s ring branch reads (the
+    launchers' role in the reference); None removes it."""
+    _CONSTRAINT_MESH[0] = mesh
+
+
+def constraint_mesh():
+    return _CONSTRAINT_MESH[0]
+
+
+def constrain(x, *axes):
+    """The reference's ``with_sharding_constraint`` hint: GSPMD's layout
+    guidance, which has no PyTorch meaning.  Returns ``x``."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel context of a sharded train step
+# ---------------------------------------------------------------------------
+
+_DATA_PARALLEL: list = [None]
+
+
+@contextlib.contextmanager
+def data_parallel(mesh):
+    """While active, ``layers/moe.py`` routes this rank's block of a batch
+    split over ``dp_axes(mesh)`` as one device routes the whole batch (the
+    sharded train step installs it around the loss)."""
+    prev = _DATA_PARALLEL[0]
+    _DATA_PARALLEL[0] = mesh
+    try:
+        yield
+    finally:
+        _DATA_PARALLEL[0] = prev
+
+
+def active_data_parallel():
+    """The mesh of an active :func:`data_parallel` whose dp axes split,
+    else None."""
+    mesh = _DATA_PARALLEL[0]
+    return mesh if mesh is not None and _live(mesh, dp_axes(mesh)) else None
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 def head_shardable(num_kv_heads: int, n: int) -> bool:
     """Can the serving engine shard ``num_kv_heads`` over ``n`` ranks?"""
@@ -71,6 +418,13 @@ def serve_collective_whitelist() -> dict:
     return {"movement": SERVE_MOVEMENT_COLLECTIVES,
             "integer_reductions": SERVE_INTEGER_REDUCTIONS,
             "float_reductions": SERVE_FLOAT_REDUCTIONS}
+
+
+def train_collective_whitelist() -> dict:
+    """The same for the train step: float sums over the dp axes."""
+    return {"movement": TRAIN_MOVEMENT_COLLECTIVES,
+            "integer_reductions": TRAIN_INTEGER_REDUCTIONS,
+            "float_reductions": TRAIN_FLOAT_REDUCTIONS}
 
 
 def _sharded(mesh) -> bool:
@@ -86,7 +440,7 @@ def gather_heads(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     dist.all_gather(parts, x, group=mesh.group)
-    _count("all_gather", x.dtype)
+    _count("all_gather", x)
     return torch.cat(parts, dim)
 
 
@@ -96,6 +450,158 @@ def any_shard(mask: torch.Tensor, mesh) -> torch.Tensor:
         return mask
     n = mask.to(torch.int32)
     dist.all_reduce(n, op=dist.ReduceOp.SUM, group=mesh.group)
-    _count("all_reduce", n.dtype)
+    _count("all_reduce", n)
     return n > 0
+
+
+# ---------------------------------------------------------------------------
+# training: collectives over the axes of a TrainMesh
+# ---------------------------------------------------------------------------
+
+def axis_group(mesh, axes: Axes):
+    """(process group, its global ranks in group order, this rank's index)
+    of ``axes`` on ``mesh``, or None where they do not split."""
+    live = _live(mesh, axes)
+    if not live:
+        return None
+    if live not in mesh.groups:
+        raise KeyError(f"the mesh {dict(axis_sizes(mesh))} has no group over "
+                       f"{live} (launch.mesh.make_mesh makes one per axis and "
+                       f"one for the FSDP axes)")
+    group, ranks = mesh.groups[live]
+    return group, ranks, block_index(mesh, live)
+
+
+def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
+               ) -> torch.Tensor:
+    """Every rank's ``x`` along ``axes``, concatenated along ``dim`` in
+    block order (pure movement)."""
+    g = axis_group(mesh, axes)
+    if g is None:
+        return x
+    group, ranks, _ = g
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in ranks]
+    dist.all_gather(parts, x, group=group)
+    _count("all_gather", x)
+    return torch.cat(parts, dim)
+
+
+def all_reduce_sum_(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """Sum the contiguous ``x`` over the ranks along ``axes``, in place;
+    returns ``x``."""
+    g = axis_group(mesh, axes)
+    if g is None:
+        return x
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g[0])
+    _count("all_reduce", x)
+    return x
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """The sum of ``x`` over the ranks along ``axes`` (a new tensor)."""
+    if axis_group(mesh, axes) is None:
+        return x
+    return all_reduce_sum_(x.detach().clone().contiguous(), mesh, axes)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Forward: the sum over ranks.  Backward: the same sum of the
+    upstream gradients, so that after the train step's mean over dp each
+    rank's share of a global quantity gets the global gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce_sum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.mesh, ctx.axes), None, None
+
+
+def sum_over_ranks(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """:func:`all_reduce_sum` that autograd differentiates (see
+    :class:`_SumOverRanks`)."""
+    if axis_group(mesh, axes) is None:
+        return x
+    return _SumOverRanks.apply(x, mesh, axes)
+
+
+def broadcast(x: torch.Tensor, mesh, axes: Axes, src: int) -> torch.Tensor:
+    """Block ``src``'s ``x`` on every rank along ``axes`` (a new tensor)."""
+    g = axis_group(mesh, axes)
+    if g is None:
+        return x
+    group, ranks, _ = g
+    out = x.detach().clone().contiguous()
+    dist.broadcast(out, src=ranks[src], group=group)
+    _count("broadcast", out)
+    return out
+
+
+def permute(x: torch.Tensor, mesh, axes: Axes, shift: int) -> torch.Tensor:
+    """The reference's ``ppermute`` over a ring: block i sends ``x`` to
+    block ``(i + shift) % n`` and returns what block ``(i - shift) % n``
+    sent (a send and a receive per rank)."""
+    g = axis_group(mesh, axes)
+    if g is None:
+        return x
+    group, ranks, i = g
+    n = len(ranks)
+    if shift % n == 0:
+        return x
+    x = x.contiguous()
+    staged = _staged("send", x)
+    src = x.cpu() if staged else x
+    out = torch.empty_like(src)
+    req = dist.isend(src, ranks[(i + shift) % n], group=group)
+    dist.recv(out, ranks[(i - shift) % n], group=group)
+    req.wait()
+    _count("send", x)
+    _count("recv", out)
+    return out.to(x.device)
+
+
+class _Permute(torch.autograd.Function):
+    """:func:`permute` whose backward is the inverse permute."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, shift):
+        ctx.mesh, ctx.axes, ctx.shift = mesh, axes, shift
+        return permute(x, mesh, axes, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return permute(g, ctx.mesh, ctx.axes, -ctx.shift), None, None, None
+
+
+def permute_grad(x: torch.Tensor, mesh, axes: Axes, shift: int
+                 ) -> torch.Tensor:
+    """:func:`permute` that autograd differentiates."""
+    return _Permute.apply(x, mesh, axes, shift)
+
+
+def all_to_all(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """x [n, ...] over the n ranks along ``axes``: out[j] is rank j's
+    x[i] on rank i (the reference's untiled ``all_to_all`` on axis 0)."""
+    g = axis_group(mesh, axes)
+    if g is None:
+        return x
+    group, ranks, _ = g
+    if x.shape[0] != len(ranks):
+        raise ValueError(f"all_to_all over {len(ranks)} ranks needs a "
+                         f"leading axis of {len(ranks)} (got {x.shape[0]})")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    _count("all_to_all", x)
+    return out
+
+
+def barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for the others."""
+    if _sharded(mesh):
+        dist.barrier()
+        _count("barrier")
 

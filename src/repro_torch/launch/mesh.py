@@ -1,19 +1,24 @@
-"""Serving meshes and the ranks behind them (ports ``repro/launch/mesh.py``:
-``parse_mesh_spec`` and ``make_serve_mesh``, lines 35-71).
+"""Meshes and the ranks behind them (ports ``repro/launch/mesh.py``:
+``make_production_mesh``, ``mesh_config``, ``make_mesh``,
+``parse_mesh_spec`` and ``make_serve_mesh``).
 
 The reference's mesh is a grid of devices in one program; the port's is
-one process per rank in a ``torch.distributed`` group.  ``--mesh
-model=N`` shards the serving engine's kv-head axis over N ranks
-(``distributed/sharding.py``).  :func:`run_ranks` spawns the N ranks with
-``torch.multiprocessing`` and joins them in a **gloo** group, its
-rendezvous a file in a fresh temporary directory (so concurrent runs on
-one host never collide on a port).  Rank r runs on ``cuda:(r %
-device_count)``, or on the CPU when asked: one card takes every rank, and
-gloo moves the tensors.  A rank that fails ends the whole run with its
-traceback; there is no run with fewer ranks.
+one process per rank in a ``torch.distributed`` group.  Serving
+(``--mesh model=N``) shards the engine's kv-head axis over N ranks and
+sees a :class:`ServeMesh`; training sees a :class:`TrainMesh`: the axis
+names and sizes, this rank's coordinates (rank r sits at
+``np.unravel_index(r, shape)``, the row-major order of
+``jax.make_mesh``'s device grid) and one process group per axis, plus one
+over the FSDP axes ``("pod", "data")`` when ``pod`` is present; the
+collectives over them are ``distributed/sharding.py``'s.
 
-``make_production_mesh`` and ``mesh_config`` (the train-side meshes)
-belong to ROADMAP queue 1 item 16b.
+:func:`run_ranks` spawns the ranks with ``torch.multiprocessing`` and
+joins them in a **gloo** group, its rendezvous a file in a fresh
+temporary directory (so concurrent runs on one host never collide on a
+port).  Rank r runs on ``cuda:(r % device_count)``, or on the CPU when
+asked: one card takes every rank, and gloo moves the tensors.  A rank that
+fails ends the whole run with its traceback; there is no run with fewer
+ranks.
 """
 from __future__ import annotations
 
@@ -23,23 +28,17 @@ import pickle
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.config import MeshConfig
 from repro_torch.device import resolve_device
 
 SERVE_AXIS = "model"
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshConfig:
-    """A mesh's shape and axis names, as the reference's ``MeshConfig``."""
-
-    shape: Tuple[int, ...]
-    axis_names: Tuple[str, ...]
 
 
 def parse_mesh_spec(spec: str) -> MeshConfig:
@@ -118,8 +117,106 @@ def make_serve_mesh(spec: str, rank: int = 0, device=None) -> ServeMesh:
                      spec)
 
 
+# ---------------------------------------------------------------------------
+# training meshes
+# ---------------------------------------------------------------------------
+
+def mesh_config(*, multi_pod: bool = False) -> MeshConfig:
+    """Single pod: (16, 16), axes (data, model).  Multi-pod: (2, 16, 16),
+    axes (pod, data, model)."""
+    if multi_pod:
+        return MeshConfig(shape=(2, 16, 16),
+                          axis_names=("pod", "data", "model"))
+    return MeshConfig(shape=(16, 16), axis_names=("data", "model"))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TrainMesh:
+    """One rank's view of a training mesh: the axis names and sizes, this
+    rank, its device and the process groups (by axis tuple: ``(group,
+    global ranks in block order)``; none on one rank)."""
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    rank: int = 0
+    device: torch.device = torch.device("cpu")
+    groups: Dict[Tuple[str, ...], Tuple[Any, Tuple[int, ...]]] = \
+        dataclasses.field(default_factory=dict)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names,
+                        (int(i) for i in np.unravel_index(self.rank,
+                                                          self.shape))))
+
+
+
+def _group_keys(cfg: MeshConfig) -> List[Tuple[str, ...]]:
+    """The axis tuples a TrainMesh has a group over: each axis, and the
+    FSDP axes when ``pod`` is present."""
+    keys = [(a,) for a in cfg.axis_names]
+    if cfg.multi_pod and "data" in cfg.axis_names:
+        keys.append(("pod", "data"))
+    return keys
+
+
+def make_mesh(cfg: MeshConfig, rank: int = 0, device=None) -> TrainMesh:
+    """Rank ``rank``'s :class:`TrainMesh` of ``cfg``.  Above one rank this
+    process must be rank ``rank`` of an initialised group of
+    ``cfg.num_devices`` ranks (:func:`run_ranks` makes one); every rank
+    calls this in the same order (it makes the axis groups)."""
+    n = cfg.num_devices
+    dev = rank_device(device, rank)
+    if n == 1:
+        return TrainMesh(tuple(cfg.axis_names), tuple(cfg.shape), 0, dev)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != n:
+        raise ValueError(
+            f"the mesh {dict(zip(cfg.axis_names, cfg.shape))} needs {n} "
+            f"ranks but this process group has {have} "
+            f"(launch.mesh.run_ranks starts them)")
+    if not 0 <= rank < n or rank != dist.get_rank():
+        raise ValueError(f"rank {rank} is not this process's rank "
+                         f"{dist.get_rank()} of {n}")
+    grid = np.arange(n).reshape(cfg.shape)
+    groups = {}
+    for key in _group_keys(cfg):
+        axes = [cfg.axis_names.index(a) for a in key]
+        if int(np.prod([cfg.shape[i] for i in axes])) == 1:
+            continue
+        rest = [i for i in range(len(cfg.shape)) if i not in axes]
+        # one group per coordinate of the other axes, ranks in block order
+        blocks = np.transpose(grid, rest + axes).reshape(
+            -1, int(np.prod([cfg.shape[i] for i in axes])))
+        for ranks in blocks:
+            ranks = tuple(int(r) for r in ranks)
+            g = dist.new_group(list(ranks))
+            if rank in ranks:
+                groups[key] = (g, ranks)
+    return TrainMesh(tuple(cfg.axis_names), tuple(cfg.shape), rank, dev,
+                     groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0,
+                         device=None) -> TrainMesh:
+    """The (16, 16) mesh, axes (data, model), or with ``multi_pod`` the
+    (2, 16, 16) one, axes (pod, data, model): 256 or 512 ranks, which
+    must already be joined in a group of that size."""
+    cfg = mesh_config(multi_pod=multi_pod)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != cfg.num_devices:
+        raise ValueError(
+            f"make_production_mesh(multi_pod={multi_pod}) needs a group of "
+            f"{cfg.num_devices} ranks (got {have})")
+    return make_mesh(cfg, rank, device)
+
+
 def _rank_main(fn, rank: int, n: int, init: str, device, threads, args,
-               out: str) -> None:
+               out: str, layout: Optional[MeshConfig]) -> None:
     """One spawned rank: join the gloo group, run ``fn(mesh, *args)`` and
     pickle its result (or its traceback) to ``out``."""
     try:
@@ -127,7 +224,8 @@ def _rank_main(fn, rank: int, n: int, init: str, device, threads, args,
             torch.set_num_threads(threads)
         dist.init_process_group("gloo", init_method=init, world_size=n,
                                 rank=rank)
-        mesh = make_serve_mesh(f"{SERVE_AXIS}={n}", rank, device)
+        mesh = make_serve_mesh(f"{SERVE_AXIS}={n}", rank, device) \
+            if layout is None else make_mesh(layout, rank, device)
         if mesh.device.type == "cuda":
             torch.cuda.set_device(mesh.device)
         result = fn(mesh, *args)
@@ -142,15 +240,22 @@ def _rank_main(fn, rank: int, n: int, init: str, device, threads, args,
             dist.destroy_process_group()
 
 
-def run_ranks(fn: Callable, n: int, device=None, *args,
-              timeout: float = 900.0, threads: Optional[int] = None
+def run_ranks(fn: Callable, n: Union[int, str, MeshConfig], device=None,
+              *args, timeout: float = 900.0, threads: Optional[int] = None
               ) -> List[Any]:
-    """Run ``fn(mesh, *args)`` on ``n`` spawned ranks joined in a gloo
-    group; returns every rank's result, in rank order.  ``fn`` must be
-    importable by name (a module-level function).  ``threads`` sets each
-    rank's torch intra-op threads (on the CPU by default this process's
-    share out among the ranks).  A rank that raises or dies ends every
-    rank and raises here with its error; so does ``timeout`` seconds."""
+    """Run ``fn(mesh, *args)`` on spawned ranks joined in a gloo group;
+    returns every rank's result, in rank order.  ``n`` ranks get a
+    :class:`ServeMesh` each (``model=n``); a layout (a spec such as
+    ``data=2,model=4``, or a MeshConfig) gets as many ranks as it holds,
+    each with its :class:`TrainMesh`.  ``fn`` must be importable by name
+    (a module-level function).  ``threads`` sets each rank's torch
+    intra-op threads (on the CPU by default this process's share out
+    among the ranks).  A rank that raises or dies ends every rank and
+    raises here with its error; so does ``timeout`` seconds."""
+    layout = None
+    if not isinstance(n, int):
+        layout = n if isinstance(n, MeshConfig) else parse_mesh_spec(n)
+        n = layout.num_devices
     if n < 1:
         raise ValueError(f"run_ranks needs n >= 1 (got {n})")
     if rank_device(device, 0).type == "cpu" and threads is None:
@@ -161,7 +266,7 @@ def run_ranks(fn: Callable, n: int, device=None, *args,
         outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(n)]
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(fn, r, n, init, device, threads, args,
-                                   outs[r]))
+                                   outs[r], layout))
                  for r in range(n)]
         for p in procs:
             p.start()

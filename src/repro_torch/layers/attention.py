@@ -7,10 +7,15 @@ keys and values for cross attention), ``attn_prefill_with_cache``,
 with learned positions (whisper) ``rope_qk`` leaves q and k as they
 are.
 
+``attn_forward`` takes the reference's ring branch (context parallelism,
+``distributed/ring_attention.py``) exactly where the reference does: a
+mesh installed by ``sharding.set_constraint_mesh`` with a ``model`` axis
+that divides S, causal attention without a window, and the query heads
+not divisible by |model| or d_model/|model| < 128.
+
 Not ported: the reference's ``REPRO_BF16_SCORES`` toggle (a measurement
-switch for bf16 score tiles on XLA's CPU backend) and its ring-attention
-branch of ``attn_forward`` (context parallelism under a multi-device
-mesh, ROADMAP queue 1 item 16b).
+switch for bf16 score tiles on XLA's CPU backend) and its
+``REPRO_NO_RING`` switch.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import math
 import torch
 
 from repro_torch.config import ModelConfig, PositionEmbedding
+from repro_torch.distributed import sharding as SH
 from repro_torch.layers.common import wide
 from repro_torch.layers.rope import apply_rope, rope_freqs
 
@@ -135,8 +141,24 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if kv_override is not None:
         k, v = kv_override
         causal = False
+    if causal and cfg.sliding_window == 0 and ring_selected(cfg, q.shape[1]):
+        from repro_torch.distributed.ring_attention import ring_attention
+        return out_proj(p, ring_attention(q, k, v, SH.constraint_mesh()))
     out = full_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return out_proj(p, out)
+
+
+def ring_selected(cfg: ModelConfig, seq: int) -> bool:
+    """Does causal, unwindowed attention over ``seq`` rows take the ring
+    branch?  Only under an installed constraint mesh with a ``model`` axis
+    dividing ``seq``, where head sharding breaks down: the query heads do
+    not divide |model|, or d_model/|model| < 128."""
+    mesh = SH.constraint_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return False
+    tp = SH.axes_size(mesh, "model")
+    return seq % tp == 0 and (cfg.num_heads % tp != 0
+                              or cfg.d_model // tp < 128)
 
 
 def attn_prefill_with_cache(p: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -21,6 +21,16 @@ the host.
 
 The auxiliary load-balancing loss is returned as the reference returns it;
 serving never uses it.
+
+Under a sharded train step (``distributed.sharding.data_parallel``) each
+rank holds a block of the batch, and the reference computes as one device
+does: the group size comes from the global token count, and the Switch
+loss ``E·Σ frac·pmean`` is a product of global means.  So a rank routes
+its block with the global group size and capacity; where a group spans
+ranks it adds to each choice's queue place the choices of that expert on
+the lower ranks of the group (integer counts, all-gathered); and the
+per-rank sums behind ``frac`` and ``pmean`` are summed over the dp ranks
+before the product.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.layers.common import act_fn
 
 
@@ -72,9 +83,10 @@ class Routing(NamedTuple):
     cap: int
 
 
-def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig
-              ) -> Routing:
-    """Route the grouped tokens xt [g, t, D] (``router`` [D, E] f32)."""
+def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig,
+              cap: Optional[int] = None) -> Routing:
+    """Route the grouped tokens xt [g, t, D] (``router`` [D, E] f32) with
+    ``cap`` rows per expert (by default the capacity of groups of t)."""
     e, k = cfg.moe.num_experts, cfg.moe.num_experts_per_token
     ng, gsz, _ = xt.shape
     probs = torch.softmax(xt.float() @ router.float(), dim=-1)
@@ -82,35 +94,27 @@ def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, expert = vals[..., :k], idx[..., :k]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    cap = capacity(cfg, gsz)
+    cap = capacity(cfg, gsz) if cap is None else cap
     flat = expert.reshape(ng, gsz * k)
     seen = torch.nn.functional.one_hot(flat, e).cumsum(1)     # [g, t·k, E]
     pos = seen.gather(2, flat[..., None])[..., 0].reshape(ng, gsz, k) - 1
     return Routing(expert, gate, pos, pos < cap, probs, cap)
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              group: Optional[int] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, D] -> (y [B, S, D], the auxiliary loss): the B·S tokens
-    flattened and routed in groups (see the module docstring); expert
-    products in x's dtype, the router in f32.  ``group`` sets the group
-    size where the reference routes smaller calls than this one (1: each
-    token alone, as a ``vmap`` over single tokens does)."""
+def _experts(p: dict, xt: torch.Tensor, rt: Routing, cfg: ModelConfig
+             ) -> torch.Tensor:
+    """The kept choices of the grouped tokens xt [g, t, D] through their
+    experts, gate-weighted and summed per token: [g, t, D] in xt's
+    dtype."""
     e = cfg.moe.num_experts
-    b, s, d = x.shape
-    n = b * s
-    gsz = group_size(n, group or cfg.moe.dispatch_group)
-    ng = n // gsz
-    xt = x.reshape(ng, gsz, d)
-    rt = moe_route(p["router"], xt, cfg)
-    cap, cdt = rt.cap, x.dtype
+    ng, _, d = xt.shape
+    cap, cdt = rt.cap, xt.dtype
     # each kept choice's row in its expert's capacity buffer; dropped
     # choices land in a spare row past the capacity, cut off below
     slot = torch.where(rt.keep, rt.pos, cap)
-    g_idx = torch.arange(ng, device=x.device)[:, None, None] \
+    g_idx = torch.arange(ng, device=xt.device)[:, None, None] \
         .expand_as(slot)
-    xe = x.new_zeros((ng, e, cap + 1, d))
+    xe = xt.new_zeros((ng, e, cap + 1, d))
     xe[g_idx, rt.expert, slot] = xt[:, :, None].expand(*slot.shape, d)
     xe = xe[:, :, :cap]
     f = act_fn(cfg.act)
@@ -122,8 +126,70 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ye = torch.cat([ye, ye.new_zeros((ng, e, 1, d))], 2)
     picked = ye[g_idx, rt.expert, slot]                      # [g, t, k, D]
     w = torch.where(rt.keep, rt.gate, 0.0).to(cdt)
-    y = (picked * w[..., None]).sum(2)
+    return (picked * w[..., None]).sum(2)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              group: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] -> (y [B, S, D], the auxiliary loss): the B·S tokens
+    flattened and routed in groups (see the module docstring); expert
+    products in x's dtype, the router in f32.  ``group`` sets the group
+    size where the reference routes smaller calls than this one (1: each
+    token alone, as a ``vmap`` over single tokens does).  Under an active
+    ``sharding.data_parallel`` x is this rank's block of the batch
+    (:func:`_moe_apply_dp`)."""
+    if group is None and SH.active_data_parallel() is not None:
+        return _moe_apply_dp(p, x, cfg, SH.active_data_parallel())
+    e = cfg.moe.num_experts
+    b, s, d = x.shape
+    n = b * s
+    gsz = group_size(n, group or cfg.moe.dispatch_group)
+    xt = x.reshape(n // gsz, gsz, d)
+    rt = moe_route(p["router"], xt, cfg)
+    y = _experts(p, xt, rt, cfg)
     frac = torch.nn.functional.one_hot(rt.expert[..., 0], e).sum(1) \
         .float().div(gsz).mean(0)
     aux = e * (frac * rt.probs.mean((0, 1))).sum()
+    return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_apply_dp(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply`` of this rank's block x [B/dp, S, D] of a batch split
+    over ``dp_axes(mesh)``, as one device applies it to the whole batch
+    (see the module docstring).  Groups must lie within a rank's block or
+    span whole blocks."""
+    e, k = cfg.moe.num_experts, cfg.moe.num_experts_per_token
+    axes = SH.dp_axes(mesh)
+    ndp, i = SH.axes_size(mesh, axes), SH.block_index(mesh, axes)
+    b, s, d = x.shape
+    n_loc = b * s
+    n = n_loc * ndp
+    gsz = group_size(n, cfg.moe.dispatch_group)
+    cap = capacity(cfg, gsz)
+    if n_loc % gsz == 0:
+        xt = x.reshape(n_loc // gsz, gsz, d)
+        rt = moe_route(p["router"], xt, cfg, cap)
+    elif gsz % n_loc == 0:
+        xt = x.reshape(1, n_loc, d)
+        rt = moe_route(p["router"], xt, cfg, cap)
+        # queue places continue those of the group's lower ranks
+        counts = torch.nn.functional.one_hot(rt.expert.reshape(-1), e) \
+            .sum(0).to(torch.int32)
+        every = SH.all_gather(counts[None], mesh, axes, 0)   # [dp, E]
+        first = i - i % (gsz // n_loc)
+        offset = every[first:i].sum(0).long()
+        pos = rt.pos + offset[rt.expert]
+        rt = rt._replace(pos=pos, keep=pos < cap)
+    else:
+        raise ValueError(
+            f"{cfg.name}: MoE groups of {gsz} tokens neither fit in nor span "
+            f"whole blocks of {n_loc} tokens on {ndp} data-parallel ranks")
+    y = _experts(p, xt, rt, cfg)
+    top = torch.nn.functional.one_hot(rt.expert[..., 0], e).sum((0, 1)) \
+        .float()
+    frac = SH.all_reduce_sum(top, mesh, axes) / n
+    pmean = SH.sum_over_ranks(rt.probs.sum((0, 1)), mesh, axes) / n
+    aux = e * (frac * pmean).sum()
     return y.reshape(b, s, d).to(x.dtype), aux

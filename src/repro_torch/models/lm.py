@@ -214,11 +214,8 @@ def mlp_residual(lp: dict, h: torch.Tensor, cfg: ModelConfig,
 def _block(lp: dict, h: torch.Tensor, positions: torch.Tensor,
            cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder block over h [B, S, D]: (h, its MoE auxiliary loss)."""
-    x1 = rmsnorm(lp["norm1"], h, cfg.norm_eps)
-    q, k, v = A._project_qkv(lp["attn"], x1, cfg)
-    q, k = A.rope_qk(q, k, positions, cfg)
-    o = A.full_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    h = h + A.out_proj(lp["attn"], o)
+    h = h + A.attn_forward(lp["attn"], rmsnorm(lp["norm1"], h, cfg.norm_eps),
+                           cfg, positions)
     m, a = ffn(lp, rmsnorm(lp["norm2"], h, cfg.norm_eps), cfg)
     return h + m, a
 

@@ -16,7 +16,7 @@ names an Adafactor that its module does not define.)
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, NamedTuple, Tuple, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -83,15 +83,18 @@ def adamw_init(params: Params) -> AdamWState:
 
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, grads: Mapping[str, torch.Tensor],
-                 state: AdamWState, params: Params
+                 state: AdamWState, params: Params,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Dict[str, torch.Tensor], AdamWState, dict]:
     """One AdamW step: clip, advance the step, schedule, then per leaf
     ``m = b1 m + (1 - b1) g``, ``v = b2 v + (1 - b2) g g``, bias-corrected,
     ``p -= lr (mhat / (sqrt(vhat) + eps) + wd p)``.  The parameters and the
-    state's moments are updated in place.  Returns (params, the new state,
+    state's moments are updated in place.  ``gnorm`` is the global norm
+    to clip by when ``grads`` are a rank's blocks of the whole gradient
+    (by default that of ``grads``).  Returns (params, the new state,
     {"grad_norm", "lr"})."""
     p = named(params)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
     lr = lr_schedule(cfg, step)

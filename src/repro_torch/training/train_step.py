@@ -10,14 +10,35 @@ splits' gradients are summed in f32, then divided, as the reference's
 before the optimizer (gradient compression lives there).  The step runs
 no kernel of the port: attention, scans and the loss are plain PyTorch
 under autograd, as the reference's are plain XLA.
+
+**Under a mesh** (``make_train_step(..., mesh=)``, a ``launch.mesh.
+TrainMesh``) the step holds the reference's sharded step to its contract,
+the one-device step: each rank holds its blocks of the parameters and of
+AdamW's m and v under ``param_specs(mode="train")``
+(:class:`ShardedParams`).  At the start of a step the blocks are gathered
+into a reused full-size model, whose split parameters give their storage
+back once the gradients are taken, so between steps a rank holds only
+its blocks (and the parameters no spec splits); each microbatch of the global batch is
+split over the dp axes (``train_batch_specs``) and the family's loss runs
+on this rank's block (``sharding.data_parallel`` on, so a MoE layer routes
+as one device does); the gradients are summed over the dp ranks and
+divided by their number; ``grad_transform``, the global norm and the clip
+see that whole gradient, so every element counts once; AdamW then updates
+this rank's blocks.  With a loss mask each rank's NLL is weighted by its
+share of the masked positions, so the mean over ranks is the global
+masked mean.  The ranks along ``model`` compute the same thing: only
+storage is split there (the compute split is ROADMAP item 16c).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from repro_torch.config import ModelConfig, OptimizerConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.training import optimizer as O
 
 
@@ -41,18 +62,22 @@ def value_and_grad(loss_fn: Callable, params, batch):
     return (loss.detach(), detach(metrics)), out
 
 
-def batch_grads(loss_fn: Callable, params, batch, microbatches: int = 1):
+def batch_grads(loss_fn: Callable, params, batch, microbatches: int = 1,
+                local: Optional[Callable] = None):
     """((loss, metrics), grads) of ``batch``: in one pass, or with
     ``microbatches`` > 1 over that many splits of its first axis, their
     gradients summed in f32 and divided (and their losses averaged; the
-    model's metrics are then empty, as the reference returns none)."""
+    model's metrics are then empty, as the reference returns none).
+    ``local`` maps each (micro)batch to what this rank computes on (by
+    default all of it)."""
+    local = local or (lambda b: b)
     if microbatches == 1:
-        return value_and_grad(loss_fn, params, batch)
+        return value_and_grad(loss_fn, params, local(batch))
     grads, ltot = None, None
     for i in range(microbatches):
         mb = {k: x.reshape(microbatches, x.shape[0] // microbatches,
                            *x.shape[1:])[i] for k, x in batch.items()}
-        (l, _), g = value_and_grad(loss_fn, params, mb)
+        (l, _), g = value_and_grad(loss_fn, params, local(mb))
         if grads is None:
             grads = {k: torch.zeros(x.shape, dtype=torch.float32,
                                     device=x.device) for k, x in g.items()}
@@ -66,13 +91,18 @@ def batch_grads(loss_fn: Callable, params, batch, microbatches: int = 1):
 def make_train_step(model_loss: Callable, cfg: ModelConfig,
                     opt_cfg: OptimizerConfig, *, remat: bool = True,
                     microbatches: int = 1,
-                    grad_transform: Optional[Callable] = None):
+                    grad_transform: Optional[Callable] = None, mesh=None):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``: ``metrics`` holds ``loss``, ``grad_norm``,
     ``lr`` and, without microbatches, the model's own (``nll``,
     ``moe_aux``), each a 0-d tensor on the parameters' device.  The
-    parameters are updated in place."""
+    parameters are updated in place.  Under ``mesh`` the parameters are a
+    :class:`ShardedParams`, the state's moments its blocks, and ``batch``
+    the global batch (see the module docstring)."""
     loss_fn = make_loss(model_loss, cfg, remat)
+    if mesh is not None:
+        return _sharded_step(loss_fn, opt_cfg, mesh, microbatches,
+                             grad_transform)
 
     def train_step(params, opt_state, batch):
         (loss, metrics), grads = batch_grads(loss_fn, params, batch,
@@ -84,3 +114,115 @@ def make_train_step(model_loss: Callable, cfg: ModelConfig,
         return params, opt_state, {"loss": loss, **opt_metrics, **metrics}
 
     return train_step
+
+
+@dataclasses.dataclass
+class ShardedParams:
+    """A rank's parameters under a mesh: its blocks (by parameter name,
+    under ``specs``) and the full-size model each step gathers them into.
+    A block that is the whole parameter is that parameter; a parameter of
+    the model that a spec splits holds no storage between steps."""
+
+    model: nn.Module
+    blocks: Dict[str, torch.Tensor]
+    specs: Dict[str, tuple]
+    mesh: object
+
+
+def shard_params(model: nn.Module, mesh) -> ShardedParams:
+    """Split a full-size model (the same on every rank) into this rank's
+    blocks under ``param_specs(model, mesh, mode="train")``."""
+    specs = SH.param_specs(model, mesh, mode="train")
+    blocks = {}
+    for k, p in O.named(model).items():
+        b = SH.shard_of(p.detach(), specs[k], mesh)
+        blocks[k] = b if b.shape == p.shape else b.clone()
+    sp = ShardedParams(model, blocks, specs, mesh)
+    release_params(sp)
+    return sp
+
+
+def _split(params: ShardedParams):
+    """(name, model parameter) of each parameter a spec splits."""
+    return [(k, p) for k, p in O.named(params.model).items()
+            if params.blocks[k].shape != p.shape]
+
+
+@torch.no_grad()
+def gather_params(params: ShardedParams) -> nn.Module:
+    """The whole parameters from every rank's blocks, into the model (its
+    split parameters' storage allocated again)."""
+    for k, p in _split(params):
+        p.untyped_storage().resize_(p.numel() * p.element_size())
+        p.copy_(SH.unshard(params.blocks[k], params.specs[k], params.mesh))
+    return params.model
+
+
+@torch.no_grad()
+def release_params(params: ShardedParams) -> None:
+    """Give back the storage of the model's split parameters (their
+    blocks hold them); :func:`gather_params` fills them again."""
+    for _, p in _split(params):
+        p.untyped_storage().resize_(0)
+
+
+def reduce_grads(grads: Dict[str, torch.Tensor], mesh
+                 ) -> Dict[str, torch.Tensor]:
+    """The mean over the dp ranks of each rank's gradients (in place)."""
+    axes = SH.dp_axes(mesh)
+    n = SH.axes_size(mesh, axes)
+    if n == 1:
+        return grads
+    return {k: SH.all_reduce_sum_(g.contiguous(), mesh, axes).div_(n)
+            for k, g in grads.items()}
+
+
+def _sharded_step(loss_fn: Callable, opt_cfg: OptimizerConfig, mesh,
+                  microbatches: int, grad_transform: Optional[Callable]):
+    axes = SH.dp_axes(mesh)
+    ndp = SH.axes_size(mesh, axes)
+
+    def train_step(params: ShardedParams, opt_state, batch):
+        model = gather_params(params)
+        # does each microbatch split over dp?  (else every rank runs it)
+        mb0 = {k: x[: x.shape[0] // microbatches] for k, x in batch.items()}
+        split = ndp > 1 and any(sp and sp[0] is not None for sp in
+                                SH.train_batch_specs(mb0, mesh).values())
+
+        def local(b):
+            sp = SH.train_batch_specs(b, mesh)
+            return {k: SH.shard_of(x, sp[k], mesh) for k, x in b.items()}
+
+        def dp_loss(p, b):
+            total, metrics = loss_fn(p, b)
+            if split and "loss_mask" in b:
+                # this rank's share of the masked positions, times ndp
+                m = b["loss_mask"].float().sum()
+                w = ndp * m / SH.all_reduce_sum(m, mesh, axes).clamp_min(1)
+                total = total + (w - 1) * metrics["nll"]
+                metrics = {**metrics, "nll": w * metrics["nll"]}
+            return total, metrics
+
+        with SH.data_parallel(mesh if split else None):
+            (loss, metrics), grads = batch_grads(dp_loss, model, batch,
+                                                 microbatches, local)
+        release_params(params)
+        grads = reduce_grads(grads, mesh)
+        loss = _dp_mean(loss, mesh)
+        metrics = {k: _dp_mean(v, mesh) for k, v in metrics.items()}
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        gnorm = O.global_norm(grads)
+        blocks = {k: SH.shard_of(g, params.specs[k], mesh)
+                  for k, g in grads.items()}
+        del grads
+        _, opt_state, opt_metrics = O.adamw_update(
+            opt_cfg, blocks, opt_state, params.blocks, gnorm=gnorm)
+        return params, opt_state, {"loss": loss, **opt_metrics, **metrics}
+
+    return train_step
+
+
+def _dp_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    axes = SH.dp_axes(mesh)
+    return SH.all_reduce_sum(x, mesh, axes) / SH.axes_size(mesh, axes)

@@ -1405,3 +1405,167 @@ def test_retrace_guard_in_a_fresh_process(card, steady_first):
             "#1" in res["raised"]
     else:
         assert res["raised"] == ""
+
+
+def gloo_helpers_rank(mesh) -> dict:
+    """Every collective helper of ``distributed/sharding.py`` on card
+    tensors over 2 gloo ranks (rank r's ``x`` is 0..7 + 10 r); returns
+    the results on the host, whether each came back on the card, and the
+    host-staged calls."""
+    from repro_torch.distributed import sharding as SH
+    SH.reset_collectives()
+    x = torch.arange(8.0, device=mesh.device) + 10 * mesh.rank
+    got = {"all_gather": SH.all_gather(x, mesh, "data", 0),
+           "all_reduce": SH.all_reduce_sum(x, mesh, "data"),
+           "broadcast": SH.broadcast(x, mesh, "data", 1),
+           "permute": SH.permute(x, mesh, "data", 1),
+           "all_to_all": SH.all_to_all(x.reshape(2, 4), mesh, "data")}
+    SH.barrier(mesh)
+    return {"values": {k: v.cpu() for k, v in got.items()},
+            "on_card": {k: v.device.type == "cuda" for k, v in got.items()},
+            "staged": sorted(k for k, _ in SH.COLLECTIVES
+                             if k.endswith("_host_staged"))}
+
+
+def gloo_raw_rank(mesh) -> dict:
+    """Gloo's own collectives on card tensors over 2 ranks (a probe: each
+    either gives its values or raises, recorded by kind; send and receive
+    are left out, since gloo reads the card address as host memory)."""
+    import torch.distributed as dist
+    x = torch.arange(8.0, device=mesh.device) + 10 * mesh.rank
+    calls = {
+        "all_gather": lambda: torch.cat(_gathered(dist, x)),
+        "all_reduce": lambda: _reduced(dist, x),
+        "broadcast": lambda: _broadcast(dist, x),
+        "all_to_all": lambda: _all_to_all(dist, x)}
+    out = {}
+    for kind, call in calls.items():
+        try:
+            out[kind] = call().cpu()
+        except RuntimeError as e:
+            out[kind] = str(e)
+    return out
+
+
+def _gathered(dist, x):
+    parts = [torch.empty_like(x) for _ in range(2)]
+    dist.all_gather(parts, x)
+    return parts
+
+
+def _reduced(dist, x):
+    y = x.clone()
+    dist.all_reduce(y)
+    return y
+
+
+def _broadcast(dist, x):
+    y = x.clone()
+    dist.broadcast(y, src=1)
+    return y
+
+
+def _all_to_all(dist, x):
+    y = torch.empty_like(x)
+    dist.all_to_all_single(y, x)
+    return y.reshape(2, 4)
+
+
+@pytest.fixture(scope="module")
+def gloo_raw_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: gloo's CUDA paths run only there")
+    from repro_torch.launch import mesh as M
+    return M.run_ranks(gloo_raw_rank, "data=2", "cuda", timeout=300)
+
+
+@pytest.mark.parametrize("kind", ["all_gather", "all_reduce", "broadcast",
+                                  "all_to_all"])
+def test_gloo_raw_collectives_on_card_tensors(gloo_raw_on_card, kind):
+    """Gloo takes card tensors in each collective the helpers send
+    straight (exact values), and a kind the helpers stage through the host
+    (``sharding.HOST_STAGED``) is one gloo refuses or gets wrong here."""
+    from repro_torch.distributed import sharding as SH
+    ok = [torch.is_tensor(res[kind])
+          and torch.equal(res[kind], _gloo_want(kind, r))
+          for r, res in enumerate(gloo_raw_on_card)]
+    assert all(ok) != (kind in SH.HOST_STAGED), \
+        [res[kind] for res in gloo_raw_on_card]
+
+
+@pytest.fixture(scope="module")
+def gloo_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: gloo's CUDA paths run only there")
+    from repro_torch.launch import mesh as M
+    return M.run_ranks(gloo_helpers_rank, "data=2", "cuda", timeout=300)
+
+
+def _gloo_want(kind: str, r: int) -> torch.Tensor:
+    x = [torch.arange(8.0) + 10 * i for i in range(2)]
+    return {"all_gather": torch.cat(x), "all_reduce": x[0] + x[1],
+            "broadcast": x[1], "permute": x[1 - r],
+            "all_to_all": torch.stack([x[0].reshape(2, 4)[r],
+                                       x[1].reshape(2, 4)[r]])}[kind]
+
+
+@pytest.mark.parametrize("kind", ["all_gather", "all_reduce", "broadcast",
+                                  "permute", "all_to_all"])
+def test_gloo_helpers_on_card_tensors(gloo_on_card, kind):
+    """Each helper gives the exact values on card tensors and hands back a
+    card tensor; the kinds in ``sharding.HOST_STAGED`` (gloo's send and
+    receive) go through the host and are counted so."""
+    from repro_torch.distributed import sharding as SH
+    for r, res in enumerate(gloo_on_card):
+        assert torch.equal(res["values"][kind], _gloo_want(kind, r)), r
+        assert res["on_card"][kind]
+        assert res["staged"] == sorted(f"{k}_host_staged"
+                                       for k in SH.HOST_STAGED)
+
+
+def smoke_step_rank(mesh, arch: str) -> dict:
+    """One data=2 step of ``arch``'s smoke form on the card: the loss and
+    the gathered new parameters (on the host)."""
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.factory import build_model
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step, \
+        shard_params
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    sp = shard_params(model.init_params(0, mesh.device).requires_grad_(True),
+                      mesh)
+    step = make_train_step(model.loss, cfg, OptimizerConfig(warmup_steps=1),
+                           mesh=mesh)
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (8, 17), generator=g)
+    batch = {"tokens": toks[:, :-1].to(mesh.device),
+             "targets": toks[:, 1:].to(mesh.device)}
+    sp, _, m = step(sp, adamw_init(sp.blocks), batch)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "params": {k: SH.unshard(b, sp.specs[k], mesh).detach().cpu()
+                       for k, b in sp.blocks.items()}}
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x7b"])
+def test_data_parallel_step_on_the_card_is_the_one_rank_step(card, arch):
+    """yi-6b's and mixtral's smoke forms, one step on 2 gloo ranks on the
+    card (data 2) against the one-rank step there: loss within rtol 2e-5,
+    every parameter within rtol 2e-4 / atol 2e-5 (the reference's bars for
+    a sharded step), at the full learning rate on step 1 (warmup 1) so
+    that the update is over the bar, and the gradient norm within rtol
+    1e-5 (AdamW's first step does not see the gradient's scale)."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch import mesh as M
+    one = M.make_mesh(MeshConfig((1, 1), ("data", "model")), 0, "cuda")
+    want = smoke_step_rank(one, arch)
+    got = M.run_ranks(smoke_step_rank, "data=2,model=1", "cuda", arch,
+                      timeout=300)
+    for r in got:
+        np.testing.assert_allclose(r["loss"], want["loss"], rtol=2e-5)
+        np.testing.assert_allclose(r["grad_norm"], want["grad_norm"],
+                                   rtol=1e-5)
+    for k, w in want["params"].items():
+        np.testing.assert_allclose(got[0]["params"][k].numpy(), w.numpy(),
+                                   rtol=2e-4, atol=2e-5, err_msg=k)

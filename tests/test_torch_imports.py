@@ -39,7 +39,10 @@ TRAINING_MODULES = ("models/losses.py", "training/optimizer.py",
                     "training/train_step.py", "training/trainer.py",
                     "checkpoint/checkpointer.py", "ft/failures.py",
                     "data/synthetic.py", "distributed/compression.py",
-                    "launch/train.py")
+                    "launch/train.py", "training/pipeline.py",
+                    "distributed/overlap.py",
+                    "distributed/ring_attention.py",
+                    "distributed/sharding.py")
 
 
 def test_training_modules_are_under_the_rule():
@@ -79,9 +82,8 @@ COLLECTIVES = {"all_gather", "all_gather_into_tensor", "all_gather_object",
                "broadcast", "broadcast_object_list", "gather", "irecv",
                "isend", "recv", "reduce", "reduce_scatter",
                "reduce_scatter_tensor", "scatter", "send"}
-# the serving helpers, and the launcher that only sets the group up
-COLLECTIVE_FILES = {"src/repro_torch/distributed/sharding.py",
-                    "src/repro_torch/launch/mesh.py"}
+# the counted helpers; the launcher (launch/mesh.py) only sets groups up
+COLLECTIVE_FILES = {"src/repro_torch/distributed/sharding.py"}
 
 
 def collective_calls(source: str):
@@ -133,6 +135,29 @@ def test_collectives_only_in_the_sharding_helpers(path):
     if rel in COLLECTIVE_FILES:
         return
     assert calls == [], f"{rel} calls {calls}"
+
+
+def test_every_collective_is_in_a_counted_helper():
+    """In ``distributed/sharding.py`` each function that calls a
+    collective also counts it (``_count``), so ``COLLECTIVES`` and
+    ``COLLECTIVE_BYTES`` see every call; the training helpers are among
+    them."""
+    path = ROOT / "src" / "repro_torch" / "distributed" / "sharding.py"
+    tree = ast.parse(path.read_text())
+    helpers = []
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        body = ast.unparse(ast.Module(body=fn.body, type_ignores=[]))
+        if collective_calls("import torch.distributed as dist\n" + body):
+            counts = {n.func.id for n in ast.walk(fn)
+                      if isinstance(n, ast.Call)
+                      and isinstance(n.func, ast.Name)}
+            assert "_count" in counts, fn.name
+            helpers.append(fn.name)
+    assert {"gather_heads", "any_shard", "all_gather", "all_reduce_sum_",
+            "broadcast", "permute", "all_to_all", "barrier"} <= \
+        set(helpers), helpers
 
 
 @pytest.mark.parametrize("src,calls", [

@@ -27,6 +27,7 @@ Bars:
   step (the records' archive check), and replayed by the port within
   1e-4 relative.
 """
+import dataclasses
 import json
 import os
 import sys
@@ -390,15 +391,25 @@ def test_train_cli_prints_the_jax_clis_losses(tmp_path, monkeypatch,
     np.testing.assert_allclose([g0, g1], [w0, w1], rtol=1e-4)
 
 
-def test_sharded_training_is_refused(tmp_path):
-    """``Trainer(mesh=...)`` and ``--mesh-shape`` name item 16b."""
-    from repro_torch.launch import train as cli
+def test_trainer_on_a_mesh_of_one_rank_is_the_trainer(tmp_path):
+    """``Trainer(mesh=)`` is ported (item 16b; ``test_torch_train_mesh``
+    holds 2 to 8 ranks): on a one-rank mesh its blocks are the whole
+    parameters, and 8 steps give the unsharded trainer's losses exactly;
+    a mesh of another shape than ``cfg.mesh`` is refused."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
     _, tcfg = _configs("r1-llama-8b", tmp_path)
-    with pytest.raises(ValueError, match="16b"):
-        Trainer(tcfg, lambda s: iter(()), mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="16b"):
-        cli.main(["--arch", "r1-llama-8b", "--mesh-shape", "2,1",
-                  "--device", "cpu"])
+    want = Trainer(tcfg, _data_fn(lm_batches, tcfg), device="cpu").run()
+    mesh = make_mesh(MeshConfig((1, 1), ("data", "model")), 0, "cpu")
+    got = Trainer(dataclasses.replace(
+        tcfg, checkpoint_dir=str(tmp_path / "mesh"), mesh=MeshConfig(
+            (1, 1), ("data", "model"))),
+        _data_fn(lm_batches, tcfg), mesh=mesh).run()
+    assert got.losses == want.losses
+    assert sorted(os.listdir(tmp_path / "mesh")) == \
+        sorted(os.listdir(tmp_path / "port"))
+    with pytest.raises(ValueError, match="cfg.mesh"):
+        Trainer(tcfg, _data_fn(lm_batches, tcfg), mesh=mesh)
 
 
 def test_training_entry_points_need_a_card_or_the_cpu(tmp_path):
