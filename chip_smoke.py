@@ -222,8 +222,11 @@ failure:
                 same code), every gradient leaf within 1e-4 of its largest
                 |g|, and the same for the step in two microbatches; then 8
                 default AdamW steps: ms per step, tokens per second, the
-                share of the f32 peak that 6·N·tokens reaches (N the
-                parameters in products; with the recomputed forward
+                share of the f32 peak that 6·N·tokens reaches
+                (``roofline/analysis.py``'s ``model_flops_for`` over its
+                ``F32_FLOPS``: N the reference's active parameter count,
+                the embedding table among them; and with N the
+                parameters in products, also with the recomputed forward
                 8·N·tokens), peak GB, the losses, zero kernel launches;
                 the JAX train record (``tests/golden/
                 torch_train_steps.npz``) replayed within 1e-4 relative; a
@@ -232,12 +235,14 @@ failure:
                 contract on the card.
    train_mesh — sharded training on gloo ranks sharing the card
                 (``train_mesh_phase``): the train phase's model, batch
-                and seed on 2 ranks (data 2), 3 steps, step 1's loss,
-                gradient and every parameter held to the one-rank step
-                (the reference's bars); per rank the bytes held between
-                steps, the peak, ms per step and the gradient
-                all-reduce's bytes and ms per step; zero kernel
-                launches; then at smoke size yi-6b and mixtral on
+                and seed on 2 ranks, data 2 and then data 1 x model 2
+                (the compute split over ``model``), 2 and 3 steps, step
+                1's loss, gradient and every parameter held to the
+                one-rank step (the reference's bars); per rank the bytes
+                held between steps, the peak, ms per step and per step
+                the collective bytes by kind, axis and what moves, equal
+                to the dry run's count; zero kernel launches; the dry run
+                at the production meshes, timed; then at smoke size yi-6b and mixtral on
                 (data 2, model 2) held to the one-rank step, the trainer
                 resumed 1 -> 2 and 2 -> 1 ranks against an uninterrupted
                 run, and ring attention, the pipeline, the compressed
@@ -273,6 +278,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # --src DIR imports the port from another tree (the A/B run's parent)
@@ -282,11 +288,27 @@ sys.path.insert(0, SRC)
 # tests/ holds the JAX records' reader (test_torch_steps_record, numpy only)
 sys.path.insert(1, os.path.join(HERE, "tests"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-F32_FLOPS = 67e12               # H100 SXM fp32, CUDA cores (no tensor cores)
-F64_TC_FLOPS = 67e12            # H100 SXM fp64 tensor cores (K2, K3 products)
-PEAKS = {"f32": (F32_FLOPS, "fp32 CUDA cores 67 TFLOP/s"),
-         "f64tc": (F64_TC_FLOPS, "fp64 tensor cores 67 TFLOP/s")}
+
+
+def _roofline_module():
+    """This checkout's ``repro_torch/roofline/analysis.py`` (by its path,
+    so an A/B run's ``--src`` tree does not replace it): the H100's peaks
+    and the 6·N·tokens count."""
+    import importlib.util
+    path = os.path.join(HERE, "src", "repro_torch", "roofline",
+                        "analysis.py")
+    spec = importlib.util.spec_from_file_location("_chip_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod          # its dataclass looks itself up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+RA = _roofline_module()
+HBM_BYTES_PER_S = RA.HBM_BW       # H100 SXM HBM3
+F32_FLOPS = RA.F32_FLOPS          # H100 SXM fp32, CUDA cores
+F64_TC_FLOPS = RA.F64_TC_FLOPS    # H100 SXM fp64 tensor cores (K2, K3)
+PEAKS = RA.PEAKS
 SFU_PER_SM_CLOCK = 16           # special-function unit results (ex2) per SM
 ATOL = 1e-3
 SCAN_TOL = 3e-4                 # the JAX package's bar, scan kernel vs oracle
@@ -3467,6 +3489,12 @@ TRAIN_GRAD_REL = 1e-4      # each gradient leaf, of that leaf's largest |g|
 TRAIN_RESUME_RTOL = 1e-4   # the reference's bar (test_fault_tolerance.py)
 
 
+def _train_shape(seq: int, batch: int):
+    """An input shape of the train kind (``config.InputShape``)."""
+    from repro_torch.config import InputShape
+    return InputShape("train", seq, batch, "train")
+
+
 def train_f64_errors(g32: dict, g64: dict) -> dict:
     """Per gradient leaf: max |g32 - g64| over the leaf's largest |g64|."""
     out = {}
@@ -3621,7 +3649,10 @@ def train_phase(dev) -> dict:
     torch.cuda.empty_cache()
     steady = sorted(ms[1:])[len(ms[1:]) // 2]
     tokens = batch * seq
-    model_flops = 6 * n_matmul * tokens
+    # 6·N·tokens: N the active parameters of the reference's count (the
+    # embedding table among them), and N the parameters in products
+    model_flops = RA.model_flops_for(mc, _train_shape(seq, batch), "train")
+    product_flops = 6 * n_matmul * tokens
 
     rec = TRR.load(os.path.join(HERE, "tests", "golden",
                                 "torch_train_steps.npz"))
@@ -3644,9 +3675,11 @@ def train_phase(dev) -> dict:
            "loss_chunks": seq // chunk_size(batch, seq, mc.vocab_size),
            "ms_per_step": ms, "steady_ms_per_step": steady,
            "tokens_per_s": tokens / (steady / 1e3),
+           "product_flops": product_flops,
+           "mfu_f32": product_flops / (steady / 1e3) / F32_FLOPS,
            "model_flops": model_flops,
-           "mfu_f32": model_flops / (steady / 1e3) / F32_FLOPS,
-           "hfu_f32_with_recompute": model_flops * 8 / 6 / (steady / 1e3)
+           "mfu_f32_6nd_ref": model_flops / (steady / 1e3) / F32_FLOPS,
+           "hfu_f32_with_recompute": product_flops * 8 / 6 / (steady / 1e3)
            / F32_FLOPS,
            "peak_gb": peak_gb, "losses": losses, "f64_check": f64,
            "bars": {"loss_and_norm_rel": TRAIN_RTOL,
@@ -3669,7 +3702,9 @@ def train_phase(dev) -> dict:
 TM_ARCH = "r1-llama-8b"
 TM_LAYERS = 2              # of r1-llama-8b's 32, as the train phase
 TM_BATCH, TM_SEQ, TM_STEPS = 8, 512, 3
+TM_DATA_STEPS = 2          # the data-2 leg's (its gloo traffic is 12x)
 TM_MESH = "data=2,model=1"  # 2 gloo ranks on the one card
+TM_MODEL_MESH = "data=1,model=2"  # the compute split over model
 TM_SMOKE_MESH = "data=2,model=2"
 TM_LOSS_RTOL = 2e-5        # the reference's sharded-step bars
 TM_PARAM_RTOL, TM_PARAM_ATOL = 2e-4, 2e-5
@@ -3711,26 +3746,29 @@ def _one_rank_step(model, mc, batch) -> dict:
     return ref
 
 
-def train_mesh_full_rank(mesh, dirs: dict) -> dict:
-    """One rank of the full-width data=2 step (``train_mesh_phase`` (a)).
-    Rank 0 first runs the one-rank step of the same seeds on its own copy
-    of the weights (``_one_rank_step``: its gradient and new parameters
-    stay on the card), then both ranks run ``TM_STEPS`` sharded steps;
-    step 1's gradient (a ``grad_transform`` that reads it) and gathered
-    parameters are held to the one-rank step on rank 0.  The gradient
-    all-reduce (``train_step.reduce_grads``) is timed inside each step.
-    Then, the card freed, the 2-rank part of (b)
-    (``train_mesh_smoke_rank2``)."""
+def train_mesh_full_rank(mesh, dirs: Optional[dict] = None,
+                         steps: int = TM_STEPS) -> dict:
+    """One rank of a full-width leg of ``train_mesh_phase`` (data 2, or
+    data 1 x model 2).  Rank 0 first runs the one-rank step of the same
+    seeds on its own copy of the weights (``_one_rank_step``: its gradient
+    and new parameters stay on the card), then both ranks run
+    ``steps`` sharded steps; step 1 (with a ``grad_transform`` that
+    reads the whole gradient) is held to the one-rank step on rank 0: its
+    loss, gradient norm, gradient and gathered parameters.  Per step the
+    collective bytes by (kind, axis, what) (``sharding.TRAFFIC``) beside
+    the dry run's count of the same cell (``launch.dryrun.
+    train_traffic``).  Then, with ``dirs``, the card freed, the 2-rank
+    part of (b) (``train_mesh_smoke_rank2``)."""
     import torch
 
     import repro_torch.training.train_step as TS
-    from repro_torch.config import OptimizerConfig
+    from repro_torch.config import MeshConfig, OptimizerConfig
     from repro_torch.configs import get_config
-    from repro_torch.convert import param_shapes
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.device import set_f32_numerics
     from repro_torch.distributed import sharding as SH
     from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import train_traffic
     from repro_torch.models.factory import build_model
     from repro_torch.training.optimizer import adamw_init
     from repro_torch.training.trainer import batch_to
@@ -3740,7 +3778,7 @@ def train_mesh_full_rank(mesh, dirs: dict) -> dict:
     mc = dataclasses.replace(get_config(TM_ARCH), num_layers=TM_LAYERS)
     model = build_model(mc)
     data = lm_batches(mc.vocab_size, TM_BATCH, TM_SEQ, seed=SEED)
-    batches = [batch_to(next(data), dev) for _ in range(TM_STEPS)]
+    batches = [batch_to(next(data), dev) for _ in range(steps)]
     out = {"rank": mesh.rank}
     ref = _one_rank_step(model, mc, batches[0]) if mesh.rank == 0 else {}
     torch.cuda.empty_cache()
@@ -3751,69 +3789,65 @@ def train_mesh_full_rank(mesh, dirs: dict) -> dict:
     held, errs = [], {}
 
     def check_grads(g):
-        if "grads" in ref and "grad_rel" not in errs:
+        if "grads" in ref:
             errs["grad_rel"] = _grad_rel(g, ref.pop("grads"))
         return g
 
+    first = TS.make_train_step(model.loss, mc, OptimizerConfig(),
+                               remat=True, grad_transform=check_grads,
+                               mesh=mesh, split=model.split)
     step = TS.make_train_step(model.loss, mc, OptimizerConfig(), remat=True,
-                              grad_transform=check_grads, mesh=mesh)
-    ms, losses, ar_bytes, ar_ms = [], [], [], []
-    reduce_grads = TS.reduce_grads
-
-    def timed_reduce(grads, mesh_):
+                              mesh=mesh, split=model.split)
+    layout = MeshConfig(mesh.shape, mesh.axis_names)
+    want = {gt: {"/".join(k): n for k, n in sorted(train_traffic(
+        mc, layout, TM_BATCH, TM_SEQ, grad_transform=gt).items())}
+        for gt in (True, False)}
+    ms, losses, traffic = [], [], []
+    for i, b in enumerate(batches):
+        if i == 1:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        SH.reset_collectives()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out_ = reduce_grads(grads, mesh_)
+        sp, opt, m = (first if i == 0 else step)(sp, opt, b)
+        losses.append(float(m["loss"]))
         torch.cuda.synchronize()
-        ar_ms.append((time.perf_counter() - t) * 1e3)
-        return out_
-    TS.reduce_grads = timed_reduce
-    try:
-        for i, b in enumerate(batches):
-            if i == 1:
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats()
-            key = ("all_reduce", "float32")
-            b0 = SH.COLLECTIVE_BYTES.get(key, 0)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            sp, opt, m = step(sp, opt, b)
-            losses.append(float(m["loss"]))
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t) * 1e3)
-            ar_bytes.append(SH.COLLECTIVE_BYTES.get(key, 0) - b0)
-            held.append(_resident_bytes(sp, opt))
-            if i == 0:
-                worst = {}
-                for k, blk in sp.blocks.items():   # every rank gathers
-                    full = SH.unshard(blk, sp.specs[k], mesh)
-                    if "params" in ref:
-                        worst[k] = _excess(full, getattr(ref["params"], k),
-                                           TM_PARAM_RTOL, TM_PARAM_ATOL)
-                    del full
+        ms.append((time.perf_counter() - t) * 1e3)
+        traffic.append({"/".join(k): n for k, n in sorted(
+            SH.TRAFFIC.items())})
+        held.append(_resident_bytes(sp, opt))
+        if i == 0:
+            worst = {}
+            for k, blk in sp.blocks.items():   # every rank gathers
+                full = SH.unshard(blk, sp.specs[k], mesh)
                 if "params" in ref:
-                    errs["param_excess"] = worst
-                    errs["loss_rel"] = abs(losses[0] - ref["loss"]) / \
-                        abs(ref["loss"])
-                    errs["loss_one_rank"] = ref["loss"]
-                    errs["gnorm_rel"] = abs(float(m["grad_norm"])
-                                            - ref["grad_norm"]) / \
-                        ref["grad_norm"]
-                    del ref["params"]
-    finally:
-        TS.reduce_grads = reduce_grads
+                    worst[k] = _excess(full, getattr(ref["params"], k),
+                                       TM_PARAM_RTOL, TM_PARAM_ATOL)
+                del full
+            if "params" in ref:
+                errs["param_excess"] = worst
+                errs["loss_rel"] = abs(losses[0] - ref["loss"]) / \
+                    abs(ref["loss"])
+                errs["loss_one_rank"] = ref["loss"]
+                errs["gnorm_rel"] = abs(float(m["grad_norm"])
+                                        - ref["grad_norm"]) / \
+                    ref["grad_norm"]
+                del ref["params"]
     peak = torch.cuda.max_memory_allocated() / 1e9
     del sp, opt, params, batches, model
     torch.cuda.empty_cache()
     out.update(losses=losses, ms_per_step=ms, held_bytes=max(held),
-               peak_gb_steps_2_on=peak, allreduce_bytes_per_step=ar_bytes,
-               grad_bytes=4 * sum(math.prod(s)
-                                  for s in param_shapes(mc).values()),
-               allreduce_ms_per_step=ar_ms,
+               peak_gb_steps_2_on=peak, traffic_per_step=traffic,
+               traffic_dry_run={"step 1 (whole gradient)": want[True],
+                                "steps 2-": want[False]},
+               traffic_equals_dry_run=all(
+                   t == want[i == 0] for i, t in enumerate(traffic)),
                kernel_launches={k: n - launches0[k]
                                 for k, n in ops.LAUNCHES.items()
                                 if n != launches0[k]}, **errs)
-    out["smoke2"] = train_mesh_smoke_rank2(mesh, dirs)
+    if dirs is not None:
+        out["smoke2"] = train_mesh_smoke_rank2(mesh, dirs)
     return out
 
 
@@ -3854,7 +3888,7 @@ def train_mesh_smoke_step(mesh, arch: str, seed: int, dev=None):
     p = model.init_params(SEED, dev).requires_grad_(True)
     batch = batch_to(_smoke_batch(cfg, seed), dev)
     step = make_train_step(model.loss, cfg, OptimizerConfig(
-        warmup_steps=TM_SMOKE_WARMUP), mesh=mesh)
+        warmup_steps=TM_SMOKE_WARMUP), mesh=mesh, split=model.split)
     if mesh is None:
         _, _, m = step(p, adamw_init(p), batch)
         return float(m["loss"]), float(m["grad_norm"]), {
@@ -3985,22 +4019,94 @@ def train_mesh_smoke_rank2(mesh, dirs: dict) -> dict:
     return out
 
 
+def _full_leg_checks(name: str, full: list) -> list:
+    """The failures of one full-width leg's ranks (``train_mesh_full_rank``
+    results, rank 0 holding the one-rank comparison)."""
+    failed, r0 = [], full[0]
+    if not r0.get("loss_rel", 1.0) <= TM_LOSS_RTOL:
+        failed.append(f"{name}: loss vs one rank {r0.get('loss_rel')}")
+    if not max(r0.get("param_excess", {"": 1.0}).values()) <= 0:
+        failed.append(f"{name}: parameters over the bar by "
+                      f"{max(r0.get('param_excess', {'': 1.0}).values())}")
+    if not r0.get("gnorm_rel", 1.0) <= TM_GNORM_RTOL:
+        failed.append(f"{name}: gradient norm {r0.get('gnorm_rel')}")
+    if not max(r0.get("grad_rel", {"": 1.0}).values()) <= TM_GRAD_REL:
+        failed.append(f"{name}: gradients "
+                      f"{max(r0.get('grad_rel', {'': 1.0}).values())}")
+    for r in full:
+        if r["kernel_launches"]:
+            failed.append(f"{name}: rank {r['rank']} launched "
+                          f"{r['kernel_launches']}")
+        if r["losses"] != r0["losses"] or not all(
+                x == x for x in r["losses"]):
+            failed.append(f"{name}: rank {r['rank']} losses {r['losses']}")
+        if not r["traffic_equals_dry_run"]:
+            failed.append(f"{name}: rank {r['rank']} collective bytes "
+                          f"{r['traffic_per_step']} vs the dry run's "
+                          f"{r['traffic_dry_run']}")
+    return failed
+
+
+def _full_leg_record(name: str, mesh: str, full: list, t0: float) -> dict:
+    r0 = full[0]
+    keys = ("losses", "ms_per_step", "held_bytes", "peak_gb_steps_2_on",
+            "traffic_per_step", "traffic_equals_dry_run", "kernel_launches")
+    return {
+        "phase": name, "nvidia_smi": nvidia_smi(),
+        "arch": TM_ARCH, "layers": TM_LAYERS,
+        "reduced": {"num_layers": f"{TM_LAYERS} of 32"}, "mesh": mesh,
+        "batch": TM_BATCH, "seq": TM_SEQ, "steps": len(r0["losses"]),
+        "per_rank": [{k: r[k] for k in keys} for r in full],
+        "traffic_dry_run": r0["traffic_dry_run"],
+        "one_rank_check": {
+            "loss_one_rank": r0.get("loss_one_rank"),
+            "loss_rel": r0.get("loss_rel"),
+            "param_max_excess": max(r0.get("param_excess",
+                                           {"": None}).values()),
+            "gnorm_rel": r0.get("gnorm_rel"),
+            "grad_max_rel": max(r0.get("grad_rel", {"": None}).values())},
+        "bars": {"loss_rtol": TM_LOSS_RTOL,
+                 "param_rtol_atol": [TM_PARAM_RTOL, TM_PARAM_ATOL],
+                 "grad_rel_of_max": TM_GRAD_REL,
+                 "gnorm_rtol": TM_GNORM_RTOL},
+        "seconds": time.perf_counter() - t0}
+
+
+def dry_run_wall() -> dict:
+    """``python -m repro_torch.launch.dryrun`` over every cell at both
+    production meshes, its wall time."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        env = dict(os.environ, PYTHONPATH=SRC)
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m",
+                              "repro_torch.launch.dryrun", "--out", tmp],
+                             capture_output=True, text=True, env=env)
+        wall = time.perf_counter() - t
+        cells = len(os.listdir(tmp))
+    return {"wall_s": wall, "cells": cells, "returncode": out.returncode,
+            "last": out.stdout.strip().splitlines()[-1:]}
+
+
 def train_mesh_phase(dev) -> dict:
     """Sharded training on gloo ranks sharing the one card
     (``launch.mesh.run_ranks``): (a) r1-llama-8b at full width and 2 of 32
-    layers, batch 8 x 512 from ``SEED``, 2 ranks (data 2), 3 steps: step
+    layers, batch 8 x 512 from ``SEED``, 2 ranks, twice: data 2 (2
+    steps), and data 1 x model 2 (the compute split over ``model``, 3
+    steps).  Each: step
     1's loss, gradient and every parameter leaf held to the one-rank step
     of the same seeds (the reference's bars: loss rtol 2e-5, parameters
-    2e-4 / 2e-5; gradients 1e-4 of each leaf's largest |g|); per rank the
-    bytes held between steps (parameter, m and v blocks), the peak of
-    steps 2-3, ms per step, and the gradient all-reduce's bytes and ms per
-    step; no kernel launch.  (b) at smoke size: yi-6b and mixtral-8x7b on
-    (data 2, model 2) held to the one-rank step; the trainer saved on 1
-    rank and resumed on 2 and saved on 2 and resumed on 1 (the same 2
-    ranks, after (a)), against the uninterrupted run (1e-4 relative);
-    ring attention, the pipeline, the compressed cross-pod gradient and
-    the overlapped MoE FFN over 2 ranks on card tensors against their
-    one-rank formulas."""
+    2e-4 / 2e-5, gradient norm 1e-5; gradients 1e-4 of each leaf's
+    largest |g|); per rank the bytes held between steps, the peak of
+    steps 2-3, ms per step, and per step the collective bytes by (kind,
+    axis, what), equal to the dry run's count of the cell; no kernel
+    launch.  (b) at smoke size: yi-6b and mixtral-8x7b on (data 2, model
+    2) held to the one-rank step; the trainer saved on 1 rank and resumed
+    on 2 and saved on 2 and resumed on 1 (the same 2 ranks as the data-2
+    leg, after it), against the uninterrupted run (1e-4 relative); ring
+    attention, the pipeline, the compressed cross-pod gradient and the
+    overlapped MoE FFN over 2 ranks on card tensors against their
+    one-rank formulas.  (c) the dry run at the production meshes, timed."""
     import shutil
     import tempfile
 
@@ -4016,48 +4122,19 @@ def train_mesh_phase(dev) -> dict:
     ref = _tm_trainer(None, dirs["ref"], 6, dev)
     saved_1 = _tm_trainer(one, dirs["from1"], 3)
     full = run_ranks(train_mesh_full_rank, TM_MESH, dev.type, dirs,
-                     timeout=900)
+                     TM_DATA_STEPS, timeout=900)
     resume_2_to_1 = _tm_trainer(one, dirs["to1"], 6)
     shutil.rmtree(tmp, ignore_errors=True)
-    r0 = full[0]
-    keys = ("losses", "ms_per_step", "held_bytes", "peak_gb_steps_2_on",
-            "allreduce_bytes_per_step", "grad_bytes",
-            "allreduce_ms_per_step", "kernel_launches")
-    rec_full = {
-        "phase": "train_mesh_full", "nvidia_smi": nvidia_smi(),
-        "arch": TM_ARCH, "layers": TM_LAYERS,
-        "reduced": {"num_layers": f"{TM_LAYERS} of 32"}, "mesh": TM_MESH,
-        "batch": TM_BATCH, "seq": TM_SEQ, "steps": TM_STEPS,
-        "per_rank": [{k: r[k] for k in keys} for r in full],
-        "one_rank_check": {
-            "loss_one_rank": r0.get("loss_one_rank"),
-            "loss_rel": r0.get("loss_rel"),
-            "param_max_excess": max(r0.get("param_excess",
-                                           {"": None}).values()),
-            "gnorm_rel": r0.get("gnorm_rel"),
-            "grad_max_rel": max(r0.get("grad_rel", {"": None}).values())},
-        "bars": {"loss_rtol": TM_LOSS_RTOL,
-                 "param_rtol_atol": [TM_PARAM_RTOL, TM_PARAM_ATOL],
-                 "grad_rel_of_max": TM_GRAD_REL,
-                 "gnorm_rtol": TM_GNORM_RTOL},
-        "seconds": time.perf_counter() - t0}
+    rec_full = _full_leg_record("train_mesh_full", TM_MESH, full, t0)
     emit(rec_full)
-    if not r0.get("loss_rel", 1.0) <= TM_LOSS_RTOL:
-        failed.append(f"full width: loss vs one rank {r0.get('loss_rel')}")
-    if not max(r0.get("param_excess", {"": 1.0}).values()) <= 0:
-        failed.append(f"full width: parameters over the bar by "
-                      f"{max(r0.get('param_excess', {'': 1.0}).values())}")
-    if not r0.get("gnorm_rel", 1.0) <= TM_GNORM_RTOL:
-        failed.append(f"full width: gradient norm {r0.get('gnorm_rel')}")
-    if not max(r0.get("grad_rel", {"": 1.0}).values()) <= TM_GRAD_REL:
-        failed.append(f"full width: gradients "
-                      f"{max(r0.get('grad_rel', {'': 1.0}).values())}")
-    for r in full:
-        if r["kernel_launches"]:
-            failed.append(f"rank {r['rank']} launched {r['kernel_launches']}")
-        if r["losses"] != r0["losses"] or not all(
-                x == x for x in r["losses"]):
-            failed.append(f"rank {r['rank']} losses {r['losses']}")
+    failed += _full_leg_checks("data 2", full)
+    t1 = time.perf_counter()
+    split = run_ranks(train_mesh_full_rank, TM_MODEL_MESH, dev.type,
+                      timeout=900)
+    rec_split = _full_leg_record("train_mesh_model2", TM_MODEL_MESH, split,
+                                 t1)
+    emit(rec_split)
+    failed += _full_leg_checks("model 2", split)
 
     two = [r["smoke2"] for r in full]
     rel = lambda a, b: max(abs(x - y) / abs(y)  # noqa: E731
@@ -4091,21 +4168,27 @@ def train_mesh_phase(dev) -> dict:
             if not (e["loss_rel"] <= TM_LOSS_RTOL and e["param_excess"] <= 0
                     and e["gnorm_rel"] <= TM_GNORM_RTOL and e["finite"]):
                 failed.append(f"smoke {arch} rank {r}: {e}")
+    dry = dry_run_wall()
+    if dry["returncode"] or not dry["cells"]:
+        failed.append(f"dry run: {dry}")
     launched = {k: n - launches0[k] for k, n in ops.LAUNCHES.items()
                 if n != launches0[k]}
     if launched:
         failed.append(f"kernel launches in the parent: {launched}")
-    out = {**rec_full, "phase": "train_mesh", "smoke_2x2": smoke[0],
-           "resume": resume, "patterns": two[0]["patterns"],
+    out = {**rec_full, "phase": "train_mesh", "model2": rec_split,
+           "smoke_2x2": smoke[0], "resume": resume,
+           "patterns": two[0]["patterns"],
            "collectives_rank0_smoke2": two[0]["collectives"],
+           "dry_run": dry,
            "kernel_launches": {n: 0 for n in ops.LAUNCHES} | {
-               k: v for r in full for k, v in r["kernel_launches"].items()}
-           | launched,
+               k: v for r in full + split
+               for k, v in r["kernel_launches"].items()} | launched,
            "failed": failed, "seconds": time.perf_counter() - t0}
     emit(out)
     if failed:
         raise AssertionError(f"train_mesh phase failed: {failed}")
     return out
+
 
 def ab(parent: str) -> int:
     """The parent tree (``parent``/src, its kernels built there) and this

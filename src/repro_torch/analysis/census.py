@@ -11,8 +11,9 @@ The reference reads a jaxpr; the port runs the call once, under a
   ``_trip``) apart from those outside;
 * group commits made (the engine's ``commits`` counter), for the kernels
   a contract pins per commit;
-* collectives: every ``c10d`` op the call dispatches, by kind, dtype and
-  whether it reduces (whoever calls it), and the
+* collectives: every ``c10d`` op the call dispatches, by kind, dtype,
+  whether it reduces (whoever calls it) and the axis label the sharding
+  helper running it set (``sharding.collective_axis``), and the
   ``distributed.sharding.COLLECTIVES`` deltas of the serving helpers;
 * float64 tensors created (ops whose output is float64), each as
   ``"<op> in <file>:<function>"`` with the code that made it;
@@ -61,6 +62,7 @@ class CollectiveUse:
     dtype: str
     reduces: bool
     op: str = ""         # the c10d op
+    axis: str = ""       # the sharding helper's axis label ("dp", "model")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -150,7 +152,7 @@ class _Watch(TorchDispatchMode):
             t = _first_tensor(args[1] if name in ("allgather_",) else args)
             self.collectives.append(CollectiveUse(
                 kind, str(t.dtype).replace("torch.", "") if t is not None
-                else "", reduces, f"c10d.{name}"))
+                else "", reduces, f"c10d.{name}", SH.collective_axis()))
         if name == "_local_scalar_dense":
             self.syncs["_local_scalar_dense"] += 1
         elif name in ("_to_copy", "copy_"):

@@ -20,7 +20,8 @@ branches are Python, and a run counts the launches of the branch taken).
 have no backward, and the reference's train path runs none of its Pallas
 kernels), no fp64, and no collective on one device; under a mesh every
 collective within the train whitelist (``train_collective_rule``: float
-sums over the dp axes are allowed in training, never in serving).
+sums over the dp axes and over ``model`` are allowed in training, never
+in serving).
 """
 from __future__ import annotations
 
@@ -66,8 +67,9 @@ class CollectiveRule:
     dtype: they are bit-exact concatenation.  ``integer_reductions`` (the
     COW dirty-mask sum) are allowed on integer and bool operands only:
     integer sums are exact in any order.  A float reduction must appear in
-    ``float_reductions`` as a ``(collective, axis)`` pair; the serving
-    engine allows none (bit-identity across rank counts)."""
+    ``float_reductions`` as a ``(collective, axis)`` pair, its axis the
+    label the census recorded (``axis`` where it recorded none); the
+    serving engine allows none (bit-identity across rank counts)."""
     movement: Tuple[str, ...] = ("all_gather",)
     integer_reductions: Tuple[str, ...] = ("all_reduce",)
     float_reductions: Tuple[Tuple[str, str], ...] = ()
@@ -87,11 +89,13 @@ class CollectiveRule:
             is_float = c.dtype.startswith(("float", "bfloat", "complex"))
             if not is_float and c.name in self.integer_reductions:
                 continue
-            if is_float and (c.name, self.axis) in self.float_reductions:
+            if is_float and (c.name, c.axis or self.axis) in \
+                    self.float_reductions:
                 continue
             out.append(Violation(
                 contract, "collective",
-                f"reduction {c.name}({c.dtype}) crosses ranks — the "
+                f"reduction {c.name}({c.dtype}) crosses ranks (over "
+                f"{c.axis or 'an unlabelled group'}) — the "
                 f"bit-identity contract allows integer "
                 f"{list(self.integer_reductions)} and movement "
                 f"{list(self.movement)} only", c.op))
@@ -264,15 +268,17 @@ def serve_collective_rule() -> CollectiveRule:
 def train_collective_rule() -> CollectiveRule:
     """The sharded train step's whitelist
     (``distributed.sharding.train_collective_whitelist``): movement, and
-    sums (float ones over the dp axes: the gradient mean, the MoE loss's
-    global means, the loss-mask count)."""
+    sums, float ones over the dp axes (the gradient mean, the MoE loss's
+    global means, the loss-mask count) and over ``model`` (the split
+    products' partial sums, the vocab-parallel embedding and cross
+    entropy with its row max, the gradient norm)."""
     from repro_torch.distributed import sharding as SH
     w = SH.train_collective_whitelist()
     return CollectiveRule(
         movement=tuple(w["movement"]),
         integer_reductions=tuple(w["integer_reductions"]),
-        float_reductions=tuple((c, SH.DP_AXIS)
-                               for c in w["float_reductions"]),
+        float_reductions=tuple((c, a) for c in w["float_reductions"]
+                               for a in w["float_reduction_axes"]),
         axis=SH.DP_AXIS)
 
 
@@ -407,7 +413,8 @@ def audit_train_step(arch: str = "r1-llama-8b", device="cpu",
                                       generator=g)
     batch = {k: v.to(device) for k, v in batch.items()}
     step = make_train_step(model.loss, cfg, OptimizerConfig(),
-                           microbatches=microbatches, mesh=mesh)
+                           microbatches=microbatches, mesh=mesh,
+                           split=model.split)
     if mesh is not None:
         params = shard_params(params, mesh)
         opt = adamw_init(params.blocks)

@@ -6,14 +6,18 @@ the JAX package builds from the same values: :class:`ModelConfig` (with
 its ``moe`` and ``ssm`` fields, the hybrid's ``hybrid_attn_every``, the
 encoder-decoder's ``encoder_layers``, ``encoder_seq`` and
 ``cross_attention``, the VLM's ``num_image_tokens`` and ``frontend_dim``,
-and ``num_attention_layers``), :class:`MoEConfig`, :class:`SSMConfig`,
-:class:`ThinKVConfig`, :class:`ServeConfig`, the training settings
-(:class:`MeshConfig`, :class:`OptimizerConfig`, :class:`TrainConfig`), the
-enums, and
-:func:`reduced` (the CPU smoke-size variant).
+and the counters ``attention_free``, ``num_attention_layers``,
+``param_count``, ``active_param_count`` and ``kv_bytes_per_token_fullkv``),
+:class:`MoEConfig`, :class:`SSMConfig`, :class:`ThinKVConfig` (with
+``max_blocks_per_seq_factor`` and ``avg_bits``), :class:`ServeConfig`, the
+training settings (:class:`MeshConfig`, :class:`OptimizerConfig`,
+:class:`TrainConfig`), the enums, the assigned input shapes
+(:class:`InputShape`, :data:`SHAPES`, :func:`shape_cells`),
+:func:`reduced` (the CPU smoke-size variant) and :func:`config_to_dict`.
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
 import os
 import tempfile
@@ -120,6 +124,10 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == ArchFamily.SSM
+
     def num_attention_layers(self) -> int:
         """Layer invocations that own a KV cache: none for the SSM, the
         shared block's invocations for the hybrid, the decoder's
@@ -129,6 +137,58 @@ class ModelConfig:
         if self.family == ArchFamily.HYBRID:
             return self.num_layers // max(self.hybrid_attn_every, 1)
         return self.num_layers
+
+    def param_count(self) -> int:
+        """Analytic parameter count, the N of the roofline's 6·N·D (the
+        reference's formula, family by family; it counts what the
+        reference's formula counts, not the port's parameter tensors)."""
+        d, h, kv, hd, ff, v = (self.d_model, self.num_heads,
+                               self.num_kv_heads, self.head_dim,
+                               self.d_ff, self.vocab_size)
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+        if self.qkv_bias:
+            attn += (h + 2 * kv) * hd
+        mlp = d * ff * (3 if self.mlp_gated else 2)
+        if self.moe is not None:
+            mlp = mlp * self.moe.num_experts + d * self.moe.num_experts
+        per_layer = attn + mlp + 2 * d
+        total = emb + self.num_layers * per_layer
+        if self.family == ArchFamily.SSM:
+            di = self.ssm.expand * d
+            n = self.ssm.state_size
+            dt_rank = self.ssm.dt_rank or -(-d // 16)
+            per = (d * 2 * di + di * self.ssm.conv_width
+                   + di * (dt_rank + 2 * n) + dt_rank * di + di + di * d
+                   + 2 * d)
+            total = emb + self.num_layers * per
+        if self.family == ArchFamily.HYBRID:
+            di = self.ssm.expand * d
+            n = self.ssm.state_size
+            nh = di // self.ssm.head_dim
+            per = (d * (2 * di + 2 * self.ssm.ngroups * n + nh)
+                   + di * self.ssm.conv_width + di + nh + di * d + 2 * d)
+            shared = attn + d * ff * 3 + 2 * d       # the one shared block
+            total = emb + self.num_layers * per + shared
+        if self.family == ArchFamily.ENCDEC:
+            # the encoder stack and the decoder's cross attention
+            enc_per = attn + mlp + 2 * d
+            cross = d * h * hd + 2 * d * kv * hd + h * hd * d + d
+            total += self.encoder_layers * enc_per + self.num_layers * cross
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters one token meets (MoE: only its top-k experts)."""
+        if self.moe is None:
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        e, k = self.moe.num_experts, self.moe.num_experts_per_token
+        inactive = self.num_layers * d * ff * 3 * (e - k)
+        return int(self.param_count() - inactive)
+
+    def kv_bytes_per_token_fullkv(self) -> int:
+        """bf16 K+V bytes per generated token over every cached layer."""
+        return 2 * 2 * self.kv_dim * self.num_attention_layers()
 
 
 class ThoughtType(enum.IntEnum):
@@ -157,6 +217,18 @@ class ThinKVConfig:
     kmeans_iters: int = 8
     max_segments: int = 512
     quantize_cross_attention: bool = True
+
+    @property
+    def max_blocks_per_seq_factor(self) -> float:
+        """Physical blocks per sequence over budget / block_size: slack for
+        the in-flight unquantized group and the per-segment minimums."""
+        return 1.5
+
+    def avg_bits(self, thought_mix=(0.15, 0.45, 0.40)) -> float:
+        """Mean KV precision in bits under a (T, E, R) thought mix."""
+        t, e, r = thought_mix
+        pt, pe, pr = self.precision
+        return t * pt + e * pe + r * pr
 
 
 @dataclass(frozen=True)
@@ -242,6 +314,32 @@ class TrainConfig:
     keep_checkpoints: int = 3
 
 
+@dataclass(frozen=True)
+class InputShape:
+    """An input shape assigned to every architecture: ``kind`` is
+    ``"train"``, ``"prefill"`` or ``"decode"``."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_cells(arch_cfg: ModelConfig):
+    """The shape cells of an architecture: all four for every arch
+    (long_500k runs budget-bound under ThinKV for the attention archs)."""
+    return [SHAPES[s] for s in ("train_4k", "prefill_32k", "decode_32k",
+                                "long_500k")]
+
+
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests (the JAX package's
     ``reduced``)."""
@@ -270,3 +368,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         kw.update(num_heads=0, num_kv_heads=0, d_ff=0)
     kw.update(overrides)
     return replace(cfg, **kw)
+
+
+def config_to_dict(cfg) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)

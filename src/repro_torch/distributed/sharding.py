@@ -13,9 +13,11 @@ name, as ``PartitionSpec`` normalises it); the parameter specs are keyed by
 the port's parameter names, each rule matching on the reference's path
 for that name (``convert.param_paths``).  A mesh is anything with
 ``axis_names`` and ``shape`` (``launch.mesh.MeshConfig`` or
-``TrainMesh``); an axis a spec names but the mesh lacks counts as size 1
-(where the reference raises ``KeyError``), so a ``--mesh-shape 2`` run
-(axes ``data``) replicates what a ``model`` axis would split.
+``TrainMesh``).  A rule that names an axis the mesh lacks raises
+``KeyError``, as the reference's ``_fits`` does, so a ``--mesh-shape 2``
+run (axes ``data`` only) is refused as the reference's is; a spec that
+names such an axis (written by hand) splits nothing along it in
+:func:`shard_of`, :func:`unshard` and :func:`block_shape`.
 
 :func:`shard_of` gives a rank its block of a whole tensor and
 :func:`unshard` all-gathers the blocks back.  A dim sharded over a tuple
@@ -42,21 +44,43 @@ calls a ``torch.distributed`` collective (``tests/test_torch_imports.py``
 holds this; ``launch/mesh.py`` only sets groups up).  Each counts its
 calls into :data:`COLLECTIVES` and the bytes this rank sends into
 :data:`COLLECTIVE_BYTES`, both by ``(kind, dtype)``, the way
-``kernels/ops.py`` counts ``LAUNCHES``.  Serving uses
-:func:`gather_heads` and :func:`any_shard`; training adds movement
+``kernels/ops.py`` counts ``LAUNCHES``, and the same bytes into
+:data:`TRAFFIC` by ``(kind, axis, what)``: the axis label
+(:func:`axis_label`: ``"dp"`` for the data-parallel axes, else the axis
+names) and what moves (``"param"``, ``"grad"``, ``"act"`` or
+``"other"``), which ``launch/dryrun.py`` counts analytically.  Serving
+uses :func:`gather_heads` and :func:`any_shard`; training adds movement
 (:func:`all_gather`, :func:`broadcast`, :func:`permute`,
-:func:`all_to_all`), the sum over ranks (:func:`all_reduce_sum`, float
-sums allowed: :func:`train_collective_whitelist`) and :func:`barrier`.
+:func:`all_to_all`), the sum over ranks (:func:`all_reduce_sum`,
+:func:`reduce_scatter_sum`; float sums allowed over the dp axes and over
+``model``: :func:`train_collective_whitelist`), the max over ranks
+(:func:`all_reduce_max`) and :func:`barrier`.
 Gloo takes a CUDA tensor in every one of these but the kinds in
 :data:`HOST_STAGED` (send and receive, :func:`permute`'s); that helper
 copies the tensor to the host and back, and counts the copy under
 ``(kind + "_host_staged", dtype)``.
+
+**The model axis's compute split** (Megatron style; ``layers/``,
+``models/lm.py``, ``models/losses.py`` under the sharded train step).
+Between layers a tensor is replicated over ``model`` and so is its
+gradient: every rank holds all of it.  :func:`to_model` marks a
+replicated input of a product split over ``model`` (forward: itself;
+backward: the sum over ``model`` of the ranks' partial gradients);
+:func:`from_model` sums the ranks' partial results into a replicated one
+(forward: the sum; backward: itself); :func:`gather_model` concatenates
+the ranks' blocks of an activation (backward: this rank's block of the
+gradient) and :func:`split_model` cuts a replicated tensor into this
+rank's block (backward: the blocks' gradients gathered).
+:func:`gather_dp` gathers a parameter block over the dp axes just before
+its layer runs (backward: the mean over dp of the gradient, reduced and
+scattered back to this rank's block).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import warnings
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -81,12 +105,17 @@ SERVE_FLOAT_REDUCTIONS: tuple = ()
 
 # The train step's: the same movement plus broadcast, point-to-point and
 # all-to-all, and float sums over the data-parallel axes (the gradient
-# mean, the MoE auxiliary loss's global means, the loss-mask count).
+# mean, the MoE auxiliary loss's global means, the loss-mask count) and
+# over ``model`` (the split products' partial sums, the vocab-parallel
+# embedding and cross entropy, the gradient norm; the cross entropy's row
+# max is a max over ``model``).
 TRAIN_MOVEMENT_COLLECTIVES = ("all_gather", "broadcast", "send", "recv",
                               "all_to_all")
 TRAIN_INTEGER_REDUCTIONS = ("all_reduce",)
-TRAIN_FLOAT_REDUCTIONS = ("all_reduce",)
-DP_AXIS = "dp"                     # the float reductions' axis: dp_axes
+TRAIN_FLOAT_REDUCTIONS = ("all_reduce", "reduce_scatter")
+DP_AXIS = "dp"                     # the label of the dp axes (dp_axes)
+MODEL_AXIS = "model"
+TRAIN_FLOAT_REDUCTION_AXES = (DP_AXIS, MODEL_AXIS)
 
 # Kinds gloo cannot take on a CUDA tensor; their helpers stage through the
 # host.  Gloo's send and receive pass the tensor's address to its TCP
@@ -99,26 +128,40 @@ HOST_STAGED = frozenset({"send"})
 
 COLLECTIVES: Dict[Tuple[str, str], int] = {}
 COLLECTIVE_BYTES: Dict[Tuple[str, str], int] = {}
+TRAFFIC: Dict[Tuple[str, str, str], int] = {}
+# the axis label of the collective now running (analysis.census reads it)
+_AXIS_NOW: list = [""]
 
 
 def reset_collectives() -> None:
     COLLECTIVES.clear()
     COLLECTIVE_BYTES.clear()
+    TRAFFIC.clear()
 
 
-def _count(kind: str, x: Optional[torch.Tensor] = None) -> None:
-    """One call of ``kind`` moving ``x`` (nothing for a barrier)."""
+def collective_axis() -> str:
+    """The axis label of the collective a helper is running."""
+    return _AXIS_NOW[0]
+
+
+def _count(kind: str, x: Optional[torch.Tensor] = None, axis: str = "",
+           what: str = "other") -> None:
+    """One call of ``kind`` moving ``x`` (nothing for a barrier) over the
+    axes labelled ``axis``."""
     key = (kind, "" if x is None else str(x.dtype).replace("torch.", ""))
+    n = 0 if x is None else x.numel() * x.element_size()
     COLLECTIVES[key] = COLLECTIVES.get(key, 0) + 1
-    COLLECTIVE_BYTES[key] = COLLECTIVE_BYTES.get(key, 0) + \
-        (0 if x is None else x.numel() * x.element_size())
+    COLLECTIVE_BYTES[key] = COLLECTIVE_BYTES.get(key, 0) + n
+    tkey = (kind, axis, what)
+    TRAFFIC[tkey] = TRAFFIC.get(tkey, 0) + n
+    _AXIS_NOW[0] = ""                   # a collective no helper runs: none
 
 
-def _staged(kind: str, x: torch.Tensor) -> bool:
+def _staged(kind: str, x: torch.Tensor, axis: str) -> bool:
     """Does ``kind`` go through the host for ``x``?  Counts it if so."""
     if x.device.type != "cuda" or kind not in HOST_STAGED:
         return False
-    _count(kind + "_host_staged", x)
+    _count(kind + "_host_staged", x, axis)
     return True
 
 
@@ -145,9 +188,10 @@ def _as_tuple(axes: Axes) -> Tuple[str, ...]:
 
 
 def axes_size(mesh, axes: Axes) -> int:
-    """The number of blocks ``axes`` cut a dim into (absent axes: 1)."""
+    """The number of blocks ``axes`` cut a dim into; an axis the mesh
+    lacks raises ``KeyError`` (the reference's ``_fits``)."""
     sizes = axis_sizes(mesh)
-    return math.prod(sizes.get(a, 1) for a in _as_tuple(axes))
+    return math.prod(sizes[a] for a in _as_tuple(axes))
 
 
 def _entry(axes: Axes) -> Axes:
@@ -310,7 +354,7 @@ class Sharding:
     mesh: object
 
 
-def _live(mesh, axes: Axes) -> Tuple[str, ...]:
+def live_axes(mesh, axes: Axes) -> Tuple[str, ...]:
     """The axes of ``axes`` that split: present in the mesh, size > 1."""
     sizes = axis_sizes(mesh)
     return tuple(a for a in _as_tuple(axes) if sizes.get(a, 1) > 1)
@@ -320,7 +364,7 @@ def block_index(mesh, axes: Axes) -> int:
     """This rank's block along ``axes``: its coordinates read as a mixed
     radix number, major axis first."""
     sizes, idx = axis_sizes(mesh), 0
-    for a in _live(mesh, axes):
+    for a in live_axes(mesh, axes):
         idx = idx * sizes[a] + mesh.coords[a]
     return idx
 
@@ -329,26 +373,34 @@ def shard_of(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's block of the whole tensor ``x`` under ``spec`` (a view;
     dims past the spec replicate)."""
     for dim, axes in enumerate(spec):
-        n = axes_size(mesh, _live(mesh, axes))
+        n = axes_size(mesh, live_axes(mesh, axes))
         if n > 1:
             step = x.shape[dim] // n
             x = x.narrow(dim, block_index(mesh, axes) * step, step)
     return x
 
 
-def unshard(block: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def unshard(block: torch.Tensor, spec: Spec, mesh,
+            what: str = "other") -> torch.Tensor:
     """The whole tensor from every rank's block under ``spec``: one
     all-gather per sharded dim, over that dim's axes."""
     for dim, axes in enumerate(spec):
-        if _live(mesh, axes):
-            block = all_gather(block, mesh, axes, dim)
+        if live_axes(mesh, axes):
+            block = all_gather(block, mesh, axes, dim, what)
     return block
+
+
+def copies(spec: Spec, mesh) -> int:
+    """How many ranks hold each block under ``spec`` (the mesh's size over
+    the blocks it cuts)."""
+    return math.prod(mesh.shape) // axes_size(
+        mesh, tuple(a for e in spec for a in live_axes(mesh, e)))
 
 
 def block_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
     out = list(shape)
     for dim, axes in enumerate(spec):
-        out[dim] //= axes_size(mesh, _live(mesh, axes))
+        out[dim] //= axes_size(mesh, live_axes(mesh, axes))
     return tuple(out)
 
 
@@ -400,7 +452,9 @@ def active_data_parallel():
     """The mesh of an active :func:`data_parallel` whose dp axes split,
     else None."""
     mesh = _DATA_PARALLEL[0]
-    return mesh if mesh is not None and _live(mesh, dp_axes(mesh)) else None
+    if mesh is None or not live_axes(mesh, dp_axes(mesh)):
+        return None
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -421,10 +475,12 @@ def serve_collective_whitelist() -> dict:
 
 
 def train_collective_whitelist() -> dict:
-    """The same for the train step: float sums over the dp axes."""
+    """The same for the train step: float sums (and the cross entropy's
+    max) over the dp axes and over ``model``."""
     return {"movement": TRAIN_MOVEMENT_COLLECTIVES,
             "integer_reductions": TRAIN_INTEGER_REDUCTIONS,
-            "float_reductions": TRAIN_FLOAT_REDUCTIONS}
+            "float_reductions": TRAIN_FLOAT_REDUCTIONS,
+            "float_reduction_axes": TRAIN_FLOAT_REDUCTION_AXES}
 
 
 def _sharded(mesh) -> bool:
@@ -439,8 +495,9 @@ def gather_heads(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
         return x
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    _AXIS_NOW[0] = SERVE_HEAD_AXIS
     dist.all_gather(parts, x, group=mesh.group)
-    _count("all_gather", x)
+    _count("all_gather", x, SERVE_HEAD_AXIS, "act")
     return torch.cat(parts, dim)
 
 
@@ -449,8 +506,9 @@ def any_shard(mask: torch.Tensor, mesh) -> torch.Tensor:
     if not _sharded(mesh):
         return mask
     n = mask.to(torch.int32)
+    _AXIS_NOW[0] = SERVE_HEAD_AXIS
     dist.all_reduce(n, op=dist.ReduceOp.SUM, group=mesh.group)
-    _count("all_reduce", n)
+    _count("all_reduce", n, SERVE_HEAD_AXIS)
     return n > 0
 
 
@@ -458,22 +516,33 @@ def any_shard(mask: torch.Tensor, mesh) -> torch.Tensor:
 # training: collectives over the axes of a TrainMesh
 # ---------------------------------------------------------------------------
 
+def axis_label(mesh, axes: Axes) -> str:
+    """``"dp"`` for the live dp axes, else the live axes joined by ``+``
+    (``"model"``): the axis key of :data:`TRAFFIC` and of the census."""
+    live = live_axes(mesh, axes)
+    if live and set(live) == set(live_axes(mesh, dp_axes(mesh))):
+        return DP_AXIS
+    return "+".join(live)
+
+
 def axis_group(mesh, axes: Axes):
     """(process group, its global ranks in group order, this rank's index)
-    of ``axes`` on ``mesh``, or None where they do not split."""
-    live = _live(mesh, axes)
+    of ``axes`` on ``mesh``, or None where they do not split.  Marks
+    ``axes`` as the axis of the collective about to run."""
+    live = live_axes(mesh, axes)
     if not live:
         return None
     if live not in mesh.groups:
         raise KeyError(f"the mesh {dict(axis_sizes(mesh))} has no group over "
                        f"{live} (launch.mesh.make_mesh makes one per axis and "
                        f"one for the FSDP axes)")
+    _AXIS_NOW[0] = axis_label(mesh, live)
     group, ranks = mesh.groups[live]
     return group, ranks, block_index(mesh, live)
 
 
-def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
-               ) -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0,
+               what: str = "other") -> torch.Tensor:
     """Every rank's ``x`` along ``axes``, concatenated along ``dim`` in
     block order (pure movement)."""
     g = axis_group(mesh, axes)
@@ -483,26 +552,59 @@ def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in ranks]
     dist.all_gather(parts, x, group=group)
-    _count("all_gather", x)
+    _count("all_gather", x, axis_label(mesh, axes), what)
     return torch.cat(parts, dim)
 
 
-def all_reduce_sum_(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+def all_reduce_sum_(x: torch.Tensor, mesh, axes: Axes,
+                    what: str = "other") -> torch.Tensor:
     """Sum the contiguous ``x`` over the ranks along ``axes``, in place;
     returns ``x``."""
     g = axis_group(mesh, axes)
     if g is None:
         return x
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g[0])
-    _count("all_reduce", x)
+    _count("all_reduce", x, axis_label(mesh, axes), what)
     return x
 
 
-def all_reduce_sum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+def all_reduce_sum(x: torch.Tensor, mesh, axes: Axes,
+                   what: str = "other") -> torch.Tensor:
     """The sum of ``x`` over the ranks along ``axes`` (a new tensor)."""
     if axis_group(mesh, axes) is None:
         return x
-    return all_reduce_sum_(x.detach().clone().contiguous(), mesh, axes)
+    return all_reduce_sum_(x.detach().clone().contiguous(), mesh, axes, what)
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """The elementwise max of the activation ``x`` over the ranks along
+    ``axes`` (a new tensor, outside autograd)."""
+    g = axis_group(mesh, axes)
+    if g is None:
+        return x
+    out = x.detach().clone().contiguous()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g[0])
+    _count("all_reduce", out, axis_label(mesh, axes), "act")
+    return out
+
+
+def reduce_scatter_sum(x: torch.Tensor, mesh, axes: Axes, dim: int = 0,
+                       what: str = "other") -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over the ranks
+    along ``axes`` (a new tensor; gloo's reduce-scatter, which takes CPU
+    and card tensors)."""
+    g = axis_group(mesh, axes)
+    if g is None:
+        return x
+    group, ranks, _ = g
+    xt = x.detach().movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // len(ranks), *xt.shape[1:]))
+    with warnings.catch_warnings():     # renamed in later torch releases
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM,
+                                   group=group)
+    _count("reduce_scatter", xt, axis_label(mesh, axes), what)
+    return out.movedim(0, dim)
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -536,7 +638,7 @@ def broadcast(x: torch.Tensor, mesh, axes: Axes, src: int) -> torch.Tensor:
     group, ranks, _ = g
     out = x.detach().clone().contiguous()
     dist.broadcast(out, src=ranks[src], group=group)
-    _count("broadcast", out)
+    _count("broadcast", out, axis_label(mesh, axes))
     return out
 
 
@@ -551,15 +653,16 @@ def permute(x: torch.Tensor, mesh, axes: Axes, shift: int) -> torch.Tensor:
     n = len(ranks)
     if shift % n == 0:
         return x
+    label = axis_label(mesh, axes)
     x = x.contiguous()
-    staged = _staged("send", x)
+    staged = _staged("send", x, label)
     src = x.cpu() if staged else x
     out = torch.empty_like(src)
     req = dist.isend(src, ranks[(i + shift) % n], group=group)
     dist.recv(out, ranks[(i - shift) % n], group=group)
     req.wait()
-    _count("send", x)
-    _count("recv", out)
+    _count("send", x, label)
+    _count("recv", out, label)
     return out.to(x.device)
 
 
@@ -595,13 +698,140 @@ def all_to_all(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
-    _count("all_to_all", x)
+    _count("all_to_all", x, axis_label(mesh, axes))
     return out
 
 
 def barrier(mesh) -> None:
     """Every rank of ``mesh`` waits for the others."""
     if _sharded(mesh):
+        _AXIS_NOW[0] = ""
         dist.barrier()
         _count("barrier")
 
+
+# ---------------------------------------------------------------------------
+# training: the model axis's compute split (see the module docstring)
+# ---------------------------------------------------------------------------
+
+def model_size(mesh) -> int:
+    """The number of ranks along ``model`` (1 if the mesh lacks it)."""
+    return axes_size(mesh, live_axes(mesh, MODEL_AXIS))
+
+
+def model_index(mesh) -> int:
+    return block_index(mesh, MODEL_AXIS)
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum_(g.contiguous().clone(), ctx.mesh, MODEL_AXIS,
+                               "act"), None
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce_sum(x, mesh, MODEL_AXIS, "act")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return all_gather(x, mesh, MODEL_AXIS, dim, "act")
+
+    @staticmethod
+    def backward(ctx, g):
+        i = model_index(ctx.mesh)
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None
+
+
+class _SplitModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        n = x.shape[dim] // model_size(mesh)
+        return x.narrow(dim, model_index(mesh) * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, MODEL_AXIS, ctx.dim, "act"), \
+            None, None
+
+
+def to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A replicated input of products split over ``model``: forward
+    itself, backward the sum over ``model`` of the partial gradients."""
+    if model_size(mesh) == 1:
+        return x
+    return _ToModel.apply(x, mesh)
+
+
+def from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over ``model`` of the ranks' partial results (backward:
+    the replicated gradient itself)."""
+    if model_size(mesh) == 1:
+        return x
+    return _FromModel.apply(x, mesh)
+
+
+def gather_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``dim``, concatenated (backward:
+    this rank's block of the replicated gradient)."""
+    if model_size(mesh) == 1:
+        return x
+    return _GatherModel.apply(x, mesh, dim % x.dim())
+
+
+def split_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """This rank's block of the replicated ``x`` along ``dim`` (backward:
+    every rank's block of the gradient, gathered)."""
+    if model_size(mesh) == 1:
+        return x
+    return _SplitModel.apply(x, mesh, dim % x.dim())
+
+
+def dp_dim(spec: Spec, mesh, stacked: bool = False) -> Optional[int]:
+    """The dim of a parameter (of one layer's slice when ``stacked``) that
+    ``spec`` splits over the dp axes, or None."""
+    dp = set(live_axes(mesh, dp_axes(mesh)))
+    for dim, axes in enumerate(spec):
+        live = live_axes(mesh, axes)
+        if live and set(live) <= dp:
+            return dim - 1 if stacked else dim
+    return None
+
+
+class _GatherDP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return all_gather(x, mesh, dp_axes(mesh), dim, "param")
+
+    @staticmethod
+    def backward(ctx, g):
+        axes = dp_axes(ctx.mesh)
+        out = reduce_scatter_sum(g, ctx.mesh, axes, ctx.dim, "grad")
+        return out.div_(axes_size(ctx.mesh, live_axes(ctx.mesh, axes))), \
+            None, None
+
+
+def gather_dp(x: torch.Tensor, mesh, dim: Optional[int]) -> torch.Tensor:
+    """A parameter block gathered over the dp axes along ``dim`` (None:
+    not split over dp, returned as it is).  Backward: the mean over the
+    dp ranks of the gathered gradient, reduce-scattered to this rank's
+    block."""
+    if dim is None or not live_axes(mesh, dp_axes(mesh)):
+        return x
+    return _GatherDP.apply(x, mesh, dim)

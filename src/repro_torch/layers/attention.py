@@ -13,6 +13,16 @@ mesh installed by ``sharding.set_constraint_mesh`` with a ``model`` axis
 that divides S, causal attention without a window, and the query heads
 not divisible by |model| or d_model/|model| < 128.
 
+``attn_forward_split`` is the sharded train step's attention over this
+rank's blocks of the weights split over ``model``
+(``distributed/sharding.py``, the compute split): where the kv heads
+divide |model| (GQA groups stay whole) ``wq`` / ``wk`` / ``wv`` are
+column products over this rank's heads, ``wo`` a row product, and the
+ranks' outputs are summed over ``model``; otherwise the projected q, k
+and v are gathered over ``model``, every rank attends over all heads, and
+``wo``'s row product over this rank's block of the output is summed as
+before.  No weight is gathered over ``model`` either way.
+
 Not ported: the reference's ``REPRO_BF16_SCORES`` toggle (a measurement
 switch for bf16 score tiles on XLA's CPU backend) and its
 ``REPRO_NO_RING`` switch.
@@ -146,6 +156,46 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
         return out_proj(p, ring_attention(q, k, v, SH.constraint_mesh()))
     out = full_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return out_proj(p, out)
+
+
+def attn_forward_split(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                       positions: torch.Tensor, mesh) -> torch.Tensor:
+    """Causal self-attention over the replicated x [B, S, D] from this
+    rank's blocks of the weights (``wq`` / ``wk`` / ``wv`` [D, cols],
+    ``wo`` [rows, D], whole along D; a block narrower than its weight is
+    split over ``model``), returning the replicated [B, S, D] (see the
+    module docstring).  Whole weights run ``attn_forward``."""
+    split = {w: p[w].shape[-1] < n for w, n in (
+        ("wq", cfg.q_dim), ("wk", cfg.kv_dim), ("wv", cfg.kv_dim))}
+    split_o = p["wo"].shape[0] < cfg.q_dim
+    if not any(split.values()) and not split_o:
+        return attn_forward(p, x, cfg, positions)
+    tp = SH.model_size(mesh)
+    # this rank's heads (q heads [r·Hq/tp, ...) and their kv heads), or,
+    # where GQA groups would break, every head from gathered projections
+    heads = cfg.num_kv_heads % tp == 0 and all(split.values()) and split_o
+    xi = SH.to_model(x, mesh) if any(split.values()) else x
+
+    def proj(w: str, bias: str) -> torch.Tensor:
+        y = (xi if split[w] else x) @ p[w]
+        if split[w] and not heads:
+            y = SH.gather_model(y, mesh, -1)
+        if cfg.qkv_bias:
+            y = y + (SH.split_model(p[bias], mesh, -1) if heads else p[bias])
+        return y
+
+    lead, n = x.shape[:-1], tp if heads else 1
+    q = proj("wq", "bq").reshape(*lead, cfg.num_heads // n, cfg.head_dim)
+    k = proj("wk", "bk").reshape(*lead, cfg.num_kv_heads // n, cfg.head_dim)
+    v = proj("wv", "bv").reshape(*lead, cfg.num_kv_heads // n, cfg.head_dim)
+    q, k = rope_qk(q, k, positions, cfg)
+    out = full_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = out.reshape(*lead, -1)
+    if not split_o:
+        return out @ p["wo"]
+    if not heads:
+        out = SH.split_model(out, mesh, -1)
+    return SH.from_model(out @ p["wo"], mesh)
 
 
 def ring_selected(cfg: ModelConfig, seq: int) -> bool:

@@ -31,6 +31,15 @@ ranks it adds to each choice's queue place the choices of that expert on
 the lower ranks of the group (integer counts, all-gathered); and the
 per-rank sums behind ``frac`` and ``pmean`` are summed over the dp ranks
 before the product.
+
+Under the sharded train step's compute split (``split=`` a train mesh
+with a ``model`` axis) the routing stays global and replicated over
+``model``; the expert products run on this rank's blocks of the experts'
+weights.  Where the experts divide over ``model`` (expert parallelism,
+``w_up`` [E/|model|, D, F]) a rank runs only its experts on the choices
+routed to them; otherwise (tensor parallelism on F, ``w_up`` [E, D,
+F/|model|]) it runs every expert over its columns of F.  Either way the
+ranks' partial outputs are summed over ``model``.
 """
 from __future__ import annotations
 
@@ -101,21 +110,35 @@ def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig,
     return Routing(expert, gate, pos, pos < cap, probs, cap)
 
 
-def _experts(p: dict, xt: torch.Tensor, rt: Routing, cfg: ModelConfig
-             ) -> torch.Tensor:
+def _experts(p: dict, xt: torch.Tensor, rt: Routing, cfg: ModelConfig,
+             split=None) -> torch.Tensor:
     """The kept choices of the grouped tokens xt [g, t, D] through their
     experts, gate-weighted and summed per token: [g, t, D] in xt's
-    dtype."""
-    e = cfg.moe.num_experts
+    dtype.  Under ``split`` (a train mesh) the experts' weights are this
+    rank's blocks, and the partial outputs are summed over ``model`` (see
+    the module docstring)."""
     ng, _, d = xt.shape
     cap, cdt = rt.cap, xt.dtype
+    e_loc = p["w_up"].shape[0]
+    expert, keep, gate = rt.expert, rt.keep, rt.gate
+    if split is not None and (e_loc < cfg.moe.num_experts
+                              or p["w_up"].shape[-1] < cfg.d_ff):
+        xt = SH.to_model(xt, split)
+        gate = SH.to_model(gate, split)
+        if e_loc < cfg.moe.num_experts:      # this rank's experts only
+            lo = SH.model_index(split) * e_loc
+            local = (expert >= lo) & (expert < lo + e_loc)
+            keep = keep & local
+            expert = torch.where(local, expert - lo, 0)
+    else:
+        split = None
     # each kept choice's row in its expert's capacity buffer; dropped
     # choices land in a spare row past the capacity, cut off below
-    slot = torch.where(rt.keep, rt.pos, cap)
+    slot = torch.where(keep, rt.pos, cap)
     g_idx = torch.arange(ng, device=xt.device)[:, None, None] \
         .expand_as(slot)
-    xe = xt.new_zeros((ng, e, cap + 1, d))
-    xe[g_idx, rt.expert, slot] = xt[:, :, None].expand(*slot.shape, d)
+    xe = xt.new_zeros((ng, e_loc, cap + 1, d))
+    xe[g_idx, expert, slot] = xt[:, :, None].expand(*slot.shape, d)
     xe = xe[:, :, :cap]
     f = act_fn(cfg.act)
     w_gate, w_up, w_down = (p[w].to(cdt) for w in ("w_gate", "w_up",
@@ -123,14 +146,15 @@ def _experts(p: dict, xt: torch.Tensor, rt: Routing, cfg: ModelConfig
     h = f(torch.einsum("gecd,edf->gecf", xe, w_gate)) * \
         torch.einsum("gecd,edf->gecf", xe, w_up)
     ye = torch.einsum("gecf,efd->gecd", h, w_down)
-    ye = torch.cat([ye, ye.new_zeros((ng, e, 1, d))], 2)
-    picked = ye[g_idx, rt.expert, slot]                      # [g, t, k, D]
-    w = torch.where(rt.keep, rt.gate, 0.0).to(cdt)
-    return (picked * w[..., None]).sum(2)
+    ye = torch.cat([ye, ye.new_zeros((ng, e_loc, 1, d))], 2)
+    picked = ye[g_idx, expert, slot]                         # [g, t, k, D]
+    w = torch.where(keep, gate, 0.0).to(cdt)
+    y = (picked * w[..., None]).sum(2)
+    return y if split is None else SH.from_model(y, split)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              group: Optional[int] = None
+              group: Optional[int] = None, split=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (y [B, S, D], the auxiliary loss): the B·S tokens
     flattened and routed in groups (see the module docstring); expert
@@ -138,24 +162,25 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     size where the reference routes smaller calls than this one (1: each
     token alone, as a ``vmap`` over single tokens does).  Under an active
     ``sharding.data_parallel`` x is this rank's block of the batch
-    (:func:`_moe_apply_dp`)."""
+    (:func:`_moe_apply_dp`); ``split`` (a train mesh) runs the experts on
+    this rank's blocks of their weights (:func:`_experts`)."""
     if group is None and SH.active_data_parallel() is not None:
-        return _moe_apply_dp(p, x, cfg, SH.active_data_parallel())
+        return _moe_apply_dp(p, x, cfg, SH.active_data_parallel(), split)
     e = cfg.moe.num_experts
     b, s, d = x.shape
     n = b * s
     gsz = group_size(n, group or cfg.moe.dispatch_group)
     xt = x.reshape(n // gsz, gsz, d)
     rt = moe_route(p["router"], xt, cfg)
-    y = _experts(p, xt, rt, cfg)
+    y = _experts(p, xt, rt, cfg, split)
     frac = torch.nn.functional.one_hot(rt.expert[..., 0], e).sum(1) \
         .float().div(gsz).mean(0)
     aux = e * (frac * rt.probs.mean((0, 1))).sum()
     return y.reshape(b, s, d).to(x.dtype), aux
 
 
-def _moe_apply_dp(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_apply_dp(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh,
+                  split=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``moe_apply`` of this rank's block x [B/dp, S, D] of a batch split
     over ``dp_axes(mesh)``, as one device applies it to the whole batch
     (see the module docstring).  Groups must lie within a rank's block or
@@ -186,7 +211,7 @@ def _moe_apply_dp(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
         raise ValueError(
             f"{cfg.name}: MoE groups of {gsz} tokens neither fit in nor span "
             f"whole blocks of {n_loc} tokens on {ndp} data-parallel ranks")
-    y = _experts(p, xt, rt, cfg)
+    y = _experts(p, xt, rt, cfg, split)
     top = torch.nn.functional.one_hot(rt.expert[..., 0], e).sum((0, 1)) \
         .float()
     frac = SH.all_reduce_sum(top, mesh, axes) / n

@@ -2,7 +2,11 @@
 ``build_model``) for every family: DENSE, MOE and VLM (``models/lm.py``,
 as the reference maps all three), ENCDEC (``models/encdec.py``), SSM
 (``models/ssm_lm.py``) and HYBRID (``models/hybrid.py``).  ``Model.loss``
-is the family's ``loss_fn(params, batch, cfg, *, remat)``.
+is the family's ``loss_fn(params, batch, cfg, *, remat)``; ``Model.split``
+builds what that loss takes from a rank's blocks ``(blocks, specs,
+mesh)`` under the sharded train step's compute split over ``model``
+(``lm.Weights``), None for the families whose step gathers its weights
+whole (SSM, hybrid, encoder-decoder: ROADMAP item 16d).
 
 ``input_specs`` is not ported: it builds ``jax.ShapeDtypeStruct`` stand-ins
 for the XLA dry-run's lowering, which has no PyTorch meaning.
@@ -30,6 +34,7 @@ class Model:
     logits: Callable
     loss: Callable
     module: object
+    split: Optional[Callable] = None
 
     def init_params(self, seed: int = 0,
                     device: Optional[Union[str, torch.device]] = None,
@@ -42,4 +47,5 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     mod = _FAMILY_MODULES[cfg.family]
     return Model(cfg=cfg, init=mod.init_params, logits=mod.logits_fn,
-                 loss=mod.loss_fn, module=mod)
+                 loss=mod.loss_fn, module=mod,
+                 split=lm.Weights if mod is lm else None)

@@ -30,6 +30,16 @@ the B·S tokens of a prefill or a teacher-forced forward flattened, each
 request's token alone in ``decode_step_fullkv`` (the reference ``vmap``s
 one request), and what the serving engine passes (``ffn``'s
 ``tokens_alone``).
+
+:func:`loss_fn` (with :func:`assemble_inputs` and :func:`backbone`) also
+runs the sharded train step's compute split (``distributed/sharding.py``)
+from a rank's blocks of the parameters (:class:`Weights`): each layer's
+blocks gathered over the dp axes just before it runs (and again when
+remat recomputes it), the embedding vocab-parallel, attention, MLP and
+experts split over ``model`` (``layers/``), the head and the cross
+entropy vocab-parallel (``models/losses.py``).  The layer functions take
+the split from the blocks' shapes, so whole weights run the plain
+forward.
 """
 from __future__ import annotations
 
@@ -40,16 +50,17 @@ from torch import nn
 
 from repro_torch.config import ArchFamily, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import moe as MOE
 from repro_torch.layers.common import dense_init_, embed_init_, remat, \
     softcap
-from repro_torch.layers.mlp import mlp
+from repro_torch.layers.mlp import mlp_split
 from repro_torch.layers.norms import rmsnorm
-from repro_torch.models.losses import batch_nll, head_weight
+from repro_torch.models.losses import batch_nll
 
-_FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.VLM)
+FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.VLM)
 
 
 def layer_params(cfg: ModelConfig) -> Dict[str, Tuple[str, str]]:
@@ -75,7 +86,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.family not in _FAMILIES or not cfg.mlp_gated or \
+        if cfg.family not in FAMILIES or not cfg.mlp_gated or \
                 (cfg.family == ArchFamily.MOE) != (cfg.moe is not None):
             raise ValueError(
                 f"{cfg.name}: models/lm.py holds gated dense, MoE and VLM "
@@ -151,20 +162,6 @@ class LM(nn.Module):
             out.setdefault(group, {})[key] = getattr(self, name)[i]
         return out
 
-    def layers(self) -> list:
-        """Every layer's parameters (``layer``), split off the stacked
-        weights at once: one unbind per weight, whose gradient is one stack
-        rather than a full-size zero tensor per layer."""
-        parts = {name: getattr(self, name).unbind(0)
-                 for name in self.layer_params}
-        out = []
-        for i in range(self.cfg.num_layers):
-            lp: dict = {}
-            for name, (group, key) in self.layer_params.items():
-                lp.setdefault(group, {})[key] = parts[name][i]
-            out.append(lp)
-        return out
-
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         """Logits of final hidden states h [..., D] (softcapped)."""
         return softcap(E.unembed(self.embed_params, h, self.cfg),
@@ -177,30 +174,68 @@ class LM(nn.Module):
         return self.unembed(backbone(self, h, self.cfg, positions)[0])
 
 
-def assemble_inputs(params: LM, batch: dict, cfg: ModelConfig
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+class Weights:
+    """An LM's weights as :func:`assemble_inputs`, :func:`backbone` and
+    :func:`loss_fn` read them, by parameter name: an :class:`LM`'s own
+    parameters (``mesh`` None, :meth:`of`), or a rank's blocks under
+    ``param_specs(mode="train")`` on a train mesh, each gathered over the
+    dp axes where it is read (still split over ``model``; the layer
+    functions split their compute by the blocks' shapes)."""
+
+    def __init__(self, blocks: Dict[str, torch.Tensor],
+                 specs: Optional[dict] = None, mesh=None):
+        self.blocks, self.specs, self.mesh = blocks, specs, mesh
+
+    @classmethod
+    def of(cls, params: Union[LM, "Weights"]) -> "Weights":
+        return params if isinstance(params, Weights) else \
+            cls(dict(params.named_parameters()))
+
+    def dp_dim(self, name: str, stacked: bool = False) -> Optional[int]:
+        """The dim of ``name``'s block (of one layer's slice when
+        ``stacked``) split over the dp axes, or None."""
+        if self.mesh is None:
+            return None
+        return SH.dp_dim(self.specs[name], self.mesh, stacked)
+
+    def whole(self, name: str) -> torch.Tensor:
+        """``name``'s weight, gathered over the dp axes."""
+        return SH.gather_dp(self.blocks[name], self.mesh, self.dp_dim(name))
+
+
+def assemble_inputs(params: Union[LM, Weights], batch: dict,
+                    cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embedded tokens h [B, S, D] and positions [1, S]; for the VLM
     family with ``batch["patches"]`` [B, P, frontend_dim] the projected
     patches come first (h [B, P + S, D], positions over P + S)."""
-    tokens = batch["tokens"]
-    h = E.embed(params.embed_params, tokens, cfg)
+    w = Weights.of(params)
+    return _inputs(w, w.whole("embedding"), batch, cfg)
+
+
+def _inputs(w: Weights, emb: torch.Tensor, batch: dict, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``assemble_inputs`` from the embedding table ``emb`` (this rank's
+    rows of it under the split: ``embed_split``)."""
+    h = E.embed_split(emb, batch["tokens"], cfg, w.mesh)
     if cfg.family == ArchFamily.VLM and "patches" in batch:
-        img = E.frontend_stub(params.frontend_params,
+        img = E.frontend_stub({"proj": w.whole("frontend_proj")},
                               batch["patches"].to(h.dtype))
         h = torch.cat([img, h], 1)
-    return h, torch.arange(h.shape[1], device=tokens.device)[None]
+    return h, torch.arange(h.shape[1], device=h.device)[None]
 
 
 def ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-        tokens_alone: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        tokens_alone: bool = False, split=None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer's FFN on x [..., D] and its MoE auxiliary loss (0 for the
     MLP): the MoE routes every token of x in one call (flattened in order;
     groups by the reference's group-size search) or, with
-    ``tokens_alone``, each token as its own group of one."""
+    ``tokens_alone``, each token as its own group of one.  ``split`` (a
+    train mesh) runs it from this rank's blocks of the weights."""
     if cfg.moe is None:
-        return mlp(lp["mlp"], x, cfg.act, cfg.mlp_gated), x.new_zeros(())
+        return mlp_split(lp["mlp"], x, cfg, split), x.new_zeros(())
     y, aux = MOE.moe_apply(lp["moe"], x.reshape(1, -1, x.shape[-1]), cfg,
-                           group=1 if tokens_alone else None)
+                           group=1 if tokens_alone else None, split=split)
     return y.reshape(x.shape), aux
 
 
@@ -211,27 +246,44 @@ def mlp_residual(lp: dict, h: torch.Tensor, cfg: ModelConfig,
                    tokens_alone)[0]
 
 
-def _block(lp: dict, h: torch.Tensor, positions: torch.Tensor,
-           cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decoder block over h [B, S, D]: (h, its MoE auxiliary loss)."""
-    h = h + A.attn_forward(lp["attn"], rmsnorm(lp["norm1"], h, cfg.norm_eps),
-                           cfg, positions)
-    m, a = ffn(lp, rmsnorm(lp["norm2"], h, cfg.norm_eps), cfg)
+def _block(lpb: dict, h: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig, mesh, dims: dict
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder block over h [B, S, D] from one layer's weights ``lpb``
+    (by parameter name; a block split over the dp axes along
+    ``dims[name]`` is gathered here, inside the remat'd body): (h, its
+    MoE auxiliary loss)."""
+    lp: dict = {}
+    for name, (group, key) in layer_params(cfg).items():
+        lp.setdefault(group, {})[key] = SH.gather_dp(lpb[name], mesh,
+                                                     dims[name])
+    h = h + A.attn_forward_split(lp["attn"],
+                                 rmsnorm(lp["norm1"], h, cfg.norm_eps),
+                                 cfg, positions, mesh)
+    m, a = ffn(lp, rmsnorm(lp["norm2"], h, cfg.norm_eps), cfg, split=mesh)
     return h + m, a
 
 
-def backbone(params: LM, h: torch.Tensor, cfg: ModelConfig,
+def backbone(params: Union[LM, Weights], h: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor, *, remat_layers: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every decoder block over hidden states h [B, S, D], then the final
     norm; returns (h, the MoE auxiliary loss summed over layers: 0 for the
     dense family).  A MoE layer routes the B·S tokens together.
-    ``remat_layers`` recomputes each block in backward."""
+    ``remat_layers`` recomputes each block in backward.  The stacked
+    weights are split into layers at once: one unbind per weight, whose
+    gradient is one stack rather than a full-size zero tensor per
+    layer."""
+    w = Weights.of(params)
+    names = layer_params(cfg)
+    dims = {n: w.dp_dim(n, stacked=True) for n in names}
+    parts = {n: w.blocks[n].unbind(0) for n in names}
     aux = torch.zeros((), device=h.device)
-    for lp in params.layers():
-        h, a = remat(_block, lp, h, positions, cfg, enabled=remat_layers)
+    for i in range(cfg.num_layers):
+        h, a = remat(_block, {n: parts[n][i] for n in names}, h, positions,
+                     cfg, w.mesh, dims, enabled=remat_layers)
         aux = aux + a
-    return rmsnorm({"scale": params.final_norm}, h, cfg.norm_eps), aux
+    return rmsnorm({"scale": w.whole("final_norm")}, h, cfg.norm_eps), aux
 
 
 def logits_fn(params: LM, batch: dict, cfg: ModelConfig
@@ -244,18 +296,25 @@ def logits_fn(params: LM, batch: dict, cfg: ModelConfig
     return params.unembed(h), aux
 
 
-def loss_fn(params: LM, batch: dict, cfg: ModelConfig, *,
+def loss_fn(params: Union[LM, Weights], batch: dict, cfg: ModelConfig, *,
             remat: bool = False) -> Tuple[torch.Tensor, dict]:
     """(total loss, {"nll", "moe_aux"}) of a teacher-forced batch
     (``tokens``, ``targets`` [B, S], optional ``loss_mask`` [B, S] and,
     for the VLM family, ``patches``): the chunked NLL over the text
     positions (image positions carry no loss) plus the MoE auxiliary loss
-    weighted by ``aux_loss_weight / num_layers``."""
-    h, positions = assemble_inputs(params, batch, cfg)
-    h, aux = backbone(params, h, cfg, positions, remat_layers=remat)
+    weighted by ``aux_loss_weight / num_layers``.  From a rank's
+    :class:`Weights` under the compute split it is the same total and
+    metrics, replicated over ``model``, for this rank's block of the
+    batch."""
+    w = Weights.of(params)
+    emb = w.whole("embedding")
+    h, positions = _inputs(w, emb, batch, cfg)
+    h, aux = backbone(w, h, cfg, positions, remat_layers=remat)
     if cfg.family == ArchFamily.VLM and "patches" in batch:
         h = h[:, -batch["targets"].shape[1]:]
-    loss = batch_nll(h, head_weight(params, cfg), batch, cfg.logit_softcap)
+    head = emb.T if cfg.tie_embeddings else w.whole("lm_head")
+    loss = batch_nll(h, head, batch, cfg.logit_softcap,
+                     vocab=cfg.vocab_size, mesh=w.mesh)
     aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
     total = loss + aux_w * aux / max(cfg.num_layers, 1)
     return total, {"nll": loss, "moe_aux": aux}

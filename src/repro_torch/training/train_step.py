@@ -15,19 +15,36 @@ under autograd, as the reference's are plain XLA.
 TrainMesh``) the step holds the reference's sharded step to its contract,
 the one-device step: each rank holds its blocks of the parameters and of
 AdamW's m and v under ``param_specs(mode="train")``
-(:class:`ShardedParams`).  At the start of a step the blocks are gathered
-into a reused full-size model, whose split parameters give their storage
-back once the gradients are taken, so between steps a rank holds only
-its blocks (and the parameters no spec splits); each microbatch of the global batch is
-split over the dp axes (``train_batch_specs``) and the family's loss runs
-on this rank's block (``sharding.data_parallel`` on, so a MoE layer routes
-as one device does); the gradients are summed over the dp ranks and
-divided by their number; ``grad_transform``, the global norm and the clip
-see that whole gradient, so every element counts once; AdamW then updates
-this rank's blocks.  With a loss mask each rank's NLL is weighted by its
-share of the masked positions, so the mean over ranks is the global
-masked mean.  The ranks along ``model`` compute the same thing: only
-storage is split there (the compute split is ROADMAP item 16c).
+(:class:`ShardedParams`), FSDP over the dp axes and split over ``model``.
+Each microbatch of the global batch is split over the dp axes
+(``train_batch_specs``), ``sharding.data_parallel`` on, so a MoE layer
+routes as one device does; with a loss mask each rank's NLL is weighted
+by its share of the masked positions, so the mean over ranks is the
+global masked mean.
+
+For the dense, MoE and VLM families (``models/lm.py``) the compute is
+split along ``model`` as the reference's GSPMD splits it (Megatron style:
+``lm.loss_fn`` over a rank's ``lm.Weights``, the model bundle's
+``split``; ``distributed/sharding.py`` has the collectives):
+attention heads, d_ff and the experts (or their d_ff where the experts do
+not divide) as column then row products, the embedding, the head and the
+cross entropy vocab-parallel.  No weight is gathered over ``model``; a
+layer's blocks are gathered over the dp axes just before it runs (again
+when remat recomputes it) and freed after, and the gradient of a
+dp-split block comes back as the mean over dp of the gathered gradient,
+reduce-scattered to the block (``sharding.gather_dp``).  The gradients of
+the blocks no dp axis splits are then averaged over dp
+(:func:`reduce_grads`); the global norm sums each distinct block once
+over the mesh; AdamW updates the blocks.  A ``grad_transform`` sees the
+whole gradient (every block gathered, then cut again), as on one device.
+
+The other families (SSM, hybrid, encoder-decoder: their ``model`` split
+is ROADMAP item 16d) gather every weight whole at the start of a step
+(:func:`gather_params`) into a reused full-size model, whose split
+parameters give their storage back once the gradients are taken
+(:func:`release_params`), run the family's loss on this rank's block of
+the batch, average the whole gradient over dp and cut it into blocks.
+Between steps a rank holds only its blocks either way.
 """
 from __future__ import annotations
 
@@ -91,18 +108,23 @@ def batch_grads(loss_fn: Callable, params, batch, microbatches: int = 1,
 def make_train_step(model_loss: Callable, cfg: ModelConfig,
                     opt_cfg: OptimizerConfig, *, remat: bool = True,
                     microbatches: int = 1,
-                    grad_transform: Optional[Callable] = None, mesh=None):
+                    grad_transform: Optional[Callable] = None, mesh=None,
+                    split: Optional[Callable] = None):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``: ``metrics`` holds ``loss``, ``grad_norm``,
     ``lr`` and, without microbatches, the model's own (``nll``,
     ``moe_aux``), each a 0-d tensor on the parameters' device.  The
     parameters are updated in place.  Under ``mesh`` the parameters are a
     :class:`ShardedParams`, the state's moments its blocks, and ``batch``
-    the global batch (see the module docstring)."""
+    the global batch (see the module docstring); ``split`` (the model
+    bundle's, ``models/factory.py``) builds what ``model_loss`` takes from
+    a rank's blocks, and without it the step gathers every weight whole."""
     loss_fn = make_loss(model_loss, cfg, remat)
     if mesh is not None:
+        split_fn = None if split is None else \
+            (lambda specs: lambda p, b: loss_fn(split(p, specs, mesh), b))
         return _sharded_step(loss_fn, opt_cfg, mesh, microbatches,
-                             grad_transform)
+                             grad_transform, split_fn)
 
     def train_step(params, opt_state, batch):
         (loss, metrics), grads = batch_grads(loss_fn, params, batch,
@@ -119,7 +141,8 @@ def make_train_step(model_loss: Callable, cfg: ModelConfig,
 @dataclasses.dataclass
 class ShardedParams:
     """A rank's parameters under a mesh: its blocks (by parameter name,
-    under ``specs``) and the full-size model each step gathers them into.
+    under ``specs``) and the full-size model that the step of a family
+    without the compute split gathers them into (:func:`gather_params`).
     A block that is the whole parameter is that parameter; a parameter of
     the model that a spec splits holds no storage between steps."""
 
@@ -151,10 +174,12 @@ def _split(params: ShardedParams):
 @torch.no_grad()
 def gather_params(params: ShardedParams) -> nn.Module:
     """The whole parameters from every rank's blocks, into the model (its
-    split parameters' storage allocated again)."""
+    split parameters' storage allocated again): the step of the families
+    the compute split does not cover."""
     for k, p in _split(params):
         p.untyped_storage().resize_(p.numel() * p.element_size())
-        p.copy_(SH.unshard(params.blocks[k], params.specs[k], params.mesh))
+        p.copy_(SH.unshard(params.blocks[k], params.specs[k], params.mesh,
+                           "param"))
     return params.model
 
 
@@ -173,17 +198,30 @@ def reduce_grads(grads: Dict[str, torch.Tensor], mesh
     n = SH.axes_size(mesh, axes)
     if n == 1:
         return grads
-    return {k: SH.all_reduce_sum_(g.contiguous(), mesh, axes).div_(n)
-            for k, g in grads.items()}
+    return {k: SH.all_reduce_sum_(g.contiguous(), mesh, axes, "grad")
+            .div_(n) for k, g in grads.items()}
+
+
+def block_norm(grads: Dict[str, torch.Tensor], specs: dict, mesh
+               ) -> torch.Tensor:
+    """The global norm of the whole gradient from this rank's blocks of
+    it: each block's sum of squares over the ranks that hold the same
+    block, summed over the dp axes and over ``model``."""
+    total = None
+    for k, g in grads.items():
+        sq = torch.sum(torch.square(g.float())) / SH.copies(specs[k], mesh)
+        total = sq if total is None else total + sq
+    total = SH.all_reduce_sum(total, mesh, SH.dp_axes(mesh))
+    return torch.sqrt(SH.all_reduce_sum(total, mesh, SH.MODEL_AXIS))
 
 
 def _sharded_step(loss_fn: Callable, opt_cfg: OptimizerConfig, mesh,
-                  microbatches: int, grad_transform: Optional[Callable]):
+                  microbatches: int, grad_transform: Optional[Callable],
+                  split_fn: Optional[Callable] = None):
     axes = SH.dp_axes(mesh)
     ndp = SH.axes_size(mesh, axes)
 
     def train_step(params: ShardedParams, opt_state, batch):
-        model = gather_params(params)
         # does each microbatch split over dp?  (else every rank runs it)
         mb0 = {k: x[: x.shape[0] // microbatches] for k, x in batch.items()}
         split = ndp > 1 and any(sp and sp[0] is not None for sp in
@@ -193,31 +231,55 @@ def _sharded_step(loss_fn: Callable, opt_cfg: OptimizerConfig, mesh,
             sp = SH.train_batch_specs(b, mesh)
             return {k: SH.shard_of(x, sp[k], mesh) for k, x in b.items()}
 
-        def dp_loss(p, b):
-            total, metrics = loss_fn(p, b)
-            if split and "loss_mask" in b:
-                # this rank's share of the masked positions, times ndp
-                m = b["loss_mask"].float().sum()
-                w = ndp * m / SH.all_reduce_sum(m, mesh, axes).clamp_min(1)
-                total = total + (w - 1) * metrics["nll"]
-                metrics = {**metrics, "nll": w * metrics["nll"]}
-            return total, metrics
+        def dp_loss(f):
+            def run(p, b):
+                total, metrics = f(p, b)
+                if split and "loss_mask" in b:
+                    # this rank's share of the masked positions, times ndp
+                    m = b["loss_mask"].float().sum()
+                    w = ndp * m / SH.all_reduce_sum(m, mesh, axes) \
+                        .clamp_min(1)
+                    total = total + (w - 1) * metrics["nll"]
+                    metrics = {**metrics, "nll": w * metrics["nll"]}
+                return total, metrics
+            return run
 
-        with SH.data_parallel(mesh if split else None):
-            (loss, metrics), grads = batch_grads(dp_loss, model, batch,
-                                                 microbatches, local)
-        release_params(params)
-        grads = reduce_grads(grads, mesh)
+        if split_fn is not None:
+            leaves = {k: b.detach().requires_grad_(True)
+                      for k, b in params.blocks.items()}
+            with SH.data_parallel(mesh if split else None):
+                (loss, metrics), grads = batch_grads(
+                    dp_loss(split_fn(params.specs)), leaves, batch,
+                    microbatches, local)
+            del leaves
+            # gather_dp's backward averaged the dp-split blocks already
+            rest = {k: g for k, g in grads.items()
+                    if SH.dp_dim(params.specs[k], mesh) is None}
+            grads.update(reduce_grads(rest, mesh))
+            if grad_transform is not None:
+                grads = {k: SH.unshard(g.contiguous(), params.specs[k],
+                                       mesh, "grad")
+                         for k, g in grads.items()}
+        else:
+            model = gather_params(params)
+            with SH.data_parallel(mesh if split else None):
+                (loss, metrics), grads = batch_grads(
+                    dp_loss(loss_fn), model, batch, microbatches, local)
+            release_params(params)
+            grads = reduce_grads(grads, mesh)
         loss = _dp_mean(loss, mesh)
         metrics = {k: _dp_mean(v, mesh) for k, v in metrics.items()}
+        whole = split_fn is None or grad_transform is not None
         if grad_transform is not None:
             grads = grad_transform(grads)
-        gnorm = O.global_norm(grads)
-        blocks = {k: SH.shard_of(g, params.specs[k], mesh)
-                  for k, g in grads.items()}
-        del grads
+        if whole:
+            gnorm = O.global_norm(grads)
+            grads = {k: SH.shard_of(g, params.specs[k], mesh)
+                     for k, g in grads.items()}
+        else:
+            gnorm = block_norm(grads, params.specs, mesh)
         _, opt_state, opt_metrics = O.adamw_update(
-            opt_cfg, blocks, opt_state, params.blocks, gnorm=gnorm)
+            opt_cfg, grads, opt_state, params.blocks, gnorm=gnorm)
         return params, opt_state, {"loss": loss, **opt_metrics, **metrics}
 
     return train_step

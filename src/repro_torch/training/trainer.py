@@ -73,7 +73,8 @@ class Trainer:
         self._step_fn = make_train_step(
             self.model.loss, cfg.model, cfg.optimizer,
             remat=cfg.remat, microbatches=cfg.microbatches,
-            grad_transform=grad_transform, mesh=mesh)
+            grad_transform=grad_transform, mesh=mesh,
+            split=self.model.split)
 
     def _init_state(self):
         """(the model with gradients on, AdamW's zero state)."""

@@ -1419,7 +1419,9 @@ def gloo_helpers_rank(mesh) -> dict:
            "all_reduce": SH.all_reduce_sum(x, mesh, "data"),
            "broadcast": SH.broadcast(x, mesh, "data", 1),
            "permute": SH.permute(x, mesh, "data", 1),
-           "all_to_all": SH.all_to_all(x.reshape(2, 4), mesh, "data")}
+           "all_to_all": SH.all_to_all(x.reshape(2, 4), mesh, "data"),
+           "reduce_scatter": SH.reduce_scatter_sum(x, mesh, "data", 0),
+           "all_reduce_max": SH.all_reduce_max(x, mesh, "data")}
     SH.barrier(mesh)
     return {"values": {k: v.cpu() for k, v in got.items()},
             "on_card": {k: v.device.type == "cuda" for k, v in got.items()},
@@ -1437,7 +1439,9 @@ def gloo_raw_rank(mesh) -> dict:
         "all_gather": lambda: torch.cat(_gathered(dist, x)),
         "all_reduce": lambda: _reduced(dist, x),
         "broadcast": lambda: _broadcast(dist, x),
-        "all_to_all": lambda: _all_to_all(dist, x)}
+        "all_to_all": lambda: _all_to_all(dist, x),
+        "reduce_scatter": lambda: _reduce_scattered(dist, x),
+        "all_reduce_max": lambda: _reduced(dist, x, dist.ReduceOp.MAX)}
     out = {}
     for kind, call in calls.items():
         try:
@@ -1453,9 +1457,15 @@ def _gathered(dist, x):
     return parts
 
 
-def _reduced(dist, x):
+def _reduced(dist, x, op=None):
     y = x.clone()
-    dist.all_reduce(y)
+    dist.all_reduce(y, op=op or dist.ReduceOp.SUM)
+    return y
+
+
+def _reduce_scattered(dist, x):
+    y = torch.empty(4, device=x.device)
+    dist.reduce_scatter_tensor(y, x)
     return y
 
 
@@ -1480,7 +1490,8 @@ def gloo_raw_on_card():
 
 
 @pytest.mark.parametrize("kind", ["all_gather", "all_reduce", "broadcast",
-                                  "all_to_all"])
+                                  "all_to_all", "reduce_scatter",
+                                  "all_reduce_max"])
 def test_gloo_raw_collectives_on_card_tensors(gloo_raw_on_card, kind):
     """Gloo takes card tensors in each collective the helpers send
     straight (exact values), and a kind the helpers stage through the host
@@ -1504,13 +1515,16 @@ def gloo_on_card():
 def _gloo_want(kind: str, r: int) -> torch.Tensor:
     x = [torch.arange(8.0) + 10 * i for i in range(2)]
     return {"all_gather": torch.cat(x), "all_reduce": x[0] + x[1],
+            "reduce_scatter": (x[0] + x[1])[4 * r:4 * r + 4],
+            "all_reduce_max": x[1],
             "broadcast": x[1], "permute": x[1 - r],
             "all_to_all": torch.stack([x[0].reshape(2, 4)[r],
                                        x[1].reshape(2, 4)[r]])}[kind]
 
 
 @pytest.mark.parametrize("kind", ["all_gather", "all_reduce", "broadcast",
-                                  "permute", "all_to_all"])
+                                  "permute", "all_to_all", "reduce_scatter",
+                                  "all_reduce_max"])
 def test_gloo_helpers_on_card_tensors(gloo_on_card, kind):
     """Each helper gives the exact values on card tensors and hands back a
     card tensor; the kinds in ``sharding.HOST_STAGED`` (gloo's send and
@@ -1524,7 +1538,7 @@ def test_gloo_helpers_on_card_tensors(gloo_on_card, kind):
 
 
 def smoke_step_rank(mesh, arch: str) -> dict:
-    """One data=2 step of ``arch``'s smoke form on the card: the loss and
+    """One sharded step of ``arch``'s smoke form on the card: the loss and
     the gathered new parameters (on the host)."""
     from repro_torch.config import OptimizerConfig
     from repro_torch.distributed import sharding as SH
@@ -1537,7 +1551,7 @@ def smoke_step_rank(mesh, arch: str) -> dict:
     sp = shard_params(model.init_params(0, mesh.device).requires_grad_(True),
                       mesh)
     step = make_train_step(model.loss, cfg, OptimizerConfig(warmup_steps=1),
-                           mesh=mesh)
+                           mesh=mesh, split=model.split)
     g = torch.Generator().manual_seed(3)
     toks = torch.randint(0, cfg.vocab_size, (8, 17), generator=g)
     batch = {"tokens": toks[:, :-1].to(mesh.device),
@@ -1546,6 +1560,27 @@ def smoke_step_rank(mesh, arch: str) -> dict:
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "params": {k: SH.unshard(b, sp.specs[k], mesh).detach().cpu()
                        for k, b in sp.blocks.items()}}
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x7b"])
+def test_model_split_step_on_the_card_is_the_one_rank_step(card, arch):
+    """The same at data 1 x model 2: the attention heads, the MLP (yi) or
+    the experts (mixtral) and the vocabulary split over ``model`` on card
+    tensors, no parameter gathered over ``model``, against the one-rank
+    step at the same bars."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch import mesh as M
+    one = M.make_mesh(MeshConfig((1, 1), ("data", "model")), 0, "cuda")
+    want = smoke_step_rank(one, arch)
+    got = M.run_ranks(smoke_step_rank, "data=1,model=2", "cuda", arch,
+                      timeout=300)
+    for r in got:
+        np.testing.assert_allclose(r["loss"], want["loss"], rtol=2e-5)
+        np.testing.assert_allclose(r["grad_norm"], want["grad_norm"],
+                                   rtol=1e-5)
+    for k, w in want["params"].items():
+        np.testing.assert_allclose(got[0]["params"][k].numpy(), w.numpy(),
+                                   rtol=2e-4, atol=2e-5, err_msg=k)
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x7b"])

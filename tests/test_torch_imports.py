@@ -62,6 +62,22 @@ def test_training_modules_are_under_the_rule():
             rel
 
 
+def test_roofline_and_dry_run_are_under_the_rule():
+    """``roofline/analysis.py`` and ``launch/dryrun.py`` are among the
+    files the import rule reads; the roofline module, which
+    ``chip_smoke.py`` loads by its path, imports the standard library
+    only."""
+    pkg = ROOT / "src" / "repro_torch"
+    for rel in ("roofline/analysis.py", "launch/dryrun.py"):
+        assert pkg / rel in FILES, rel
+        assert forbidden_imports((pkg / rel).read_text()) == [], rel
+    tree = ast.parse((pkg / "roofline" / "analysis.py").read_text())
+    mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+            for a in n.names} | {n.module for n in ast.walk(tree)
+                                 if isinstance(n, ast.ImportFrom)}
+    assert mods <= {"__future__", "dataclasses", "typing"}, mods
+
+
 @pytest.mark.parametrize("src,bad", [
     ("import jax", ["jax"]),
     ("import jax.numpy as jnp", ["jax.numpy"]),

@@ -20,8 +20,23 @@ mesh shape one spawn shared by its cases:
   there too;
 * mixtral-8x7b, falcon-mamba-7b, zamba2-7b, paligemma-3b (image patches)
   and whisper-medium (frames) at 2 ranks;
-* two microbatches (mixtral: its MoE groups span the ranks' blocks) and an
-  error-feedback ``grad_transform`` (yi-6b) at 2x2.
+* qwen2-7b (non-zero qkv biases) and paligemma-3b (image patches, the
+  tied head; 1 kv head) at 2x2 and 2x4;
+* two microbatches (mixtral: its MoE groups span the ranks' blocks), an
+  error-feedback ``grad_transform`` (yi-6b), mixtral with 3 experts
+  (they do not divide over ``model``: its experts split over d_ff) and
+  paligemma with 2 kv heads (its image prefix under the head split) at
+  2x2.
+
+The dense, MoE and VLM families split their compute over ``model``
+(``lm.loss_fn`` over a rank's ``lm.Weights``): at 2x2 the attention heads
+(2 kv heads over 2 ranks, with their biases), the MLP, the experts and
+the vocabulary (the tied head's too) run split, at 2x4, and for
+paligemma's 1 kv head at 2x2, the attention gathers its projections (the
+kv heads cannot split); no parameter is gathered over ``model`` in
+either, and every rank's collective bytes by (kind, axis, what) equal
+the dry run's analytic count (``launch.dryrun.train_traffic``) at every
+shape.
 
 Every rank holds only its ``param_specs`` blocks of the parameters and of
 AdamW's moments between steps: the full-size model the step gathers into
@@ -72,22 +87,33 @@ GNORM_RTOL = 1e-5
 OPT = {"warmup_steps": 1}            # step 1 at the full learning rate
 RESUME_RTOL = 1e-4
 B, S = 8, 16
-# case -> (arch, microbatches, EF grad_transform, loss mask)
-CASES = {"yi": ("yi-6b", 1, False, False),
-         "r1": ("r1-llama-8b", 1, False, True),
+# case -> (arch, microbatches, EF grad_transform, loss mask); a case's
+# batch seed is its place here
+CASES = {"mamba": ("falcon-mamba-7b", 1, False, False),
          "mixtral": ("mixtral-8x7b", 1, False, False),
-         "mamba": ("falcon-mamba-7b", 1, False, False),
-         "zamba": ("zamba2-7b", 1, False, False),
-         "pali": ("paligemma-3b", 1, False, False),
-         "whisper": ("whisper-medium", 1, False, False),
          "mixtral_mb2": ("mixtral-8x7b", 2, False, False),
-         "yi_ef": ("yi-6b", 1, True, False)}
+         "mixtral_tpf": ("mixtral-8x7b", 1, False, False),
+         "pali": ("paligemma-3b", 1, False, False),
+         "r1": ("r1-llama-8b", 1, False, True),
+         "whisper": ("whisper-medium", 1, False, False),
+         "yi": ("yi-6b", 1, False, False),
+         "yi_ef": ("yi-6b", 1, True, False),
+         "zamba": ("zamba2-7b", 1, False, False),
+         "qwen2": ("qwen2-7b", 1, False, False),
+         "pali_kv2": ("paligemma-3b", 1, False, False)}
+# case -> its change of the smoke config (either package): experts that
+# do not divide |model|, kv heads that split over |model| 2
+VARIANTS = {"mixtral_tpf": lambda c: dataclasses.replace(
+                c, moe=dataclasses.replace(c.moe, num_experts=3)),
+            "pali_kv2": lambda c: dataclasses.replace(c, num_kv_heads=2)}
+BIAS_SCALE = 0.1                      # qkv biases drawn non-zero
 SHAPES = {"1": "data=1,model=1", "2": "data=2,model=1",
           "2x2": "data=2,model=2", "2x4": "data=2,model=4"}
 AT = {"1": ("yi", "r1", "mixtral"),
       "2": ("yi", "r1", "mixtral", "mamba", "zamba", "pali", "whisper"),
-      "2x2": ("yi", "r1", "mixtral", "mixtral_mb2", "yi_ef"),
-      "2x4": ("yi", "r1", "mixtral")}
+      "2x2": ("yi", "r1", "mixtral", "mixtral_mb2", "yi_ef",
+              "mixtral_tpf", "qwen2", "pali", "pali_kv2"),
+      "2x4": ("yi", "r1", "mixtral", "qwen2", "pali")}
 CELLS = [(shape, case) for shape, cases in AT.items() for case in cases]
 
 
@@ -108,21 +134,32 @@ def case_batch(cfg, seed: int, mask: bool) -> dict:
     return batch
 
 
+def variant(cfg, name: str):
+    """``cfg`` with case ``name``'s change (either package)."""
+    return VARIANTS[name](cfg) if name in VARIANTS else cfg
+
+
 def jax_case(name: str) -> dict:
     """One live single-device JAX train step of ``name``: its weights and
     batch (numpy) and its loss and new parameters by port name."""
     arch, mb, ef, mask = CASES[name]
-    cfg = jax_smoke(arch)
+    cfg = variant(jax_smoke(arch), name)
     model = jax_build(cfg)
     params = model.init_params(0)
-    batch = case_batch(cfg, sorted(CASES).index(name), mask)
+    if cfg.qkv_bias:
+        rng = np.random.default_rng(100)
+        attn = params["layers"]["attn"]
+        for b in ("bq", "bk", "bv"):
+            attn[b] = jax.numpy.asarray(
+                BIAS_SCALE * rng.standard_normal(attn[b].shape), "float32")
+    batch = case_batch(cfg, list(CASES).index(name), mask)
     gt = (lambda g: CJ.ef_transform(g, CJ.make_ef_state(g))[0]) if ef \
         else None
     step = jax.jit(jax_step(model.loss, cfg, JOC(**OPT), remat=True,
                             microbatches=mb, grad_transform=gt))
     new, _, metrics = step(params, jax_adamw_init(params),
                            jax.tree.map(jax.numpy.asarray, batch))
-    pcfg = get_smoke_config(arch)
+    pcfg = variant(get_smoke_config(arch), name)
     return {"params": jax.tree.map(np.asarray, params), "batch": batch,
             "loss": float(metrics["loss"]),
             "grad_norm": float(metrics["grad_norm"]),
@@ -145,7 +182,7 @@ def step_cell(mesh, name: str, ref: dict) -> dict:
     blocks of the parameters and moments are the spec's, and the bytes the
     model's split parameters hold after the step."""
     arch, mb, ef, _ = CASES[name]
-    cfg = get_smoke_config(arch)
+    cfg = variant(get_smoke_config(arch), name)
     model = FT.build_model(cfg)
     full = params_from_numpy(ref["params"], cfg, "cpu").requires_grad_(True)
     sp = shard_params(full, mesh)
@@ -153,8 +190,11 @@ def step_cell(mesh, name: str, ref: dict) -> dict:
     gt = (lambda g: CT.ef_transform(g, CT.make_ef_state(g))[0]) if ef \
         else None
     step = make_train_step(model.loss, cfg, OptimizerConfig(**OPT),
-                           remat=True, microbatches=mb, grad_transform=gt, mesh=mesh)
+                           remat=True, microbatches=mb, grad_transform=gt,
+                           mesh=mesh, split=model.split)
+    SH.reset_collectives()
     sp, opt, metrics = step(sp, opt, _tensors(ref["batch"]))
+    traffic = dict(SH.TRAFFIC)
     want = {k: SH.block_shape(p.shape, sp.specs[k], mesh)
             for k, p in full.named_parameters()}
     held = all(tuple(t[k].shape) == want[k] for t in (sp.blocks, opt.m,
@@ -168,6 +208,7 @@ def step_cell(mesh, name: str, ref: dict) -> dict:
             "block_elems": sum(b.numel() for b in sp.blocks.values()),
             "split_model_bytes": sum(p.untyped_storage().nbytes()
                                      for p in split),
+            "traffic": traffic,
             "params": params if mesh.rank == 0 else None}
 
 
@@ -221,6 +262,8 @@ def mesh_rank(mesh, shape: str, refs: dict, dirs: dict) -> dict:
                         "launches": audit.census.launches,
                         "kinds": sorted({(c.name, c.dtype, c.reduces)
                                          for c in audit.census.collectives}),
+                        "axes": sorted({(c.name, c.dtype, c.reduces, c.axis)
+                                        for c in audit.census.collectives}),
                         "serve_violations": len(
                             C.serve_collective_rule().check(
                                 "train_step", audit.census.collectives))}
@@ -317,6 +360,56 @@ def test_train_step_collectives_stay_in_the_train_whitelist(runs):
         assert ("all_reduce", "float32", True) in a["kinds"]
         assert ("all_gather", "float32", False) in a["kinds"]
         assert a["serve_violations"] > 0
+        # the split's float sums over model, the dp gradient's
+        # reduce-scatter, and no parameter gathered over model
+        assert ("all_reduce", "float32", True, "model") in a["axes"]
+        assert ("reduce_scatter", "float32", True, "dp") in a["axes"]
+        assert ("all_gather", "float32", False, "model") not in a["axes"]
+
+
+def test_train_rule_allows_float_sums_over_dp_and_model_only():
+    """The train rule's float reductions: over the dp axes and over
+    ``model``, nowhere else; the serve rule allows none."""
+    from repro_torch.analysis.census import CollectiveUse
+    rule, serve = C.train_collective_rule(), C.serve_collective_rule()
+    for axis in ("dp", "model"):
+        for kind in ("all_reduce", "reduce_scatter"):
+            use = CollectiveUse(kind, "float32", True, "", axis)
+            assert rule.check("train_step", [use]) == []
+            assert serve.check("train_step", [use])
+    assert rule.check("train_step", [CollectiveUse(
+        "all_reduce", "float32", True, "", "pod")])
+
+
+@pytest.mark.parametrize("shape", ["2x2", "2x4"])
+def test_no_parameter_is_gathered_over_model(runs, shape):
+    """At 2x2 and 2x4 the split families gather no parameter over
+    ``model`` (the per-layer gathers run over dp only), and their sums
+    over ``model`` are counted."""
+    for r in runs[shape]:
+        for name in AT[shape]:
+            t = r["cells"][name]["traffic"]
+            assert not any(k[1] == "model" and k[2] == "param" for k in t), \
+                (name, t)
+            assert t.get(("all_reduce", "model", "act"), 0) > 0, name
+            assert t.get(("all_gather", "dp", "param"), 0) > 0, name
+
+
+@pytest.mark.parametrize("shape,case", [c for c in CELLS if c[0] != "1"],
+                         ids=[f"{s}-{c}" for s, c in CELLS if s != "1"])
+def test_dry_run_counts_the_step_traffic(runs, shape, case):
+    """Every rank's collective bytes in the step, by (kind, axis, what),
+    equal the dry run's analytic count for the same cell."""
+    from repro_torch.launch.dryrun import train_traffic
+    arch, mb, ef, mask = CASES[case]
+    cfg = variant(get_smoke_config(arch), case)
+    sizes = [int(x.split("=")[1]) for x in SHAPES[shape].split(",")]
+    want = train_traffic(cfg, MeshConfig(tuple(sizes), ("data", "model")),
+                         B, S, microbatches=mb, loss_mask=mask,
+                         grad_transform=ef)
+    for r in runs[shape]:
+        assert r["cells"][case]["traffic"] == want, (case, r["cells"][case][
+            "traffic"], want)
 
 
 def test_blocks_round_trip_over_a_pod_mesh(runs):

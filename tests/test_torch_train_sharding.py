@@ -218,12 +218,44 @@ def test_constrain_has_no_pytorch_meaning():
 
 
 def test_axes_a_mesh_lacks_count_as_one():
-    """A ``--mesh-shape 2`` run (axes data only): the specs name ``model``
-    where the reference would, and it splits nothing."""
+    """A ``--mesh-shape 2`` run (axes data only): the rules refuse the
+    mesh, as the reference's ``_fits`` does (``KeyError``); a spec naming
+    ``model`` (written by hand) splits nothing along it in ``shard_of``."""
     mesh = MeshConfig((2,), ("data",))
     cfg = get_config("r1-llama-8b")
-    specs = SH.param_specs(cfg, mesh)
-    assert specs["embedding"] == ("model", "data")
+    with pytest.raises(KeyError, match="model"):
+        SH.param_specs(cfg, mesh)
     tm = TrainMesh(("data",), (2,), 1)
     x = torch.arange(8 * 6).reshape(8, 6)
     assert torch.equal(SH.shard_of(x, ("model", "data"), tm), x[:, 3:])
+
+
+@pytest.mark.parametrize("arch", ["r1-llama-8b", "mixtral-8x7b",
+                                  "falcon-mamba-7b"])
+def test_param_specs_refuse_a_mesh_without_model(arch):
+    """Both packages refuse a ``("data",)`` mesh (``KeyError`` at the first
+    rule naming ``model``), and on ``("data", "model")`` the port's specs
+    are the reference's; the serving check keeps its ``.get`` (a mesh
+    without ``model`` serves on one rank in both)."""
+    data_only = types.SimpleNamespace(axis_names=("data",),
+                                      devices=np.empty((2,)))
+    with pytest.raises(KeyError, match="model"):
+        SJ.param_specs(jax_shapes(arch), data_only)
+    with pytest.raises(KeyError, match="model"):
+        SH.param_specs(get_config(arch), MeshConfig((2,), ("data",)))
+    with pytest.raises(KeyError, match="model"):
+        SH.axes_size(MeshConfig((2,), ("data",)), ("data", "model"))
+    two = types.SimpleNamespace(axis_names=("data", "model"),
+                                devices=np.empty((2, 2)))
+    for mode in ("train", "serve"):
+        specs = SJ.param_specs(jax_shapes(arch), two, mode=mode)
+        want = {}
+        for name, path in param_paths(get_config(arch)).items():
+            leaf = specs
+            for k in path:
+                leaf = leaf[k]
+            want[name] = tuple(leaf)
+        assert SH.param_specs(get_config(arch),
+                              MeshConfig((2, 2), ("data", "model")),
+                              mode=mode) == want
+    assert SJ.head_shardable(8, data_only) == SH.head_shardable(8, 1)
