@@ -7,6 +7,10 @@
                                      # serve, prefill_profile, profile and
                                      # the ssm prefill, in the order
                                      # parent, this, this, parent
+    python3 chip_smoke.py --families-leg [--src DIR/src]
+                                     # the train_mesh phase's SSM, hybrid
+                                     # and encoder-decoder leg alone, on
+                                     # this tree's port (or DIR's)
 
 Phases, each printing one JSON line and raising (non-zero exit) on any
 failure:
@@ -241,8 +245,13 @@ failure:
                 one-rank step (the reference's bars); per rank the bytes
                 held between steps, the peak, ms per step and per step
                 the collective bytes by kind, axis and what moves, equal
-                to the dry run's count; zero kernel launches; the dry run
-                at the production meshes, timed; then at smoke size yi-6b and mixtral on
+                to the dry run's count, no parameter gathered over
+                ``model``; zero kernel launches; the same at data 1 x
+                model 2 for falcon-mamba-7b (2 of 64 layers), zamba2-7b (7
+                of 81: a group of 6 Mamba-2 layers, the shared block, a
+                tail layer; 4 x 512 each) and whisper-medium (2 + 2 of 24
+                + 24 layers, 1500 frames, 4 x 256), 2 steps each; the dry
+                run at the production meshes, timed; then at smoke size yi-6b and mixtral on
                 (data 2, model 2) held to the one-rank step, the trainer
                 resumed 1 -> 2 and 2 -> 1 ranks against an uninterrupted
                 run, and ring attention, the pipeline, the compressed
@@ -3712,6 +3721,17 @@ TM_GRAD_REL = 1e-4         # each gradient leaf, of that leaf's largest |g|
 TM_GNORM_RTOL = 1e-5       # the gradient norm against the one-rank step's
 TM_SMOKE_WARMUP = 1        # smoke steps at the full lr: updates over the bar
 TM_RING_ATOL, TM_PIPE_ATOL, TM_POD_REL, TM_MOE_ATOL = 3e-5, 2e-5, 0.02, 1e-5
+# the SSM, hybrid and encoder-decoder leg (data 1 x model 2, full width):
+# arch -> (decoder / backbone layers, encoder layers, batch, tokens)
+TM_FAMILIES = {"falcon-mamba-7b": (2, 0, 4, 512),     # of 64 layers
+               # one group of 6 Mamba-2 layers, the shared block, 1 tail
+               "zamba2-7b": (7, 0, 4, 512),           # of 81 layers
+               "whisper-medium": (2, 2, 4, 256)}      # of 24 + 24, 1500
+TM_FAMILY_DEPTH = {"falcon-mamba-7b": "2 of 64 layers",
+                   "zamba2-7b": "7 of 81 layers (one group of 6 Mamba-2 "
+                                "layers, the shared block, 1 tail layer)",
+                   "whisper-medium": "2 + 2 of 24 + 24 layers"}
+TM_FAMILY_STEPS = 2
 
 
 def _excess(got, want, rtol: float, atol: float) -> float:
@@ -3748,37 +3768,85 @@ def _one_rank_step(model, mc, batch) -> dict:
 
 def train_mesh_full_rank(mesh, dirs: Optional[dict] = None,
                          steps: int = TM_STEPS) -> dict:
-    """One rank of a full-width leg of ``train_mesh_phase`` (data 2, or
-    data 1 x model 2).  Rank 0 first runs the one-rank step of the same
-    seeds on its own copy of the weights (``_one_rank_step``: its gradient
-    and new parameters stay on the card), then both ranks run
-    ``steps`` sharded steps; step 1 (with a ``grad_transform`` that
-    reads the whole gradient) is held to the one-rank step on rank 0: its
-    loss, gradient norm, gradient and gathered parameters.  Per step the
-    collective bytes by (kind, axis, what) (``sharding.TRAFFIC``) beside
-    the dry run's count of the same cell (``launch.dryrun.
-    train_traffic``).  Then, with ``dirs``, the card freed, the 2-rank
-    part of (b) (``train_mesh_smoke_rank2``)."""
+    """One rank of a full-width r1-llama-8b leg of ``train_mesh_phase``
+    (data 2, or data 1 x model 2): ``_full_leg`` of its model and
+    batches; then, with ``dirs``, the card freed, the 2-rank part of (b)
+    (``train_mesh_smoke_rank2``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.device import set_f32_numerics
+    from repro_torch.training.trainer import batch_to
+    set_f32_numerics()
+    mc = dataclasses.replace(get_config(TM_ARCH), num_layers=TM_LAYERS)
+    data = lm_batches(mc.vocab_size, TM_BATCH, TM_SEQ, seed=SEED)
+    out = _full_leg(mesh, mc, [batch_to(next(data), mesh.device)
+                               for _ in range(steps)])
+    if dirs is not None:
+        out["smoke2"] = train_mesh_smoke_rank2(mesh, dirs)
+    return out
+
+
+def _family_leg(arch: str, dev):
+    """(the config cut to the leg's depth, its batches) of one of
+    ``TM_FAMILIES``: tokens from ``SEED`` and, for the encoder-decoder,
+    frames [batch, encoder_seq, d_model] from ``SEED``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.training.trainer import batch_to
+    layers, enc_layers, batch, seq = TM_FAMILIES[arch]
+    mc = dataclasses.replace(get_config(arch), num_layers=layers,
+                             encoder_layers=enc_layers)
+    data = lm_batches(mc.vocab_size, batch, seq, seed=SEED)
+    g = torch.Generator().manual_seed(SEED)
+    batches = []
+    for _ in range(TM_FAMILY_STEPS):
+        b = batch_to(next(data), dev)
+        if enc_layers:
+            b["frames"] = torch.randn(batch, mc.encoder_seq, mc.d_model,
+                                      generator=g).to(dev)
+        batches.append(b)
+    return mc, batches
+
+
+def train_mesh_families_rank(mesh) -> dict:
+    """One rank of the SSM, hybrid and encoder-decoder leg of
+    ``train_mesh_phase`` (data 1 x model 2): ``_full_leg`` of each of
+    ``TM_FAMILIES`` in turn, its wall seconds beside it."""
+    from repro_torch.device import set_f32_numerics
+    set_f32_numerics()
+    out = {}
+    for arch in TM_FAMILIES:
+        t = time.perf_counter()
+        out[arch] = _full_leg(mesh, *_family_leg(arch, mesh.device))
+        out[arch]["seconds"] = time.perf_counter() - t
+    return out
+
+
+def _full_leg(mesh, mc, batches: list) -> dict:
+    """One rank's full-width sharded steps of ``mc`` on ``batches``.  Rank
+    0 first runs the one-rank step of the same seeds on its own copy of
+    the weights (``_one_rank_step``: its gradient and new parameters stay
+    on the card), then both ranks run one sharded step per batch; step 1
+    (with a ``grad_transform`` that reads the whole gradient) is held to
+    the one-rank step on rank 0: its loss, gradient norm, gradient and
+    gathered parameters.  Per step the collective bytes by (kind, axis,
+    what) (``sharding.TRAFFIC``) beside the dry run's count of the same
+    cell (``launch.dryrun.train_traffic``); the bytes held between steps,
+    the peak of steps 2-, ms per step and the kernel launches."""
     import torch
 
     import repro_torch.training.train_step as TS
     from repro_torch.config import MeshConfig, OptimizerConfig
-    from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import lm_batches
-    from repro_torch.device import set_f32_numerics
     from repro_torch.distributed import sharding as SH
     from repro_torch.kernels import ops
     from repro_torch.launch.dryrun import train_traffic
     from repro_torch.models.factory import build_model
     from repro_torch.training.optimizer import adamw_init
-    from repro_torch.training.trainer import batch_to
-    set_f32_numerics()
     dev = mesh.device
     launches0 = dict(ops.LAUNCHES)
-    mc = dataclasses.replace(get_config(TM_ARCH), num_layers=TM_LAYERS)
     model = build_model(mc)
-    data = lm_batches(mc.vocab_size, TM_BATCH, TM_SEQ, seed=SEED)
-    batches = [batch_to(next(data), dev) for _ in range(steps)]
     out = {"rank": mesh.rank}
     ref = _one_rank_step(model, mc, batches[0]) if mesh.rank == 0 else {}
     torch.cuda.empty_cache()
@@ -3799,8 +3867,9 @@ def train_mesh_full_rank(mesh, dirs: Optional[dict] = None,
     step = TS.make_train_step(model.loss, mc, OptimizerConfig(), remat=True,
                               mesh=mesh, split=model.split)
     layout = MeshConfig(mesh.shape, mesh.axis_names)
+    nb, seq = batches[0]["tokens"].shape
     want = {gt: {"/".join(k): n for k, n in sorted(train_traffic(
-        mc, layout, TM_BATCH, TM_SEQ, grad_transform=gt).items())}
+        mc, layout, nb, seq, grad_transform=gt).items())}
         for gt in (True, False)}
     ms, losses, traffic = [], [], []
     for i, b in enumerate(batches):
@@ -3816,7 +3885,7 @@ def train_mesh_full_rank(mesh, dirs: Optional[dict] = None,
         ms.append((time.perf_counter() - t) * 1e3)
         traffic.append({"/".join(k): n for k, n in sorted(
             SH.TRAFFIC.items())})
-        held.append(_resident_bytes(sp, opt))
+        held.append(_resident_bytes(sp, opt, params))
         if i == 0:
             worst = {}
             for k, blk in sp.blocks.items():   # every rank gathers
@@ -3843,21 +3912,22 @@ def train_mesh_full_rank(mesh, dirs: Optional[dict] = None,
                                 "steps 2-": want[False]},
                traffic_equals_dry_run=all(
                    t == want[i == 0] for i, t in enumerate(traffic)),
+               model_param_gathers=sorted(
+                   k for t in traffic for k in t
+                   if k.split("/")[1:] == ["model", "param"]),
                kernel_launches={k: n - launches0[k]
                                 for k, n in ops.LAUNCHES.items()
                                 if n != launches0[k]}, **errs)
-    if dirs is not None:
-        out["smoke2"] = train_mesh_smoke_rank2(mesh, dirs)
     return out
 
 
-def _resident_bytes(sp, opt) -> int:
+def _resident_bytes(sp, opt, model) -> int:
     """The bytes of every storage a rank's sharded state holds: the
-    parameter blocks, m, v and the full-size model the step gathers into
-    (a storage shared by several tensors counted once)."""
+    parameter blocks, m, v and the full-size model the blocks were cut
+    from (a storage shared by several tensors counted once)."""
     stores = {}
     for t in [*sp.blocks.values(), *opt.m.values(), *opt.v.values(),
-              *sp.model.parameters()]:
+              *model.parameters()]:
         st = t.untyped_storage()
         stores[st.data_ptr()] = st.nbytes()
     return sum(stores.values())
@@ -4044,18 +4114,24 @@ def _full_leg_checks(name: str, full: list) -> list:
             failed.append(f"{name}: rank {r['rank']} collective bytes "
                           f"{r['traffic_per_step']} vs the dry run's "
                           f"{r['traffic_dry_run']}")
+        if r["model_param_gathers"]:
+            failed.append(f"{name}: rank {r['rank']} gathered parameters "
+                          f"over model: {r['model_param_gathers']}")
     return failed
 
 
-def _full_leg_record(name: str, mesh: str, full: list, t0: float) -> dict:
+def _full_leg_record(name: str, mesh: str, full: list, t0: float,
+                     arch: str = TM_ARCH,
+                     reduced: str = f"{TM_LAYERS} of 32 layers",
+                     shape: tuple = (TM_BATCH, TM_SEQ)) -> dict:
     r0 = full[0]
     keys = ("losses", "ms_per_step", "held_bytes", "peak_gb_steps_2_on",
-            "traffic_per_step", "traffic_equals_dry_run", "kernel_launches")
+            "traffic_per_step", "traffic_equals_dry_run",
+            "model_param_gathers", "kernel_launches")
     return {
         "phase": name, "nvidia_smi": nvidia_smi(),
-        "arch": TM_ARCH, "layers": TM_LAYERS,
-        "reduced": {"num_layers": f"{TM_LAYERS} of 32"}, "mesh": mesh,
-        "batch": TM_BATCH, "seq": TM_SEQ, "steps": len(r0["losses"]),
+        "arch": arch, "reduced": {"depth": reduced}, "mesh": mesh,
+        "batch": shape[0], "seq": shape[1], "steps": len(r0["losses"]),
         "per_rank": [{k: r[k] for k in keys} for r in full],
         "traffic_dry_run": r0["traffic_dry_run"],
         "one_rank_check": {
@@ -4070,6 +4146,27 @@ def _full_leg_record(name: str, mesh: str, full: list, t0: float) -> dict:
                  "grad_rel_of_max": TM_GRAD_REL,
                  "gnorm_rtol": TM_GNORM_RTOL},
         "seconds": time.perf_counter() - t0}
+
+
+def families_leg(dev):
+    """The SSM, hybrid and encoder-decoder leg of ``train_mesh_phase``
+    (``train_mesh_families_rank`` on 2 gloo ranks, data 1 x model 2):
+    (every rank's results, a record per model, emitted, and the
+    failures)."""
+    from repro_torch.launch.mesh import run_ranks
+    t = time.perf_counter()
+    fam = run_ranks(train_mesh_families_rank, TM_MODEL_MESH, dev.type,
+                    timeout=900)
+    recs, failed = {}, []
+    for arch, (_, _, nb, seq) in TM_FAMILIES.items():
+        legs = [r[arch] for r in fam]
+        recs[arch] = _full_leg_record(
+            f"train_mesh_{arch}", TM_MODEL_MESH, legs, t, arch,
+            TM_FAMILY_DEPTH[arch], (nb, seq))
+        recs[arch]["seconds"] = legs[0]["seconds"]
+        emit(recs[arch])
+        failed += _full_leg_checks(f"{arch} model 2", legs)
+    return fam, recs, failed
 
 
 def dry_run_wall() -> dict:
@@ -4093,14 +4190,16 @@ def train_mesh_phase(dev) -> dict:
     (``launch.mesh.run_ranks``): (a) r1-llama-8b at full width and 2 of 32
     layers, batch 8 x 512 from ``SEED``, 2 ranks, twice: data 2 (2
     steps), and data 1 x model 2 (the compute split over ``model``, 3
-    steps).  Each: step
+    steps), then falcon-mamba-7b, zamba2-7b and whisper-medium at full
+    width on data 1 x model 2 (``TM_FAMILIES``: depth cut, 2 steps each,
+    one spawn).  Each: step
     1's loss, gradient and every parameter leaf held to the one-rank step
     of the same seeds (the reference's bars: loss rtol 2e-5, parameters
     2e-4 / 2e-5, gradient norm 1e-5; gradients 1e-4 of each leaf's
     largest |g|); per rank the bytes held between steps, the peak of
-    steps 2-3, ms per step, and per step the collective bytes by (kind,
-    axis, what), equal to the dry run's count of the cell; no kernel
-    launch.  (b) at smoke size: yi-6b and mixtral-8x7b on (data 2, model
+    steps 2-, ms per step, and per step the collective bytes by (kind,
+    axis, what), equal to the dry run's count of the cell, none a
+    parameter gathered over ``model``; no kernel launch.  (b) at smoke size: yi-6b and mixtral-8x7b on (data 2, model
     2) held to the one-rank step; the trainer saved on 1 rank and resumed
     on 2 and saved on 2 and resumed on 1 (the same 2 ranks as the data-2
     leg, after it), against the uninterrupted run (1e-4 relative); ring
@@ -4135,6 +4234,8 @@ def train_mesh_phase(dev) -> dict:
                                  t1)
     emit(rec_split)
     failed += _full_leg_checks("model 2", split)
+    fam, rec_fam, fam_failed = families_leg(dev)
+    failed += fam_failed
 
     two = [r["smoke2"] for r in full]
     rel = lambda a, b: max(abs(x - y) / abs(y)  # noqa: E731
@@ -4176,12 +4277,14 @@ def train_mesh_phase(dev) -> dict:
     if launched:
         failed.append(f"kernel launches in the parent: {launched}")
     out = {**rec_full, "phase": "train_mesh", "model2": rec_split,
+           "families_model2": rec_fam,
            "smoke_2x2": smoke[0], "resume": resume,
            "patterns": two[0]["patterns"],
            "collectives_rank0_smoke2": two[0]["collectives"],
            "dry_run": dry,
            "kernel_launches": {n: 0 for n in ops.LAUNCHES} | {
-               k: v for r in full + split
+               k: v for r in full + split + [
+                   leg for f in fam for leg in f.values()]
                for k, v in r["kernel_launches"].items()} | launched,
            "failed": failed, "seconds": time.perf_counter() - t0}
     emit(out)
@@ -4221,6 +4324,13 @@ def main() -> int:
         return 1
     if "--ab" in sys.argv:
         return ab(sys.argv[sys.argv.index("--ab") + 1])
+    if "--families-leg" in sys.argv:
+        # the train_mesh phase's families leg alone, on the port in SRC
+        # (``--src DIR`` runs it on another tree, a parent's)
+        _, _, failed = families_leg(torch.device("cuda", 0))
+        print(nvidia_smi(), flush=True)
+        emit({"ok": not failed, "failed": failed, "src": SRC})
+        return 1 if failed else 0
     ab_run = "--ab-run" in sys.argv
     import numpy as np
     from repro_torch.config import ServeConfig, ThinKVConfig

@@ -68,9 +68,13 @@ replicated input of a product split over ``model`` (forward: itself;
 backward: the sum over ``model`` of the ranks' partial gradients);
 :func:`from_model` sums the ranks' partial results into a replicated one
 (forward: the sum; backward: itself); :func:`gather_model` concatenates
-the ranks' blocks of an activation (backward: this rank's block of the
-gradient) and :func:`split_model` cuts a replicated tensor into this
-rank's block (backward: the blocks' gradients gathered).
+the ranks' blocks of an activation whose gradient is replicated
+(backward: this rank's block of the gradient); :func:`regroup_model`
+moves columns of an activation split over ``model`` to the ranks that
+read them, each rank reading its own (backward: the ranks' gradients of
+the columns summed back to the rank that computed them); and
+:func:`split_model` cuts a replicated tensor into this rank's block
+(backward: the blocks' gradients gathered).
 :func:`gather_dp` gathers a parameter block over the dp axes just before
 its layer runs (backward: the mean over dp of the gradient, reduced and
 scattered back to this rank's block).
@@ -768,6 +772,43 @@ class _SplitModel(torch.autograd.Function):
     def backward(ctx, g):
         return all_gather(g, ctx.mesh, MODEL_AXIS, ctx.dim, "act"), \
             None, None
+
+
+class _Regroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, spans):
+        ctx.mesh, ctx.dim, ctx.spans, ctx.n = mesh, dim, spans, x.shape[dim]
+        whole = all_gather(x, mesh, MODEL_AXIS, dim, "act")
+        return torch.cat([whole.narrow(dim, a, b - a) for a, b in spans], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape = list(g.shape)
+        shape[ctx.dim] = ctx.n * model_size(ctx.mesh)
+        whole, at = g.new_zeros(shape), 0
+        for a, b in ctx.spans:
+            whole.narrow(ctx.dim, a, b - a).add_(g.narrow(ctx.dim, at, b - a))
+            at += b - a
+        return reduce_scatter_sum(whole, ctx.mesh, MODEL_AXIS, ctx.dim,
+                                  "act"), None, None, None
+
+
+def regroup_model(x: torch.Tensor, mesh, spans: Sequence[Tuple[int, int]],
+                  width: int, dim: int = -1) -> torch.Tensor:
+    """The columns ``spans`` (``[start, stop)`` ranges of an activation
+    ``width`` wide along ``dim``, in order) concatenated, on this rank,
+    from ``x``: this rank's block of the activation over ``model``
+    (columns ``[r·w, (r+1)·w)``), or all of it, replicated.  A block: its
+    blocks gathered over ``model``, and backward the transpose, every
+    rank's gradient of the columns it read summed over ``model`` and
+    reduce-scattered to the rank that computed them (ranks that read the
+    same columns add up).  Whole: ``to_model`` of ``x`` (each rank reads
+    its part), then the spans."""
+    dim %= x.dim()
+    if x.shape[dim] == width:
+        x = to_model(x, mesh)
+        return torch.cat([x.narrow(dim, a, b - a) for a, b in spans], dim)
+    return _Regroup.apply(x, mesh, dim, tuple(spans))
 
 
 def to_model(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -51,7 +51,7 @@ import torch
 from repro_torch.config import SHAPES, ArchFamily, InputShape, ModelConfig, \
     ThinKVConfig
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.convert import param_shapes
+from repro_torch.convert import param_paths, param_shapes
 from repro_torch.core.ct_cache import SCALE_DTYPE, make_dims
 from repro_torch.core.quantization import GROUP
 from repro_torch.distributed import sharding as SH
@@ -196,6 +196,7 @@ class _StepCount:
         self.traffic: Traffic = {}
         self.specs = SH.param_specs(cfg, mesh, mode="train")
         self.shapes = param_shapes(cfg)
+        self.paths = param_paths(cfg)
         self.dp = SH.axis_label(mesh, SH.dp_axes(mesh))
         self.mdl = SH.axis_label(mesh, SH.MODEL_AXIS)
         self.ndp = SH.axes_size(mesh, SH.live_axes(mesh, SH.dp_axes(mesh)))
@@ -209,34 +210,38 @@ class _StepCount:
         self.rows = seq + (cfg.num_image_tokens if self.patches else 0)
         self.act = self.bl * self.rows * cfg.d_model * F32
         self.reps = 2 if remat else 1
-        if cfg.family in lm.FAMILIES:
-            for _ in range(microbatches):
-                self.lm_microbatch()
-                self.mask(loss_mask)
-            self.add("all_reduce", self.dp, "grad", sum(
-                _nbytes(self.block(n), F32) for n in self.shapes
-                if SH.dp_dim(self.specs[n], mesh) is None))
-            if grad_transform:
-                for n, shape in self.shapes.items():
-                    _unshard_count(self.traffic, shape, self.specs[n], mesh,
-                                   "grad")
-            else:                                   # the gradient norm
-                self.add("all_reduce", self.dp, "other", F32)
-                self.add("all_reduce", self.mdl, "other", F32)
-        else:               # every weight gathered whole (ROADMAP 16d)
+        family = {ArchFamily.SSM: self.ssm_microbatch,
+                  ArchFamily.HYBRID: self.hybrid_microbatch,
+                  ArchFamily.ENCDEC: self.encdec_microbatch}.get(
+                      cfg.family, self.lm_microbatch)
+        for _ in range(microbatches):
+            family()
+            self.mask(loss_mask)
+        self.add("all_reduce", self.dp, "grad", sum(
+            _nbytes(self.block(n), F32) for n in self.shapes
+            if SH.dp_dim(self.specs[n], mesh) is None))
+        if grad_transform:
             for n, shape in self.shapes.items():
                 _unshard_count(self.traffic, shape, self.specs[n], mesh,
-                               "param")
-            for _ in range(microbatches):
-                self.mask(loss_mask)
-            self.add("all_reduce", self.dp, "grad",
-                     sum(_nbytes(s, F32) for s in self.shapes.values()))
+                               "grad")
+        else:                                   # the gradient norm
+            self.add("all_reduce", self.dp, "other", F32)
+            self.add("all_reduce", self.mdl, "other", F32)
         # the means of the loss and the metrics (nll, moe_aux)
         self.add("all_reduce", self.dp, "other",
                  F32 * (1 + (2 if microbatches == 1 else 0)))
 
     def add(self, kind: str, axis: str, what: str, n: int) -> None:
         _add(self.traffic, kind, axis, what, n)    # no axis: no collective
+
+    def sums(self, n: int) -> None:
+        """All-reduces over ``model`` of activations (or, ``to_model`` of
+        a replicated weight read in part, of its gradient): n bytes."""
+        self.add("all_reduce", self.mdl, "act", n)
+
+    def moves(self, n: int) -> None:
+        """All-gathers over ``model`` of activations: n bytes."""
+        self.add("all_gather", self.mdl, "act", n)
 
     def mask(self, loss_mask: bool) -> None:
         """The masked positions' count over dp."""
@@ -248,6 +253,10 @@ class _StepCount:
                                self.mesh)
         return shape[1:] if layer else shape
 
+    def under(self, root: str):
+        """The parameter names under ``root`` of the reference's tree."""
+        return [n for n, p in self.paths.items() if p[0] == root]
+
     def gathered(self, name: str, times: int, layer: bool = False) -> None:
         """``gather_dp`` of a block: ``times`` forward all-gathers, one
         reduce-scatter of the gathered gradient."""
@@ -257,14 +266,35 @@ class _StepCount:
         self.add("all_gather", self.dp, "param", b * times)
         self.add("reduce_scatter", self.dp, "grad", b * self.ndp)
 
+    def layer(self, root: str, times: int) -> None:
+        for n in self.under(root):
+            self.gathered(n, times, layer=True)
+
+    def embed(self) -> None:
+        """The embedding, gathered over dp once (the tied head reuses it)
+        and vocab-parallel."""
+        self.gathered("embedding", 1)
+        if self.block("embedding")[0] < self.cfg.vocab_size:
+            self.sums(self.bl * self.seq * self.cfg.d_model * F32)
+
+    def head(self) -> None:
+        """The head and the vocab-parallel chunked cross entropy."""
+        cfg, v = self.cfg, self.cfg.vocab_size
+        if not cfg.tie_embeddings:
+            self.gathered("lm_head", 1)
+        cols = self.block("embedding")[0] if cfg.tie_embeddings \
+            else self.block("lm_head")[-1]
+        if cols < v:
+            self.sums(self.bl * self.seq * cfg.d_model * F32)
+            chunk = chunk_size(self.bl, self.seq, v)
+            # per chunk: the row max, the sum of exponentials, the
+            # target's logit, in the forward and in the recompute
+            self.sums(3 * 2 * self.bl * chunk * F32 * (self.seq // chunk))
+
     def lm_microbatch(self) -> None:
         """One microbatch of ``lm.loss_fn`` from a rank's ``lm.Weights``."""
-        cfg, v = self.cfg, self.cfg.vocab_size
-        text = self.bl * self.seq * cfg.d_model * F32
-        # the embedding (vocab-parallel) and the frontend projector
-        self.gathered("embedding", 1)
-        if self.block("embedding")[0] < v:
-            self.add("all_reduce", self.mdl, "act", text)
+        cfg = self.cfg
+        self.embed()
         if self.patches:
             self.gathered("frontend_proj", 1)
         for _ in range(cfg.num_layers):
@@ -273,46 +303,155 @@ class _StepCount:
             self.attention()
             if cfg.moe is not None:
                 self.moe()
-            elif self.block("w_up", True)[-1] < cfg.d_ff:
-                # to_model's backward, from_model's forward: the block's
-                # last collective, which remat's recompute stops short of
-                # (no later op of the block saves a tensor for backward)
-                self.add("all_reduce", self.mdl, "act", self.act * 2)
-        if not cfg.tie_embeddings:
-            self.gathered("lm_head", 1)
-        cols = self.block("embedding")[0] if cfg.tie_embeddings \
-            else self.block("lm_head")[-1]
-        if cols < v:
-            self.add("all_reduce", self.mdl, "act", text)
-            chunk = chunk_size(self.bl, self.seq, v)
-            # per chunk: the row max, the sum of exponentials, the
-            # target's logit, in the forward and in the recompute
-            self.add("all_reduce", self.mdl, "act",
-                     3 * 2 * self.bl * chunk * F32 * (self.seq // chunk))
+            else:
+                self.mlp()
+        self.head()
 
-    def attention(self) -> None:
-        cfg, act, reps = self.cfg, self.act, self.reps
+    def ssm_microbatch(self) -> None:
+        """One microbatch of ``ssm_lm.loss_fn``."""
+        self.embed()
+        for _ in range(self.cfg.num_layers):
+            self.layer("layers", self.reps)
+            self.mamba1()
+        self.head()
+
+    def hybrid_microbatch(self) -> None:
+        """One microbatch of ``hybrid.loss_fn``: the shared block (not
+        remat'd) gathered over dp at each invocation."""
+        cfg = self.cfg
+        e = cfg.hybrid_attn_every
+        ng, tail = cfg.num_layers // max(e, 1), cfg.num_layers % max(e, 1)
+        self.embed()
+        for gi in range(ng + 1):
+            for _ in range(e if gi < ng else tail):
+                self.layer("layers", self.reps)
+                self.mamba2()
+            if gi < ng:
+                for n in self.under("shared"):
+                    self.gathered(n, 1)
+                self.attention(stacked=False, reps=1)
+                self.mlp(stacked=False)
+        self.head()
+
+    def encdec_microbatch(self) -> None:
+        """One microbatch of ``encdec.loss_fn``: the encoder (not remat'd)
+        over ``encoder_seq`` frames, the decoder's remat'd layers."""
+        cfg, t = self.cfg, self.cfg.encoder_seq
+        self.embed()
+        self.gathered("enc_pos", 1)
+        self.gathered("dec_pos", 1)
+        for _ in range(cfg.encoder_layers):
+            self.layer("encoder", 1)
+            self.attention("encoder_attn_", rows=t, reps=1)
+            self.mlp("encoder_", rows=t)
+        for _ in range(cfg.num_layers):
+            self.layer("decoder", self.reps)
+            self.attention("decoder_self_attn_")
+            self.attention("decoder_cross_attn_", kv_rows=t)
+            self.mlp("decoder_")
+        self.head()
+
+    def mlp(self, pre: str = "", stacked: bool = True,
+            rows: int = 0) -> None:
+        """``mlp_split``: to_model's backward, from_model's forward: the
+        block's last collective, which remat's recompute stops short of
+        (no later op of the block saves a tensor for backward)."""
+        if self.block(pre + "w_up", stacked)[-1] < self.cfg.d_ff:
+            self.sums(2 * self.bl * (rows or self.rows) * self.cfg.d_model
+                      * F32)
+
+    def attention(self, pre: str = "", stacked: bool = True, rows: int = 0,
+                  reps: int = 0, kv_rows: int = 0) -> None:
+        """``attn_forward_split`` of the weights ``pre + "wq"``, ...; with
+        ``kv_rows``, cross attention over that many encoder rows."""
+        cfg, reps = self.cfg, reps or self.reps
+        rows = rows or self.rows
+        krows = kv_rows or rows
+        act = self.bl * rows * cfg.d_model * F32
+        blk = lambda w: self.block(pre + w, stacked)  # noqa: E731
         cols = {"wq": cfg.q_dim, "wk": cfg.kv_dim, "wv": cfg.kv_dim}
-        split = {w: self.block(w, True)[-1] < n for w, n in cols.items()}
-        split_o = self.block("wo", True)[0] < cfg.q_dim
-        if any(split.values()):
-            self.add("all_reduce", self.mdl, "act", act)      # to_model
+        split = {w: blk(w)[-1] < n for w, n in cols.items()}
+        split_o = blk("wo")[0] < cfg.q_dim
+        if not kv_rows and any(split.values()):
+            self.sums(act)                                    # to_model
+        elif kv_rows:
+            if split["wq"]:
+                self.sums(act)
+            if split["wk"] or split["wv"]:
+                self.sums(self.bl * krows * cfg.d_model * F32)
         if cfg.num_kv_heads % self.tp == 0 and all(split.values()) and \
                 split_o:
-            self.add("all_reduce", self.mdl, "act", act * reps)
+            self.sums(act * reps)
             if cfg.qkv_bias:                     # split_model's backward
-                self.add("all_gather", self.mdl, "act", F32 * (
-                    self.block("wq", True)[-1]
-                    + 2 * self.block("wk", True)[-1]))
+                self.moves(F32 * (blk("wq")[-1] + (
+                    0 if kv_rows else 2 * blk("wk")[-1])))
             return
         for w in cols:
             if split[w]:
-                self.add("all_gather", self.mdl, "act", self.bl * self.rows
-                         * self.block(w, True)[-1] * F32 * reps)
+                self.moves(self.bl * (rows if w == "wq" else krows)
+                           * blk(w)[-1] * F32 * reps)
         if split_o:
-            self.add("all_gather", self.mdl, "act",
-                     self.bl * self.rows * self.block("wo", True)[0] * F32)
-            self.add("all_reduce", self.mdl, "act", act * reps)
+            self.moves(self.bl * rows * blk("wo")[0] * F32)
+            self.sums(act * reps)
+
+    def mamba1(self) -> None:
+        """``ssm.mamba1_forward_split`` of one layer."""
+        di, dtr, n, _ = mamba1_dims(self.cfg)
+        tok, reps = self.bl * self.seq * F32, self.reps
+        bw = self.block("out_proj", True)[0]
+        cols = self.block("in_proj", True)[-1]
+        if cols < 2 * di:
+            self.sums(self.act)                 # to_model of the input
+        if bw == di:                            # d_inner whole
+            if cols < 2 * di:
+                self.moves(tok * cols * reps)
+            return
+        self.regroup(tok, cols, 2 * di)
+        # conv_b, dt_bias, D: split_model's backward
+        self.moves(3 * bw * F32)
+        # x_proj's sum (forward, recomputed) and to_model's backward
+        self.sums(tok * (dtr + 2 * n) * (reps + 1))
+        self.sums(self.act)                     # out_proj's sum, once
+
+    def mamba2(self) -> None:
+        """``ssm.mamba2_forward_split`` of one layer."""
+        di, nh, _, g, n, cw = mamba2_dims(self.cfg)
+        cdim, width = di + 2 * g * n, 2 * di + 2 * g * n + nh
+        tok, reps = self.bl * self.seq * F32, self.reps
+        bw = self.block("out_proj", True)[0]
+        cb = self.block("conv_w", True)[0]
+        cols = self.block("in_proj", True)[-1]
+        if cols < width:
+            self.sums(self.act)                 # to_model of the input
+        if bw == di:                            # d_inner whole
+            if cols < width:
+                self.moves(tok * cols * reps)
+            if cb < cdim:
+                self.sums(tok * cdim)           # to_model of the conv input
+                self.moves(tok * cb * reps + cb * F32)
+            return
+        self.regroup(tok, cols, width)
+        if cb < cdim:                           # conv_b, then the regroup
+            self.moves(cb * F32)
+            self.regroup(tok, cb, cdim)
+        else:                                   # to_model of conv_w, conv_b
+            self.sums((cdim * cw + cdim) * F32)
+        self.sums(3 * nh * F32)                 # to_model of the heads'
+        self.moves(bw * F32)                    # the norm's split_model
+        # the mean of squares' sum (recomputed) and to_model's backward
+        self.sums(tok * (reps + 1))
+        self.sums(self.act)                     # out_proj's sum, once
+
+    def regroup(self, tok: int, cols: int, width: int) -> None:
+        """``sharding.regroup_model`` of an activation of ``tok`` bytes per
+        column: a block of ``cols`` columns gathered (recomputed) and its
+        ``width`` columns' gradient reduce-scattered, or all of it whole
+        (``to_model``'s backward)."""
+        if cols < width:
+            self.moves(tok * cols * self.reps)
+            self.add("reduce_scatter", self.mdl, "act", tok * width)
+        else:
+            self.sums(tok * width)
 
     def moe(self) -> None:
         cfg, act, reps = self.cfg, self.act, self.reps
@@ -414,8 +553,11 @@ def main(argv: Optional[list] = None) -> int:
                         json.dump(rec, f, indent=2)
                     n += 1
                     gb = rec["bytes_per_rank"] / 1e9
-                    print(f"[OK ] {rec['cell']}  {gb:.2f} GB/rank, bound "
-                          f"{rec['roofline']['bottleneck']}  "
+                    sent = "" if "collectives" not in rec else \
+                        f", {sum(rec['collectives'].values()) / 1e9:.2f} " \
+                        f"GB/rank sent per step"
+                    print(f"[OK ] {rec['cell']}  {gb:.2f} GB/rank{sent}, "
+                          f"bound {rec['roofline']['bottleneck']}  "
                           f"({rec['seconds']:.2f}s)", flush=True)
     print(f"\ndry-run complete: {n} cells in "
           f"{time.perf_counter() - t_all:.1f}s -> {args.out}")

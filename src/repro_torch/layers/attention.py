@@ -13,8 +13,9 @@ mesh installed by ``sharding.set_constraint_mesh`` with a ``model`` axis
 that divides S, causal attention without a window, and the query heads
 not divisible by |model| or d_model/|model| < 128.
 
-``attn_forward_split`` is the sharded train step's attention over this
-rank's blocks of the weights split over ``model``
+``attn_forward_split`` is the sharded train step's attention (causal,
+an encoder's, or cross attention) over this rank's blocks of the weights
+split over ``model``
 (``distributed/sharding.py``, the compute split): where the kv heads
 divide |model| (GQA groups stay whole) ``wq`` / ``wk`` / ``wv`` are
 column products over this rank's heads, ``wo`` a row product, and the
@@ -159,37 +160,57 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attn_forward_split(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                       positions: torch.Tensor, mesh) -> torch.Tensor:
-    """Causal self-attention over the replicated x [B, S, D] from this
-    rank's blocks of the weights (``wq`` / ``wk`` / ``wv`` [D, cols],
-    ``wo`` [rows, D], whole along D; a block narrower than its weight is
-    split over ``model``), returning the replicated [B, S, D] (see the
-    module docstring).  Whole weights run ``attn_forward``."""
+                       positions: torch.Tensor, mesh, *, causal: bool = True,
+                       kv=None) -> torch.Tensor:
+    """``attn_forward`` of the replicated x [B, S, D] from this rank's
+    blocks of the weights (``wq`` / ``wk`` / ``wv`` [D, cols], ``wo``
+    [rows, D], whole along D; a block narrower than its weight is split
+    over ``model``), returning the replicated [B, S, D] (see the module
+    docstring): causal or not (an encoder), or, with ``kv`` the replicated
+    encoder states [B, T, D], cross attention (keys and values projected
+    from ``kv`` without bias, as ``cross_kv``; non-causal).  Whole weights
+    run ``attn_forward``."""
     split = {w: p[w].shape[-1] < n for w, n in (
         ("wq", cfg.q_dim), ("wk", cfg.kv_dim), ("wv", cfg.kv_dim))}
     split_o = p["wo"].shape[0] < cfg.q_dim
     if not any(split.values()) and not split_o:
-        return attn_forward(p, x, cfg, positions)
+        return attn_forward(p, x, cfg, positions, causal=causal,
+                            kv_override=None if kv is None
+                            else cross_kv(p, kv, cfg))
     tp = SH.model_size(mesh)
     # this rank's heads (q heads [r·Hq/tp, ...) and their kv heads), or,
     # where GQA groups would break, every head from gathered projections
     heads = cfg.num_kv_heads % tp == 0 and all(split.values()) and split_o
-    xi = SH.to_model(x, mesh) if any(split.values()) else x
+    src = {"wq": x, "wk": x if kv is None else kv,
+           "wv": x if kv is None else kv}
+    marked: dict = {}                   # to_model of each input, once
 
     def proj(w: str, bias: str) -> torch.Tensor:
-        y = (xi if split[w] else x) @ p[w]
+        inp = src[w]
+        if split[w]:
+            if id(inp) not in marked:
+                marked[id(inp)] = SH.to_model(inp, mesh)
+            inp = marked[id(inp)]
+        y = inp @ p[w]
         if split[w] and not heads:
             y = SH.gather_model(y, mesh, -1)
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and (kv is None or w == "wq"):
             y = y + (SH.split_model(p[bias], mesh, -1) if heads else p[bias])
         return y
 
-    lead, n = x.shape[:-1], tp if heads else 1
+    n = tp if heads else 1
+    lead, kv_lead = x.shape[:-1], src["wk"].shape[:-1]
     q = proj("wq", "bq").reshape(*lead, cfg.num_heads // n, cfg.head_dim)
-    k = proj("wk", "bk").reshape(*lead, cfg.num_kv_heads // n, cfg.head_dim)
-    v = proj("wv", "bv").reshape(*lead, cfg.num_kv_heads // n, cfg.head_dim)
-    q, k = rope_qk(q, k, positions, cfg)
-    out = full_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    k = proj("wk", "bk").reshape(*kv_lead, cfg.num_kv_heads // n,
+                                 cfg.head_dim)
+    v = proj("wv", "bv").reshape(*kv_lead, cfg.num_kv_heads // n,
+                                 cfg.head_dim)
+    if kv is None:
+        q, k = rope_qk(q, k, positions, cfg)
+    else:                               # cross keys carry no rotation
+        q = rope_qk(q, q, positions, cfg)[0]
+    out = full_attention(q, k, v, causal=causal and kv is None,
+                         window=cfg.sliding_window)
     out = out.reshape(*lead, -1)
     if not split_o:
         return out @ p["wo"]

@@ -15,6 +15,18 @@ evicted (``serving/serve_step.py``).  Python loops replace the reference's
 reference's is per request.  ``remat`` checkpoints each decoder layer of
 the training forward (the encoder is not, as in the reference).
 
+``encode``, ``decode_hidden``, ``hidden_fn`` and ``loss_fn`` also take a
+rank's blocks of the weights (``lm.Weights``) under the sharded train
+step's compute split: each layer's blocks gathered over the dp axes in
+the layer (in the decoder's remat'd body, so again when it is
+recomputed), the encoder's non-causal and the decoder's causal
+self-attention, the cross attention (its keys and values projected from
+the replicated encoder states, marked ``to_model`` in each layer) and
+the GELU MLP split over ``model`` (``attn_forward_split``,
+``mlp_split``); the LayerNorms replicated; the embedding and the tied
+head vocab-parallel where the vocabulary divides |model| (whisper-
+medium's 51,865 does not: its embedding stays whole over ``model``).
+
 Weights keep the reference's layout: each encoder and decoder weight
 stacked on a leading ``[L]`` axis, ``x @ W`` with W ``[in, out]``;
 :data:`EncDecLM.sources` maps each to its key path in the reference's tree.
@@ -31,13 +43,18 @@ from repro_torch.device import resolve_device, set_f32_numerics
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers.common import dense_init_, embed_init_, remat
-from repro_torch.layers.mlp import mlp
+from repro_torch.layers.mlp import mlp, mlp_split
 from repro_torch.layers.norms import layernorm
+from repro_torch.models.lm import Weights, gather_layer
 from repro_torch.models.losses import batch_nll
 
 MAX_DEC_POS = 4096          # the reference's ``init(max_dec_pos=4096)``
 _ATTN = ("wq", "wk", "wv", "wo")
 _NORM = ("scale", "bias")
+# each stack's attention blocks and LayerNorms
+_STACKS = {"encoder": (("attn",), ("norm1", "norm2")),
+           "decoder": (("self_attn", "cross_attn"), ("norm1", "norm2",
+                                                     "norm3"))}
 
 
 def _stack_params(cfg: ModelConfig, stack: str, attns, norms):
@@ -80,11 +97,9 @@ class EncDecLM(nn.Module):
         for n in ("enc_norm", "final_norm"):
             for k in _NORM:
                 params[f"{n}_{k}"] = ((d,), (n, k))
-        for stack, L, attns, norms in (
-                ("encoder", cfg.encoder_layers, ("attn",),
-                 ("norm1", "norm2")),
-                ("decoder", cfg.num_layers, ("self_attn", "cross_attn"),
-                 ("norm1", "norm2", "norm3"))):
+        for stack, L in (("encoder", cfg.encoder_layers),
+                         ("decoder", cfg.num_layers)):
+            attns, norms = _STACKS[stack]
             for name, (s, path) in _stack_params(cfg, stack, attns,
                                                  norms).items():
                 params[name] = ((L, *s), path)
@@ -144,46 +159,90 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return EncDecLM(cfg, resolve_device(device), dtype).reset_parameters(seed)
 
 
-def encode(params: EncDecLM, frames: torch.Tensor, cfg: ModelConfig
-           ) -> torch.Tensor:
-    """frames [B, T_enc, D] (stub embeddings) -> encoder states [B, T_enc,
-    D]: non-causal self-attention layers."""
+def _names(cfg: ModelConfig, stack: str) -> Dict[str, Tuple[str, str]]:
+    """A layer of ``stack``'s parameter names -> (group, key) of the
+    reference's layer tree."""
+    attns, norms = _STACKS[stack]
+    return {name: path[1:] for name, (_, path) in
+            _stack_params(cfg, stack, attns, norms).items()}
+
+
+def _layer_tree(lpb: dict, mesh, dims: dict, names: dict) -> dict:
+    """One layer's blocks gathered over the dp axes (inside the remat'd
+    body, so the recompute gathers again), as the reference's nested
+    dict."""
+    out: dict = {}
+    for name, b in gather_layer(lpb, mesh, dims).items():
+        group, key = names[name]
+        out.setdefault(group, {})[key] = b
+    return out
+
+
+def _norm(w: Weights, name: str) -> dict:
+    return {k: w.whole(f"{name}_{k}") for k in _NORM}
+
+
+def _encoder_layer(lpb: dict, h: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig, mesh, dims: dict) -> torch.Tensor:
+    lp = _layer_tree(lpb, mesh, dims, _names(cfg, "encoder"))
+    h = h + A.attn_forward_split(lp["attn"], layernorm(lp["norm1"], h), cfg,
+                                 positions, mesh, causal=False)
+    return h + mlp_split(lp["mlp"], layernorm(lp["norm2"], h), cfg, mesh)
+
+
+def _encode(w: Weights, frames: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
     set_f32_numerics()
     t = frames.shape[1]
-    h = frames + params.enc_pos[None, :t].to(frames.dtype)
+    h = frames + w.whole("enc_pos")[None, :t].to(frames.dtype)
     positions = torch.arange(t, device=frames.device)[None]
+    layers, dims = w.layers(_names(cfg, "encoder"))
     for i in range(cfg.encoder_layers):
-        lp = params.layer("encoder", i)
-        h = h + A.attn_forward(lp["attn"], layernorm(lp["norm1"], h), cfg,
-                               positions, causal=False)
-        h = h + mlp(lp["mlp"], layernorm(lp["norm2"], h), "gelu", False)
-    return layernorm(params.norm("enc_norm"), h)
+        h = _encoder_layer(layers[i], h, positions, cfg, w.mesh, dims)
+    return layernorm(_norm(w, "enc_norm"), h)
 
 
-def _decoder_layer(lp: dict, h: torch.Tensor, enc: torch.Tensor,
-                   positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = h + A.attn_forward(lp["self_attn"], layernorm(lp["norm1"], h), cfg,
-                           positions, causal=True)
-    kv = A.cross_kv(lp["cross_attn"], enc, cfg)
-    h = h + A.attn_forward(lp["cross_attn"], layernorm(lp["norm2"], h), cfg,
-                           positions, kv_override=kv)
-    return h + mlp(lp["mlp"], layernorm(lp["norm3"], h), "gelu", False)
+def encode(params: Union[EncDecLM, Weights], frames: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """frames [B, T_enc, D] (stub embeddings) -> encoder states [B, T_enc,
+    D]: non-causal self-attention layers."""
+    return _encode(Weights.of(params), frames, cfg)
 
 
-def decode_hidden(params: EncDecLM, tokens: torch.Tensor, enc: torch.Tensor,
-                  cfg: ModelConfig, *, remat_layers: bool = False
-                  ) -> torch.Tensor:
-    """The teacher-forced decoder's final-norm hidden states [B, S, D];
-    ``remat_layers`` recomputes each layer in backward."""
+def _decoder_layer(lpb: dict, h: torch.Tensor, enc: torch.Tensor,
+                   positions: torch.Tensor, cfg: ModelConfig, mesh,
+                   dims: dict) -> torch.Tensor:
+    lp = _layer_tree(lpb, mesh, dims, _names(cfg, "decoder"))
+    h = h + A.attn_forward_split(lp["self_attn"], layernorm(lp["norm1"], h),
+                                 cfg, positions, mesh)
+    h = h + A.attn_forward_split(lp["cross_attn"],
+                                 layernorm(lp["norm2"], h), cfg, positions,
+                                 mesh, kv=enc)
+    return h + mlp_split(lp["mlp"], layernorm(lp["norm3"], h), cfg, mesh)
+
+
+def _decode(w: Weights, emb: torch.Tensor, tokens: torch.Tensor,
+            enc: torch.Tensor, cfg: ModelConfig, remat_layers: bool
+            ) -> torch.Tensor:
     set_f32_numerics()
     s = tokens.shape[1]
-    h = E.embed(params.embed_params, tokens, cfg)
-    h = h + params.dec_pos[None, :s].to(h.dtype)
+    h = E.embed_split(emb, tokens, cfg, w.mesh)
+    h = h + w.whole("dec_pos")[None, :s].to(h.dtype)
     positions = torch.arange(s, device=tokens.device)[None]
+    layers, dims = w.layers(_names(cfg, "decoder"))
     for i in range(cfg.num_layers):
-        h = remat(_decoder_layer, params.layer("decoder", i), h, enc,
-                  positions, cfg, enabled=remat_layers)
-    return layernorm(params.norm("final_norm"), h)
+        h = remat(_decoder_layer, layers[i], h, enc, positions, cfg, w.mesh,
+                  dims, enabled=remat_layers)
+    return layernorm(_norm(w, "final_norm"), h)
+
+
+def decode_hidden(params: Union[EncDecLM, Weights], tokens: torch.Tensor,
+                  enc: torch.Tensor, cfg: ModelConfig, *,
+                  remat_layers: bool = False) -> torch.Tensor:
+    """The teacher-forced decoder's final-norm hidden states [B, S, D];
+    ``remat_layers`` recomputes each layer in backward."""
+    w = Weights.of(params)
+    return _decode(w, w.whole("embedding"), tokens, enc, cfg, remat_layers)
 
 
 def decode_train(params: EncDecLM, tokens: torch.Tensor, enc: torch.Tensor,
@@ -201,22 +260,29 @@ def logits_fn(params: EncDecLM, batch: Dict[str, torch.Tensor],
     return lg, lg.new_zeros(())
 
 
-def hidden_fn(params: EncDecLM, batch: Dict[str, torch.Tensor],
-              cfg: ModelConfig, *, remat_layers: bool = False
-              ) -> torch.Tensor:
+def hidden_fn(params: Union[EncDecLM, Weights],
+              batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+              remat_layers: bool = False) -> torch.Tensor:
     """The decoder's final-norm hidden states [B, S, D]."""
     return decode_hidden(params, batch["tokens"],
                          encode(params, batch["frames"], cfg), cfg,
                          remat_layers=remat_layers)
 
 
-def loss_fn(params: EncDecLM, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig, *, remat: bool = False):
+def loss_fn(params: Union[EncDecLM, Weights],
+            batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            remat: bool = False):
     """(the chunked NLL, {"nll", "moe_aux": 0}) of the decoder's
     ``tokens`` against ``targets`` (``loss_mask`` optional) over the
-    encoding of ``frames``; the head is the embedding's transpose."""
-    h = hidden_fn(params, batch, cfg, remat_layers=remat)
-    loss = batch_nll(h, params.embedding.T, batch)
+    encoding of ``frames``; the head is the embedding's transpose.  From a
+    rank's blocks under the compute split, the same, replicated over
+    ``model``, for this rank's block of the batch (the embedding and the
+    head vocab-parallel where the vocabulary splits)."""
+    w = Weights.of(params)
+    emb = w.whole("embedding")
+    h = _decode(w, emb, batch["tokens"], _encode(w, batch["frames"], cfg),
+                cfg, remat)
+    loss = batch_nll(h, emb.T, batch, vocab=cfg.vocab_size, mesh=w.mesh)
     return loss, {"nll": loss, "moe_aux": loss.new_zeros(())}
 
 

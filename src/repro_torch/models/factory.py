@@ -5,8 +5,7 @@ as the reference maps all three), ENCDEC (``models/encdec.py``), SSM
 is the family's ``loss_fn(params, batch, cfg, *, remat)``; ``Model.split``
 builds what that loss takes from a rank's blocks ``(blocks, specs,
 mesh)`` under the sharded train step's compute split over ``model``
-(``lm.Weights``), None for the families whose step gathers its weights
-whole (SSM, hybrid, encoder-decoder: ROADMAP item 16d).
+(``lm.Weights``, for every family).
 
 ``input_specs`` is not ported: it builds ``jax.ShapeDtypeStruct`` stand-ins
 for the XLA dry-run's lowering, which has no PyTorch meaning.
@@ -34,7 +33,7 @@ class Model:
     logits: Callable
     loss: Callable
     module: object
-    split: Optional[Callable] = None
+    split: Callable = lm.Weights
 
     def init_params(self, seed: int = 0,
                     device: Optional[Union[str, torch.device]] = None,
@@ -47,5 +46,4 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     mod = _FAMILY_MODULES[cfg.family]
     return Model(cfg=cfg, init=mod.init_params, logits=mod.logits_fn,
-                 loss=mod.loss_fn, module=mod,
-                 split=lm.Weights if mod is lm else None)
+                 loss=mod.loss_fn, module=mod)

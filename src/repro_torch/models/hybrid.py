@@ -12,8 +12,18 @@ those (``serving/serve_step.py``).  Python loops replace the reference's
 ``lax.scan`` over groups and layers; the decode functions are batched over
 a leading B axis where the reference's are per request, ``vmap``ped by
 ``serve_step``.  ``remat`` checkpoints each Mamba-2 layer body (the
-shared block is not, as in the reference).  Left out: the ``constrain``
-sharding hint (ROADMAP item 16b).
+shared block is not, as in the reference).
+
+``hidden_fn`` and ``loss_fn`` also take a rank's blocks of the weights
+(``lm.Weights``) under the sharded train step's compute split: each
+backbone layer's blocks gathered over the dp axes inside the remat'd
+body and its mixer split over ``model`` along d_inner
+(``layers/ssm.py::mamba2_forward_split``); the shared block's attention
+heads and MLP split over ``model`` (``attn_forward_split``,
+``mlp_split``), its blocks gathered over the dp axes at each invocation
+(it is not remat'd, so once per invocation); the embedding and the head
+vocab-parallel.  Left out: the ``constrain`` hint, GSPMD's layout
+guidance, which has no PyTorch meaning (``sharding.constrain``).
 
 Weights keep the reference's layout: every backbone layer's weight stacked
 on a leading ``[L]`` axis, the shared block's unstacked, ``x @ W`` with W
@@ -33,15 +43,19 @@ from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import ssm as S
 from repro_torch.layers.common import dense_init_, embed_init_, remat
-from repro_torch.layers.mlp import mlp
+from repro_torch.layers.mlp import mlp, mlp_split
 from repro_torch.layers.norms import rmsnorm
-from repro_torch.models.losses import batch_nll, head_weight
+from repro_torch.models.lm import Weights, gather_layer, head_nll
 
 # the shared block's weights: name -> (group, key) of the reference's tree
 # (``w_gate`` when the MLP is gated, the biases under qkv bias)
 _SHARED = {**{w: ("attn", w) for w in ("wq", "wk", "wv", "wo", "bq", "bk",
                                        "bv")},
            **{w: ("mlp", w) for w in ("w_up", "w_gate", "w_down")}}
+_SHARED_ALL = {**_SHARED, "norm1": ("norm1", "scale"),
+               "norm2": ("norm2", "scale")}
+# a backbone layer's mixer weights: parameter name -> the mixer's key
+_MIXER = {"mixer_norm" if k == "norm" else k: k for k in S.MAMBA2_PARAMS}
 
 
 def _groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -146,56 +160,72 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return HybridLM(cfg, resolve_device(device), dtype).reset_parameters(seed)
 
 
-def _mamba_layer(mixer: dict, norm: torch.Tensor, h: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    return h + S.mamba2_forward(mixer, rmsnorm({"scale": norm}, h,
-                                               cfg.norm_eps), cfg)
+def _mamba_layer(lpb: dict, h: torch.Tensor, cfg: ModelConfig, mesh,
+                 dims: dict) -> torch.Tensor:
+    """One backbone layer over h [B, S, D], pre-norm residual, from its
+    weights ``lpb`` by parameter name (gathered over the dp axes here,
+    inside the remat'd body; the mixer split over ``model`` where its
+    blocks are)."""
+    lp = gather_layer(lpb, mesh, dims)
+    mixer = {k: lp[name] for name, k in _MIXER.items()}
+    x = rmsnorm({"scale": lp["norm"]}, h, cfg.norm_eps)
+    return h + S.mamba2_forward_split(mixer, x, cfg, mesh)
 
 
-def _mamba_scan(params: HybridLM, h: torch.Tensor, cfg: ModelConfig,
-                layers: range, remat_layers: bool = False) -> torch.Tensor:
-    """Backbone layers ``layers`` over h [B, S, D], pre-norm residual;
-    ``remat_layers`` recomputes each in backward."""
-    for i in layers:
-        h = remat(_mamba_layer, params.mixer(i), params.norm[i], h, cfg,
-                  enabled=remat_layers)
-    return h
-
-
-def _shared_block(sp: dict, h: torch.Tensor, cfg: ModelConfig,
+def _shared_block(w: Weights, h: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor) -> torch.Tensor:
-    """The shared block over h [B, S, D]: causal attention, then the MLP."""
-    h = h + A.attn_forward(sp["attn"], rmsnorm(sp["norm1"], h, cfg.norm_eps),
-                           cfg, positions, causal=True)
-    return h + mlp(sp["mlp"], rmsnorm(sp["norm2"], h, cfg.norm_eps),
-                   cfg.act, cfg.mlp_gated)
+    """The shared block over h [B, S, D]: causal attention, then the MLP
+    (split over ``model`` where its blocks are; its weights gathered over
+    the dp axes at each invocation)."""
+    sp: dict = {}
+    for name, (group, key) in _SHARED_ALL.items():
+        if name in w.blocks:
+            sp.setdefault(group, {})[key] = w.whole(name)
+    h = h + A.attn_forward_split(sp["attn"],
+                                 rmsnorm(sp["norm1"], h, cfg.norm_eps),
+                                 cfg, positions, w.mesh)
+    return h + mlp_split(sp["mlp"], rmsnorm(sp["norm2"], h, cfg.norm_eps),
+                         cfg, w.mesh)
 
 
-def hidden_fn(params: HybridLM, batch: Dict[str, torch.Tensor],
-              cfg: ModelConfig, *, remat_layers: bool = False
-              ) -> torch.Tensor:
-    """Final-norm hidden states [B, S, D] of ``batch["tokens"]`` [B, S]."""
+def _hidden(w: Weights, emb: torch.Tensor, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, remat_layers: bool) -> torch.Tensor:
     set_f32_numerics()
-    h = E.embed(params.embed_params, batch["tokens"], cfg)
+    h = E.embed_split(emb, batch["tokens"], cfg, w.mesh)
     positions = torch.arange(h.shape[1], device=h.device)[None]
     ng, tail = _groups(cfg)
     e = cfg.hybrid_attn_every
-    sp = params.shared
-    for gi in range(ng):
-        h = _mamba_scan(params, h, cfg, range(gi * e, (gi + 1) * e),
-                        remat_layers)
-        h = _shared_block(sp, h, cfg, positions)
-    h = _mamba_scan(params, h, cfg, range(ng * e, ng * e + tail),
-                    remat_layers)
-    return rmsnorm({"scale": params.final_norm}, h, cfg.norm_eps)
+    layers, dims = w.layers(("norm", *_MIXER))
+    for gi in range(ng + 1):
+        stop = (gi + 1) * e if gi < ng else ng * e + tail
+        for i in range(gi * e, stop):
+            h = remat(_mamba_layer, layers[i], h, cfg, w.mesh, dims,
+                      enabled=remat_layers)
+        if gi < ng:
+            h = _shared_block(w, h, cfg, positions)
+    return rmsnorm({"scale": w.whole("final_norm")}, h, cfg.norm_eps)
 
 
-def loss_fn(params: HybridLM, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig, *, remat: bool = False):
+def hidden_fn(params: Union[HybridLM, Weights],
+              batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+              remat_layers: bool = False) -> torch.Tensor:
+    """Final-norm hidden states [B, S, D] of ``batch["tokens"]`` [B, S]
+    (``remat_layers`` recomputes each Mamba-2 layer in backward)."""
+    w = Weights.of(params)
+    return _hidden(w, w.whole("embedding"), batch, cfg, remat_layers)
+
+
+def loss_fn(params: Union[HybridLM, Weights],
+            batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            remat: bool = False):
     """(the chunked NLL, {"nll", "moe_aux": 0}) of ``tokens`` against
-    ``targets`` (``loss_mask`` optional)."""
-    h = hidden_fn(params, batch, cfg, remat_layers=remat)
-    loss = batch_nll(h, head_weight(params, cfg), batch)
+    ``targets`` (``loss_mask`` optional); from a rank's blocks under the
+    compute split, the same, replicated over ``model``, for this rank's
+    block of the batch (the head vocab-parallel where it splits)."""
+    w = Weights.of(params)
+    emb = w.whole("embedding")
+    h = _hidden(w, emb, batch, cfg, remat)
+    loss = head_nll(w, emb, h, batch, cfg)
     return loss, {"nll": loss, "moe_aux": loss.new_zeros(())}
 
 

@@ -175,19 +175,21 @@ class LM(nn.Module):
 
 
 class Weights:
-    """An LM's weights as :func:`assemble_inputs`, :func:`backbone` and
-    :func:`loss_fn` read them, by parameter name: an :class:`LM`'s own
-    parameters (``mesh`` None, :meth:`of`), or a rank's blocks under
-    ``param_specs(mode="train")`` on a train mesh, each gathered over the
-    dp axes where it is read (still split over ``model``; the layer
-    functions split their compute by the blocks' shapes)."""
+    """A model's weights as the families' forwards read them, by
+    parameter name (:func:`assemble_inputs`, :func:`backbone` and
+    :func:`loss_fn` here; ``ssm_lm``, ``hybrid`` and ``encdec`` alike): a
+    model's own parameters (``mesh`` None, :meth:`of`), or a rank's
+    blocks under ``param_specs(mode="train")`` on a train mesh, each
+    gathered over the dp axes where it is read (still split over
+    ``model``; the layer functions split their compute by the blocks'
+    shapes)."""
 
     def __init__(self, blocks: Dict[str, torch.Tensor],
                  specs: Optional[dict] = None, mesh=None):
         self.blocks, self.specs, self.mesh = blocks, specs, mesh
 
     @classmethod
-    def of(cls, params: Union[LM, "Weights"]) -> "Weights":
+    def of(cls, params: Union[nn.Module, "Weights"]) -> "Weights":
         return params if isinstance(params, Weights) else \
             cls(dict(params.named_parameters()))
 
@@ -201,6 +203,35 @@ class Weights:
     def whole(self, name: str) -> torch.Tensor:
         """``name``'s weight, gathered over the dp axes."""
         return SH.gather_dp(self.blocks[name], self.mesh, self.dp_dim(name))
+
+    def layers(self, names) -> Tuple[list, Dict[str, Optional[int]]]:
+        """(each layer's blocks of the stacked weights ``names`` by name,
+        the dp dim of one layer's block of each): one unbind per weight,
+        whose gradient is one stack rather than a full-size zero tensor
+        per layer."""
+        parts = {n: self.blocks[n].unbind(0) for n in names}
+        count = len(next(iter(parts.values())))
+        return [{n: parts[n][i] for n in names} for i in range(count)], \
+            {n: self.dp_dim(n, stacked=True) for n in names}
+
+
+def head_nll(w: Weights, emb: torch.Tensor, h: torch.Tensor, batch: dict,
+             cfg: ModelConfig, softcap: float = 0.0) -> torch.Tensor:
+    """``batch_nll`` of the final hidden states h under a decoder's head:
+    the embedding table ``emb``'s transpose when tied (this rank's
+    columns of it under the split), else ``lm_head``; vocab-parallel where
+    the head is split over ``model``."""
+    head = emb.T if cfg.tie_embeddings else w.whole("lm_head")
+    return batch_nll(h, head, batch, softcap, vocab=cfg.vocab_size,
+                     mesh=w.mesh)
+
+
+def gather_layer(lpb: Dict[str, torch.Tensor], mesh,
+                 dims: Dict[str, Optional[int]]) -> Dict[str, torch.Tensor]:
+    """One layer's blocks (by name), each split over the dp axes along
+    ``dims[name]`` gathered (inside the remat'd body, so the recompute
+    gathers again)."""
+    return {n: SH.gather_dp(b, mesh, dims[n]) for n, b in lpb.items()}
 
 
 def assemble_inputs(params: Union[LM, Weights], batch: dict,
@@ -254,9 +285,9 @@ def _block(lpb: dict, h: torch.Tensor, positions: torch.Tensor,
     ``dims[name]`` is gathered here, inside the remat'd body): (h, its
     MoE auxiliary loss)."""
     lp: dict = {}
+    whole = gather_layer(lpb, mesh, dims)
     for name, (group, key) in layer_params(cfg).items():
-        lp.setdefault(group, {})[key] = SH.gather_dp(lpb[name], mesh,
-                                                     dims[name])
+        lp.setdefault(group, {})[key] = whole[name]
     h = h + A.attn_forward_split(lp["attn"],
                                  rmsnorm(lp["norm1"], h, cfg.norm_eps),
                                  cfg, positions, mesh)
@@ -270,18 +301,14 @@ def backbone(params: Union[LM, Weights], h: torch.Tensor, cfg: ModelConfig,
     """Every decoder block over hidden states h [B, S, D], then the final
     norm; returns (h, the MoE auxiliary loss summed over layers: 0 for the
     dense family).  A MoE layer routes the B·S tokens together.
-    ``remat_layers`` recomputes each block in backward.  The stacked
-    weights are split into layers at once: one unbind per weight, whose
-    gradient is one stack rather than a full-size zero tensor per
-    layer."""
+    ``remat_layers`` recomputes each block in backward
+    (:meth:`Weights.layers` splits the stacked weights into layers)."""
     w = Weights.of(params)
-    names = layer_params(cfg)
-    dims = {n: w.dp_dim(n, stacked=True) for n in names}
-    parts = {n: w.blocks[n].unbind(0) for n in names}
+    layers, dims = w.layers(layer_params(cfg))
     aux = torch.zeros((), device=h.device)
     for i in range(cfg.num_layers):
-        h, a = remat(_block, {n: parts[n][i] for n in names}, h, positions,
-                     cfg, w.mesh, dims, enabled=remat_layers)
+        h, a = remat(_block, layers[i], h, positions, cfg, w.mesh, dims,
+                     enabled=remat_layers)
         aux = aux + a
     return rmsnorm({"scale": w.whole("final_norm")}, h, cfg.norm_eps), aux
 
@@ -312,9 +339,7 @@ def loss_fn(params: Union[LM, Weights], batch: dict, cfg: ModelConfig, *,
     h, aux = backbone(w, h, cfg, positions, remat_layers=remat)
     if cfg.family == ArchFamily.VLM and "patches" in batch:
         h = h[:, -batch["targets"].shape[1]:]
-    head = emb.T if cfg.tie_embeddings else w.whole("lm_head")
-    loss = batch_nll(h, head, batch, cfg.logit_softcap,
-                     vocab=cfg.vocab_size, mesh=w.mesh)
+    loss = head_nll(w, emb, h, batch, cfg, cfg.logit_softcap)
     aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
     total = loss + aux_w * aux / max(cfg.num_layers, 1)
     return total, {"nll": loss, "moe_aux": aux}

@@ -1,6 +1,6 @@
 """Sequence-chunked cross entropy (ports ``repro/models/losses.py``:
 ``chunked_softmax_xent``) and the tail every family's ``loss_fn`` shares
-(:func:`head_weight`, :func:`batch_nll`).
+(:func:`batch_nll`).
 
 At a large vocabulary the full logits of a batch would not fit, so the loss
 runs over chunks of the sequence (the reference's chunk rule: at most
@@ -110,12 +110,6 @@ def chunked_softmax_xent_split(h: torch.Tensor, w: torch.Tensor,
                           mask[:, sl], softcap, mesh, use_reentrant=False)
         tot, cnt = tot + t, cnt + c
     return tot / cnt.clamp_min(1.0)
-
-
-def head_weight(params, cfg) -> torch.Tensor:
-    """A decoder-only family's output head [D, V]: the embedding's
-    transpose when tied, else ``lm_head``."""
-    return params.embedding.T if cfg.tie_embeddings else params.lm_head
 
 
 def batch_nll(h: torch.Tensor, unembed_w: torch.Tensor, batch: dict,

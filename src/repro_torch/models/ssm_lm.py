@@ -10,8 +10,15 @@ axis (the reference's are per request, ``vmap``ped by ``serve_step``).
 The training loss scans with the model's own differentiable recurrence
 (``backend="reference"``: ``kernels/ref.py::mamba_scan_ref``, the
 reference's chunked ``lax.scan``): K5 has no backward.  ``remat``
-checkpoints each layer body, as the reference's ``jax.checkpoint``.  Left out: ``hidden_fn``'s ``constrain`` sharding hint
-(ROADMAP item 16b).
+checkpoints each layer body, as the reference's ``jax.checkpoint``.
+``hidden_fn`` and ``loss_fn`` also take a rank's blocks of the weights
+(``lm.Weights``) under the sharded train step's compute split: each
+layer's blocks gathered over the dp axes inside the remat'd body, the
+mixer split over ``model`` along d_inner
+(``layers/ssm.py::mamba1_forward_split``), the embedding and the tied
+head vocab-parallel.  Left out: ``hidden_fn``'s ``constrain`` hint,
+GSPMD's layout guidance, which has no PyTorch meaning
+(``sharding.constrain``).
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from repro_torch.layers import embedding as E
 from repro_torch.layers import ssm as S
 from repro_torch.layers.common import embed_init_, remat
 from repro_torch.layers.norms import rmsnorm
-from repro_torch.models.losses import batch_nll, head_weight
+from repro_torch.models.lm import Weights, gather_layer, head_nll
 
 # parameter name -> nested key path of the reference's per-layer tree
 LAYER_PARAMS = {**{k: ("mixer", k) for k in S.MAMBA1_PARAMS},
@@ -83,26 +90,42 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return SSMLM(cfg, resolve_device(device), dtype).reset_parameters(seed)
 
 
-def _layer(lp: dict, h: torch.Tensor, cfg: ModelConfig,
-           backend: str) -> torch.Tensor:
-    return h + S.mamba1_forward(lp["mixer"],
-                                rmsnorm(lp["norm"], h, cfg.norm_eps), cfg,
-                                backend=backend)
+def _layer(lpb: dict, h: torch.Tensor, cfg: ModelConfig, backend: str,
+           mesh, dims: dict) -> torch.Tensor:
+    """One layer over h [B, S, D] from its weights ``lpb`` by parameter
+    name (gathered over the dp axes here, inside the remat'd body): the
+    plain forward, or under a train mesh the split one."""
+    lp = gather_layer(lpb, mesh, dims)
+    mixer = {k: lp[k] for k in S.MAMBA1_PARAMS}
+    x = rmsnorm({"scale": lp["norm"]}, h, cfg.norm_eps)
+    if mesh is None:
+        return h + S.mamba1_forward(mixer, x, cfg, backend=backend)
+    return h + S.mamba1_forward_split(mixer, x, cfg, mesh)
 
 
-def hidden_fn(params: SSMLM, batch: Dict[str, torch.Tensor],
+def _hidden(w: Weights, emb: torch.Tensor, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, backend: str, remat_layers: bool
+            ) -> torch.Tensor:
+    set_f32_numerics()
+    h = E.embed_split(emb, batch["tokens"], cfg, w.mesh)
+    layers, dims = w.layers(LAYER_PARAMS)
+    for i in range(cfg.num_layers):
+        h = remat(_layer, layers[i], h, cfg, backend, w.mesh, dims,
+                  enabled=remat_layers)
+    return rmsnorm({"scale": w.whole("final_norm")}, h, cfg.norm_eps)
+
+
+def hidden_fn(params: Union[SSMLM, Weights], batch: Dict[str, torch.Tensor],
               cfg: ModelConfig, *, backend: str = "kernel",
               remat_layers: bool = False) -> torch.Tensor:
     """Final-norm hidden states [B, S, D] of ``batch["tokens"]`` [B, S];
     every layer's scan is one K5 launch (``backend="kernel"``) or the
-    plain, differentiable ``mamba_scan_ref`` (``"reference"``);
-    ``remat_layers`` recomputes each layer in backward."""
-    set_f32_numerics()
-    h = E.embed(params.embed_params, batch["tokens"], cfg)
-    for i in range(cfg.num_layers):
-        h = remat(_layer, params.layer(i), h, cfg, backend,
-                  enabled=remat_layers)
-    return rmsnorm({"scale": params.final_norm}, h, cfg.norm_eps)
+    plain, differentiable ``mamba_scan_ref`` (``"reference"``, and always
+    from a rank's blocks); ``remat_layers`` recomputes each layer in
+    backward."""
+    w = Weights.of(params)
+    return _hidden(w, w.whole("embedding"), batch, cfg, backend,
+                   remat_layers)
 
 
 def logits_fn(params: SSMLM, batch: Dict[str, torch.Tensor],
@@ -113,13 +136,17 @@ def logits_fn(params: SSMLM, batch: Dict[str, torch.Tensor],
     return E.unembed(params.embed_params, h, cfg), h.new_zeros(())
 
 
-def loss_fn(params: SSMLM, batch: Dict[str, torch.Tensor],
+def loss_fn(params: Union[SSMLM, Weights], batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, *, remat: bool = False):
     """(the chunked NLL, {"nll", "moe_aux": 0}) of ``tokens`` against
     ``targets`` (``loss_mask`` optional), scanning with the plain,
-    differentiable recurrence."""
-    h = hidden_fn(params, batch, cfg, backend="reference", remat_layers=remat)
-    loss = batch_nll(h, head_weight(params, cfg), batch)
+    differentiable recurrence; from a rank's blocks under the compute
+    split, the same, replicated over ``model``, for this rank's block of
+    the batch (the head vocab-parallel where the embedding splits)."""
+    w = Weights.of(params)
+    emb = w.whole("embedding")
+    h = _hidden(w, emb, batch, cfg, "reference", remat)
+    loss = head_nll(w, emb, h, batch, cfg)
     return loss, {"nll": loss, "moe_aux": loss.new_zeros(())}
 
 

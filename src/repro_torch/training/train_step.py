@@ -22,29 +22,22 @@ routes as one device does; with a loss mask each rank's NLL is weighted
 by its share of the masked positions, so the mean over ranks is the
 global masked mean.
 
-For the dense, MoE and VLM families (``models/lm.py``) the compute is
-split along ``model`` as the reference's GSPMD splits it (Megatron style:
-``lm.loss_fn`` over a rank's ``lm.Weights``, the model bundle's
-``split``; ``distributed/sharding.py`` has the collectives):
-attention heads, d_ff and the experts (or their d_ff where the experts do
-not divide) as column then row products, the embedding, the head and the
-cross entropy vocab-parallel.  No weight is gathered over ``model``; a
-layer's blocks are gathered over the dp axes just before it runs (again
-when remat recomputes it) and freed after, and the gradient of a
-dp-split block comes back as the mean over dp of the gathered gradient,
-reduce-scattered to the block (``sharding.gather_dp``).  The gradients of
-the blocks no dp axis splits are then averaged over dp
-(:func:`reduce_grads`); the global norm sums each distinct block once
-over the mesh; AdamW updates the blocks.  A ``grad_transform`` sees the
-whole gradient (every block gathered, then cut again), as on one device.
-
-The other families (SSM, hybrid, encoder-decoder: their ``model`` split
-is ROADMAP item 16d) gather every weight whole at the start of a step
-(:func:`gather_params`) into a reused full-size model, whose split
-parameters give their storage back once the gradients are taken
-(:func:`release_params`), run the family's loss on this rank's block of
-the batch, average the whole gradient over dp and cut it into blocks.
-Between steps a rank holds only its blocks either way.
+Every family's compute is split along ``model`` as the reference's
+GSPMD splits it (Megatron style: the family's ``loss_fn`` over a rank's
+``lm.Weights``, the model bundle's ``split``; ``distributed/sharding.py``
+has the collectives): attention heads, d_ff, the experts (or their d_ff
+where the experts do not divide) and Mamba's d_inner as column then row
+products, the embedding, the head and the cross entropy vocab-parallel.
+No weight is gathered over ``model``; a layer's blocks are gathered over
+the dp axes just before it runs (again when remat recomputes it) and
+freed after, and the gradient of a dp-split block comes back as the mean
+over dp of the gathered gradient, reduce-scattered to the block
+(``sharding.gather_dp``).  The gradients of the blocks no dp axis splits
+are then averaged over dp (:func:`reduce_grads`); the global norm sums
+each distinct block once over the mesh; AdamW updates the blocks.  A
+``grad_transform`` sees the whole gradient (every block gathered, then
+cut again), as on one device.  Between steps a rank holds only its
+blocks.
 """
 from __future__ import annotations
 
@@ -117,14 +110,17 @@ def make_train_step(model_loss: Callable, cfg: ModelConfig,
     parameters are updated in place.  Under ``mesh`` the parameters are a
     :class:`ShardedParams`, the state's moments its blocks, and ``batch``
     the global batch (see the module docstring); ``split`` (the model
-    bundle's, ``models/factory.py``) builds what ``model_loss`` takes from
-    a rank's blocks, and without it the step gathers every weight whole."""
+    bundle's, ``models/factory.py``), which a mesh needs, builds what
+    ``model_loss`` takes from a rank's blocks."""
     loss_fn = make_loss(model_loss, cfg, remat)
     if mesh is not None:
-        split_fn = None if split is None else \
-            (lambda specs: lambda p, b: loss_fn(split(p, specs, mesh), b))
-        return _sharded_step(loss_fn, opt_cfg, mesh, microbatches,
-                             grad_transform, split_fn)
+        if split is None:
+            raise ValueError("a sharded train step needs split= (the model "
+                             "bundle's, models/factory.py): the loss runs "
+                             "on a rank's blocks")
+        return _sharded_step(
+            lambda specs: lambda p, b: loss_fn(split(p, specs, mesh), b),
+            opt_cfg, mesh, microbatches, grad_transform)
 
     def train_step(params, opt_state, batch):
         (loss, metrics), grads = batch_grads(loss_fn, params, batch,
@@ -140,55 +136,28 @@ def make_train_step(model_loss: Callable, cfg: ModelConfig,
 
 @dataclasses.dataclass
 class ShardedParams:
-    """A rank's parameters under a mesh: its blocks (by parameter name,
-    under ``specs``) and the full-size model that the step of a family
-    without the compute split gathers them into (:func:`gather_params`).
-    A block that is the whole parameter is that parameter; a parameter of
-    the model that a spec splits holds no storage between steps."""
+    """A rank's parameters under a mesh: its blocks (by parameter name)
+    under ``specs``."""
 
-    model: nn.Module
     blocks: Dict[str, torch.Tensor]
     specs: Dict[str, tuple]
     mesh: object
 
 
+@torch.no_grad()
 def shard_params(model: nn.Module, mesh) -> ShardedParams:
     """Split a full-size model (the same on every rank) into this rank's
-    blocks under ``param_specs(model, mesh, mode="train")``."""
+    blocks under ``param_specs(model, mesh, mode="train")``.  A block that
+    is the whole parameter is that parameter; a parameter a spec splits
+    gives its storage back (the model keeps no copy of it)."""
     specs = SH.param_specs(model, mesh, mode="train")
     blocks = {}
     for k, p in O.named(model).items():
         b = SH.shard_of(p.detach(), specs[k], mesh)
         blocks[k] = b if b.shape == p.shape else b.clone()
-    sp = ShardedParams(model, blocks, specs, mesh)
-    release_params(sp)
-    return sp
-
-
-def _split(params: ShardedParams):
-    """(name, model parameter) of each parameter a spec splits."""
-    return [(k, p) for k, p in O.named(params.model).items()
-            if params.blocks[k].shape != p.shape]
-
-
-@torch.no_grad()
-def gather_params(params: ShardedParams) -> nn.Module:
-    """The whole parameters from every rank's blocks, into the model (its
-    split parameters' storage allocated again): the step of the families
-    the compute split does not cover."""
-    for k, p in _split(params):
-        p.untyped_storage().resize_(p.numel() * p.element_size())
-        p.copy_(SH.unshard(params.blocks[k], params.specs[k], params.mesh,
-                           "param"))
-    return params.model
-
-
-@torch.no_grad()
-def release_params(params: ShardedParams) -> None:
-    """Give back the storage of the model's split parameters (their
-    blocks hold them); :func:`gather_params` fills them again."""
-    for _, p in _split(params):
-        p.untyped_storage().resize_(0)
+        if b.shape != p.shape:
+            p.untyped_storage().resize_(0)
+    return ShardedParams(blocks, specs, mesh)
 
 
 def reduce_grads(grads: Dict[str, torch.Tensor], mesh
@@ -215,9 +184,8 @@ def block_norm(grads: Dict[str, torch.Tensor], specs: dict, mesh
     return torch.sqrt(SH.all_reduce_sum(total, mesh, SH.MODEL_AXIS))
 
 
-def _sharded_step(loss_fn: Callable, opt_cfg: OptimizerConfig, mesh,
-                  microbatches: int, grad_transform: Optional[Callable],
-                  split_fn: Optional[Callable] = None):
+def _sharded_step(split_fn: Callable, opt_cfg: OptimizerConfig, mesh,
+                  microbatches: int, grad_transform: Optional[Callable]):
     axes = SH.dp_axes(mesh)
     ndp = SH.axes_size(mesh, axes)
 
@@ -244,35 +212,23 @@ def _sharded_step(loss_fn: Callable, opt_cfg: OptimizerConfig, mesh,
                 return total, metrics
             return run
 
-        if split_fn is not None:
-            leaves = {k: b.detach().requires_grad_(True)
-                      for k, b in params.blocks.items()}
-            with SH.data_parallel(mesh if split else None):
-                (loss, metrics), grads = batch_grads(
-                    dp_loss(split_fn(params.specs)), leaves, batch,
-                    microbatches, local)
-            del leaves
-            # gather_dp's backward averaged the dp-split blocks already
-            rest = {k: g for k, g in grads.items()
-                    if SH.dp_dim(params.specs[k], mesh) is None}
-            grads.update(reduce_grads(rest, mesh))
-            if grad_transform is not None:
-                grads = {k: SH.unshard(g.contiguous(), params.specs[k],
-                                       mesh, "grad")
-                         for k, g in grads.items()}
-        else:
-            model = gather_params(params)
-            with SH.data_parallel(mesh if split else None):
-                (loss, metrics), grads = batch_grads(
-                    dp_loss(loss_fn), model, batch, microbatches, local)
-            release_params(params)
-            grads = reduce_grads(grads, mesh)
+        leaves = {k: b.detach().requires_grad_(True)
+                  for k, b in params.blocks.items()}
+        with SH.data_parallel(mesh if split else None):
+            (loss, metrics), grads = batch_grads(
+                dp_loss(split_fn(params.specs)), leaves, batch,
+                microbatches, local)
+        del leaves
+        # gather_dp's backward averaged the dp-split blocks already
+        rest = {k: g for k, g in grads.items()
+                if SH.dp_dim(params.specs[k], mesh) is None}
+        grads.update(reduce_grads(rest, mesh))
         loss = _dp_mean(loss, mesh)
         metrics = {k: _dp_mean(v, mesh) for k, v in metrics.items()}
-        whole = split_fn is None or grad_transform is not None
         if grad_transform is not None:
-            grads = grad_transform(grads)
-        if whole:
+            grads = grad_transform({
+                k: SH.unshard(g.contiguous(), params.specs[k], mesh, "grad")
+                for k, g in grads.items()})
             gnorm = O.global_norm(grads)
             grads = {k: SH.shard_of(g, params.specs[k], mesh)
                      for k, g in grads.items()}

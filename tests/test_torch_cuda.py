@@ -1556,18 +1556,25 @@ def smoke_step_rank(mesh, arch: str) -> dict:
     toks = torch.randint(0, cfg.vocab_size, (8, 17), generator=g)
     batch = {"tokens": toks[:, :-1].to(mesh.device),
              "targets": toks[:, 1:].to(mesh.device)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn(8, cfg.encoder_seq, cfg.d_model,
+                                      generator=g).to(mesh.device)
     sp, _, m = step(sp, adamw_init(sp.blocks), batch)
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "params": {k: SH.unshard(b, sp.specs[k], mesh).detach().cpu()
                        for k, b in sp.blocks.items()}}
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x7b", "falcon-mamba-7b",
+                                  "zamba2-7b", "whisper-medium"])
 def test_model_split_step_on_the_card_is_the_one_rank_step(card, arch):
-    """The same at data 1 x model 2: the attention heads, the MLP (yi) or
-    the experts (mixtral) and the vocabulary split over ``model`` on card
-    tensors, no parameter gathered over ``model``, against the one-rank
-    step at the same bars."""
+    """The same at data 1 x model 2: the attention heads, the MLP (yi,
+    zamba2's shared block, whisper's GELU MLP), the experts (mixtral),
+    Mamba-1's and Mamba-2's d_inner (their activations regrouped over
+    ``model``: gloo's all-gather and reduce-scatter, both of even blocks)
+    and the vocabulary split over ``model`` on card tensors, no parameter
+    gathered over ``model``, against the one-rank step at the same
+    bars."""
     from repro_torch.config import MeshConfig
     from repro_torch.launch import mesh as M
     one = M.make_mesh(MeshConfig((1, 1), ("data", "model")), 0, "cuda")

@@ -20,18 +20,28 @@ mesh shape one spawn shared by its cases:
   there too;
 * mixtral-8x7b, falcon-mamba-7b, zamba2-7b, paligemma-3b (image patches)
   and whisper-medium (frames) at 2 ranks;
-* qwen2-7b (non-zero qkv biases) and paligemma-3b (image patches, the
-  tied head; 1 kv head) at 2x2 and 2x4;
+* qwen2-7b (non-zero qkv biases), paligemma-3b (image patches, the
+  tied head; 1 kv head), falcon-mamba-7b, zamba2-7b and whisper-medium at
+  2x2 and 2x4 (at 2x4 falcon-mamba's ``in_proj`` block holds two x_in
+  blocks);
 * two microbatches (mixtral: its MoE groups span the ranks' blocks), an
   error-feedback ``grad_transform`` (yi-6b), mixtral with 3 experts
-  (they do not divide over ``model``: its experts split over d_ff) and
-  paligemma with 2 kv heads (its image prefix under the head split) at
-  2x2.
+  (they do not divide over ``model``: its experts split over d_ff),
+  paligemma with 2 kv heads (its image prefix under the head split),
+  zamba2 with one group of B and C (every rank reads it) and whisper with
+  a vocabulary of 255 (its embedding stays whole over ``model``, as
+  whisper-medium's 51,865 at |model| 2) at 2x2;
+* at 2x4 the split mixers' other branches (``VARIANTS``): zamba2 with
+  heads of 64 that a block of d_inner cuts (``in_proj`` whole), with
+  ``in_proj`` and ``conv_w`` whole, and zamba2 and falcon-mamba with a
+  d_inner of 66 that |model| 4 does not divide (the split products'
+  outputs gathered, every rank running every channel).
 
-The dense, MoE and VLM families split their compute over ``model``
-(``lm.loss_fn`` over a rank's ``lm.Weights``): at 2x2 the attention heads
-(2 kv heads over 2 ranks, with their biases), the MLP, the experts and
-the vocabulary (the tied head's too) run split, at 2x4, and for
+Every family splits its compute over ``model`` (its ``loss_fn`` over a
+rank's ``lm.Weights``): at 2x2 the attention heads (2 kv heads over 2
+ranks, with their biases), the MLP, the experts, Mamba's d_inner (its
+``in_proj`` output and Mamba-2's conv output regrouped over ``model``)
+and the vocabulary (the tied head's too) run split, at 2x4, and for
 paligemma's 1 kv head at 2x2, the attention gathers its projections (the
 kv heads cannot split); no parameter is gathered over ``model`` in
 either, and every rank's collective bytes by (kind, axis, what) equal
@@ -39,8 +49,8 @@ the dry run's analytic count (``launch.dryrun.train_traffic``) at every
 shape.
 
 Every rank holds only its ``param_specs`` blocks of the parameters and of
-AdamW's moments between steps: the full-size model the step gathers into
-holds no storage for a split parameter then.  Also: ``Trainer(mesh=)``
+AdamW's moments between steps: the full-size model the blocks were cut
+from holds no storage for a split parameter then.  Also: ``Trainer(mesh=)``
 saved at N ranks resumes at M (2->1, 1->2, 2->4) and ends on the
 uninterrupted run's losses within 1e-4 relative (the reference's resume
 bar); the CLI's ``--mesh-shape 2,2`` prints the one-rank CLI's line;
@@ -100,20 +110,44 @@ CASES = {"mamba": ("falcon-mamba-7b", 1, False, False),
          "yi_ef": ("yi-6b", 1, True, False),
          "zamba": ("zamba2-7b", 1, False, False),
          "qwen2": ("qwen2-7b", 1, False, False),
-         "pali_kv2": ("paligemma-3b", 1, False, False)}
+         "pali_kv2": ("paligemma-3b", 1, False, False),
+         "zamba_g1": ("zamba2-7b", 1, False, False),
+         "whisper_v255": ("whisper-medium", 1, False, False),
+         "zamba_cut": ("zamba2-7b", 1, False, False),
+         "zamba_conv": ("zamba2-7b", 1, False, False),
+         "zamba_w": ("zamba2-7b", 1, False, False),
+         "mamba_w": ("falcon-mamba-7b", 1, False, False)}
 # case -> its change of the smoke config (either package): experts that
-# do not divide |model|, kv heads that split over |model| 2
+# do not divide |model|, kv heads that split over |model| 2, one group of
+# B and C that every rank reads, a vocabulary that does not split; and at
+# |model| 4 the split mixers' other branches: heads that a block of d_inner
+# cuts with ``in_proj`` whole, ``in_proj`` and ``conv_w`` whole, and
+# d_inner whole (66 over 4) with ``in_proj`` (and Mamba-2's conv) split
+_ssm = lambda c, **kw: dataclasses.replace(  # noqa: E731
+    c, ssm=dataclasses.replace(c.ssm, **kw))
 VARIANTS = {"mixtral_tpf": lambda c: dataclasses.replace(
                 c, moe=dataclasses.replace(c.moe, num_experts=3)),
-            "pali_kv2": lambda c: dataclasses.replace(c, num_kv_heads=2)}
+            "pali_kv2": lambda c: dataclasses.replace(c, num_kv_heads=2),
+            "zamba_g1": lambda c: dataclasses.replace(
+                c, ssm=dataclasses.replace(c.ssm, ngroups=1)),
+            "whisper_v255": lambda c: dataclasses.replace(c, vocab_size=255),
+            "zamba_cut": lambda c: _ssm(c, head_dim=64, ngroups=1),
+            "zamba_conv": lambda c: _ssm(c, ngroups=1, state_size=17),
+            "zamba_w": lambda c: _ssm(dataclasses.replace(c, d_model=66),
+                                      expand=1, head_dim=11, ngroups=3,
+                                      state_size=15),
+            "mamba_w": lambda c: _ssm(dataclasses.replace(c, d_model=66),
+                                      expand=1)}
 BIAS_SCALE = 0.1                      # qkv biases drawn non-zero
 SHAPES = {"1": "data=1,model=1", "2": "data=2,model=1",
           "2x2": "data=2,model=2", "2x4": "data=2,model=4"}
 AT = {"1": ("yi", "r1", "mixtral"),
       "2": ("yi", "r1", "mixtral", "mamba", "zamba", "pali", "whisper"),
       "2x2": ("yi", "r1", "mixtral", "mixtral_mb2", "yi_ef",
-              "mixtral_tpf", "qwen2", "pali", "pali_kv2"),
-      "2x4": ("yi", "r1", "mixtral", "qwen2", "pali")}
+              "mixtral_tpf", "qwen2", "pali", "pali_kv2", "mamba", "zamba",
+              "whisper", "zamba_g1", "whisper_v255"),
+      "2x4": ("yi", "r1", "mixtral", "qwen2", "pali", "mamba", "zamba",
+              "whisper", "zamba_cut", "zamba_conv", "zamba_w", "mamba_w")}
 CELLS = [(shape, case) for shape, cases in AT.items() for case in cases]
 
 
@@ -180,7 +214,8 @@ def step_cell(mesh, name: str, ref: dict) -> dict:
     """One sharded step of case ``name`` from the JAX weights on this rank:
     the loss, the gradient norm, the gathered parameters, whether the
     blocks of the parameters and moments are the spec's, and the bytes the
-    model's split parameters hold after the step."""
+    split parameters of the model the blocks were cut from hold after the
+    step."""
     arch, mb, ef, _ = CASES[name]
     cfg = variant(get_smoke_config(arch), name)
     model = FT.build_model(cfg)
@@ -201,7 +236,7 @@ def step_cell(mesh, name: str, ref: dict) -> dict:
                                                        opt.v) for k in want)
     params = {k: SH.unshard(b, sp.specs[k], mesh).detach().numpy()
               for k, b in sp.blocks.items()}      # every rank gathers
-    split = [p for k, p in sp.model.named_parameters()
+    split = [p for k, p in full.named_parameters()
              if sp.blocks[k].shape != p.shape]
     return {"loss": float(metrics["loss"]),
             "grad_norm": float(metrics["grad_norm"]), "held_blocks": held,
@@ -463,3 +498,17 @@ def test_serving_still_refuses_a_data_axis():
     with pytest.raises(ValueError, match="model"):
         M.serve_ranks("data=2,model=2")
     assert M.parse_mesh_spec("data=2,model=4").num_devices == 8
+
+
+def test_a_sharded_step_needs_the_split():
+    """Every family's model bundle carries ``lm.Weights`` as its split;
+    there is no whole-gather path: a mesh without ``split`` raises."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import lm
+    assert all(FT.build_model(get_smoke_config(a)).split is lm.Weights
+               for a in ARCHS)
+    cfg = get_smoke_config("falcon-mamba-7b")
+    one = M.make_mesh(MeshConfig((1, 1), ("data", "model")), 0, "cpu")
+    with pytest.raises(ValueError, match="split"):
+        make_train_step(FT.build_model(cfg).loss, cfg, OptimizerConfig(),
+                        mesh=one)

@@ -259,3 +259,78 @@ def test_param_specs_refuse_a_mesh_without_model(arch):
                               MeshConfig((2, 2), ("data", "model")),
                               mode=mode) == want
     assert SJ.head_shardable(8, data_only) == SH.head_shardable(8, 1)
+
+
+# ---------------------------------------------------------------------------
+# regroup_model on gloo CPU ranks
+# ---------------------------------------------------------------------------
+
+REGROUP_W = 12                         # columns; 3 per rank over model 4
+
+
+def regroup_spans(r: int):
+    """Rank r's reads: a span across its block's edge, a span every rank
+    reads, and the last columns (blocks several ranks read)."""
+    return [(3 * r + 1, min(3 * r + 5, REGROUP_W)), (0, 2), (9, 12)]
+
+
+def regroup_inputs():
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(3, 5, REGROUP_W, generator=g, dtype=torch.float64)
+    seeds = [torch.randn(3, 5, sum(b - a for a, b in regroup_spans(r)),
+                         generator=g, dtype=torch.float64)
+             for r in range(4)]
+    return x, seeds
+
+
+def regroup_rank(mesh) -> dict:
+    """This rank's regroup of its block and of the whole tensor: the
+    outputs, the gradients of sum(out * seed) and the bytes counted."""
+    x, seeds = regroup_inputs()
+    r = SH.model_index(mesh)
+    out = {}
+    for case in ("block", "whole"):
+        SH.reset_collectives()
+        src = x[..., 3 * r:3 * r + 3] if case == "block" else x
+        src = src.clone().requires_grad_(True)
+        y = SH.regroup_model(src, mesh, regroup_spans(r), REGROUP_W)
+        (y * seeds[r]).sum().backward()
+        out[case] = {"y": y.detach(), "grad": src.grad,
+                     "traffic": dict(SH.TRAFFIC)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def regrouped():
+    from repro_torch.launch import mesh as M
+    return M.run_ranks(regroup_rank, "data=1,model=4", "cpu", timeout=120,
+                       threads=1)
+
+
+def test_regroup_moves_columns_and_sums_their_gradients(regrouped):
+    """``sharding.regroup_model`` on 4 ranks along ``model``, from each
+    rank's block and from the whole replicated tensor: its output is the
+    whole tensor's spans, and its gradient is that of the one-rank
+    autograd of every rank's slicing (columns several ranks read get the
+    sum), this rank's block of it (or all of it, whole), exactly; the
+    block's all-gather, the gradient's reduce-scatter and the whole
+    tensor's to_model sum are counted under (kind, "model", "act")."""
+    x, seeds = regroup_inputs()
+    xx = x.clone().requires_grad_(True)
+    sum((torch.cat([xx[..., a:b] for a, b in regroup_spans(r)], -1)
+         * seeds[r]).sum() for r in range(4)).backward()
+    nbytes = x.numel() * x.element_size()
+    for r, res in enumerate(regrouped):
+        want = torch.cat([x[..., a:b] for a, b in regroup_spans(r)], -1)
+        for case in ("block", "whole"):
+            assert torch.equal(res[case]["y"], want), (r, case)
+        assert torch.allclose(res["block"]["grad"],
+                              xx.grad[..., 3 * r:3 * r + 3], rtol=0,
+                              atol=1e-12), r
+        assert torch.allclose(res["whole"]["grad"], xx.grad, rtol=0,
+                              atol=1e-12), r
+        assert res["block"]["traffic"] == {
+            ("all_gather", "model", "act"): nbytes // 4,
+            ("reduce_scatter", "model", "act"): nbytes}
+        assert res["whole"]["traffic"] == {
+            ("all_reduce", "model", "act"): nbytes}
