@@ -193,7 +193,12 @@ failure:
                 allows), K1 at the step's shape against its plain version
                 with its time and bound, and the hybrid record
                 (``tests/golden/torch_hybrid_steps.npz``) on the kernel
-                backend;
+                backend; first K2 and K3 at the shared block's head_dim
+                112 (32 q / 32 kv heads, GQ 1, BS 16, NB 128: K2 at a big
+                chunk's 128 rows and a g-chunk's 16, K3 at S 128 and at S
+                16 with 11 valid keys) against their plain versions, with
+                times, bounds and SDPA's time (no serving path launches
+                them);
    encdec     — whisper-medium at full width and depth (24 + 24 layers,
                 1500 stub frames, 16 x 64 heads; ~3 GB): the same, the
                 prefill step running the encoder, the cross KV from
@@ -215,6 +220,18 @@ failure:
                 2048-token K/V stream, and at every tau boundary every
                 layer's ``thinkv_decode_attention`` through the wrapper
                 against ``decode_attention_ref`` (3e-4 + 3e-4 |r|).
+   examples   — the port's examples at their default sizes on the card,
+                each held to its own CPU run: ``quickstart_torch.py``
+                (integers, codes and scales equal, floats within 1e-5;
+                its commits on K4, its decode read once on K2 through the
+                wrapper), ``calibrate_thoughts_torch.py`` (L*, thresholds,
+                labels, accuracy equal) and ``serve_reasoning_torch.py``
+                on the batch path, ``--stream``, ``--samples 2`` and
+                ``--ticks-per-dispatch 4`` (the kernel backend's tokens
+                those of the CPU's reference backend from the same
+                weights; K1 once per tick, K2 and K3 once per prefill
+                chunk and layer, K4 once per commit; counts zeroed just
+                before each run and read just after).
 9. train      — single-card training, which runs no kernel of the port
                 (K1-K5 have no backward; the reference's train path runs
                 plain XLA): r1-llama-8b at full width and 2 of its 32
@@ -272,8 +289,10 @@ phases' ThinKV steps as ``launches_hybrid`` / ``launches_encdec`` (its
 times at those steps' shapes under ``by_shape``, head_dim 112 and 64) and
 K4 from the encdec phase's cross KV, from the traces' kernel-backend
 replays as ``launches_trace`` with their times at head_dim 16 under
-``trace``, K2 and K3 also by shape, K5 from the ssm phase's
-prefill, the wrapper from the controller phase, and every kernel's 0
+``trace``, K2 and K3 also by shape (their head_dim 112 records from the
+hybrid phase among them, 0 launches), K5 from the ssm phase's
+prefill, the wrapper from the controller phase, every kernel's count in
+each example's card run as ``launches_examples``, and every kernel's 0
 from the train_mesh phase as ``launches_train_mesh``), the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -1357,6 +1376,130 @@ def controller_phase(dev, mc, tk, n_tokens=2048) -> dict:
         raise AssertionError(f"controller phase failed: {launches} wrapper "
                              f"launches for {checks * L} reads, error "
                              f"{worst_over} x the bar")
+    return rec
+
+
+EXAMPLE_SERVE_ARGS = (("batch", []), ("stream", ["--stream"]),
+                      ("samples2", ["--samples", "2"]),
+                      ("tpd4", ["--ticks-per-dispatch", "4"]))
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_{name}", os.path.join(HERE, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(main, argv, on_card: bool, **kw):
+    """``main(argv, **kw)`` with its printed lines captured; on the card the
+    launch counts are zeroed just before and read just after.  Returns
+    (result, launches, seconds, lines)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import ops
+    buf = io.StringIO()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main(argv, **kw)
+    if on_card:
+        torch.cuda.synchronize()
+    return res, dict(ops.LAUNCHES), time.perf_counter() - t0, \
+        buf.getvalue().splitlines()
+
+
+def examples_phase() -> dict:
+    """The port's three examples (``examples/*_torch.py``) at their default
+    sizes on the card, each held to its own CPU run (the plain versions):
+    the quickstart's integers, codes and scales equal and its floats within
+    1e-5, its commits on K4 and its decode read on K2 (the single-request
+    wrapper, once); the calibration's L*, thresholds, labels and accuracy
+    equal; ``serve_reasoning_torch.py`` on the batch path, ``--stream``,
+    ``--samples 2`` and ``--ticks-per-dispatch 4``, the kernel backend's
+    tokens those of the CPU's reference backend (the same weights on both,
+    made on the CPU from the config's seed), K1 once per tick, K2 and K3
+    once per prefill chunk and layer, K4 once per commit."""
+    import copy
+    import torch
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import init_params
+    t_phase = time.perf_counter()
+    failed, rec = [], {"phase": "examples"}
+    qs = load_example("quickstart_torch")
+    want = run_example(qs.main, ["--device", "cpu"], False)[0]
+    got, launches, sec, lines = run_example(qs.main, [], True)
+    bad = [k for k in ("retained", "seg_types", "shared", "cow_ok")
+           if got[k] != want[k]]
+    bad += [k for k in ("codes", "scales", "refcount")
+            if not torch.equal(got[k].cpu(), want[k])]
+    bad += [k for k in ("rel_rmse", "avg_bits", "footprint_frac")
+            if not abs(got[k] - want[k]) <= 1e-5]
+    out_err = max_err(got["out"].cpu(), want["out"])
+    if out_err > 1e-5:
+        bad.append(f"decode attention out {out_err}")
+    if bad:
+        failed.append(f"quickstart differs from its CPU run: {bad}")
+    others = {k: n for k, n in launches.items()
+              if k not in ("ct_paged_attention", "group_quant") and n}
+    if launches["ct_paged_attention"] != 1 or not launches["group_quant"] \
+            or others:
+        failed.append(f"quickstart launches {launches}: K2 once through "
+                      f"the wrapper and K4 at every commit expected")
+    rec["quickstart"] = {"seconds": sec, "launches": launches,
+                         "out_vs_cpu": out_err, "lines": lines}
+    cal = load_example("calibrate_thoughts_torch")
+    want = run_example(cal.main, ["--device", "cpu"], False)[0]
+    got, launches, sec, lines = run_example(cal.main, [], True)
+    if got["result"] != want["result"] or \
+            not (got["pred"] == want["pred"]).all() or \
+            got["accuracy"] != want["accuracy"]:
+        failed.append("calibration differs from its CPU run")
+    rec["calibrate"] = {"seconds": sec, "accuracy": got["accuracy"],
+                        "lines": lines}
+    sr = load_example("serve_reasoning_torch")
+    mc = get_smoke_config("r1-llama-8b")
+    params = init_params(mc, ServeConfig(model=mc).seed, "cpu")
+    params_card = copy.deepcopy(params).to("cuda")
+    rec["serve_reasoning"] = {}
+    for name, argv in EXAMPLE_SERVE_ARGS:
+        (want, _), _, cpu_s, _ = run_example(
+            sr.main, ["--device", "cpu"] + argv, False, params=params)
+        (done, eng), launches, sec, lines = run_example(
+            sr.main, argv, True, params=params_card)
+        m, L = eng.metrics, eng.cfg.model.num_layers
+        chunks = (m["prefill_chunks"] + m["prefill_big_chunks"]) * L
+        expect = {"ct_paged_attention_fused": m["ticks"],
+                  "ct_paged_attention_batched": chunks,
+                  "flash_prefill": chunks, "group_quant": m["commits"]}
+        if eng.backend != "kernel" or any(
+                launches[k] != n or not n for k, n in expect.items()):
+            failed.append(f"serve_reasoning {name}: launches {launches} on "
+                          f"the {eng.backend} backend, {expect} expected")
+        tokens = {r.uid: list(r.output) for r in done}
+        if tokens != {r.uid: list(r.output) for r in want}:
+            failed.append(f"serve_reasoning {name}: tokens differ from the "
+                          f"CPU run's")
+        rec["serve_reasoning"][name] = {
+            "seconds": sec, "cpu_seconds": cpu_s, "launches": launches,
+            "ticks": m["ticks"], "dispatches": m["dispatches"],
+            "commits": m["commits"], "requests": len(done),
+            "tokens": m["tokens"],
+            "report": next(ln for ln in lines if "tok/s" in ln)}
+    rec["launches"] = {
+        "quickstart": rec["quickstart"]["launches"],
+        **{f"serve_reasoning {n}": r["launches"]
+           for n, r in rec["serve_reasoning"].items()}}
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["failed"] = failed
+    emit(rec)
+    if failed:
+        raise AssertionError(f"examples phase failed: {failed}")
     return rec
 
 
@@ -2922,6 +3065,39 @@ def record_replay(name: str, dev) -> dict:
     return res
 
 
+def check_d112_kernels(dev, tk) -> dict:
+    """K2 and K3 at head_dim 112, zamba2-7b's shared-block shape (32 q / 32
+    kv heads, GQ 1, blocks of ``tk.block_size``, the default budget's NB):
+    K2 at a big chunk's 128 query rows and a g-chunk's G over one slot's
+    pool, K3 at S 128 and at S G with 11 valid keys, each against its plain
+    version (<= ``ATOL``) with its times, bound and, for K3, SDPA's time.
+    No serving path of either package reaches them (the reference prefills
+    zamba2 with plain attention, and no engine serves it)."""
+    import torch
+    from repro_torch.configs import get_config
+    mc = get_config(HYBRID_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 112)
+    H, D, BS, G = mc.num_kv_heads, mc.head_dim, tk.block_size, tk.group_size
+    gq = mc.num_heads // H
+    NB = int(tk.token_budget * 2) // BS
+    c = pool_case(gen, dev, 1, 1, H, D, BS, NB, NB, G, gq)
+    recs = {
+        "big chunk": k2_record(gen, dev, c, 128 * gq, "zamba2 big chunk: "),
+        "g-chunk": k2_record(gen, dev, c, G * gq, "zamba2 g-chunk: "),
+        "K3 big chunk": k3_record(gen, dev, 128, None, mc.num_heads, H, D,
+                                  "zamba2 big chunk: "),
+        "K3 g-chunk": k3_record(gen, dev, G, 11, mc.num_heads, H, D,
+                                "zamba2 g-chunk: ")}
+    bad = {k: r["max_abs_err"] for k, r in recs.items()
+           if not r["max_abs_err"] <= ATOL}
+    over = [k for k, r in recs.items() if r["bound_share"] > 1]
+    if bad or over:
+        raise AssertionError(f"K2 / K3 at head_dim 112: errors over {ATOL} "
+                             f"{bad}, a bound above the measured time "
+                             f"{over}")
+    return recs
+
+
 def hybrid_phase(dev, tk) -> dict:
     """zamba2-7b (a Mamba-2 backbone of 81 layers, ONE shared attention
     block after every 6th: 13 invocations of 32 x 112 heads) at full width
@@ -2932,7 +3108,8 @@ def hybrid_phase(dev, tk) -> dict:
     held to the teacher-forced forward (rtol = atol = ``SSM_TOL``); the
     ThinKV step on a seeded pool with the FullKV run's Mamba-2 states
     (``thinkv_step_check``: K1 at D 112 once per invocation, 13 a step);
-    the hybrid record on the kernel backend."""
+    the hybrid record on the kernel backend; first K2 and K3 at the shared
+    block's head_dim 112 (``check_d112_kernels``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2940,6 +3117,7 @@ def hybrid_phase(dev, tk) -> dict:
     from repro_torch.models import factory, hybrid
     from repro_torch.serving import serve_step as SS
     t_phase = time.perf_counter()
+    d112 = check_d112_kernels(dev, tk)
     mc = get_config(HYBRID_ARCH)
     model = factory.build_model(mc)
     torch.cuda.reset_peak_memory_stats()
@@ -3009,7 +3187,8 @@ def hybrid_phase(dev, tk) -> dict:
                       "step_device_ms": fullkv_prof["device_busy_ms"],
                       "step_window_ms": fullkv_prof["window_ms"],
                       "held_last_16": held},
-           "thinkv": chk, "mamba_state_mb_per_request": state_mb,
+           "thinkv": chk, "kernels_d112": d112,
+           "mamba_state_mb_per_request": state_mb,
            "kv_bytes_per_request": kv,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     del params
@@ -4462,6 +4641,7 @@ def main() -> int:
     ssm = ssm_phase(dev, rng)
     torch.cuda.empty_cache()
     ctl = controller_phase(dev, mc, tk)
+    exm = examples_phase()
     gc.collect()
     torch.cuda.empty_cache()
     train_phase(dev)
@@ -4499,11 +4679,14 @@ def main() -> int:
     recs["K1"]["launches_hybrid"] = hyb["thinkv"]["k1_launches"]
     recs["K1"]["launches_encdec"] = enc["thinkv"]["k1_launches"]
     recs["K4"]["launches_encdec"] = enc["k4_cross"]["launches"]
+    for n, r in recs.items():
+        r["launches_examples"] = {ex: launches.get(r["name"], 0)
+                                  for ex, launches in exm["launches"].items()}
     extra = ("launches_pressure", "launches_sampled", "launches_tp",
              "launches_policy",
              "launches_serve_step", "launches_archs", "launches_vlm",
              "launches_vlm_serve_step", "launches_hybrid", "launches_encdec",
-             "launches_trace", "launches_train_mesh")
+             "launches_trace", "launches_train_mesh", "launches_examples")
     lines = [{k: recs[n][k] for k in keys + tuple(
         k for k in extra if k in recs[n])}
         for n in ("K1", "K2", "K3", "K4", "K5", "wrapper")]
@@ -4533,6 +4716,15 @@ def main() -> int:
                     "library_ms": recs[key]["library_ms"]}
             for (shape, n), key in zip(
                 srv["launches_by_shape"][name].items(), shapes)}
+    # K2 and K3 at head_dim 112 (zamba2-7b's shared block), which no
+    # serving path launches
+    for line, prefix in ((lines[1], ""), (lines[2], "K3 ")):
+        for chunk in ("big chunk", "g-chunk"):
+            r = hyb["kernels_d112"][prefix + chunk]
+            line["by_shape"][f"hybrid {chunk}, D 112"] = {
+                "launches": 0, **{k: r[k] for k in (
+                    "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err")}}
     # K1-K4 at the archs, vlm (head_dim 256) and trace (head_dim 16)
     # phases' shapes: times, bounds and launches
     for line, kernel in zip(lines[:4], ("K1", "K2", "K3", "K4")):

@@ -25,13 +25,15 @@ from repro_torch.analysis.contracts import (AuditReport, CollectiveRule,
                                             train_collective_rule)
 from repro_torch.analysis.retrace import (RetraceEvent, RetraceGuard,
                                           RetraceViolation,
+                                          assert_no_steady_retraces,
                                           no_implicit_transfers)
 
 __all__ = [
     "AuditReport", "Census", "CollectiveRule", "CollectiveUse",
     "CompiledContract", "ContractViolation", "EntryAudit", "RetraceEvent",
     "RetraceGuard", "RetraceViolation", "Violation",
-    "audit_engine", "audit_flash_prefill", "audit_train_step",
+    "assert_no_steady_retraces", "audit_engine", "audit_flash_prefill",
+    "audit_train_step",
     "census_of", "engine_contracts", "no_implicit_transfers",
     "serve_collective_rule", "train_collective_rule",
 ]

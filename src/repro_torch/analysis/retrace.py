@@ -21,6 +21,10 @@ not raised here.  :func:`no_implicit_transfers` wraps
 CUDA call inside the block raises; on the CPU it has no effect (device
 memory is host memory), as the reference's guard has none there.
 
+``on_steady_retrace="raise"`` raises :class:`RetraceViolation` at the
+offending call instead of recording it for
+:meth:`RetraceGuard.assert_steady_state`.
+
 Installed on an engine, the guard's events reach the orchestrator's log as
 ``kind="retrace"`` (``Orchestrator._drain_retrace_events``).
 """
@@ -43,7 +47,8 @@ ENTRY_POINTS = ("_trip", "_pack", "_prefill_chunk", "_prefill_big",
 
 
 class RetraceViolation(AssertionError):
-    """A steady-state build, raised by ``assert_steady_state``."""
+    """A steady-state build, raised by ``assert_steady_state`` (or at the
+    call, with ``on_steady_retrace="raise"``)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,10 +64,15 @@ class RetraceEvent:
 class RetraceGuard:
     """Wraps an engine's entry points with the build counter.  Use as a
     context manager or ``install()`` / ``uninstall()``; a steady-state
-    build fails :meth:`assert_steady_state`."""
+    build fails :meth:`assert_steady_state`, or raises at once with
+    ``on_steady_retrace="raise"``."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, *, on_steady_retrace: str = "record"):
+        if on_steady_retrace not in ("record", "raise"):
+            raise ValueError(f"on_steady_retrace must be 'record' or "
+                             f"'raise', not {on_steady_retrace!r}")
         self.engine = engine
+        self.on_steady_retrace = on_steady_retrace
         self.calls: Counter = Counter()
         self.retraces: Counter = Counter()
         self.events: List[RetraceEvent] = []
@@ -109,8 +119,12 @@ class RetraceGuard:
             guard.calls[name] += 1
             if build.BUILDS > before:
                 guard.retraces[name] += 1
-                guard.events.append(
-                    RetraceEvent(name, guard.calls[name], guard.steady))
+                ev = RetraceEvent(name, guard.calls[name], guard.steady)
+                guard.events.append(ev)
+                if guard.steady and guard.on_steady_retrace == "raise":
+                    raise RetraceViolation(
+                        f"steady-state build: {name} built a kernel library "
+                        f"at its call #{ev.call_index}")
             return out
 
         wrapped.__name__ = f"guarded{name}"
@@ -166,3 +180,12 @@ def no_implicit_transfers(device=None):
     finally:
         torch.cuda.set_sync_debug_mode(prev)
 
+
+def assert_no_steady_retraces(engine) -> None:
+    """For tests and CLIs: the guard installed on ``engine`` saw no
+    steady-state build (raises :class:`RetraceViolation`), and a guard is
+    installed at all (raises ``RuntimeError``)."""
+    guard = getattr(engine, "_retrace_guard", None)
+    if guard is None:
+        raise RuntimeError("no RetraceGuard installed on this engine")
+    guard.assert_steady_state()

@@ -236,3 +236,9 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return reduced(get_config(arch))
+
+
+def assigned_archs() -> List[str]:
+    """The 10 assigned architectures: every registered one but the paper's
+    own evaluation model (in the registry's sorted order)."""
+    return [a for a in ARCHS if a != "r1-llama-8b"]

@@ -117,6 +117,13 @@ def view_flat(view: PoolView) -> Tuple[torch.Tensor, ...]:
                            *a.shape[3:]) for a in view)
 
 
+def view_paged(dims: CacheDims, *flat: torch.Tensor) -> PoolView:
+    """Flat planes [L, NS, ...] -> paged [L, NS // BS, BS, ...], the inverse
+    of :func:`view_flat` (a view, no copy)."""
+    return PoolView(*(a.reshape(a.shape[0], -1, dims.BS, *a.shape[2:])
+                      for a in flat))
+
+
 @dataclasses.dataclass
 class CTCache:
     """One request's metadata + TBQ buffer (or every slot's, with a leading

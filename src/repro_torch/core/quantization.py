@@ -3,10 +3,16 @@
 Ports ``repro/core/quantization.py`` (the channel-group cache path):
 ``e4m3_round``, ``_e4m3_next_up``, ``_group_scale``, the nvfp4 / ternary /
 int codecs, ``quantize_group``, ``dequantize_group`` and
-``dequantize_by_bitcode``.  The results are bit-exact to the reference:
-one uint8 code per element (low bits used) and E4M3-valued float32 scales,
-one per ``g`` channels.  The KIVI per-channel, per-tensor FP8 and packing
-helpers are not on the serving path and are not ported yet.
+``dequantize_by_bitcode``; and the comparison and accounting half: the
+KIVI per-channel baseline (``quantize_per_channel`` /
+``dequantize_per_channel``), per-tensor FP8 (``quantize_fp8`` /
+``dequantize_fp8``), true 2- and 4-bit storage (``pack_nibbles`` /
+``unpack_nibbles``, ``pack_ternary`` / ``unpack_ternary``) and the
+paper's memory accounting (``cache_bits_per_element``).  The results are
+bit-exact to the reference: one uint8 code per element (low bits used) and
+E4M3-valued float32 scales, one per ``g`` channels (per channel for KIVI,
+one f32 scale per tensor for FP8).  Nothing here launches a kernel, on
+either device (the reference has none for them either).
 """
 from __future__ import annotations
 
@@ -37,10 +43,18 @@ def _e4m3_next_up(s: torch.Tensor) -> torch.Tensor:
     return torch.where(s >= E4M3_MAX, torch.full_like(up, E4M3_MAX), up)
 
 
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded once, as IEEE division, on both devices: CUDA
+    divides by a Python scalar as a product with its reciprocal, which can
+    land one ulp off; a tensor divisor on the same device (filled there:
+    no copy from the host) is divided."""
+    return x / x.new_full((), c)
+
+
 def _group_scale(amax: torch.Tensor, qmax: float) -> torch.Tensor:
     """E4M3 group scale, bumped one grid step when round-to-nearest lands
     below ``amax / qmax`` so that ``|x| / s`` never exceeds ``qmax``."""
-    raw = amax.clamp_min(SCALE_EPS) / qmax
+    raw = _div(amax.clamp_min(SCALE_EPS), qmax)
     s = e4m3_round(raw)
     s = torch.where(s * qmax < amax, _e4m3_next_up(s), s)
     return s.clamp_min(SCALE_EPS)
@@ -107,14 +121,15 @@ def quantize_group(x: torch.Tensor, bits: int, g: int = GROUP
     xg = _groups(x.to(torch.float32), g)
     amax = xg.abs().amax(dim=-1)
     scale = _group_scale(amax, QMAX[bits])
-    y = xg / scale[..., None]
+    return _encode(xg / scale[..., None], bits).reshape(x.shape), scale
+
+
+def _encode(y: torch.Tensor, bits: int) -> torch.Tensor:
     if bits == 4:
-        codes = nvfp4_encode(y)
-    elif bits == 2:
-        codes = ternary_encode(y)
-    else:
-        codes = int_encode(y, 8)
-    return codes.reshape(x.shape), scale
+        return nvfp4_encode(y)
+    if bits == 2:
+        return ternary_encode(y)
+    return int_encode(y, 8)
 
 
 def _decode(codes: torch.Tensor, bits: int) -> torch.Tensor:
@@ -143,3 +158,97 @@ def dequantize_by_bitcode(codes: torch.Tensor, scales: torch.Tensor,
                                    int_decode(codes, 8)))
     vg = _groups(vals, g)
     return (vg * scales[..., None].to(torch.float32)).reshape(codes.shape)
+
+
+# ---------------------------------------------------------------------------
+# KIVI-style per-channel key quantization (comparison only)
+# ---------------------------------------------------------------------------
+
+def quantize_per_channel(x: torch.Tensor, bits: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KIVI per-channel: one scale per channel, shared across the token
+    group.  x [g_tokens, d] -> (codes uint8 [g, d], scales f32 [d])."""
+    if bits not in QMAX:
+        raise ValueError(f"unsupported bits={bits}")
+    xf = x.to(torch.float32)
+    scale = _group_scale(xf.abs().amax(dim=0), QMAX[bits])
+    return _encode(xf / scale[None, :], bits), scale
+
+
+def dequantize_per_channel(codes: torch.Tensor, scales: torch.Tensor,
+                           bits: int) -> torch.Tensor:
+    return _decode(codes, bits) * scales[None, :]
+
+
+# ---------------------------------------------------------------------------
+# FP8 per-tensor (the paper's highest-precision option for R thoughts)
+# ---------------------------------------------------------------------------
+
+def quantize_fp8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x -> (codes ``float8_e4m3fn``, one f32 scale): amax maps to 448."""
+    xf = x.to(torch.float32)
+    scale = _div(xf.abs().amax().clamp_min(SCALE_EPS), E4M3_MAX)
+    return (xf / scale).to(F8), scale
+
+
+def dequantize_fp8(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return codes.to(torch.float32) * scale
+
+
+# ---------------------------------------------------------------------------
+# Packing: two 4-bit codes per byte (element 2i low), four 2-bit codes per
+# byte (element 4i lowest)
+# ---------------------------------------------------------------------------
+
+def _pack(codes: torch.Tensor, per: int, width: int) -> torch.Tensor:
+    """``per`` codes of ``width`` bits into a byte, as the reference packs
+    them: the codes are not masked (a nibble code above 15 spills into its
+    neighbour's bits in both packages); the shifts wrap in uint8."""
+    d = codes.shape[-1]
+    if d % per:
+        raise ValueError(f"last axis {d} is not a multiple of {per}")
+    c = codes.to(torch.uint8).reshape(*codes.shape[:-1], d // per, per)
+    out = c[..., 0]
+    for i in range(1, per):
+        out = out | (c[..., i] << (width * i))
+    return out
+
+
+def _unpack(packed: torch.Tensor, per: int, width: int) -> torch.Tensor:
+    mask = (1 << width) - 1
+    parts = [(packed >> (width * i)) & mask for i in range(per)]
+    return torch.stack(parts, dim=-1).reshape(*packed.shape[:-1],
+                                              packed.shape[-1] * per)
+
+
+def pack_nibbles(codes: torch.Tensor) -> torch.Tensor:
+    """[..., d] 4-bit codes (uint8) -> [..., d // 2] packed uint8."""
+    return _pack(codes, 2, 4)
+
+
+def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    return _unpack(packed, 2, 4)
+
+
+def pack_ternary(codes: torch.Tensor) -> torch.Tensor:
+    """[..., d] 2-bit codes -> [..., d // 4] packed uint8 (true 2-bit
+    storage, what the memory accounting counts for T thoughts)."""
+    return _pack(codes & 3, 4, 2)
+
+
+def unpack_ternary(packed: torch.Tensor) -> torch.Tensor:
+    return _unpack(packed, 4, 2)
+
+
+# ---------------------------------------------------------------------------
+# Memory accounting (paper Sec. 2: Mem(KV) proportional to
+# (I + b Lgen) a beta)
+# ---------------------------------------------------------------------------
+
+def cache_bits_per_element(bits: int, g: int = GROUP,
+                           physical_nibble_plane: bool = True) -> float:
+    """Bits per element with the E4M3 group scale (8 / g bits).  The CT
+    cache keeps every code below 8 bits in a nibble
+    (``physical_nibble_plane``); False gives the paper's 2-bit-packed T."""
+    payload = 4.0 if (physical_nibble_plane and bits < 8) else float(bits)
+    return payload + 8.0 / g

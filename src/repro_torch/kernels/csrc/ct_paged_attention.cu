@@ -104,8 +104,8 @@
 // P.V; the slices of a row write equal m and l, the first stores them.
 // merge_splits_kernel needs no change (8 values a lane).
 //
-// Head_dim 112 (zamba2-7b's shared attention; K1 only, K2 and K3 have no
-// instance): 112 = 7 x 16 breaks three of the shapes above.  A key row
+// Head_dim 112 (zamba2-7b's shared attention): 112 = 7 x 16 breaks three
+// of K1's shapes above and one of K2's.  A key row
 // takes a warp as at D 256, but at DPT 4 only LA = 28 lanes hold
 // dimensions (K1Shape): lanes 28-31 hold zero q, read lane 27's bytes (so
 // every value they decode is finite and their partial scores are 0) and
@@ -115,7 +115,13 @@
 // (row, head): the 4 aligned words that cover them are staged (16 bytes a
 // row; the last word stays inside the plane, whose rows come in blocks of
 // a multiple of 4) and the element's parity offsets the index, as D 16
-// does with its one word.
+// does with its one word.  K2 stages the same 4 words a row (SG odd, as at
+// D 16); its products need nothing new (112 = 7 k steps of 16 for Q.K^T,
+// 14 column tiles of 8 for P.V, a row stride of 116 floats whose fragment
+// loads hit 32 distinct banks), but merge_splits_kernel's one lane per
+// column group does: 112 / 32 is not whole, so LA = 28 lanes hold 4
+// columns each, and lanes 28-31 fold the stats, read lane 27's columns
+// and write nothing (the same answer K1 gives its fold).
 //
 // ptxas (sm_90a, -O3; chip_smoke.py's build phase on an H100):
 // paged_split_kernel D 256 / 128 / 64 / 32 / 16: 184 / 186 / 141 / 95 / 80
@@ -854,15 +860,18 @@ paged_split_kernel(const float* __restrict__ qh,
         cp_async16(rs + plane * BS * D + j * D + d,
                    (plane ? vc : kc) + ((row0 + j) * H + h) * D + d);
       }
-      constexpr int spr = SRB / 4;              // 4-byte chunks per row
+      // 4-byte words per scale row: at an odd SG (D 16, D 112) the
+      // aligned words that cover the row's scales
+      constexpr int spr = SRB / 4;
       uint8_t* rsc = rs + 2 * BS * D;
       for (int c = tid; c < 2 * BS * spr; c += K2_THREADS) {
         const int plane = c / (BS * spr), cc = c % (BS * spr);
         const int j = cc / spr, w = cc % spr;
         const __nv_bfloat16* src =
-            (plane ? vsc : ksc) + ((row0 + j) * H + h) * SG + 2 * w;
+            (plane ? vsc : ksc) + ((row0 + j) * H + h) * SG;
         cp_async4(rsc + (plane * BS + j) * SRB + 4 * w,
-                  SG == 1 ? scale_word(src) : src);
+                  reinterpret_cast<const uint8_t*>(
+                      SG % 2 ? scale_word(src) : src) + 4 * w);
       }
     }
     cp_async_commit();
@@ -880,7 +889,8 @@ paged_split_kernel(const float* __restrict__ qh,
       const int plane = w >= words, ww = w - plane * words;
       const int j = ww / (D / 4), d = (ww % (D / 4)) * 4;
       const uint32_t cw = reinterpret_cast<const uint32_t*>(rs)[w];
-      const int si = SG == 1 ? scale_half((row0 + j) * H + h) : d / 16;
+      const int si =
+          SG % 2 ? scale_half(((row0 + j) * H + h) * SG) + d / 16 : d / 16;
       const float sc = __bfloat162float(rsc[(plane * BS + j) * (SRB / 2) + si]);
       const int b = bits[j];
       *reinterpret_cast<float4*>(kd + (plane * BS + j) * LD + d) =
@@ -1036,18 +1046,22 @@ paged_split_kernel(const float* __restrict__ qh,
 
 // The flash merge of NS partials (unnormalised out, m, l) of each row, RL =
 // min(D, 32) lanes per row (a warp, or at D 16 half a warp: two rows per
-// warp), PER = D / RL values a lane: out = sum_s e^(m_s - M) out_s /
+// warp), PER = ceil(D / RL) values a lane: out = sum_s e^(m_s - M) out_s /
 // max(L, 1e-30) with M = max_s m_s and L = sum_s e^(m_s - M) l_s.  Rows no
-// split saw keep M = -1e30, L = 0, out = 0.
+// split saw keep M = -1e30, L = 0, out = 0.  At D 112 only LA = 28 lanes
+// of 4 values hold columns (as K1Shape at D 112): lanes 28-31 fold the
+// stats, read lane 27's columns and write nothing.
 template <int D>
 __global__ void __launch_bounds__(128)
 merge_splits_kernel(const float* __restrict__ part,
                     const float* __restrict__ pml, float* __restrict__ out,
                     float* __restrict__ mo, float* __restrict__ lo, int rows,
                     int NS) {
-  constexpr int RL = D < 32 ? D : 32, PER = D / RL;
+  constexpr int RL = D < 32 ? D : 32, PER = (D + RL - 1) / RL;
+  constexpr int LA = D / PER;                   // lanes that hold columns
   constexpr int SPL = 32 / RL;                  // splits a lane holds
   static_assert(SPL <= 2, "merge_splits_kernel takes D >= 16");
+  static_assert(LA * PER == D, "merge_splits_kernel: no lane shape for D");
   const int row_raw = (blockIdx.x * blockDim.x + threadIdx.x) / RL;
   const int lane = threadIdx.x % RL;
   // a row past the end computes row 0 with its half warp and writes nothing
@@ -1083,12 +1097,14 @@ merge_splits_kernel(const float* __restrict__ part,
   for (int s = 0; s < NS; ++s) {
     const float ws = __shfl_sync(0xffffffffu, s < RL ? w[0] : w[SPL - 1],
                                  s % RL, RL);
-    const float* src = part + ((size_t)s * rows + row) * D + lane * PER;
+    const float* src =
+        part + ((size_t)s * rows + row) * D + (lane < LA ? lane : LA - 1) * PER;
 #pragma unroll
     for (int e = 0; e < PER; ++e) acc[e] = fmaf(ws, src[e], acc[e]);
   }
   if (!live) return;
   const float inv = 1.f / fmaxf(L, 1e-30f);
+  if (lane >= LA) return;
 #pragma unroll
   for (int e = 0; e < PER; ++e) out[(size_t)row * D + lane * PER + e] = acc[e] * inv;
   if (lane == 0) {
@@ -1144,6 +1160,7 @@ extern "C" int ct_paged_attention_batched(
     case 16: return f(launch_batched<16>);
     case 32: return f(launch_batched<32>);
     case 64: return f(launch_batched<64>);
+    case 112: return f(launch_batched<112>);
     case 128: return f(launch_batched<128>);
     case 256: return f(launch_batched<256>);
     default: return (int)cudaErrorInvalidValue;

@@ -47,6 +47,11 @@
 // holds q and K at D and V at DV (117 KB: one block per SM).  The blocks
 // of a row write equal m and l; the first slice stores them.
 //
+// Head_dim 112 (zamba2-7b's shared attention) is the D 128 design as it
+// stands: 7 k steps of 16 for Q.K^T, 14 column tiles of 8 for P.V, a row
+// stride of 116 floats (fragment loads on 32 distinct banks, rows 16-byte
+// aligned for cp.async) and 7 output columns a thread in the merge.
+//
 // ptxas (sm_90a, -O3; chip_smoke.py's build phase on an H100): D 256: 229
 // registers (one block per SM, no cap below 255), no spills; D 128: 128
 // registers, 20 bytes of spill stores and loads; D 64: 128 registers,
@@ -308,6 +313,7 @@ extern "C" int flash_prefill_stats(const void* q, const void* k,
     case 16: return f(launch<16>);
     case 32: return f(launch<32>);
     case 64: return f(launch<64>);
+    case 112: return f(launch<112>);
     case 128: return f(launch<128>);
     case 256: return f(launch<256>);
     default: return (int)cudaErrorInvalidValue;

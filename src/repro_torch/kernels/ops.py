@@ -13,7 +13,6 @@ and on the CPU the second is what ``analysis/census.py`` counts.
 Kernels (TPU kernel each replaces in brackets):
 
 * ``paged_decode_attention_fused``   K1 [ct_paged_attention_fused]
-                                     (also at head_dim 112, zamba2's)
 * ``paged_decode_attention_batched`` K2 [ct_paged_attention_batched]
 * ``paged_decode_attention``         K2 through the single-request wrapper
                                      [ct_paged_attention]
@@ -92,16 +91,15 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
                          f"{tuple(t.shape)}")
 
 
-HEAD_DIMS = (16, 32, 64, 128, 256)      # K2's and K3's instances
-K1_HEAD_DIMS = (16, 32, 64, 112, 128, 256)    # K1's (112: zamba2-7b's)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)    # K1-K3's instances (112:
+                                           # zamba2-7b's shared attention)
 
 
-def _check_head_dim(kernel: str, d: int, dims=HEAD_DIMS) -> None:
-    """A head_dim ``kernel`` has an instance for (:data:`HEAD_DIMS` for K2
-    and K3, :data:`K1_HEAD_DIMS` for K1)."""
-    if d not in dims:
+def _check_head_dim(kernel: str, d: int) -> None:
+    """A head_dim ``kernel`` (K1, K2 or K3) has an instance for."""
+    if d not in HEAD_DIMS:
         raise ValueError(f"{kernel} takes head_dim "
-                         f"{', '.join(map(str, dims))} (got {d})")
+                         f"{', '.join(map(str, HEAD_DIMS))} (got {d})")
 
 
 def _check_paged(d: int, group: int, *planes: torch.Tensor) -> None:
@@ -187,7 +185,7 @@ def paged_decode_attention_fused(qh, k_codes, v_codes, k_scales, v_scales,
     if on_cpu:
         _plain("ct_paged_attention_fused")
         return R.ct_paged_attention_fused_ref(*args, group=group)
-    _check_head_dim("K1", d, K1_HEAD_DIMS)
+    _check_head_dim("K1", d)
     _check_paged(d, group, k_codes, v_codes)
     if group != 16 or bs % 4:
         raise ValueError(f"K1 takes a scale per 16 lanes and a block size "

@@ -3,6 +3,7 @@ cell (ports the counting part of ``repro/launch/dryrun.py``).
 
     python -m repro_torch.launch.dryrun [--arch all|a,b] [--shape all|s,t]
         [--mesh single|multi|both] [--variant all|v] [--out DIR]
+        [--tag TAG]
 
 The reference lowers and compiles each cell's step on 512 placeholder
 devices and reads XLA's memory, cost and collective analysis.  The port
@@ -30,11 +31,14 @@ records
 
 The port's weights are f32 (its steps compute in f32), so are the
 gradients and moments.  Each cell is a JSON file ``<arch>__<shape>__
-<variant>__<mesh>.json`` under ``--out`` (by default ``build/dryrun/``).
-Not ported: the lowering and compilation, XLA's ``memory_analysis``
-(activations and temporaries) and the HLO collective parse, which have no
-PyTorch meaning; the decode cells' ``REPRO_DECODE_FSDP`` baseline
-switch.
+<variant>__<mesh>.json`` under ``--out`` (by default ``build/dryrun/``),
+``__<TAG>`` appended to the name with ``--tag``.  Every cell is counted
+again on every run.  Not ported: the lowering and compilation, XLA's
+``memory_analysis`` (activations and temporaries) and the HLO collective
+parse, which have no PyTorch meaning; the decode cells'
+``REPRO_DECODE_FSDP`` baseline switch; ``--force`` (the reference skips a
+cell whose file exists because its cell compiles; a count compiles
+nothing).
 """
 from __future__ import annotations
 
@@ -533,6 +537,8 @@ def main(argv: Optional[list] = None) -> int:
                     choices=["single", "multi", "both"])
     ap.add_argument("--variant", default="all")
     ap.add_argument("--out", default=OUT_DIR)
+    ap.add_argument("--tag", default="",
+                    help="suffix for the cells' file names (reruns)")
     args = ap.parse_args(argv)
     archs = ARCHS if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
@@ -547,6 +553,8 @@ def main(argv: Optional[list] = None) -> int:
                 for mesh_kind in meshes:
                     t0 = time.perf_counter()
                     rec = count_cell(arch, shape_name, variant, mesh_kind)
+                    if args.tag:
+                        rec["cell"] += f"__{args.tag}"
                     rec["seconds"] = time.perf_counter() - t0
                     with open(os.path.join(args.out, rec["cell"] + ".json"),
                               "w") as f:

@@ -6,9 +6,9 @@ reference's line
 
     served N requests | T tokens in Ws (tok/s) | footprint | bits
 
-The flags and their defaults are the reference's, but ``--temperature``
-defaults to 0 (greedy; the reference's is 0.8), plus ``--device`` (the
-card unless ``cpu`` is asked for):
+The flags and their defaults are the reference's (``--temperature``
+0.8: sampled; 0 is greedy), plus ``--device`` (the card unless ``cpu`` is
+asked for):
 
 * the model and cache: ``--arch --full --requests --slots --prompt-len
   --max-new --budget --tau --group --backend --policy`` (``thinkv``,
@@ -150,7 +150,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--budget", type=int, default=64)
     ap.add_argument("--tau", type=int, default=16)
     ap.add_argument("--group", type=int, default=8)
-    ap.add_argument("--temperature", type=float, default=0.0,
+    ap.add_argument("--temperature", type=float, default=0.8,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus sampling mass (1.0 = disabled)")

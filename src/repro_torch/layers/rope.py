@@ -28,3 +28,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
         cos, sin = cos[..., None, :], sin[..., None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def rope_single(x: torch.Tensor, position: torch.Tensor, theta: float
+                ) -> torch.Tensor:
+    """x [heads, head_dim] at a scalar position."""
+    cos, sin = rope_freqs(position, x.shape[-1], theta)
+    return apply_rope(x, cos[None, :], sin[None, :])

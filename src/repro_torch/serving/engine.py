@@ -362,6 +362,7 @@ class ThinKVEngine:
                  record_logits: bool = False,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = False,
+                 prefix_cache_capacity: int = 64,
                  ticks_per_dispatch: int = 1, allow_forks: bool = False,
                  mesh=None, policy=None, drift_probe: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
@@ -457,7 +458,9 @@ class ThinKVEngine:
         # COW compare runs only with one of them
         self._track_cow = bool(prefix_cache) or bool(allow_forks)
         self.ticks_per_dispatch = int(ticks_per_dispatch)
-        self.prefix_cache = PrefixCache(self.dims) if prefix_cache else None
+        self.prefix_cache = PrefixCache(
+            self.dims, capacity=prefix_cache_capacity) \
+            if prefix_cache else None
         self._spilled: Dict[int, PreemptedState] = {}   # arrival -> spill
         self._queued_at: Dict[int, int] = {}            # arrival -> tick
         # host mirrors of every slot's num_tokens / buf_len: commits and

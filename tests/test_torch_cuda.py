@@ -8,9 +8,11 @@ step's kernel path (one K1 launch per layer) against its plain path; a
 uniform single-level commit; the pressure trace on mixtral-8x7b's (MoE)
 and qwen2-7b's (qkv bias) smoke configs against their JAX records, and
 K1-K3 at those configs' query-group sizes; K1 at head_dim 112 and the JAX
-records of the hybrid and encoder-decoder serve steps; the JAX train
-record replayed by the port's train step, and a trainer resumed after an
-injected failure.
+records of the hybrid and encoder-decoder serve steps; K2 and K3 at head
+dim 112; the JAX train record replayed by the port's train step, and a
+trainer resumed after an injected failure; the KIVI, FP8 and packing
+functions on card tensors against their CPU results, and the port's
+three examples on the card against their CPU runs.
 
 Every test here needs a CUDA card and the CUDA toolkit (the kernels are
 built with nvcc at first use); without a card each test skips with the
@@ -523,16 +525,16 @@ def test_batched_pool_attention_head_dim_16(card, GQ, NB, H):
 
 
 def test_paged_wrappers_refuse_head_dims_without_an_instance(card):
-    """K1 has instances for head_dim 16, 32, 64, 112, 128 and 256, K2 for
-    all but 112."""
-    for d in (48, 512, 112):
+    """K1 and K2 have instances for head_dim 16, 32, 64, 112, 128 and 256
+    (K2's 112 since it gained one); 48 and 512 are refused by both."""
+    for d in (48, 512):
         c = pool_case(torch.Generator().manual_seed(d), L=1, R_=1, H=2, GQ=2,
                       D=d, BS=8, NB=2)
-        if d != 112:
-            with pytest.raises(ValueError,
-                               match="head_dim 16, 32, 64, 112, 128, 256"):
-                ops.paged_decode_attention_fused(*on(card, c.values()))
-        with pytest.raises(ValueError, match="head_dim 16, 32, 64, 128, 256"):
+        with pytest.raises(ValueError,
+                           match="head_dim 16, 32, 64, 112, 128, 256"):
+            ops.paged_decode_attention_fused(*on(card, c.values()))
+        with pytest.raises(ValueError,
+                           match="head_dim 16, 32, 64, 112, 128, 256"):
             ops.paged_decode_attention_batched(*on(card, batched_args(c)))
 
 
@@ -1178,6 +1180,139 @@ def test_fused_decode_attention_zamba2_serve_step(card):
                         ops.paged_decode_attention_fused,
                         *on(card, c.values()))
     assert_close(got, R.ct_paged_attention_fused_ref(*c.values()))
+
+
+@pytest.mark.parametrize("GQ,H,NB", [(1, 32, 128), (2, 32, 128), (1, 3, 6),
+                                     (2, 5, 1), (16, 1, 6)])
+def test_batched_pool_attention_head_dim_112(card, GQ, H, NB):
+    """K2 at head_dim 112 (7 scale groups a row: a (slot, head) row's
+    scales start 2-byte aligned at every other row; the merge folds 28
+    lanes of 4 columns in a 32-lane warp): zamba2-7b's shared block (32 kv
+    heads, GQ 1 as zamba2 serves it, and 2) over a full pool (NB 128: split
+    and merged; l also against the f64 evaluation), odd head counts, one
+    share and no merge (NB 1), and a ragged row tile (GQ 16 at H 1)."""
+    c = pool_case(torch.Generator().manual_seed(1120 + 10 * GQ + H + NB),
+                  L=1, R_=2, H=H, GQ=GQ, D=112, BS=16, NB=NB)
+    args = batched_args(c)
+    got = launched_once("ct_paged_attention_batched",
+                        ops.paged_decode_attention_batched, *on(card, args))
+    assert_close(got[:2], R.ct_paged_attention_batched_ref(*args)[:2])
+    assert_close(got, batched_f64(*args))
+
+
+@pytest.mark.parametrize("S,n_valid,Hq,H", [
+    (128, None, 32, 32), (16, 11, 32, 32), (128, None, 4, 2),
+    (16, 11, 4, 2), (200, None, 2, 1), (16, 1, 4, 2)])
+def test_prefill_attention_stats_head_dim_112(card, S, n_valid, Hq, H):
+    """K3 at head_dim 112: zamba2-7b's shared block (32 q / 32 kv heads) at
+    a big chunk (S 128) and a g-chunk (S 16 with 11 valid keys), GQ 2 at
+    both, a ragged S and a chunk with one valid key."""
+    gen = torch.Generator().manual_seed(112 + S + Hq + (n_valid or 0))
+    q = torch.randn((S, Hq, 112), generator=gen)
+    k = torch.randn((S, H, 112), generator=gen)
+    v = torch.randn((S, H, 112), generator=gen)
+    got = launched_once(
+        "flash_prefill", lambda *a: ops.prefill_attention_stats(
+            *a, n_valid=n_valid), *on(card, (q, k, v)))
+    kv_valid = None if n_valid is None else torch.arange(S) < n_valid
+    assert_close(got, R.flash_prefill_stats_ref(q, k, v, kv_valid=kv_valid))
+
+
+@pytest.mark.parametrize("bits", (2, 4, 8))
+def test_quantization_extras_on_the_card_equal_the_cpu(card, bits):
+    """The KIVI per-channel baseline, per-tensor FP8 and the packing on
+    card tensors bit-equal to their CPU results (plain torch on both
+    devices: no kernel)."""
+    gen = torch.Generator().manual_seed(bits)
+    x = torch.randn((16, 128), generator=gen) * 3
+    x[:, 0] *= 1e-6
+    x[:, 1] = 0.0
+    c, s = Q.quantize_per_channel(x, bits)
+    cd, sd = Q.quantize_per_channel(x.to(card), bits)
+    assert torch.equal(cd.cpu(), c) and torch.equal(
+        sd.cpu().view(torch.int32), s.view(torch.int32))
+    assert torch.equal(Q.dequantize_per_channel(cd, sd, bits).cpu(),
+                       Q.dequantize_per_channel(c, s, bits))
+    f, fs = Q.quantize_fp8(x * 10 ** bits)
+    fd, fsd = Q.quantize_fp8((x * 10 ** bits).to(card))
+    assert torch.equal(fd.cpu().view(torch.uint8), f.view(torch.uint8))
+    assert torch.equal(fsd.cpu().view(torch.int32), fs.view(torch.int32))
+    assert torch.equal(Q.dequantize_fp8(fd, fsd).cpu(), Q.dequantize_fp8(f, fs))
+    codes = torch.randint(0, 256, (4, 3, 64), generator=gen,
+                          dtype=torch.uint8)
+    for pack, unpack in ((Q.pack_nibbles, Q.unpack_nibbles),
+                         (Q.pack_ternary, Q.unpack_ternary)):
+        p = pack(codes)
+        pd = pack(codes.to(card))
+        assert torch.equal(pd.cpu(), p)
+        assert torch.equal(unpack(pd).cpu(), unpack(p))
+
+
+def load_example(name):
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"examples_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_quickstart_on_the_card_gives_the_cpu_numbers(card):
+    """``examples/quickstart_torch.py`` on the card: its commits go through
+    K4 and its decode read through K2 (the single-request wrapper), and it
+    gives the CPU run's numbers (integers equal, codes and scales
+    bit-exact, floats within 1e-5)."""
+    qs = load_example("quickstart_torch")
+    want = qs.main(["--device", "cpu"])
+    ops.reset_launches()
+    got = qs.main([])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["group_quant"] > 0
+    assert ops.LAUNCHES["ct_paged_attention"] == 1
+    for key in ("retained", "seg_types", "shared", "cow_ok"):
+        assert got[key] == want[key], key
+    for key in ("codes", "scales", "refcount"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    for t, w in zip(got["tables"], want["tables"]):
+        assert torch.equal(t.cpu(), w)
+    for key in ("rel_rmse", "avg_bits", "footprint_frac"):
+        assert abs(got[key] - want[key]) <= 1e-5, key
+    torch.testing.assert_close(got["out"].cpu(), want["out"], rtol=0,
+                               atol=1e-5)
+
+
+def test_calibration_on_the_card_gives_the_cpu_numbers(card):
+    cal = load_example("calibrate_thoughts_torch")
+    want = cal.main(["--device", "cpu"])
+    got = cal.main([])
+    assert got["result"] == want["result"]
+    assert (got["pred"] == want["pred"]).all()
+    assert got["accuracy"] == want["accuracy"]
+
+
+@pytest.mark.parametrize("argv", [[], ["--stream"], ["--samples", "2"],
+                                  ["--ticks-per-dispatch", "4"]],
+                         ids=["batch", "stream", "samples2", "tpd4"])
+def test_serve_reasoning_on_the_card_gives_the_cpu_tokens(card, argv):
+    """``examples/serve_reasoning_torch.py`` at its default sizes on the
+    card's kernel backend (K1 once per tick, K2 and K3 per prefill chunk
+    and layer, K4 per commit) gives the tokens of the CPU's reference
+    backend, with the same weights on both (made on the CPU from the
+    config's seed: a generator on the card draws other numbers)."""
+    sr = load_example("serve_reasoning_torch")
+    mc = get_smoke_config("r1-llama-8b")
+    params = init_params(mc, ServeConfig(model=mc).seed, "cpu")
+    want, _ = sr.main(["--device", "cpu"] + argv, params=params)
+    ops.reset_launches()
+    got, eng = sr.main(argv, params=copy.deepcopy(params).to(card))
+    torch.cuda.synchronize()
+    assert eng.backend == "kernel"
+    for name in ("ct_paged_attention_fused", "ct_paged_attention_batched",
+                 "flash_prefill", "group_quant"):
+        assert ops.LAUNCHES[name] > 0, name
+    assert {r.uid: list(r.output) for r in got} == \
+        {r.uid: list(r.output) for r in want}
 
 
 @pytest.mark.parametrize("name", ["hybrid", "encdec"])

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or anything of the JAX package, and its
-entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``src/repro_torch`` (nor the
+port's examples, ``examples/*_torch.py``, nor ``chip_smoke.py``) imports
+JAX or anything of the JAX package, and its entry points run on the card
+unless the caller asks for the CPU."""
 import ast
 import pathlib
 
@@ -9,7 +10,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + EXAMPLES + \
     [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
@@ -76,6 +78,24 @@ def test_roofline_and_dry_run_are_under_the_rule():
             for a in n.names} | {n.module for n in ast.walk(tree)
                                  if isinstance(n, ast.ImportFrom)}
     assert mods <= {"__future__", "dataclasses", "typing"}, mods
+
+
+def test_the_examples_are_under_the_rule_and_need_the_card():
+    """The port's four examples are among the files the import rule reads;
+    the three serving ones run on the card unless ``--device cpu`` is
+    given, so without a card they raise before any work."""
+    import importlib.util
+    names = [p.name for p in EXAMPLES]
+    assert names == ["calibrate_thoughts_torch.py", "quickstart_torch.py",
+                     "serve_reasoning_torch.py", "train_tiny_lm_torch.py"]
+    if torch.cuda.is_available():
+        return
+    for path in EXAMPLES[:3]:
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main([])
 
 
 @pytest.mark.parametrize("src,bad", [

@@ -111,20 +111,78 @@ def test_fused_plain_matches_pallas_at_head_dim_112(h):
 
 
 def test_only_k1_takes_head_dim_112():
-    """K1 has a D 112 instance; K2 and K3 do not, and refuse it on either
-    device."""
-    ops._check_head_dim("K1", 112, ops.K1_HEAD_DIMS)
-    with pytest.raises(ValueError, match="head_dim 16, 32, 64, 128, 256"):
-        ops._check_head_dim("K2", 112)
+    """Head_dim 112 was K1's alone until K2 and K3 gained their D 112
+    instances: all three now take it on either device (the plain versions
+    here), and a head_dim none of them has, 48, is refused by each."""
+    for kernel in ("K1", "K2", "K3"):
+        ops._check_head_dim(kernel, 112)
     a = to_torch(pool_inputs(33, L=1, R=1, H=2, GQ=2, D=112, BS=16, NB=2))
-    with pytest.raises(ValueError, match="K2 takes head_dim"):
-        ops.paged_decode_attention_batched(
-            a["qh"][0], a["k_codes"][0], a["v_codes"][0], a["k_scales"][0],
-            a["v_scales"][0], a["slot_state"][0], a["slot_bits"][0],
-            a["block_table"][:, 0].contiguous())
+    out, m, l = ops.paged_decode_attention_batched(
+        a["qh"][0], a["k_codes"][0], a["v_codes"][0], a["k_scales"][0],
+        a["v_scales"][0], a["slot_state"][0], a["slot_bits"][0],
+        a["block_table"][:, 0].contiguous())
+    assert out.shape == (1, 2, 2, 112) and torch.isfinite(out).all()
     q = torch.zeros((16, 2, 112))
+    assert ops.prefill_attention_stats(q, q, q)[0].shape == (16, 2, 112)
+    q48 = torch.zeros((16, 2, 48))
+    with pytest.raises(ValueError, match="head_dim 16, 32, 64, 112, 128, "
+                       "256"):
+        ops._check_head_dim("K2", 48)
     with pytest.raises(ValueError, match="K3 takes head_dim"):
-        ops.prefill_attention_stats(q, q, q)
+        ops.prefill_attention_stats(q48, q48, q48)
+
+
+@pytest.mark.parametrize("h,gq", [(3, 1), (2, 2)])
+def test_batched_plain_matches_pallas_at_head_dim_112(h, gq):
+    """K2 at head_dim 112 (zamba2-7b's shared attention: 7 scale groups a
+    row, so a head's scales start 2-byte aligned at odd (slot, head)
+    rows), GQ 1 as zamba2 and GQ 2, bits 2/4/8, BS 16, over an odd and an
+    even kv head count: (out, m, l) at the bar of the other head dims."""
+    a = pool_inputs(40 + h, L=1, R=2, H=h, GQ=gq, D=112, BS=16, NB=4)
+    args = [a["qh"][0], a["k_codes"][0], a["v_codes"][0], a["k_scales"][0],
+            a["v_scales"][0], a["slot_state"][0], a["slot_bits"][0],
+            np.ascontiguousarray(a["block_table"][:, 0])]
+    outs_j = ct_paged_attention_batched(*map(jnp.asarray, args),
+                                        interpret=True)
+    outs_t = ops.paged_decode_attention_batched(
+        *(tensor_from_numpy(x, "cpu") for x in args))
+    for t, j in zip(outs_t, outs_j):
+        close(t, j)
+
+
+@pytest.mark.parametrize("s,hq,h", [(128, 32, 32), (128, 4, 2), (16, 4, 2)])
+def test_flash_prefill_stats_plain_matches_pallas_at_head_dim_112(s, hq, h):
+    """K3 with stats at head_dim 112: zamba2-7b's shared block (32 q / 32
+    kv heads) at a big chunk's S 128, and GQ 2 at S 128 and 16, at the
+    bars of the other head dims (l relative, as f32 rounds it)."""
+    rng = np.random.default_rng(17 + s + hq)
+    q = rng.standard_normal((s, hq, 112)).astype(np.float32)
+    k = rng.standard_normal((s, h, 112)).astype(np.float32)
+    v = rng.standard_normal((s, h, 112)).astype(np.float32)
+    blk = min(s, 64)
+    outs_j = flash_prefill(*map(jnp.asarray, (q, k, v)), block_q=blk,
+                           block_k=blk, interpret=True, return_stats=True)
+    outs_t = ops.prefill_attention_stats(*map(torch.from_numpy, (q, k, v)))
+    for t, j in zip(outs_t[:2], outs_j[:2]):
+        close(t, j)
+    np.testing.assert_allclose(outs_t[2].numpy(), np.asarray(outs_j[2]),
+                               rtol=ATOL, atol=0)
+
+
+def test_flash_prefill_n_valid_at_head_dim_112_matches_kv_valid_oracle():
+    """K3's padded g-chunk at head_dim 112 (S 16, n_valid 11): the JAX
+    oracle with kv_valid (the Pallas kernel takes no key count)."""
+    rng = np.random.default_rng(18)
+    q = rng.standard_normal((16, 4, 112)).astype(np.float32)
+    k = rng.standard_normal((16, 2, 112)).astype(np.float32)
+    v = rng.standard_normal((16, 2, 112)).astype(np.float32)
+    kv_valid = np.arange(16) < 11
+    outs_j = RJ.flash_prefill_stats_ref(*map(jnp.asarray, (q, k, v)),
+                                        kv_valid=jnp.asarray(kv_valid))
+    outs_t = ops.prefill_attention_stats(*map(torch.from_numpy, (q, k, v)),
+                                         n_valid=11)
+    for t, j in zip(outs_t, outs_j):
+        close(t, j)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
@@ -326,19 +384,19 @@ def test_fused_warp_decomposition_matches_pallas(case, warps):
 
 @pytest.mark.parametrize("d,ok", [(16, True), (32, True), (64, True),
                                   (128, True), (8, False), (48, False),
-                                  (256, True), (512, False)])
+                                  (256, True), (512, False), (112, True)])
 def test_paged_kernels_take_the_head_dims_they_have_instances_for(d, ok):
     """K1 and K2 have CUDA instances for head_dim 16 (the trace config's),
-    32, 64, 128 and 256 (paligemma-3b's); the wrappers' check refuses any
-    other on the card."""
+    32, 64, 112 (zamba2-7b's), 128 and 256 (paligemma-3b's); the wrappers'
+    check refuses any other on the card."""
     if ok:
-        ops._check_head_dim("K1", d, ops.K1_HEAD_DIMS)
+        ops._check_head_dim("K1", d)
         ops._check_head_dim("K2", d)
     else:
-        for kernel, dims in (("K1", ops.K1_HEAD_DIMS), ("K2", ops.HEAD_DIMS)):
+        for kernel in ("K1", "K2"):
             with pytest.raises(ValueError, match=f"{kernel} takes head_dim "
-                               f"{', '.join(map(str, dims))}"):
-                ops._check_head_dim(kernel, d, dims)
+                               f"{', '.join(map(str, ops.HEAD_DIMS))}"):
+                ops._check_head_dim(kernel, d)
 
 
 @pytest.mark.parametrize("gq,want", [(1024, 8), (128, 32), (8, 32)])

@@ -30,9 +30,9 @@ def one_torch_thread():
 
 
 def test_serve_cli_oversubscribed_with_the_prefix_cache(capsys):
-    serve.main(["--device", "cpu", "--pool-frac", "0.6", "--prefix-cache",
-                "--shared-prefix-frac", "0.5", "--prompt-len", "48",
-                "--max-new", "64"])
+    serve.main(["--device", "cpu", "--temperature", "0", "--pool-frac",
+                "0.6", "--prefix-cache", "--shared-prefix-frac", "0.5",
+                "--prompt-len", "48", "--max-new", "64"])
     out = capsys.readouterr().out
     # every request's 64 tokens: the first from its prefill, 63 decoded
     assert re.search(r"served 8 requests .* 504 tokens", out), out
@@ -74,7 +74,8 @@ def test_serve_cli_samples_in_packs(capsys):
 def test_serve_cli_multi_tick_gate(capsys):
     """``--expect-multi-tick`` on an oversubscribed pool: packs of more than
     one tick, early exits, the per-tick replay's tokens, both audits."""
-    serve.main(["--device", "cpu", "--ticks-per-dispatch", "4",
+    serve.main(["--device", "cpu", "--temperature", "0",
+                "--ticks-per-dispatch", "4",
                 "--expect-multi-tick", "--pool-frac", "0.6",
                 "--prompt-len", "24", "--max-new", "40"])
     out = capsys.readouterr().out
@@ -82,7 +83,7 @@ def test_serve_cli_multi_tick_gate(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--expect-multi-tick"],
+    ["--expect-multi-tick", "--temperature", "0"],
     ["--expect-multi-tick", "--ticks-per-dispatch", "4",
      "--temperature", "0.7"],
     ["--temperature", "-1"], ["--top-p", "0"],
@@ -110,7 +111,8 @@ def jax_outputs(argv, policy="thinkv"):
     worst = args.slots * (2 * args.budget // args.group)
     pool = max(int(worst * args.pool_frac), 1) if args.pool_frac else None
     eng = JaxEngine(JSC(model=mcfg, thinkv=tk, max_seqs=args.slots,
-                        temperature=0.0), backend="reference",
+                        temperature=args.temperature, top_p=args.top_p),
+                    backend="reference",
                     pool_blocks=pool, prefix_cache=args.prefix_cache,
                     ticks_per_dispatch=args.ticks_per_dispatch,
                     allow_forks=args.samples_per_slot > 1, policy=policy,
@@ -143,12 +145,26 @@ def serve_like_jax(argv, capsys, policy="thinkv"):
     return capsys.readouterr().out, done, jdone
 
 
+def test_serve_cli_default_flags_sample_as_the_jax_cli(capsys):
+    """At its default flags the CLI samples at temperature 0.8, the
+    reference's default, on the reference's per-request key streams: every
+    request's tokens are the JAX CLI's engine's for the same flags."""
+    args = serve.build_parser().parse_args([])
+    assert (args.temperature, args.top_p) == (0.8, 1.0)
+    out, done, _ = serve_like_jax([], capsys)
+    # 64 tokens each: the first from its prefill, 63 decoded
+    assert re.search(r"served 8 requests \[policy=thinkv\] .* 504 tokens",
+                     out), out
+    assert all(len(r.output) == 64 for r in done)
+
+
 def test_serve_cli_rkv_with_the_drift_probe_streamed(capsys):
     """``--policy rkv --drift-probe --expect-drift --stream``: the JAX
     engine's tokens, the drift line and gate, each request's drift steps
     and top-1 agreement equal to JAX's."""
-    argv = ["--policy", "rkv", "--drift-probe", "--expect-drift", "--stream",
-            "--requests", "4", "--max-new", "40"]
+    argv = ["--temperature", "0", "--policy", "rkv", "--drift-probe",
+            "--expect-drift", "--stream", "--requests", "4", "--max-new",
+            "40"]
     out, done, jdone = serve_like_jax(argv, capsys, "rkv")
     # 40 tokens each: the first from its prefill, 39 decoded
     assert re.search(r"served 4 requests \[policy=rkv\] .* 156 tokens",
@@ -170,8 +186,9 @@ def test_serve_cli_uniform_oversubscribed_gates(capsys):
     """``--policy uniform --pool-frac 0.6 --expect-all --expect-preemptions``
     (48-token prompts: at the default 16 neither package preempts): the JAX
     engine's tokens, 4.00 bits, both gates."""
-    argv = ["--policy", "uniform", "--pool-frac", "0.6", "--expect-all",
-            "--expect-preemptions", "--prompt-len", "48"]
+    argv = ["--temperature", "0", "--policy", "uniform", "--pool-frac",
+            "0.6", "--expect-all", "--expect-preemptions", "--prompt-len",
+            "48"]
     out, _, _ = serve_like_jax(argv, capsys, "uniform")
     assert re.search(r"\[policy=uniform\] .* avg 4\.00 bits", out), out
     assert "oversubscription gate OK: 8/8 requests" in out
@@ -182,8 +199,8 @@ def test_serve_cli_open_loop_stream_parity(capsys):
     """``--stream --arrival-rate 0.5 --expect-stream-parity``: staggered
     Poisson arrivals give the JAX engine's tokens and the synchronous
     run's logits bit for bit."""
-    argv = ["--stream", "--arrival-rate", "0.5", "--expect-stream-parity",
-            "--max-new", "32"]
+    argv = ["--temperature", "0", "--stream", "--arrival-rate", "0.5",
+            "--expect-stream-parity", "--max-new", "32"]
     out, _, _ = serve_like_jax(argv, capsys)
     assert "streamed (0.5 req/tick open-loop): 256 tokens delivered over 8 " \
         "streams" in out, out
@@ -196,9 +213,9 @@ def test_serve_cli_forked_multi_tick_gate(capsys):
     --ticks-per-dispatch 4`` (2 requests of 48 tokens, 96 new: past the
     budget, so forks pay COW faults): the JAX engine's tokens for every
     parent and fork, and the gate's fork checks."""
-    argv = ["--samples-per-slot", "2", "--stream", "--expect-multi-tick",
-            "--ticks-per-dispatch", "4", "--requests", "2", "--prompt-len",
-            "48", "--max-new", "96"]
+    argv = ["--temperature", "0", "--samples-per-slot", "2", "--stream",
+            "--expect-multi-tick", "--ticks-per-dispatch", "4", "--requests",
+            "2", "--prompt-len", "48", "--max-new", "96"]
     out, done, _ = serve_like_jax(argv, capsys)
     assert len(done) == 4
     assert re.search(r"mega-dispatch: .* \| 2 fork\(s\), [1-9]\d* fork COW "
@@ -215,9 +232,9 @@ def test_serve_cli_serves_the_moe_and_qkv_bias_archs(arch, capsys):
     oversubscribed pool, kernel backend (plain versions on the CPU): the
     JAX engine's tokens for the same flags and weights, every request's
     tokens, a clean audit."""
-    argv = ["--arch", arch, "--backend", "kernel", "--pool-frac", "0.6",
-            "--prompt-len", "40", "--max-new", "24", "--requests", "6",
-            "--expect-all"]
+    argv = ["--temperature", "0", "--arch", arch, "--backend", "kernel",
+            "--pool-frac", "0.6", "--prompt-len", "40", "--max-new", "24",
+            "--requests", "6", "--expect-all"]
     out, done, _ = serve_like_jax(argv, capsys)
     # every request's 24 tokens: the first from its prefill, 23 decoded
     assert re.search(r"served 6 requests .* 138 tokens .*cpu, kernel", out), \

@@ -395,7 +395,7 @@ def test_serve_cli_mesh_parity_gate():
                OMP_NUM_THREADS="1")
     p = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
-         "--mesh", "model=2", "--heads", "8", "--kv-heads", "4",
+         "--temperature", "0", "--mesh", "model=2", "--heads", "8", "--kv-heads", "4",
          "--pool-frac", "0.6", "--prefix-cache", "--expect-mesh-parity",
          "--shared-prefix-frac", "0.5", "--prompt-len", "48"],
         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
