@@ -18,7 +18,12 @@ The reference reads a jaxpr; the port runs the call once, under a
 * float64 tensors created (ops whose output is float64), each as
   ``"<op> in <file>:<function>"`` with the code that made it;
 * host syncs: ``aten::_local_scalar_dense`` (``.item()``, ``int(t)``,
-  ``bool(t)``) and copies from a CUDA tensor to the CPU.
+  ``bool(t)``), copies from a CUDA tensor to the CPU and synchronous ones
+  from the CPU to a CUDA tensor, and shapes that depend on the data:
+  ``aten::nonzero`` and ``index`` / ``index_put_`` with a boolean index
+  (``x[mask]``, ``x[mask] = v``).  On the card each of these waits for the
+  device; they are the waits the program's ``thinkv.readback`` spans
+  mark (``repro_torch/spans.py``).
 """
 from __future__ import annotations
 
@@ -134,6 +139,13 @@ def _tensors(x):
             yield from _tensors(y)
 
 
+def _bool_index(args) -> bool:
+    """Does an ``index`` / ``index_put_`` call index with a boolean mask?"""
+    idx = args[1] if len(args) > 1 else None
+    return isinstance(idx, (list, tuple)) and any(
+        torch.is_tensor(t) and t.dtype == torch.bool for t in idx)
+
+
 class _Watch(TorchDispatchMode):
     """Records collectives, float64 outputs and host syncs."""
 
@@ -153,16 +165,25 @@ class _Watch(TorchDispatchMode):
             self.collectives.append(CollectiveUse(
                 kind, str(t.dtype).replace("torch.", "") if t is not None
                 else "", reduces, f"c10d.{name}", SH.collective_axis()))
-        if name == "_local_scalar_dense":
-            self.syncs["_local_scalar_dense"] += 1
+        if name in ("_local_scalar_dense", "nonzero"):
+            self.syncs[name] += 1
+        elif name in ("index", "index_put_", "index_put") and \
+                _bool_index(args):
+            self.syncs["boolean_index"] += 1
         elif name in ("_to_copy", "copy_"):
             src = args[1] if name == "copy_" else args[0]
             dst = args[0] if name == "copy_" else None
-            to_cpu = (dst is not None and dst.device.type == "cpu") or (
-                dst is None and kwargs.get("device") is not None
-                and torch.device(kwargs["device"]).type == "cpu")
-            if torch.is_tensor(src) and src.device.type == "cuda" and to_cpu:
+            to = dst.device.type if dst is not None else (
+                torch.device(kwargs["device"]).type
+                if kwargs.get("device") is not None else None)
+            blocking = not (args[2] if name == "copy_" and len(args) > 2
+                            else kwargs.get("non_blocking", False))
+            if torch.is_tensor(src) and src.device.type == "cuda" and \
+                    to == "cpu":
                 self.syncs["cuda_to_cpu_copy"] += 1
+            elif torch.is_tensor(src) and src.device.type == "cpu" and \
+                    to == "cuda" and blocking:
+                self.syncs["cpu_to_cuda_copy"] += 1
         out = func(*args, **kwargs)
         if any(t.dtype == torch.float64 for t in _tensors(out)):
             self.fp64.append(f"{ns}.{name} in {_origin()}")

@@ -59,6 +59,7 @@ from repro_torch.core.policy import get_policy
 from repro_torch.core.thoughts import classify
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
+from repro_torch.spans import readback, span, traced
 
 SCALE_DTYPE = torch.bfloat16
 FREE, VALID, EVICTED = 0, 1, 2
@@ -233,6 +234,7 @@ def _alloc_slots(dims: CacheDims, slot_state: torch.Tensor,
     return idx, score.gather(1, idx) > 0
 
 
+@traced("commit")
 def commit_group(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
                  view: PoolView, policy=None) -> None:
     """Quantize the full buffer and write it into the request's view,
@@ -246,16 +248,21 @@ def commit_group(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
         cfg, cache.buf_k, cache.buf_v, t, policy)
     idx, ok = _alloc_slots(dims, cache.slot_state, cache.block_type, t)
     lrow = torch.arange(L, device=dev)[:, None].expand(L, G)
-    li, si = lrow[ok], idx[ok]
+    with readback():
+        li, si = lrow[ok], idx[ok]
     for plane, val in zip(view_flat(view), (kc, vc, ks, vs)):
-        plane[li, si] = val[ok]
-    cache.slot_state[li, si] = VALID
+        with readback():
+            plane[li, si] = val[ok]
+    with readback():
+        cache.slot_state[li, si] = VALID
     cache.slot_seg[li, si] = cache.cur_seg
-    cache.slot_pos[li, si] = positions.expand(L, G)[ok]
+    with readback():
+        cache.slot_pos[li, si] = positions.expand(L, G)[ok]
     cache.slot_bits[li, si] = bits.to(torch.uint8)
     bidx = idx // dims.BS
     claim = ok & (cache.block_type.gather(1, bidx) == -1)
-    cache.block_type[lrow[claim], bidx[claim]] = t.to(torch.int8)
+    with readback():
+        cache.block_type[lrow[claim], bidx[claim]] = t.to(torch.int8)
     cache.buf_len.fill_(0)
 
 
@@ -263,6 +270,7 @@ def commit_group(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
 # TBE: segment annealing + budget eviction
 # ---------------------------------------------------------------------------
 
+@traced("anneal")
 def _anneal_segment(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
                     k_codes: torch.Tensor, k_scales: torch.Tensor,
                     seg: torch.Tensor, enable: torch.Tensor,
@@ -324,6 +332,7 @@ def tbe_anneal_all(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
     _free_empty_blocks(dims, cache)
 
 
+@traced("evict")
 def budget_evict(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
                  view: PoolView, max_rounds: int = 4, policy=None,
                  mesh=None, num_tokens: Optional[int] = None) -> None:
@@ -363,7 +372,8 @@ def refresh(cfg: ThinKVConfig, dims: CacheDims, cache: CTCache,
     current segment (TBE if it was a transition), then enforce the budget
     (``num_tokens`` as in :func:`budget_evict`)."""
     new_thought = classify(sparsity, cfg.sparsity_thresholds)
-    host = torch.cat([cache.cur_seg[None], cache.seg_type]).tolist()
+    with readback():
+        host = torch.cat([cache.cur_seg[None], cache.seg_type]).tolist()
     ended_seg, seg_type = host[0], host[1:]
     if seg_type[ended_seg] == int(ThoughtType.TRANSITION):
         tbe_anneal_all(cfg, dims, cache, view, ended_seg, seg_type, policy,
@@ -465,17 +475,22 @@ def scatter_view(pool_view: PoolView, table: torch.Tensor,
                  view: PoolView) -> None:
     """Write a request's view back through its table (unmapped dropped)."""
     mapped = table >= 0
-    rows, phys = _layer_rows(table)[mapped], table[mapped].long()
+    with readback():
+        rows, phys = _layer_rows(table)[mapped], table[mapped].long()
     for p, v in zip(pool_view, view):
-        p[rows, phys] = v[mapped]
+        with readback():
+            p[rows, phys] = v[mapped]
 
 
 def _add_refs(refcount: torch.Tensor, table: torch.Tensor,
               mask: torch.Tensor, delta: int) -> None:
-    rows = _layer_rows(table)[mask]
-    refcount.index_put_((rows, table[mask].long()),
-                        torch.full_like(rows, delta, dtype=refcount.dtype),
-                        accumulate=True)
+    with readback():
+        rows = _layer_rows(table)[mask]
+    with readback():
+        refcount.index_put_((rows, table[mask].long()),
+                            torch.full_like(rows, delta,
+                                            dtype=refcount.dtype),
+                            accumulate=True)
 
 
 def _rank_alloc(refcount: torch.Tensor, need: torch.Tensor):
@@ -633,8 +648,10 @@ def check_pool_invariants(pool: GlobalPool, tables, extra_tables=()) -> dict:
     """Host audit of the refcount invariants: every physical block's
     refcount equals the references the holders make to it, none is
     negative, and claimed + free == pool blocks.  Raises AssertionError."""
-    rc = pool.refcount.cpu().numpy()
-    tb = np.asarray(tables.cpu() if torch.is_tensor(tables) else tables)
+    with readback():
+        rc = pool.refcount.cpu().numpy()
+    with readback():
+        tb = np.asarray(tables.cpu() if torch.is_tensor(tables) else tables)
     if tb.ndim == 2:
         tb = tb[None]
     holders = [tb] + [np.asarray(t)[None] if np.asarray(t).ndim == 2
@@ -688,7 +705,7 @@ def engine_advance(cfg: ThinKVConfig, dims: CacheDims, pool: GlobalPool,
     at_refresh = num_tokens % cfg.refresh_interval == 0
     if not (at_commit or at_refresh):
         return None, None, num_tokens, buf_len
-    with torch.profiler.record_function("thinkv.maintain"):
+    with span("maintain"):
         view = gather_view(pool.view, table)
         view0 = PoolView(*(p.clone() for p in view)) if track_cow else None
         if at_commit:
@@ -697,13 +714,14 @@ def engine_advance(cfg: ThinKVConfig, dims: CacheDims, pool: GlobalPool,
                          num_tokens=num_tokens)
             buf_len = 0
         if at_refresh:
-            with torch.profiler.record_function("thinkv.refresh"):
+            with span("refresh"):
                 refresh(cfg, dims, cache, view, sparsity, policy, mesh,
                         num_tokens)
-        dirty = SH.any_shard(changed_slots(view0, view), mesh) \
-            if track_cow else None
-        failed, cow = sync_block_tables(dims, pool, table, cache, view,
-                                        dirty_slots=dirty)
+        with span("tables"):
+            dirty = SH.any_shard(changed_slots(view0, view), mesh) \
+                if track_cow else None
+            failed, cow = sync_block_tables(dims, pool, table, cache, view,
+                                            dirty_slots=dirty)
     return failed.any(), cow.sum(), num_tokens, buf_len
 
 

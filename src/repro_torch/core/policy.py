@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.config import ThinKVConfig
 from repro_torch.core.kmeans import kmeans_select, redundancy_select
+from repro_torch.spans import readback
 
 
 def _validate_common(cfg: ThinKVConfig) -> None:
@@ -62,8 +63,9 @@ class RetentionPolicy:
                      ) -> torch.Tensor:
         """R_n of the n-th eviction of a segment (clamped at min retention;
         levels past the schedule's end hold its last entry)."""
-        sched = torch.tensor(cfg.retention_schedule, dtype=torch.int64,
-                             device=level.device)
+        with readback():
+            sched = torch.tensor(cfg.retention_schedule, dtype=torch.int64,
+                                 device=level.device)
         idx = level.long().clamp(0, len(cfg.retention_schedule) - 1)
         return sched[idx].clamp_min(cfg.min_retention)
 
@@ -86,9 +88,11 @@ class ThinKVPolicy(RetentionPolicy):
         return thought
 
     def psi_bits(self, thought, cfg):
-        prec = torch.tensor(cfg.precision, dtype=torch.int32,
-                            device=thought.device)
-        return prec[thought.long()]
+        with readback():
+            prec = torch.tensor(cfg.precision, dtype=torch.int32,
+                                device=thought.device)
+        with readback():
+            return prec[thought.long()]
 
     def precision_levels(self, cfg):
         return tuple(sorted(set(cfg.precision)))

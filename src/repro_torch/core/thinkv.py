@@ -27,6 +27,7 @@ import torch
 from repro_torch.config import ThinKVConfig
 from repro_torch.core import ct_cache as CC
 from repro_torch.core.thoughts import row_sparsity
+from repro_torch.spans import readback
 
 NEG_INF = -1e30
 
@@ -89,7 +90,8 @@ def compression_ratio(cfg: ThinKVConfig, dims: CC.CacheDims,
     """ThinKV footprint vs an uncompressed bf16 cache of ``full_tokens``."""
     stats = CC.memory_stats(dims, cache)
     full_bytes = full_tokens * 2 * 2 * dims.H * dims.D * dims.L
-    phys = float(stats["physical_bytes"].sum())
+    with readback():
+        phys = float(stats["physical_bytes"].sum())
     ratio = (phys + CC.metadata_bytes(dims) + CC.buffer_bytes(dims)) / \
         max(full_bytes, 1)
     return {**stats, "footprint_frac": ratio, "full_bytes": full_bytes}

@@ -8,8 +8,10 @@ this builds the serving engine on the smoke config (``--heads`` /
 count shards) and audits EVERY entry point against its declared
 ``CompiledContract`` (``repro_torch.analysis.contracts``): exact launches
 per kernel, the cross-rank collective whitelist, no fp64; host syncs are
-reported per entry point.  Once per run it also audits the standalone K3
-entry and the serve steps (one rank).
+reported per entry point (reads to the host, synchronous uploads and
+boolean-mask shapes: the waits the program's ``thinkv.readback`` spans
+mark).  Once per run it also audits the standalone K3 entry and the serve
+steps (one rank).
 
 Cells of more than one rank run through ``launch.mesh.run_ranks`` (the
 reference re-execs itself under ``XLA_FLAGS``): every rank audits its

@@ -51,6 +51,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.distributed import sharding as SH
 from repro_torch.layers.common import act_fn
+from repro_torch.spans import span
 
 
 def moe_param_shapes(cfg: ModelConfig) -> dict:
@@ -171,8 +172,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     n = b * s
     gsz = group_size(n, group or cfg.moe.dispatch_group)
     xt = x.reshape(n // gsz, gsz, d)
-    rt = moe_route(p["router"], xt, cfg)
-    y = _experts(p, xt, rt, cfg, split)
+    with span("route"):
+        rt = moe_route(p["router"], xt, cfg)
+    with span("experts"):
+        y = _experts(p, xt, rt, cfg, split)
     frac = torch.nn.functional.one_hot(rt.expert[..., 0], e).sum(1) \
         .float().div(gsz).mean(0)
     aux = e * (frac * rt.probs.mean((0, 1))).sum()

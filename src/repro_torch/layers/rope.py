@@ -6,14 +6,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.spans import readback
+
 
 def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float = 1e4):
     """positions [...] -> (cos, sin), each [..., head_dim // 2] f32."""
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    inv = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                 device=positions.device), exps)
+    with readback():
+        base = torch.tensor(theta, dtype=torch.float32,
+                            device=positions.device)
+    inv = torch.pow(base, exps)
     ang = positions.to(torch.float32)[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 

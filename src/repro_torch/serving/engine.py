@@ -55,8 +55,11 @@ allowance of an active slot (the reference's loop stops after the first
 trip on which a slot finishes), and only when some active request has an
 eos token does each trip read one device flag (did a slot sample its
 eos?) and stop after it.  COW counts and commit-failure flags are read
-once per pack.  Host syncs left inside a trip: the refresh's and the pool
-accounting's reads in ``ct_cache`` (ROADMAP queue 1 item 17).
+once per pack.  Host syncs left inside a trip: the commit's and the pool
+accounting's boolean-mask shapes and the refresh's read in ``ct_cache``,
+the retention policy's table uploads and RoPE's base upload; each
+statement that waits is a ``thinkv.readback`` span (``repro_torch/spans.py``
+lists the program's spans).
 
 Forks (``allow_forks``, ``fork_slot``): a child maps its parent's blocks
 by reference (refcount + 1, no plane copy), copies the table and cache
@@ -150,6 +153,7 @@ from repro_torch.serving import prng
 from repro_torch.serving import sampling as SMP
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.spans import readback, span
 
 NEG_INF = -1e30
 # the drift probe pads prompt + output to a multiple of this length
@@ -274,9 +278,12 @@ class TickResult:
     def block(self) -> "TickResult":
         if self._host is None:
             tokens, logits, flags = self._dev
-            flags = flags.cpu().numpy()
-            self._host = (tokens.cpu().numpy(), logits.float().cpu().numpy(),
-                          bool(flags[-1]), flags[:-1])
+            with readback():
+                flags = flags.cpu().numpy()
+            with readback():
+                self._host = (tokens.cpu().numpy(),
+                              logits.float().cpu().numpy(),
+                              bool(flags[-1]), flags[:-1])
         return self
 
     @property
@@ -321,13 +328,16 @@ class MultiTickResult:
             tokens, valid, logits, flags = self._dev
             trips, R = self.trips_host, len(valid[0])
             toks = np.zeros((self.n, R), np.int64)
-            toks[:trips] = torch.stack(tokens).cpu().numpy()
+            with readback():
+                toks[:trips] = torch.stack(tokens).cpu().numpy()
             val = np.zeros((self.n, R), bool)
             val[:trips] = np.stack(valid)
-            lg = torch.stack(logits).float().cpu().numpy()
+            with readback():
+                lg = torch.stack(logits).float().cpu().numpy()
             lgs = np.zeros((self.n,) + lg.shape[1:], np.float32)
             lgs[:trips] = lg
-            flags = flags.cpu().numpy()
+            with readback():
+                flags = flags.cpu().numpy()
             self._host = (toks, val, lgs, bool(flags[-1]), flags[:-1])
         return self
 
@@ -577,7 +587,8 @@ class ThinKVEngine:
         claim failed (one read-back per call)."""
         if not self._fails:
             return
-        flags = self._flags().cpu().numpy()
+        with readback():
+            flags = self._flags().cpu().numpy()
         self.metrics["cow_faults"] += int(flags[:-1].sum())
         if flags[-1]:
             raise AssertionError(
@@ -591,33 +602,34 @@ class ThinKVEngine:
     @torch.no_grad()
     def _tick(self, active: np.ndarray, feed: torch.Tensor) -> torch.Tensor:
         """One decode tick over every slot from the tokens ``feed`` ([R] on
-        the device): returns the logits [R, V]; active slots' caches
-        advance.  Queries, keys and values are sliced to this rank's heads
-        and the attention outputs gathered back, once per tick."""
+        the device), up to the final norm: returns the residual stream
+        [R, Dm]; active slots' caches advance.  Queries, keys and values
+        are sliced to this rank's heads and the attention outputs gathered
+        back, once per tick."""
         mc, tk, dims = self.mcfg, self.tk, self.ldims
         R, L, dev = self.cfg.max_seqs, mc.num_layers, self.device
         m, caches = self.model, self.caches
-        h = E.embed(m.embed_params, feed, mc)                    # [R, Dm]
-        pos, buf_len = caches.num_tokens, caches.buf_len.long()
-        ridx = torch.arange(R, device=dev)
         refresh_due = active & ((self._slot_ntok + 1)
                                 % tk.refresh_interval == 0)
 
         # pass 1: qkv + buffer write + FFN trunk (MoE: the R slots route
         # together)
-        qs = []
-        for l in range(L):
-            lp = m.layer(l)
-            x1 = rmsnorm(lp["norm1"], h, mc.norm_eps)
-            q, k, v = A.qkv_decode(lp["attn"], x1, mc, pos)
-            caches.buf_k[ridx, l, buf_len] = self._local(k, 1) \
-                .to(torch.bfloat16)
-            caches.buf_v[ridx, l, buf_len] = self._local(v, 1) \
-                .to(torch.bfloat16)
-            h = lm.mlp_residual(lp, h, mc)
-            qs.append(self._local(q, 1))
-        qs = torch.stack(qs)                             # [L, R, Hq/N, D]
-        n_buf = caches.buf_len + 1
+        with span("trunk"):
+            h = E.embed(m.embed_params, feed, mc)                # [R, Dm]
+            pos, buf_len = caches.num_tokens, caches.buf_len.long()
+            ridx = torch.arange(R, device=dev)
+            qs = []
+            for l in range(L):
+                lp = m.layer(l)
+                x1 = rmsnorm(lp["norm1"], h, mc.norm_eps)
+                q, k, v = A.qkv_decode(lp["attn"], x1, mc, pos)
+                caches.buf_k[ridx, l, buf_len] = self._local(k, 1) \
+                    .to(torch.bfloat16)
+                caches.buf_v[ridx, l, buf_len] = self._local(v, 1) \
+                    .to(torch.bfloat16)
+                h = lm.mlp_residual(lp, h, mc)
+                qs.append(self._local(q, 1))
+            qs = torch.stack(qs)                         # [L, R, Hq/N, D]
 
         def dense(l):
             """Layer l's attention and, for a calibration layer, its
@@ -631,45 +643,52 @@ class ThinKVEngine:
                 if l in self.lstar else None
 
         # pass 2: attention, once, over the stacked queries
-        if self.backend == "kernel":
-            pv = self.pool.view
-            qh = qs.reshape(L, R, dims.H, -1, mc.head_dim).float()
-            o_all = K.paged_decode_attention_fused(
-                qh.contiguous(), pv.k_codes, pv.v_codes, pv.k_scales,
-                pv.v_scales, CC.stacked_slot_plane(dims, caches.slot_state),
-                CC.stacked_slot_plane(dims, caches.slot_bits), self.tables,
-                CC.stacked_buffers(caches.buf_k),
-                CC.stacked_buffers(caches.buf_v), n_buf)
-            o_all = o_all.reshape(qs.shape).to(qs.dtype)
-            if refresh_due.any():
-                sparsity = torch.stack([dense(l)[1] for l in self.lstar]) \
-                    .mean(0)
+        with span("attend"):
+            n_buf = caches.buf_len + 1
+            if self.backend == "kernel":
+                pv = self.pool.view
+                qh = qs.reshape(L, R, dims.H, -1, mc.head_dim).float()
+                o_all = K.paged_decode_attention_fused(
+                    qh.contiguous(), pv.k_codes, pv.v_codes, pv.k_scales,
+                    pv.v_scales,
+                    CC.stacked_slot_plane(dims, caches.slot_state),
+                    CC.stacked_slot_plane(dims, caches.slot_bits),
+                    self.tables, CC.stacked_buffers(caches.buf_k),
+                    CC.stacked_buffers(caches.buf_v), n_buf)
+                o_all = o_all.reshape(qs.shape).to(qs.dtype)
+                if refresh_due.any():
+                    sparsity = torch.stack(
+                        [dense(l)[1] for l in self.lstar]).mean(0)
+                else:
+                    sparsity = torch.zeros(R, device=dev)
             else:
-                sparsity = torch.zeros(R, device=dev)
-        else:
-            outs = [dense(l) for l in range(L)]
-            o_all = torch.stack([o for o, _ in outs])
-            sparsity = torch.stack([outs[l][1] for l in self.lstar]).mean(0)
-        o_all = self._whole(o_all, 2)                     # [L, R, Hq, D]
+                outs = [dense(l) for l in range(L)]
+                o_all = torch.stack([o for o, _ in outs])
+                sparsity = torch.stack(
+                    [outs[l][1] for l in self.lstar]).mean(0)
+            o_all = self._whole(o_all, 2)                 # [L, R, Hq, D]
 
         # pass 3: attention output residuals
-        for l in range(L):
-            h = h + A.out_proj(m.layer(l)["attn"], o_all[l])
+        with span("project"):
+            for l in range(L):
+                h = h + A.out_proj(m.layer(l)["attn"], o_all[l])
 
-        for i in np.nonzero(active)[0]:
-            self._advance(int(i), sparsity[i], 1)
+        with span("advance"):
+            for i in np.nonzero(active)[0]:
+                self._advance(int(i), sparsity[i], 1)
+        return h
 
-        h = rmsnorm({"scale": m.final_norm}, h, mc.norm_eps)
-        return softcap(E.unembed(m.embed_params, h, mc), mc.logit_softcap)
-
+    @torch.no_grad()
     def _trip(self, active: np.ndarray, feed: torch.Tensor):
-        """One tick, then every slot's draw from its key stream: (tokens
-        [R], logits [R, V]) on the device."""
-        with torch.profiler.record_function("thinkv.tick"):
-            logits = self._tick(active, feed)
-            tokens, self._slot_keys = _sample_slots(
-                self._slot_keys, logits, self.cfg.temperature,
-                self.cfg.top_p)
+        """One tick, then the logits and every slot's draw from its key
+        stream: (tokens [R], logits [R, V]) on the device."""
+        with span("tick"):
+            h = self._tick(active, feed)
+            with span("logits"):
+                logits = self._logits(h)
+                tokens, self._slot_keys = _sample_slots(
+                    self._slot_keys, logits, self.cfg.temperature,
+                    self.cfg.top_p)
         return tokens, logits
 
     # ------------------------------------------------------------------
@@ -707,9 +726,11 @@ class ThinKVEngine:
         tok_valid = torch.arange(C, device=dev) < n_valid
         refresh_due = (start + n_valid) % tk.refresh_interval == 0
         cache = self.caches.slot(i)
-        slot = torch.tensor([i], device=dev)
-        h = E.embed(self.model.embed_params,
-                    torch.as_tensor(padded, device=dev), mc)
+        with readback():
+            slot = torch.tensor([i], device=dev)
+        with readback():
+            ids = torch.as_tensor(padded, device=dev)
+        h = E.embed(self.model.embed_params, ids, mc)
         causal = torch.arange(C, device=dev)[None] <= \
             torch.arange(C, device=dev)[:, None]
         buf_mask = (causal & tok_valid[None])[None]
@@ -758,9 +779,11 @@ class ThinKVEngine:
         positions = start + torch.arange(C, device=dev)
         has_refresh = any((start + t) % tk.refresh_interval == 0
                           for t in range(1, C + 1))
-        slot = torch.tensor([i], device=dev)
-        h = E.embed(self.model.embed_params,
-                    torch.as_tensor(tokens, device=dev), mc)
+        with readback():
+            slot = torch.tensor([i], device=dev)
+        with readback():
+            ids = torch.as_tensor(tokens, device=dev)
+        h = E.embed(self.model.embed_params, ids, mc)
         causal = (torch.arange(C, device=dev)[None] <=
                   torch.arange(C, device=dev)[:, None])[None]
         spars, ks, vs = {}, [], []
@@ -804,12 +827,16 @@ class ThinKVEngine:
     # ------------------------------------------------------------------
 
     def _free_per_layer(self) -> np.ndarray:
-        return (self.pool.refcount == 0).sum(1).cpu().numpy().astype(np.int64)
+        with readback():
+            return (self.pool.refcount == 0).sum(1).cpu().numpy() \
+                .astype(np.int64)
 
     def _host_pool(self):
         """(refcounts [L, NP], every slot's table [R, L, NB]) on the host:
         one read-back of each, shared by a whole pass."""
-        return self.pool.refcount.cpu().numpy(), self.tables.cpu().numpy()
+        with readback():
+            return self.pool.refcount.cpu().numpy(), \
+                self.tables.cpu().numpy()
 
     @staticmethod
     def _split_table(table_np: np.ndarray, rc: np.ndarray):
@@ -867,7 +894,8 @@ class ThinKVEngine:
         if not (self.prefix_cache.entries and (free < needed).any()):
             return False
         # one refcount read per call; evictions are mirrored on the host
-        rc = self.pool.refcount.cpu().numpy().copy()
+        with readback():
+            rc = self.pool.refcount.cpu().numpy().copy()
         cache_refs = np.zeros_like(rc)
         for t in self.prefix_cache.cached_tables():
             for l in range(self.dims.L):
@@ -900,8 +928,9 @@ class ThinKVEngine:
         for st in self._spilled.values():
             if st.shared_table is None or not (st.shared_table >= 0).any():
                 continue
-            CC.release_blocks(self.pool, torch.as_tensor(
-                st.shared_table, device=self.device))
+            with readback():
+                shared = torch.as_tensor(st.shared_table, device=self.device)
+            CC.release_blocks(self.pool, shared)
             st.mapped = st.mapped | (st.shared_table >= 0)
             st.shared_table = None
             changed = True
@@ -976,15 +1005,16 @@ class ThinKVEngine:
         t0 = time.perf_counter()
         view, _ = CC.extract_request(self.pool, self.tables[i])
         cpu = torch.device("cpu")
-        st = PreemptedState(
-            view=CC.PoolView(*(self._whole(p, SH.PLANE_HEAD_DIM).to(cpu)
-                               for p in view)), mapped=mapped,
-            cache=CC.CTCache(**{f: self._cache_field(
-                f, getattr(self.caches, f)[i], self._whole).to(
-                cpu, copy=True) for f in CC.CTCache.FIELDS}),
-            tokens_out=tokens_out, next_token=next_token,
-            shared_table=shared_table,
-            rng=self._slot_keys[i].to(cpu, copy=True).numpy())
+        with readback():
+            st = PreemptedState(
+                view=CC.PoolView(*(self._whole(p, SH.PLANE_HEAD_DIM).to(cpu)
+                                   for p in view)), mapped=mapped,
+                cache=CC.CTCache(**{f: self._cache_field(
+                    f, getattr(self.caches, f)[i], self._whole).to(
+                    cpu, copy=True) for f in CC.CTCache.FIELDS}),
+                tokens_out=tokens_out, next_token=next_token,
+                shared_table=shared_table,
+                rng=self._slot_keys[i].to(cpu, copy=True).numpy())
         self.metrics["spill_s"] += time.perf_counter() - t0
         self.metrics["spill_bytes"] += st.nbytes
         return st
@@ -1004,15 +1034,19 @@ class ThinKVEngine:
         i, req = slot.idx, slot.request
         assert self._slot_ntok[i] > 0, \
             "preempting a slot that never started (nothing to spill)"
-        table_np = self.tables[i].cpu().numpy()
-        private, shared = self._split_table(
-            table_np, self.pool.refcount.cpu().numpy())
+        with readback():
+            table_np = self.tables[i].cpu().numpy()
+        with readback():
+            rc = self.pool.refcount.cpu().numpy()
+        private, shared = self._split_table(table_np, rc)
         self._spilled[req.arrival] = self._spill(
             i, private, slot.tokens_out, int(self._feed[i]),
             np.where(shared, table_np, -1).astype(np.int32))
-        self._release_slot(i, torch.as_tensor(
-            np.where(private, table_np, -1).astype(np.int32),
-            device=self.device))
+        with readback():
+            released = torch.as_tensor(
+                np.where(private, table_np, -1).astype(np.int32),
+                device=self.device)
+        self._release_slot(i, released)
         self.scheduler.preempt(slot)
         self._queued_at[req.arrival] = self.metrics["ticks"]
         self.metrics["preemptions"] += 1
@@ -1149,7 +1183,8 @@ class ThinKVEngine:
         s0, logits = 0, None
         hit = pc.lookup(prompt) if pc is not None else None
         if hit is not None:
-            table = torch.as_tensor(hit.table, device=self.device)
+            with readback():
+                table = torch.as_tensor(hit.table, device=self.device)
             CC.incref_blocks(self.pool, table)
             self.tables[i].copy_(table)
             self.caches.slot(i).copy_(hit.cache)
@@ -1169,8 +1204,10 @@ class ThinKVEngine:
 
         big_claims = (BC // C) * self._cc if BC else 0
         while BC and len(prompt) - s0 >= BC:
-            t_np = self.tables[i].cpu().numpy()
-            rc = self.pool.refcount.cpu().numpy()   # one read per chunk
+            with readback():
+                t_np = self.tables[i].cpu().numpy()
+            with readback():
+                rc = self.pool.refcount.cpu().numpy()   # one per chunk
             shared = self._split_table(t_np, rc)[1]
             need = np.minimum(big_claims, dims.NB - (t_np >= 0).sum(1)) + \
                 shared.sum(1)
@@ -1217,14 +1254,15 @@ class ThinKVEngine:
         from ``arrival`` (the slot index when None, for callers without a
         scheduler); returns the RESIDENT prefix."""
         t0 = time.perf_counter()
-        with torch.profiler.record_function("thinkv.prefill"):
+        with span("prefill"):
             logits = self._prefill(slot_idx, np.asarray(prompt)).float()
             key = SMP.request_stream_key(
                 self.cfg.seed, slot_idx if arrival is None else arrival,
                 self.device)
             tok, self._slot_keys[slot_idx] = SMP.stream_sample(
                 key, logits, self.cfg.temperature, self.cfg.top_p)
-            first, logits = int(tok), logits.cpu().numpy()
+            with readback():
+                first, logits = int(tok), logits.cpu().numpy()
         self.metrics["prefill_s"] += time.perf_counter() - t0
         return Prefix(length=len(prompt), first_token=first, logits=logits,
                       slot=slot_idx)
@@ -1237,8 +1275,9 @@ class ThinKVEngine:
         if prefix.state is not None or prefix.slot < 0:
             raise ValueError("detach_prefix needs a resident prefix")
         i = prefix.slot
-        prefix.state = self._spill(i, self.tables[i].cpu().numpy() >= 0, 0,
-                                   prefix.first_token)
+        with readback():
+            mapped = self.tables[i].cpu().numpy() >= 0
+        prefix.state = self._spill(i, mapped, 0, prefix.first_token)
         self._release_slot(i)
         prefix.slot = -1
         return prefix
@@ -1260,25 +1299,32 @@ class ThinKVEngine:
             self._feed[i] = prefix.first_token
             return True
         st, dev = prefix.state, self.device
-        table, ok = CC.restore_request(
-            self.pool, torch.as_tensor(st.mapped, device=dev),
-            CC.PoolView(*(self._local(p, SH.PLANE_HEAD_DIM).to(dev)
-                          for p in st.view)))
-        if not bool(ok):
+        with readback():
+            mapped = torch.as_tensor(st.mapped, device=dev)
+        with readback():
+            view = CC.PoolView(*(self._local(p, SH.PLANE_HEAD_DIM).to(dev)
+                                 for p in st.view))
+        table, ok = CC.restore_request(self.pool, mapped, view)
+        with readback():
+            restored = bool(ok)
+        if not restored:
             CC.release_blocks(self.pool, table)
             return False
         if st.shared_table is not None:
-            shared = torch.as_tensor(st.shared_table, device=dev)
+            with readback():
+                shared = torch.as_tensor(st.shared_table, device=dev)
             table = torch.where(shared >= 0, shared, table)
         self.tables[i].copy_(table)
-        self.caches.slot(i).copy_(CC.CTCache(**{
-            f: self._cache_field(f, getattr(st.cache, f), self._local)
-            for f in CC.CTCache.FIELDS}))
+        with readback():
+            self.caches.slot(i).copy_(CC.CTCache(**{
+                f: self._cache_field(f, getattr(st.cache, f), self._local)
+                for f in CC.CTCache.FIELDS}))
         self._slot_ntok[i] = int(st.cache.num_tokens)
         self._slot_buflen[i] = int(st.cache.buf_len)
         self._feed[i] = st.next_token
         if st.rng is not None:
-            self._slot_keys[i] = torch.as_tensor(st.rng, device=dev)
+            with readback():
+                self._slot_keys[i] = torch.as_tensor(st.rng, device=dev)
         return True
 
     def generate(self) -> Union[TickResult, MultiTickResult, None]:
@@ -1296,7 +1342,8 @@ class ThinKVEngine:
             return None
         self.metrics["dispatches"] += 1
         t0 = time.perf_counter()
-        feed = torch.as_tensor(self._feed, device=self.device)
+        with readback():
+            feed = torch.as_tensor(self._feed, device=self.device)
         if self.ticks_per_dispatch == 1:
             tokens, logits = self._trip(active, feed)
             self.metrics["ticks"] += 1
@@ -1313,8 +1360,10 @@ class ThinKVEngine:
             for s in slots])
         eos = {s.idx: int(s.request.eos_token) for s in slots
                if s.request.eos_token is not None}
-        eos_dev = torch.tensor([eos.get(i, -1) for i in range(len(active))],
-                               device=self.device) if eos else None
+        with readback():
+            eos_dev = torch.tensor(
+                [eos.get(i, -1) for i in range(len(active))],
+                device=self.device) if eos else None
         tokens, valid, logits = self._pack(active, feed, trips, eos_dev)
         return MultiTickResult(int(self.metrics["ticks"]),
                                self.ticks_per_dispatch, requested, tokens,
@@ -1332,8 +1381,11 @@ class ThinKVEngine:
             tokens.append(feed)
             valid.append(active)
             logits.append(lg)
-            if eos_dev is not None and bool((feed == eos_dev).any()):
-                break
+            if eos_dev is not None:
+                with readback():
+                    hit = bool((feed == eos_dev).any())
+                if hit:
+                    break
         return tokens, valid, logits
 
     def consume(self, res: Union[TickResult, MultiTickResult]):
@@ -1383,8 +1435,10 @@ class ThinKVEngine:
                                                       self.device)
         self._forked[src] = self._forked[dst] = True
         self.metrics["forks"] += 1
-        self.metrics["peak_refcount"] = max(
-            self.metrics["peak_refcount"], int(self.pool.refcount.max()))
+        with readback():
+            peak = int(self.pool.refcount.max())
+        self.metrics["peak_refcount"] = max(self.metrics["peak_refcount"],
+                                            peak)
 
     def free_resource(self, slot_idx: int) -> None:
         """Release every pool reference of ``slot_idx`` and reset it
@@ -1398,8 +1452,9 @@ class ThinKVEngine:
         if st is None:
             return False
         if st.shared_table is not None and (st.shared_table >= 0).any():
-            CC.release_blocks(self.pool, torch.as_tensor(
-                st.shared_table, device=self.device))
+            with readback():
+                shared = torch.as_tensor(st.shared_table, device=self.device)
+            CC.release_blocks(self.pool, shared)
         return True
 
     def run(self, max_ticks: int = 10_000) -> List[Request]:
@@ -1449,9 +1504,11 @@ class ThinKVEngine:
         buf = np.zeros((1, pad), np.int64)
         buf[0, :n] = toks[:n]
         steps = min(len(output), len(recorded))
-        ref = self._drift_probe(torch.as_tensor(buf, device=self.device),
-                                slice(p - 1, p - 1 + steps))
-        ref = ref.float().cpu().numpy()
+        with readback():
+            ids = torch.as_tensor(buf, device=self.device)
+        ref = self._drift_probe(ids, slice(p - 1, p - 1 + steps))
+        with readback():
+            ref = ref.float().cpu().numpy()
         max_abs = mean_abs = 0.0
         top1 = 0
         for i in range(steps):
@@ -1569,5 +1626,6 @@ class ThinKVEngine:
     def slot_stats(self, i: int) -> Dict:
         comp = TV.compression_ratio(self.tk, self.dims, self.caches.slot(i),
                                     int(self._slot_ntok[i]))
-        return {k: (v.tolist() if torch.is_tensor(v) else v)
-                for k, v in comp.items()}
+        with readback():
+            return {k: (v.tolist() if torch.is_tensor(v) else v)
+                    for k, v in comp.items()}

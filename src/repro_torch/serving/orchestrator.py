@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.scheduler import Request, RequestState
+from repro_torch.spans import readback, span
 
 _END = object()        # stream sentinel: no further tokens
 
@@ -305,34 +306,46 @@ class Orchestrator:
                 continue         # headroom preempted everything this round
             self._log("dispatch", tick=res.tick)
             # park off-thread while the host copies land; consumers woken
-            # by the previous iteration's tokens run now
-            await asyncio.get_running_loop().run_in_executor(None, res.block)
+            # by the previous iteration's tokens run now.  The profiler
+            # records the serving thread only, so the wait's span opens
+            # here, around the copies made on the executor's thread
+            with readback():
+                await asyncio.get_running_loop().run_in_executor(
+                    None, res.block)
             eng.consume(res)
             self._log("consume", tick=res.tick)
             self._drain_retrace_events()
-            toks, logits = res.tokens_host, res.logits_host
-            if res.packed:
-                # trip by trip: finished slots leave active_slots() for
-                # the later trips, as between separate ticks
-                valid = res.valid_host
-                for t in range(res.trips_host):
-                    for slot in sch.active_slots():
-                        if valid[t][slot.idx]:
-                            self._record_logits(slot.request,
-                                                logits[t][slot.idx])
-                            self._finish_token(slot, int(toks[t][slot.idx]),
-                                               res.base_tick + t + 1)
-            else:
-                for slot in sch.active_slots():
-                    self._record_logits(slot.request, logits[slot.idx])
-                    self._finish_token(slot, int(toks[slot.idx]), res.tick)
+            with span("deliver"):
+                self._deliver(res)
             await self._admit_and_prefill()
         self._drain_retrace_events()   # events from trailing prefills
         if eng.device.type == "cuda":
-            await asyncio.get_running_loop().run_in_executor(
-                None, torch.cuda.synchronize, eng.device)
+            with readback():
+                await asyncio.get_running_loop().run_in_executor(
+                    None, torch.cuda.synchronize, eng.device)
         eng.metrics["wall_s"] = time.perf_counter() - self._t0
         return sch.finished
+
+    def _deliver(self, res) -> None:
+        """Fan a consumed dispatch's tokens out to their requests (logits
+        recorded, streams fed, finished requests retired)."""
+        sch = self.engine.scheduler
+        toks, logits = res.tokens_host, res.logits_host
+        if res.packed:
+            # trip by trip: finished slots leave active_slots() for the
+            # later trips, as between separate ticks
+            valid = res.valid_host
+            for t in range(res.trips_host):
+                for slot in sch.active_slots():
+                    if valid[t][slot.idx]:
+                        self._record_logits(slot.request,
+                                            logits[t][slot.idx])
+                        self._finish_token(slot, int(toks[t][slot.idx]),
+                                           res.base_tick + t + 1)
+        else:
+            for slot in sch.active_slots():
+                self._record_logits(slot.request, logits[slot.idx])
+                self._finish_token(slot, int(toks[slot.idx]), res.tick)
 
     async def _wait_for_arrival(self) -> None:
         self._arrival_event.clear()

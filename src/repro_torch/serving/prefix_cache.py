@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ct_cache as CC
+from repro_torch.spans import readback
 
 
 @dataclasses.dataclass
@@ -106,8 +107,10 @@ class PrefixCache:
             return
         while self.entries and len(self.entries) >= self.capacity:
             self.evict_lru(pool)
+        with readback():
+            table_np = table.cpu().numpy().copy()
         entry = PrefixEntry(
-            key=key, length=int(n), table=table.cpu().numpy().copy(),
+            key=key, length=int(n), table=table_np,
             cache=CC.CTCache(**{f: getattr(cache, f).clone()
                                 for f in CC.CTCache.FIELDS}),
             logits=logits.clone(), full_only=bool(full_only))
@@ -120,8 +123,9 @@ class PrefixCache:
         maps stay live)."""
         del self.entries[entry.key]
         self.evictions += 1
-        CC.release_blocks(pool, torch.as_tensor(
-            entry.table, device=pool.refcount.device))
+        with readback():
+            table = torch.as_tensor(entry.table, device=pool.refcount.device)
+        CC.release_blocks(pool, table)
 
     def evict_lru(self, pool: CC.GlobalPool) -> Optional[PrefixEntry]:
         """Drop the least recently used entry; returns it (None if empty)."""

@@ -39,6 +39,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.spans import readback
+
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -72,7 +74,9 @@ def prng_key(seed: int, device: Optional[Union[str, torch.device]] = None
     high and low 32-bit words ([2])."""
     seed = int(seed)
     hi = (seed >> 32) & MASK if seed >= 0 else 0
-    return torch.tensor([hi, seed & MASK], dtype=torch.int64, device=device)
+    with readback():
+        return torch.tensor([hi, seed & MASK], dtype=torch.int64,
+                            device=device)
 
 
 def _iota(key: torch.Tensor, n: int):
